@@ -8,25 +8,49 @@ Phases (any failure exits nonzero):
 1. print the card (``nvidia-smi`` name and power limit); build the CUDA
    kernels from ``perceiver_io_torch/csrc`` with ``nvcc`` and print the
    build seconds;
-2. the attention kernel against its plain version at the flagship serving
-   shapes (encoder cross-attention with ~30% of keys padded and one fully
-   masked row, latent self-attention, the gathered decoder) and at the
+2. the attention forward kernel against its plain version at the flagship
+   serving shapes (encoder cross-attention with ~30% of keys padded and one
+   fully masked row, latent self-attention, the gathered decoder) and at the
    D=16 ``flagship_mlm`` cross shape, in f32 and bf16;
-3. the dequant-matmul kernel against its plain version (int8 per-channel,
+3. the attention backward at the training shapes (the encoder cross with
+   padding and a fully masked row, self-attention, the decoder gathered at
+   capacity 160, the D=16 cross), f32 and bf16: the forward's statistics
+   (m, l) and the dq and dk/dv kernels against their plain versions, dq and
+   dk of the fully masked example exactly zero;
+4. the dequant-matmul kernel against its plain version (int8 per-channel,
    int4 group 128; bf16 and f32) at the self-attention projection
    (M=16384, K=N=512) and the vocab head (M=512, K=512, N=10003);
-4. the main path: ``MLMServer`` at ``flagship_tpu_mlm`` width (seeded random
+5. the serving path: ``MLMServer`` at ``flagship_tpu_mlm`` width (seeded random
    weights, a tokenizer trained on the synthetic corpus, width buckets
    128/256/512, max_batch 64) fills ~200 ``[MASK]`` texts, then encodes them
    and fills from the cached latents, under bf16, int8w and int4w; the
    kernels' launch counters must advance by 22 attention and 131 dequant
    launches per quantized fused forward, and the plain versions must never
    run;
-5. the same serving pass at f32 with the plain versions put in the kernels'
-   place must give the same top-1 fill on every mask.
+6. the same serving pass at f32 with the plain versions put in the kernels'
+   place must give the same top-1 fill on every mask;
+7. the training path: ``Trainer.fit`` takes 30 Adam steps (lr 1e-3) of
+   ``flagship_tpu_mlm`` in bf16 over f32 weights, batch 64 of the synthetic
+   ``IMDBDataModule`` at 512 tokens, masked positions gathered at capacity
+   160; every step must launch exactly 22 forward, 22 dq and 22 dk/dv
+   attention kernels and no plain version, give a finite loss, and the mean
+   loss of the last 5 steps must be below the first step's. Then
+   ``Trainer.fit`` runs on as the CLI drives it, with no per-step check: 10
+   steps give the train tokens/s (all tokens over the window's host time,
+   the loader's collation included), and a profile of 3 more gives the
+   device idle share;
+8. three f32 train steps at flagship width with the kernels, then with the
+   plain versions in their place, for each of three masking seeds: the
+   losses agree within 1e-4 relative at every step and the first step's
+   gradients within 1e-3 of each leaf's peak.
+
+The script re-executes itself with ``PYTHONHASHSEED=0``: the WordPiece
+trainer's merge order follows string hashing, so the pin makes every run
+train the same vocabulary and see the same data.
 
 f32 comparisons run with TF32 off. Tolerances against the plain versions:
-f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2. Times
+f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2; the
+statistics m and l within 1e-5 of max(|ref|, 1) (f32 on both sides). Times
 are CUDA-event means over repeated launches after a warm-up; ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / the H100 peak for the
 inputs' type (989 TF/s bf16, 67 TF/s f32 without tensor cores). The last
@@ -36,8 +60,11 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12
@@ -47,6 +74,10 @@ ATTN_PER_FORWARD = 22       # 3 encoder cross + 18 self + 1 decoder cross
 DEQUANT_PER_FORWARD = 131   # 124 encoder (layer_n reuses its k/v) + 6 decoder + head
 ATTN_PER_ENCODE, DEQUANT_PER_ENCODE = 21, 124
 ATTN_PER_DECODE, DEQUANT_PER_DECODE = 1, 7
+TRAIN_STEPS, TRAIN_BATCH, SEQ_LEN, CAPACITY = 30, 64, 512, 160
+WINDOW_STEPS, PROFILE_STEPS = 10, 3
+PARITY_SEEDS = (2, 3, 4)
+STAT_TOL = 1e-5
 
 
 def log(**fields) -> None:
@@ -126,12 +157,103 @@ def attention_phase(torch, ak):
             row = dict(kernel="attention_fwd", shape=name, dims=[b, t, s, h, d], dtype=dt,
                        max_abs_err=err, launches_per_forward=ATTN_PER_FORWARD,
                        kernel_ms=time_ms(lambda: ak.fused_attention(q, k, v, pad)),
-                       plain_ms=time_ms(lambda: ak.attention_reference(q, k, v, pad), 3),
+                       plain_ms=time_ms(lambda: ak.attention_reference(q, k, v, pad)),
                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                            qt, kt, vt, attn_mask=mask)),
                        bound_ms=bound, bound_by=by)
             log(**row)
             rows.append(row)
+    return rows
+
+
+def check_stats(name: str, got, ref) -> float:
+    """m and l: f32 on both sides, compared within STAT_TOL of max(|ref|, 1)
+    (m is -1e30 on a fully masked row)."""
+    import torch
+
+    torch.cuda.synchronize()
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1.0)).max())
+    if not rel <= STAT_TOL:
+        raise AssertionError(f"{name}: statistics differ by {rel} relative")
+    return rel
+
+
+def library_bwd_ms(torch, q, k, v, g, mask) -> float:
+    """SDPA's backward alone with the same additive mask: ``autograd.grad``
+    over one retained forward graph."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = g.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True), 30)
+
+
+def attention_bwd_phase(torch, ak):
+    """The forward's (m, l) and the two backward kernels against their plain
+    versions at the training shapes; times of the dq kernel, the dk/dv
+    kernel, the whole backward (delta included), the plain backward and
+    SDPA's backward."""
+    shapes = [  # name, (B, T, S, H, D), padded keys
+        ("enc_cross", (64, 256, 512, 4, 128), True),
+        ("self", (64, 256, 256, 4, 128), False),
+        ("dec_cross", (64, CAPACITY, 256, 4, 128), False),
+        ("enc_cross_d16", (64, 256, 512, 4, 16), True),
+    ]
+    rows = []
+    for name, (b, t, s, h, d), padded in shapes:
+        gen = torch.Generator().manual_seed(b + t + s + d + 1)
+        pad = None
+        if padded:
+            pad = torch.rand(b, s, generator=gen) < 0.3
+            pad[-1] = True  # one example with every key masked out
+            pad = pad.cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            q, g = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
+            out, m, l = ak.attention_fwd_with_stats(q, k, v, pad)
+            ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad)
+            check(f"attention fwd+stats {name} {dt}", out, ref_out, dt)
+            stat_err = max(check_stats(f"m {name} {dt}", m, ref_m),
+                           check_stats(f"l {name} {dt}", l, ref_l))
+            # both backward versions from the same residuals
+            grads = ak.attention_bwd(q, k, v, pad, ref_out, ref_m, ref_l, g)
+            refs = ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m, ref_l, g)
+            errs = [check(f"attention bwd {x} {name} {dt}", got, ref, dt)
+                    for x, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
+            if pad is not None and (grads[0][-1].any() or grads[1][-1].any()):
+                raise AssertionError(f"{name} {dt}: dq/dk of the fully masked example not 0")
+            bias = ak.pad_bias(pad, b, s, "cuda")
+            delta = ak.bwd_delta(g, ref_out)
+            item = q.element_size()
+            valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
+            stats_bytes = 4 * 3 * b * h * t + 4 * b * s  # m, l, delta, bias
+            dq_bound = bound_ms(item * (3 * b * t * h * d + 2 * b * s * h * d) + stats_bytes,
+                                3 * 2 * h * t * d * valid, dt)
+            dkv_bound = bound_ms(item * (2 * b * t * h * d + 4 * b * s * h * d) + stats_bytes,
+                                 4 * 2 * h * t * d * valid, dt)
+            bwd_bound = bound_ms(item * (4 * b * t * h * d + 4 * b * s * h * d)
+                                 + 8 * b * h * t + 4 * b * s, 5 * 2 * h * t * d * valid, dt)
+            plain = time_ms(lambda: ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m,
+                                                               ref_l, g))
+            library = library_bwd_ms(torch, q, k, v, g, bias[:, None, None, :].to(dtype))
+            row = dict(kernel="attention_bwd", shape=name, dims=[b, t, s, h, d], dtype=dt,
+                       max_abs_err=max(errs), stats_max_rel_err=stat_err,
+                       dq_ms=time_ms(lambda: ak.launch_bwd_dq(q, k, v, bias, ref_m, ref_l,
+                                                              delta, g)),
+                       dkv_ms=time_ms(lambda: ak.launch_bwd_dkv(q, k, v, bias, ref_m, ref_l,
+                                                                delta, g)),
+                       kernel_ms=time_ms(lambda: ak.attention_bwd(q, k, v, pad, ref_out, ref_m,
+                                                                  ref_l, g)),
+                       plain_ms=plain, library_ms=library,
+                       bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                       dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                       dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+                       fwd_stats_ms=time_ms(lambda: ak.attention_fwd_with_stats(q, k, v, pad)))
+            log(**row)
+            rows.append(row)
+            del q, k, v, g, out, m, l, ref_out, ref_m, ref_l, grads, refs
     return rows
 
 
@@ -248,7 +370,7 @@ def serving_phase(torch, ak, qm, port, tokenizer, texts):
         agree = float(np.mean([a == b for a, b in zip(top1, [f[0] for r in cached_fills
                                                              for f in r])]))
         if mode in ("bfloat16", "int8w"):
-            profile_serving(torch, server, texts, mode)
+            profile_pass(torch, lambda: server.fill_masks(texts, k=5), mode)
         log(phase="serve", mode=mode, texts=len(texts), masks=sum(masks),
             fused_forwards=n_fwd, encodes=n_enc, decodes=n_dec,
             attention_per_forward=ATTN_PER_FORWARD,
@@ -259,15 +381,15 @@ def serving_phase(torch, ak, qm, port, tokenizer, texts):
     return launches
 
 
-def profile_serving(torch, server, texts, mode: str) -> None:
-    """Where one fused fill-mask pass spends the card's time: device time
-    by kernel (torch.profiler) against the host wall clock of the pass."""
+def profile_pass(torch, run, mode: str) -> None:
+    """Where one pass spends the card's time: device time by kernel
+    (torch.profiler) against the host wall clock of the pass."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        server.fill_masks(texts, k=5)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = []  # kernels only: an operator's device time repeats its kernels'
@@ -306,13 +428,189 @@ def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
             raise AssertionError(f"f32 {quantize}: {mismatched} top-1 fills differ from plain")
 
 
+def train_setup(torch, port, dtype, plain: bool = False, seed: int = 2):
+    """flagship_tpu_mlm (weights from seed 0) with Adam at 1e-3 and its train
+    state (masking from ``seed``); with ``plain`` the plain attention versions
+    stand in the kernels' place."""
+    model = port["presets"].flagship_tpu_mlm(dtype=dtype, device="cuda", seed=0)
+    if plain:
+        for module in model.modules():
+            if isinstance(module, port["MultiHeadAttention"]):
+                module.attention = port["ak"].plain_attention
+    optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](learning_rate=1e-3),
+                                                 model.parameters())
+    state = port["TrainState"].create(model, optimizer, schedule, seed=seed)
+    steps = port["make_mlm_steps"](model, schedule, loss_gather_capacity=CAPACITY)
+    return model, state, steps
+
+
+def training_phase(torch, port, data, logdir):
+    """The training path: Trainer.fit over TRAIN_STEPS bf16 steps, each one
+    checked for its kernel launches, its plain calls and a finite loss."""
+    ak = port["ak"]
+    counters = (ak.counter, ak.dq_counter, ak.dkv_counter)
+    model, state, (train_step, eval_step, _) = train_setup(torch, port, torch.bfloat16)
+    losses, step_ms = [], []
+
+    def checked_step(state, batch):
+        before = [c.launches for c in counters]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        got = [c.launches - b for c, b in zip(counters, before)]
+        if got != [ATTN_PER_FORWARD] * 3 or any(c.plain_calls for c in counters):
+            raise AssertionError(f"train step {state.step}: launches fwd/dq/dkv {got} != "
+                                 f"{ATTN_PER_FORWARD} each, or a plain version ran")
+        loss = float(metrics["loss"])
+        if loss != loss or abs(loss) == float("inf"):
+            raise AssertionError(f"train step {state.step}: loss {loss}")
+        losses.append(loss)
+        step_ms.append(start.elapsed_time(end))
+        return state, metrics
+
+    trainer = port["Trainer"](checked_step, eval_step, state,
+                              port["TrainerConfig"](max_steps=TRAIN_STEPS, log_every_n_steps=10,
+                                                    logdir=logdir),
+                              tokens_per_example=SEQ_LEN)
+    val_loader = data.val_dataloader()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    trainer.fit(data.train_dataloader(), val_loader)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in zip(
+        ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv"), counters)}
+    expect = ATTN_PER_FORWARD * TRAIN_STEPS
+    if (launches["attention_bwd_dq"], launches["attention_bwd_dkv"]) != (expect, expect) or \
+            launches["attention_fwd"] != expect + ATTN_PER_FORWARD * len(val_loader):
+        raise AssertionError(f"fit launches {launches} over {TRAIN_STEPS} steps and "
+                             f"{len(val_loader)} eval batches")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with open(f"{trainer.run_dir}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    val = [r["val_loss"] for r in rows if "val_loss" in r]
+    tail = sum(losses[-5:]) / 5
+    if not tail < losses[0] or len(val) != 1 or not val[0] == val[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]}, last five {tail}, "
+                             f"val {val}")
+    steady = sorted(step_ms[1:])
+    median_ms = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * SEQ_LEN
+    state = trainer.state
+
+    def window_fit(n_steps: int, name: str) -> float:
+        """Trainer.fit over n more steps as the CLI drives it (no per-step
+        check or sync; the loader collates between steps); its logged
+        tokens/s: all the window's tokens over its host time."""
+        nonlocal state
+        before = [c.launches for c in counters]
+        fit = port["Trainer"](train_step, eval_step, state,
+                              port["TrainerConfig"](max_steps=state.step + n_steps,
+                                                    log_every_n_steps=n_steps,
+                                                    logdir=f"{logdir}/{name}"),
+                              tokens_per_example=SEQ_LEN)
+        state = fit.fit(data.train_dataloader())
+        got = [c.launches - b for c, b in zip(counters, before)]
+        if got != [ATTN_PER_FORWARD * n_steps] * 3 or any(c.plain_calls for c in counters):
+            raise AssertionError(f"{name}: launches fwd/dq/dkv {got} over {n_steps} steps")
+        with open(f"{fit.run_dir}/metrics.jsonl") as f:
+            row = [json.loads(line) for line in f][-1]
+        if not math.isfinite(row["train_loss"]):
+            raise AssertionError(f"{name}: loss {row['train_loss']}")
+        return row["tokens_per_sec"]
+
+    window_rate = window_fit(WINDOW_STEPS, "window")
+    profile_pass(torch, lambda: window_fit(PROFILE_STEPS, "profiled"), "train_bfloat16")
+    loader = iter(data.train_dataloader())
+    collate_ms = []
+    for _ in range(WINDOW_STEPS):
+        t0 = time.perf_counter()
+        next(loader)
+        collate_ms.append((time.perf_counter() - t0) * 1e3)
+    window_step_ms = tokens / window_rate * 1e3
+    log(phase="train", steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=SEQ_LEN,
+        capacity=CAPACITY, first_loss=losses[0], last5_mean_loss=tail, val_loss=val[0],
+        losses=losses, tokens_per_s=window_rate, window_steps=WINDOW_STEPS,
+        window_step_ms=window_step_ms, step_ms_first=step_ms[0], step_ms_median=median_ms,
+        step_ms_mean=sum(steady) / len(steady), step_tokens_per_s=tokens / (median_ms / 1e3),
+        between_steps_ms=window_step_ms - median_ms,
+        collate_ms_median=sorted(collate_ms)[len(collate_ms) // 2],
+        checked_fit_tokens_per_s=[r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r],
+        fit_s=fit_s, peak_memory_gib=peak_gib, launches=launches,
+        launches_per_step=ATTN_PER_FORWARD)
+    del model, state, trainer
+    return launches
+
+
+def train_parity_phase(torch, port, data):
+    """Three f32 steps with the kernels, then with the plain versions in
+    their place, from the same weights, batches and masking, for each of
+    PARITY_SEEDS: the losses within 1e-4 relative, the first step's
+    gradients within 1e-3 of each leaf's peak (k_proj.bias is zero in exact
+    arithmetic, softmax being shift-invariant per row: there both sides must
+    be noise far below the other gradients)."""
+    ak = port["ak"]
+    batches = [b for _, b in zip(range(3), data.train_dataloader())]
+    readings = []
+    for seed in PARITY_SEEDS:
+        runs = []
+        for plain in (False, True):
+            model, state, (train_step, _, _) = train_setup(torch, port, torch.float32, plain,
+                                                           seed)
+            before = (ak.counter.launches, ak.dq_counter.launches, ak.dkv_counter.launches)
+            losses, grads = [], None
+            for batch in batches:
+                state, metrics = train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+                if grads is None:
+                    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            after = (ak.counter.launches, ak.dq_counter.launches, ak.dkv_counter.launches)
+            expect = (0, 0, 0) if plain else (3 * ATTN_PER_FORWARD,) * 3
+            if tuple(a - b for a, b in zip(after, before)) != expect:
+                raise AssertionError(f"plain={plain}: launches {before} -> {after}")
+            runs.append((losses, grads))
+            del model, state
+        (k_losses, k_grads), (p_losses, p_grads) = runs
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+        peak_all = max(float(g.abs().max()) for g in p_grads.values())
+        worst, worst_name, symmetric = 0.0, None, 0.0
+        for name, ref in p_grads.items():
+            got = k_grads[name]
+            if name.endswith("k_proj.bias"):
+                symmetric = max(symmetric, float(got.abs().max()) / peak_all,
+                                float(ref.abs().max()) / peak_all)
+                continue
+            peak = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            err = err / peak if peak else err
+            if err > worst:
+                worst, worst_name = err, name
+        log(phase="train_parity", dtype="float32", seed=seed, kernel_losses=k_losses,
+            plain_losses=p_losses, loss_max_rel_diff=loss_rel,
+            grad_max_err_over_leaf_peak=worst, worst_leaf=worst_name,
+            k_proj_bias_over_global_peak=symmetric)
+        readings.append((loss_rel, worst, worst_name, symmetric))
+    for seed, (loss_rel, worst, worst_name, symmetric) in zip(PARITY_SEEDS, readings):
+        if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5):
+            raise AssertionError(f"f32 train parity, seed {seed}: losses {loss_rel}, grads "
+                                 f"{worst} ({worst_name}), k_proj.bias {symmetric}")
+
+
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        os.execve(sys.executable, [sys.executable, os.path.abspath(__file__), *sys.argv[1:]],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from perceiver_io_torch.data.imdb import synthetic_reviews
+    from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
     from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
     from perceiver_io_torch.inference.engine import MLMServer
     from perceiver_io_torch.models import presets
@@ -321,6 +619,10 @@ def main() -> int:
     from perceiver_io_torch.ops import qmatmul as qm
     from perceiver_io_torch.ops.attention import Linear, MultiHeadAttention
     from perceiver_io_torch.quant.int8 import QKernel, pack_int4, quantize_array
+    from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
+    from perceiver_io_torch.training.steps import make_mlm_steps
+    from perceiver_io_torch.training.train_state import TrainState
+    from perceiver_io_torch.training.trainer import Trainer, TrainerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -332,6 +634,7 @@ def main() -> int:
     log(phase="build", build_s=time.perf_counter() - t0, library=build.library_path().name)
 
     attn_rows = attention_phase(torch, ak)
+    bwd_rows = attention_bwd_phase(torch, ak)
     deq_rows = dequant_phase(torch, qm, QKernel, pack_int4, quantize_array)
 
     trained = WordPieceTokenizer()
@@ -343,22 +646,43 @@ def main() -> int:
     tokenizer = WordPieceTokenizer(vocab=vocab)
     texts = masked_texts(synthetic_reviews)
     port = dict(presets=presets, MLMServer=MLMServer, MultiHeadAttention=MultiHeadAttention,
-                Linear=Linear)
+                Linear=Linear, ak=ak, make_optimizer=make_optimizer,
+                OptimizerConfig=OptimizerConfig, TrainState=TrainState,
+                make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
 
-    def entry(rows, name, source, replaces, pick):
+    with tempfile.TemporaryDirectory() as root:
+        data = IMDBDataModule(root=root, max_seq_len=SEQ_LEN, vocab_size=10003,
+                              batch_size=TRAIN_BATCH, synthetic=True, seed=0)
+        data.prepare_data()
+        data.setup()
+        train_launches = training_phase(torch, port, data, f"{root}/logs")
+        train_parity_phase(torch, port, data)
+    launches["attention_fwd"] += train_launches["attention_fwd"]
+    launches.update(attention_bwd_dq=train_launches["attention_bwd_dq"],
+                    attention_bwd_dkv=train_launches["attention_bwd_dkv"])
+
+    def entry(rows, name, source, replaces, pick, ms="kernel_ms", bound="bound"):
         row = next(r for r in rows if pick(r))
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[name], max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=row["library_ms"],
+                    launches=launches[name], max_abs_err=row["max_abs_err"], ms=row[ms],
+                    plain_ms=row["plain_ms"], bound_ms=row[f"{bound}_ms"],
+                    bound_by=row[f"{bound}_by"], library_ms=row["library_ms"],
                     shape=row["shape"], dims=row["dims"], dtype=row["dtype"])
 
+    enc_bf16 = lambda r: r["shape"] == "enc_cross" and r["dtype"] == "bfloat16"  # noqa: E731
+    bwd_src = "perceiver_io_torch/csrc/attention_bwd.cu"
     kernels = [
         entry(attn_rows, "attention_fwd", "perceiver_io_torch/csrc/attention_fwd.cu",
-              "perceiver_io_tpu/ops/pallas_attention.py:245",
-              lambda r: r["shape"] == "enc_cross" and r["dtype"] == "bfloat16"),
+              "perceiver_io_tpu/ops/pallas_attention.py:245", enc_bf16),
+        # plain_ms and library_ms of the two backward kernels are those of
+        # the whole backward (the plain version and SDPA compute dq, dk, dv
+        # in one call); ms and the bound are each kernel's own
+        entry(bwd_rows, "attention_bwd_dq", bwd_src,
+              "perceiver_io_tpu/ops/pallas_attention.py:331", enc_bf16, "dq_ms", "dq_bound"),
+        entry(bwd_rows, "attention_bwd_dkv", bwd_src,
+              "perceiver_io_tpu/ops/pallas_attention.py:352", enc_bf16, "dkv_ms", "dkv_bound"),
         entry(deq_rows, "dequant_matmul", "perceiver_io_torch/csrc/dequant_matmul.cu",
               "perceiver_io_tpu/ops/pallas_matmul.py:163",
               lambda r: r["shape"] == "self_proj" and r["quant"] == "int8"

@@ -1,0 +1,100 @@
+"""Argument groups and builders shared by the port's training entry points
+(the port's subset of ``perceiver_io_tpu/cli/common.py``)."""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from perceiver_io_torch.models import presets
+from perceiver_io_torch.training.optim import (
+    SUPPORTED_OPTIMIZERS,
+    OptimizerConfig,
+    make_optimizer,
+)
+from perceiver_io_torch.training.trainer import TrainerConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def add_model_args(parser: argparse.ArgumentParser) -> None:
+    g = parser.add_argument_group("model")
+    g.add_argument("--num_latents", type=int, default=None,
+                   help="default: the task's preset")
+    g.add_argument("--num_latent_channels", type=int, default=None,
+                   help="default: the task's preset")
+    g.add_argument("--num_encoder_layers", type=int, default=3)
+    g.add_argument("--num_self_attention_layers_per_block", type=int, default=6)
+    g.add_argument("--dropout", type=float, default=0.0,
+                   help="only 0 is ported (ROADMAP Queue 1 item 2)")
+
+
+def add_optimizer_args(parser: argparse.ArgumentParser) -> None:
+    g = parser.add_argument_group("optimizer")
+    g.add_argument("--optimizer", choices=SUPPORTED_OPTIMIZERS, default="Adam")
+    g.add_argument("--learning_rate", type=float, default=1e-3)
+    g.add_argument("--weight_decay", type=float, default=0.0)
+    g.add_argument("--one_cycle_lr", action="store_true")
+    g.add_argument("--grad_clip_norm", type=float, default=None,
+                   help="clip the global gradient norm to this value before each update")
+
+
+def add_trainer_args(parser: argparse.ArgumentParser) -> None:
+    g = parser.add_argument_group("trainer")
+    g.add_argument("--max_steps", type=int, required=True)
+    g.add_argument("--log_every_n_steps", type=int, default=50)
+    g.add_argument("--eval_every_n_steps", type=int, default=None,
+                   help="validate every N steps (default: once, at the end)")
+    g.add_argument("--logdir", default="logs")
+
+
+def add_compute_args(parser: argparse.ArgumentParser) -> None:
+    g = parser.add_argument_group("compute")
+    g.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
+                   help="compute dtype over f32 master weights")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the kernels' plain versions); the default "
+                        "is the CUDA card")
+
+
+def add_imdb_args(parser: argparse.ArgumentParser) -> None:
+    g = parser.add_argument_group("data (IMDB)")
+    g.add_argument("--root", default=".cache")
+    g.add_argument("--max_seq_len", type=int, default=512)
+    g.add_argument("--vocab_size", type=int, default=10003)
+    g.add_argument("--batch_size", type=int, default=64)
+    g.add_argument("--synthetic", action="store_true",
+                   help="the offline synthetic review corpus instead of aclImdb")
+
+
+def check_dropout(args) -> None:
+    if args.dropout:
+        raise SystemExit(
+            f"--dropout {args.dropout}: dropout is not ported yet (ROADMAP Queue 1 "
+            f"item 2); the JAX package's default, 0, is what the port trains with")
+
+
+def trainer_config(args, experiment: str) -> TrainerConfig:
+    """Logs go to ``<logdir>/<experiment>/version_n``."""
+    return TrainerConfig(max_steps=args.max_steps, log_every_n_steps=args.log_every_n_steps,
+                         eval_every_n_steps=args.eval_every_n_steps,
+                         logdir=os.path.join(args.logdir, experiment))
+
+
+def optimizer_from_args(args, params):
+    return make_optimizer(OptimizerConfig(
+        optimizer=args.optimizer, learning_rate=args.learning_rate,
+        weight_decay=args.weight_decay, one_cycle_lr=args.one_cycle_lr,
+        max_steps=args.max_steps, grad_clip_norm=args.grad_clip_norm), params)
+
+
+def build_mlm(args, vocab_size: int, max_seq_len: int, device):
+    """The MLM at the parsed widths, weights drawn from ``--seed``."""
+    return presets.flagship_mlm(
+        vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=args.num_latents,
+        num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
+        num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
+        dtype=DTYPES[args.dtype], device=device, seed=args.seed)

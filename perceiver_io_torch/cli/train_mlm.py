@@ -1,0 +1,94 @@
+"""MLM pretraining on the CUDA card (the port's subset of
+``perceiver_io_tpu/cli/train_mlm.py``).
+
+    python -m perceiver_io_torch.cli.train_mlm --preset flagship_tpu \\
+        --synthetic --max_steps 30
+
+``--preset`` fills the widths the flags leave unset: ``reference`` is 64
+latents × 64 channels (head depth 16), ``flagship_tpu`` 256 latents × 512
+channels (head depth 128). The model's vocab is ``--vocab_size``: the
+tokenizer trains at most that many pieces, so every id it emits has a row
+(on the small synthetic corpus most rows go unused, and the head keeps the
+configured width). Masked positions decode through the gathered head at
+``--loss_gather_capacity`` (-1 = ``mlm_gather_capacity``) into the unfused
+vocab head: ``--fused_head auto`` resolves to ``off``, as the JAX package's
+does at C > 128, and ``pallas`` is the next slice. Runs on the CUDA card;
+``--cpu`` runs the kernels' plain versions. Writes ``metrics.jsonl`` under
+``<logdir>/mlm/version_n``.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+from perceiver_io_torch.cli import common
+from perceiver_io_torch.data.imdb import IMDBDataModule
+from perceiver_io_torch.device import resolve_device
+from perceiver_io_torch.training.steps import make_mlm_steps, mlm_gather_capacity
+from perceiver_io_torch.training.train_state import TrainState
+from perceiver_io_torch.training.trainer import Trainer
+
+PRESET_DEFAULTS = {
+    "reference": {"num_latents": 64, "num_latent_channels": 64},
+    "flagship_tpu": {"num_latents": 256, "num_latent_channels": 512},
+}
+
+
+def apply_preset(args: argparse.Namespace) -> argparse.Namespace:
+    """Fill any still-None width arg from the chosen preset."""
+    for key, value in PRESET_DEFAULTS[args.preset].items():
+        if getattr(args, key) is None:
+            setattr(args, key, value)
+    return args
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    common.add_trainer_args(parser)
+    common.add_compute_args(parser)
+    common.add_model_args(parser)
+    common.add_optimizer_args(parser)
+    common.add_imdb_args(parser)
+    g = parser.add_argument_group("task (MLM)")
+    g.add_argument("--preset", choices=sorted(PRESET_DEFAULTS), default="reference")
+    g.add_argument("--loss_gather_capacity", type=int, default=-1,
+                   help="decode only the masked positions, up to this many per row; "
+                        "-1 = auto (2·mask_p·seq_len), 0 = full decode")
+    g.add_argument("--fused_head", choices=["auto", "pallas", "off"], default="auto",
+                   help="auto = off (the unfused head; the JAX package picks it at "
+                        "C > 128); pallas = the fused CE kernels, not ported yet")
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = apply_preset(build_parser().parse_args(argv))
+    common.check_dropout(args)
+    if args.fused_head == "pallas":
+        raise SystemExit(
+            "--fused_head pallas: the fused vocab-head cross-entropy kernels (#6-#8) "
+            "are the next slice of the port (ROADMAP Queue 2 item 1); use off")
+    device = resolve_device("cpu" if args.cpu else None)
+
+    data = IMDBDataModule(root=args.root, max_seq_len=args.max_seq_len,
+                          vocab_size=args.vocab_size, batch_size=args.batch_size,
+                          synthetic=args.synthetic, seed=args.seed)
+    data.prepare_data()
+    data.setup()
+
+    model = common.build_mlm(args, args.vocab_size, args.max_seq_len, device)
+    optimizer, schedule = common.optimizer_from_args(args, model.parameters())
+    state = TrainState.create(model, optimizer, schedule, seed=args.seed + 2)
+    capacity = args.loss_gather_capacity
+    if capacity < 0:
+        capacity = mlm_gather_capacity(args.max_seq_len)
+    train_step, eval_step, _ = make_mlm_steps(model, schedule,
+                                              loss_gather_capacity=capacity or None)
+    trainer = Trainer(train_step, eval_step, state, common.trainer_config(args, "mlm"),
+                      tokens_per_example=args.max_seq_len)
+    trainer.fit(data.train_dataloader(), data.val_dataloader())
+    return trainer.run_dir
+
+
+if __name__ == "__main__":
+    main()

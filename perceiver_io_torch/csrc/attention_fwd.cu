@@ -3,7 +3,7 @@
 //
 // Replaces: perceiver_io_tpu/ops/pallas_attention.py::_fused_attention_fwd_impl
 // (Pallas kernel _attention_kernel), the forward of fused_attention without
-// with_lse and without causal_offset.
+// causal_offset, with or without the with_lse statistics.
 //
 // Computes, per (batch b, head h, query row t):
 //   out[b,t,h,:] = softmax_s(q[b,t,h,:] . k[b,s,h,:] * D^-0.5 + bias[b,s]) @ v[b,:,h,:]
@@ -32,6 +32,15 @@
 // logits never reach device memory. Each thread scores 16 of the tile's 64
 // keys; the four threads of a row combine max and sum with warp shuffles and
 // exchange probabilities through a per-row shared-memory strip.
+//
+// Statistics (the training forward): given m_out/l_out, the kernel also
+// writes each row's final running max m and denominator l as (B, H, T) f32,
+// the residuals the backward (attention_bwd.cu) recomputes the
+// probabilities from as exp(logit - m) / l. They stay two arrays, not one
+// log-sum-exp: on a fully masked row m is pinned at -1e30, which would
+// absorb log l in f32. The TPU kernel's 128-lane broadcast of m and l is a
+// Mosaic layout artefact and is not copied. Serving passes null pointers
+// and writes nothing extra.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +82,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, int t_len, int s_len, int heads,
+                     T* __restrict__ out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int t_len, int s_len, int heads,
                      int64_t sqb, int64_t sqt, int64_t sqh,
                      int64_t skb, int64_t sks, int64_t skh,
                      int64_t svb, int64_t svs, int64_t svh, float scale) {
@@ -174,12 +184,18 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + ((int64_t(b) * t_len + t) * heads + h) * D;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) o[lane + i * kLanes] = from_f32<T>(acc[i] / l);
+    if (m_out != nullptr && lane == 0) {  // the row's four threads hold equal m, l
+      const int64_t stat = (int64_t(b) * heads + h) * t_len + t;
+      m_out[stat] = m;
+      l_out[stat] = l;
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
-                   void* out, int batch, int t_len, int s_len, int heads,
+                   void* out, float* m_out, float* l_out, int batch, int t_len,
+                   int s_len, int heads,
                    const int64_t* sq, const int64_t* sk, const int64_t* sv,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -190,34 +206,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   const dim3 grid((t_len + kRows - 1) / kRows, heads, batch);
   attention_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, static_cast<T*>(out), t_len, s_len, heads, sq[0], sq[1], sq[2],
+      bias, static_cast<T*>(out), m_out, l_out, t_len, s_len, heads, sq[0], sq[1], sq[2],
       sk[0], sk[1], sk[2], sv[0], sv[1], sv[2], 1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(int head_dim, const void* q, const void* k, const void* v,
-                              const float* bias, void* out, int batch, int t_len,
-                              int s_len, int heads, const int64_t* sq, const int64_t* sk,
-                              const int64_t* sv, cudaStream_t stream) {
+                              const float* bias, void* out, float* m_out, float* l_out,
+                              int batch, int t_len, int s_len, int heads,
+                              const int64_t* sq, const int64_t* sk, const int64_t* sv,
+                              cudaStream_t stream) {
+#define PIT_LAUNCH(D) \
+  launch<T, D>(q, k, v, bias, out, m_out, l_out, batch, t_len, s_len, heads, sq, sk, sv, stream)
   switch (head_dim) {
-    case 8: return launch<T, 8>(q, k, v, bias, out, batch, t_len, s_len, heads, sq, sk, sv, stream);
-    case 16: return launch<T, 16>(q, k, v, bias, out, batch, t_len, s_len, heads, sq, sk, sv, stream);
-    case 32: return launch<T, 32>(q, k, v, bias, out, batch, t_len, s_len, heads, sq, sk, sv, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, out, batch, t_len, s_len, heads, sq, sk, sv, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, out, batch, t_len, s_len, heads, sq, sk, sv, stream);
+    case 8: return PIT_LAUNCH(8);
+    case 16: return PIT_LAUNCH(16);
+    case 32: return PIT_LAUNCH(32);
+    case 64: return PIT_LAUNCH(64);
+    case 128: return PIT_LAUNCH(128);
     default: return cudaErrorInvalidValue;
   }
+#undef PIT_LAUNCH
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q is (B, T, H, D) and k/v are (B, S, H, D),
 // each with unit stride along D and the given (batch, row, head) strides in
-// elements; bias is (B, S) f32 contiguous; out is (B, T, H, D) contiguous.
+// elements; bias is (B, S) f32 contiguous; out is (B, T, H, D) contiguous;
+// m_out and l_out are both null, or both (B, H, T) f32 contiguous.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int attention_fwd(int dtype, int head_dim, const void* q, const void* k,
-                             const void* v, const void* bias, void* out, int batch,
+                             const void* v, const void* bias, void* out, void* m_out,
+                             void* l_out, int batch,
                              int t_len, int s_len, int heads,
                              int64_t sqb, int64_t sqt, int64_t sqh,
                              int64_t skb, int64_t sks, int64_t skh,
@@ -226,12 +248,15 @@ extern "C" int attention_fwd(int dtype, int head_dim, const void* q, const void*
   const int64_t sk[3] = {skb, sks, skh};
   const int64_t sv[3] = {svb, svs, svh};
   const float* bias_f = static_cast<const float*>(bias);
+  float* m_f = static_cast<float*>(m_out);
+  float* l_f = static_cast<float*>(l_out);
+  if ((m_f == nullptr) != (l_f == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_head_dim<float>(head_dim, q, k, v, bias_f, out, batch, t_len, s_len,
-                                    heads, sq, sk, sv, st);
+    return dispatch_head_dim<float>(head_dim, q, k, v, bias_f, out, m_f, l_f, batch, t_len,
+                                    s_len, heads, sq, sk, sv, st);
   if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, bias_f, out, batch, t_len,
-                                            s_len, heads, sq, sk, sv, st);
+    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, bias_f, out, m_f, l_f, batch,
+                                            t_len, s_len, heads, sq, sk, sv, st);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,32 @@
-"""The offline review corpus (the port's copy of
-``perceiver_io_tpu/data/imdb.py::synthetic_reviews``): a deterministic,
-sentiment-labelled word soup, the same texts from the same seed."""
+"""IMDB text data (the port's subset of ``perceiver_io_tpu/data/imdb.py``).
+
+- ``synthetic_reviews``: the offline corpus, a deterministic sentiment-
+  labelled word soup, the same texts from the same seed;
+- ``load_split``: the ``<root>/IMDB/aclImdb/{split}/{neg,pos}/*.txt`` tree,
+  read where it exists (there is no download);
+- ``Collator``: pad/truncate to ``max_seq_len``; ids, pad mask, label;
+- ``IMDBDataModule``: trains and caches the WordPiece tokenizer under
+  ``root`` on first use and serves the train / validation loaders, with a
+  ``synthetic`` mode. Width buckets and multi-host sharding are not ported.
+"""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import glob
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from perceiver_io_torch.data.pipeline import DataLoader
+from perceiver_io_torch.data.tokenizer import (
+    PAD_TOKEN,
+    WordPieceTokenizer,
+    create_tokenizer,
+    load_tokenizer,
+    save_tokenizer,
+    train_tokenizer,
+)
 
 _POSITIVE_WORDS = (
     "awesome brilliant captivating delightful excellent fantastic great "
@@ -43,3 +63,111 @@ def synthetic_reviews(
         texts.append(" ".join(words))
         labels.append(label)
     return texts, labels
+
+
+def load_split(root: str, split: str) -> Tuple[List[str], List[int]]:
+    """Read the aclImdb directory tree under ``<root>/IMDB``."""
+    if split not in ("train", "test"):
+        raise ValueError(f"invalid split: {split}")
+    texts: List[str] = []
+    labels: List[int] = []
+    for label, name in enumerate(("neg", "pos")):
+        pattern = os.path.join(root, "IMDB", "aclImdb", split, name, "*.txt")
+        for path in sorted(glob.glob(pattern)):
+            with open(path, encoding="utf-8") as f:
+                texts.append(f.read())
+            labels.append(label)
+    if not texts:
+        raise FileNotFoundError(
+            f"no IMDB data under {os.path.join(root, 'IMDB', 'aclImdb', split)} — "
+            "place the aclImdb tree there, or use synthetic=True")
+    return texts, labels
+
+
+class IMDBDataset:
+    def __init__(self, texts: Sequence[str], labels: Sequence[int]):
+        if len(texts) != len(labels):
+            raise ValueError(f"{len(texts)} texts but {len(labels)} labels")
+        self.texts = list(texts)
+        self.labels = list(labels)
+
+    def __len__(self) -> int:
+        return len(self.texts)
+
+    def __getitem__(self, i: int) -> Tuple[int, str]:
+        return self.labels[i], self.texts[i]
+
+
+class Collator:
+    """Pad/truncate to ``max_seq_len``: ``{'label', 'token_ids', 'pad_mask'}``
+    numpy arrays, ``pad_mask = token_ids == pad_id``."""
+
+    def __init__(self, tokenizer: WordPieceTokenizer, max_seq_len: int):
+        self.tokenizer = tokenizer
+        self.max_seq_len = max_seq_len
+        self.pad_id = tokenizer.token_to_id(PAD_TOKEN)
+        tokenizer.enable_truncation(max_seq_len)
+
+    def collate(self, batch: Sequence[Tuple[int, str]]) -> Dict[str, np.ndarray]:
+        labels = np.asarray([y for y, _ in batch], dtype=np.int32)
+        encoded = self.tokenizer.encode_batch([x for _, x in batch])
+        ids = np.full((len(batch), self.max_seq_len), self.pad_id, dtype=np.int32)
+        for i, e in enumerate(encoded):
+            ids[i, : min(len(e), self.max_seq_len)] = e[: self.max_seq_len]
+        return {"label": labels, "token_ids": ids, "pad_mask": ids == self.pad_id}
+
+
+class IMDBDataModule:
+    """``prepare_data`` / ``setup`` / loaders, as the JAX package's module:
+    the same tokenizer file name under ``root``, the same synthetic splits
+    (``synthetic_size`` train texts from ``seed``, an eighth of that, at
+    least 64, for validation from ``seed + 1``)."""
+
+    def __init__(self, root: str = ".cache", max_seq_len: int = 512,
+                 vocab_size: int = 10003, batch_size: int = 64, synthetic: bool = False,
+                 synthetic_size: int = 2048, seed: int = 0):
+        self.root = root
+        self.max_seq_len = max_seq_len
+        self.vocab_size = vocab_size
+        self.batch_size = batch_size
+        self.synthetic = synthetic
+        self.synthetic_size = synthetic_size
+        self.seed = seed
+        suffix = "synthetic-" if synthetic else ""
+        self.tokenizer_path = os.path.join(root, f"imdb-{suffix}tokenizer-{vocab_size}.json")
+        self.tokenizer: Optional[WordPieceTokenizer] = None
+        self.collator: Optional[Collator] = None
+        self.ds_train: Optional[IMDBDataset] = None
+        self.ds_valid: Optional[IMDBDataset] = None
+
+    def _train_texts(self) -> Tuple[List[str], List[int]]:
+        if self.synthetic:
+            return synthetic_reviews(self.synthetic_size, seed=self.seed)
+        return load_split(self.root, "train")
+
+    def _valid_texts(self) -> Tuple[List[str], List[int]]:
+        if self.synthetic:
+            return synthetic_reviews(max(self.synthetic_size // 8, 64), seed=self.seed + 1)
+        return load_split(self.root, "test")
+
+    def prepare_data(self) -> None:
+        """Train and cache the tokenizer on the train texts, once."""
+        if not os.path.exists(self.tokenizer_path):
+            os.makedirs(self.root, exist_ok=True)
+            tokenizer = create_tokenizer(("<br />", " "))
+            train_tokenizer(tokenizer, self._train_texts()[0], vocab_size=self.vocab_size)
+            save_tokenizer(tokenizer, self.tokenizer_path)
+
+    def setup(self) -> None:
+        self.tokenizer = load_tokenizer(self.tokenizer_path)
+        self.collator = Collator(self.tokenizer, self.max_seq_len)
+        self.ds_train = IMDBDataset(*self._train_texts())
+        self.ds_valid = IMDBDataset(*self._valid_texts())
+
+    def train_dataloader(self) -> DataLoader:
+        return DataLoader(self.ds_train, self.batch_size, self.collator.collate,
+                          shuffle=True, seed=self.seed)
+
+    def val_dataloader(self) -> DataLoader:
+        return DataLoader(self.ds_valid, self.batch_size, self.collator.collate,
+                          shuffle=False, drop_last=False)

@@ -13,6 +13,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from perceiver_io_torch.ops.attention import Linear
@@ -32,7 +33,10 @@ class TextEmbedding(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         if ids.is_floating_point():
             raise ValueError("Input type must be an integer or unsigned integer.")
-        return (self.embedding.to(self.dtype) * self.scale)[ids.long()]
+        # F.embedding, not table[ids]: its backward sorts the ids and sums
+        # each row's gradient in f32, where indexing's backward adds the
+        # duplicates of a row one by one (the pad id fills most positions)
+        return F.embedding(ids.long(), self.embedding.to(self.dtype) * self.scale)
 
 
 class TextInputAdapter(nn.Module):

@@ -1,5 +1,5 @@
-"""The Perceiver IO core at inference: encoder, decoder, and the MLM model
-(the counterparts of ``perceiver_io_tpu/models/perceiver.py``).
+"""The Perceiver IO core: encoder, decoder, and the MLM model (the
+counterparts of ``perceiver_io_tpu/models/perceiver.py``).
 
 - encoder layer 1 has its own weights; layers 2..num_layers share ONE
   weight set (``layer_n``) applied recurrently, and its cross-attention K/V
@@ -8,6 +8,8 @@
 - learned latent / output-query arrays init ~N(0, 0.02) clamped to ±2.
 - the decoder decodes either every output query or only the rows at
   ``positions``; queries never interact, so a subset is exactly those rows.
+- the MLM's training forward masks its input (``masking=True``) and, with
+  ``loss_gather_capacity``, decodes only the masked positions.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from perceiver_io_torch.models.adapters import TextInputAdapter
@@ -24,6 +27,7 @@ from perceiver_io_torch.ops.attention import (
     Linear,
     SelfAttentionBlock,
 )
+from perceiver_io_torch.ops.masking import IGNORE_LABEL, TextMasking
 
 
 class PerceiverLayer(nn.Module):
@@ -108,7 +112,7 @@ class PerceiverDecoder(nn.Module):
                 f"Latent shape {tuple(d)} different from required shape "
                 f"{self.latent_shape}")
         if positions is not None:
-            x_output = self.output[positions.long()].to(self.dtype)
+            x_output = F.embedding(positions.long(), self.output).to(self.dtype)
         else:
             x_output = self.output.to(self.dtype).expand(b, *self.output.shape)
         x_output, _ = self.cross_attention_layer(x_output, x)
@@ -116,27 +120,55 @@ class PerceiverDecoder(nn.Module):
 
 
 class PerceiverMLM(nn.Module):
-    """encoder → decoder, logits truncated to the input length — the
-    inference surface of the JAX package's ``PerceiverMLM`` (masking is
-    training's and not ported)."""
+    """masking → encoder → decoder, logits truncated to the input length."""
 
-    def __init__(self, encoder: PerceiverEncoder, decoder: PerceiverDecoder):
+    def __init__(self, encoder: PerceiverEncoder, decoder: PerceiverDecoder,
+                 masking: Optional[TextMasking] = None):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
+        self.masking = masking
 
     def forward(self, x_input: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
-                masking: bool = False, positions: Optional[torch.Tensor] = None):
-        """``(logits, None)``: (B, L, vocab), or (B, K, vocab) at the (B, K)
-        ``positions``."""
+                masking: bool = False, positions: Optional[torch.Tensor] = None,
+                loss_gather_capacity: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
+        """``(logits, labels)``.
+
+        Serving (``masking=False``): (B, L, vocab) logits, or (B, K, vocab)
+        at the (B, K) ``positions``; labels None.
+
+        Training (``masking=True``): the input is masked with draws from
+        ``generator`` and the labels come back with the logits. With
+        ``loss_gather_capacity`` only K = min(capacity, L) positions per row
+        are decoded: the first K masked ones, then the earliest unmasked ones
+        (whose labels are already ``IGNORE_LABEL``), and the labels are
+        gathered at the same positions — loss and gradients equal the full
+        decode's while no row has more than K masked positions."""
+        _, l = x_input.shape
         if masking:
-            raise ValueError(
-                "masking=True is the training path, which the port does not "
-                "have yet; serve with masking=False")
-        x_latent = self.encoder(x_input, pad_mask)
+            if positions is not None:
+                raise ValueError(
+                    "positions= is an inference-path argument (masking=False); "
+                    "training's masked-position gather is loss_gather_capacity=")
+            if self.masking is None or generator is None:
+                raise ValueError("masking=True needs the model's TextMasking and a "
+                                 "torch.Generator on the batch's device")
+            x_masked, labels = self.masking(generator, x_input, pad_mask)
+        else:
+            x_masked, labels = x_input, None
+        x_latent = self.encoder(x_masked, pad_mask)
         if positions is not None:
             return self.decoder(x_latent, positions), None
-        return self.decoder(x_latent)[:, : x_input.shape[1], :], None
+        if masking and loss_gather_capacity is not None:
+            capacity = min(loss_gather_capacity, l)
+            # stable, so ties keep index order: jax.lax.top_k's order on the
+            # 0/1 vector (torch.topk promises no order between ties)
+            valid = (labels != IGNORE_LABEL).to(torch.int32)
+            order = torch.sort(valid, dim=1, descending=True, stable=True).indices
+            gather = order[:, :capacity]
+            return self.decoder(x_latent, gather), torch.gather(labels, 1, gather)
+        return self.decoder(x_latent)[:, :l, :], labels
 
     def encode(self, x_input: torch.Tensor,
                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

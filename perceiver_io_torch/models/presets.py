@@ -17,6 +17,7 @@ from perceiver_io_torch.models.perceiver import (
     PerceiverMLM,
     init_params,
 )
+from perceiver_io_torch.ops.masking import TextMasking
 
 
 def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
@@ -25,7 +26,8 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
                  dtype=torch.float32, device=None, seed: int = 0) -> PerceiverMLM:
     """The reference train_mlm shapes: 512-token sequences, 256 latents,
     3 encoder layers × (cross-attention + 6-layer self-attention block),
-    text in/out adapters, C=64 (4 heads of depth 16)."""
+    text in/out adapters, C=64 (4 heads of depth 16); masking with [UNK] 1,
+    [MASK] 2 and 3 special tokens, as the tokenizer lays them out."""
     device = resolve_device(device)
     latent_shape = (num_latents, num_channels)
     model = PerceiverMLM(
@@ -39,6 +41,8 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
                 vocab_size, max_seq_len, num_output_channels=num_channels,
                 dtype=dtype),
             latent_shape=latent_shape, dtype=dtype),
+        masking=TextMasking(vocab_size, unk_token_id=1, mask_token_id=2,
+                            num_special_tokens=3),
     )
     init_params(model, torch.Generator().manual_seed(seed))
     return model.to(device)

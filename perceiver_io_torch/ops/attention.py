@@ -1,11 +1,12 @@
 """Attention layers of the Perceiver core, as PyTorch modules.
 
-The counterparts of ``perceiver_io_tpu/ops/attention.py`` at inference:
+The counterparts of ``perceiver_io_tpu/ops/attention.py`` without dropout:
 
 - :class:`MultiHeadAttention`: separate q/k/v projections with bias,
   ``D**-0.5`` scaling, a key padding mask (True = ignore), an output
   projection. Every call goes through :func:`fused_attention`, which
-  launches the CUDA kernel on a CUDA tensor.
+  launches the CUDA kernels (forward, and the backward under autograd) on
+  a CUDA tensor.
 - :class:`CrossAttention`: pre-LN on both query and kv streams.
 - :class:`SelfAttention`: single pre-LN, q = kv.
 - :class:`MLP`: LayerNorm → Linear → GELU (exact) → Linear, constant width.
@@ -15,8 +16,8 @@ Parameters keep the flax names and layouts (``q_proj.kernel`` is ``(in,
 out)``; LayerNorm has ``scale``/``bias``), so a flax tree carries over by
 path (``perceiver_io_torch.interop``). Each module has a compute ``dtype``:
 inputs and weights are cast to it at apply, as flax's ``promote_dtype``
-does, and LayerNorm statistics are taken in f32. Dropout is not ported:
-these modules serve.
+does, and LayerNorm statistics are taken in f32. Dropout is not ported
+(the JAX package's default rate is 0).
 """
 
 from __future__ import annotations

@@ -1,29 +1,46 @@
-"""Fused attention forward: the CUDA kernel's wrapper and its plain version.
+"""Fused attention, forward and backward: the CUDA kernels' wrappers, their
+plain versions, and the autograd function that joins them.
 
 The counterpart of ``perceiver_io_tpu/ops/pallas_attention.py::fused_attention``
-(forward only, no ``causal_offset``): (B, T, H, D) queries against (B, S, H, D)
-keys/values with an optional (B, S) key padding mask (True = masked out).
-The mask enters as the TPU kernel's finite additive bias (``-1e30``), so a
-fully masked row attends uniformly over all S keys instead of producing NaN.
+(no ``causal_offset``): (B, T, H, D) queries against (B, S, H, D) keys/values
+with an optional (B, S) key padding mask (True = masked out). The mask enters
+as the TPU kernel's finite additive bias (``-1e30``), so a fully masked row
+attends uniformly over all S keys instead of producing NaN.
 
-On CUDA tensors :func:`fused_attention` launches ``csrc/attention_fwd.cu``;
-on CPU tensors it runs :func:`attention_reference`, the same function written
-as a plain einsum softmax. There is no fallback between the two.
+- forward: ``csrc/attention_fwd.cu``; with statistics it also returns each
+  row's running max ``m`` and denominator ``l`` as (B, H, T) f32, the
+  residuals of the backward (``_fused_attention_fwd_impl(with_lse=True)``).
+- backward: ``csrc/attention_bwd.cu``, one kernel for dq and one for dk/dv
+  (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), recomputing the probabilities
+  from ``m`` and ``l``; ``delta = sum_d g * out`` is a plain reduction, as the
+  JAX package computes it outside its kernels.
+- :class:`FusedAttention`: the ``torch.autograd.Function`` twin of the
+  ``_fused_attention`` custom VJP. :func:`fused_attention` applies it when
+  autograd records; serving calls launch the forward without statistics.
+
+CUDA tensors launch the kernels; CPU tensors run the plain versions
+(:func:`attention_reference_with_stats`, :func:`attention_bwd_reference`),
+the same functions written as plain einsum math. There is no fallback
+between the two.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from perceiver_io_torch.ops import build
 
 MASK_VALUE = -1e30
+# the mask value as the f32 bias holds it (the kernels' running-max floor)
+_MASK_F32 = float(torch.tensor(MASK_VALUE, dtype=torch.float32))
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-counter = build.LaunchCounter()
+counter = build.LaunchCounter()          # attention_fwd
+dq_counter = build.LaunchCounter()       # attention_bwd_dq
+dkv_counter = build.LaunchCounter()      # attention_bwd_dkv
 
 
 def pad_bias(pad_mask: Optional[torch.Tensor], batch: int, keys: int,
@@ -55,35 +72,78 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 math, as the kernels; f64 inputs keep f64 (gradient checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _plain_fwd(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, l): logits scaled by D**-0.5 plus the bias, ``m`` the row max
+    floored at the mask value (the kernel's running max starts there),
+    ``l = sum exp(logits - m)``, probabilities rounded to v's dtype before
+    P.V, output in q's dtype; m and l are (B, H, T) f32 (f64 for f64
+    inputs)."""
+    acc = _acc_dtype(q)
+    d = q.shape[-1]
+    logits = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) * d**-0.5
+    logits = logits + bias.to(acc)[:, None, None, :]
+    m = logits.amax(dim=-1).clamp_min(_MASK_F32)
+    e = torch.exp(logits - m[..., None])
+    l = e.sum(dim=-1)
+    probs = (e / l[..., None]).to(v.dtype).to(acc)
+    out = torch.einsum("bhts,bshd->bthd", probs, v.to(acc))
+    return out.to(q.dtype).contiguous(), m, l
+
+
+def _plain_bwd(q, k, v, bias, out, m, l, g):
+    """(dq, dk, dv) from the saved (m, l), written as the TPU kernels'
+    math (``_recompute_probs_and_ds``): p recomputed as exp(logits - m)/l,
+    ds = p (g.v - delta) zeroed on rows whose m is pinned at the mask value,
+    ds rounded to k's / q's dtype and p to g's before each product, the scale
+    applied at the end. Not autograd of :func:`attention_reference`: that
+    would give a fully masked row nonzero dq and dk through the finite bias."""
+    acc = _acc_dtype(q)
+    d = q.shape[-1]
+    scale = d**-0.5
+    m, l = m.to(acc)[..., None], l.to(acc)[..., None]
+    logits = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) * scale
+    logits = logits + bias.to(acc)[:, None, None, :]
+    p = torch.exp(logits - m) / l
+    dp = torch.einsum("bthd,bshd->bhts", g.to(acc), v.to(acc))
+    delta = (g.to(acc) * out.to(acc)).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = torch.where(m <= 0.5 * MASK_VALUE, 0.0, p * (dp - delta))
+    dq = torch.einsum("bhts,bshd->bthd", ds.to(k.dtype).to(acc), k.to(acc)) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds.to(q.dtype).to(acc), q.to(acc)) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p.to(g.dtype).to(acc), g.to(acc))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: f32 logits scaled by D**-0.5
-    plus the pad bias, softmax in f32, probabilities rounded to v's dtype,
-    P.V accumulated in f32, output in q's dtype."""
-    _check(q, k, v)
-    b, _, _, d = q.shape
-    bias = pad_bias(pad_mask, b, k.shape[1], q.device)
-    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * d**-0.5
-    probs = torch.softmax(logits + bias[:, None, None, :], dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype).float(), v.float())
-    return out.to(q.dtype).contiguous()
+    """Plain PyTorch version of the forward kernel: f32 logits scaled by
+    D**-0.5 plus the pad bias, softmax in f32, probabilities rounded to v's
+    dtype, P.V accumulated in f32, output in q's dtype."""
+    return attention_reference_with_stats(q, k, v, pad_mask)[0]
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention over (B, T, H, D) q and (B, S, H, D) k/v; returns
-    (B, T, H, D) contiguous in q's dtype. CUDA tensors launch the kernel
-    (f32 or bf16, D in ``SUPPORTED_HEAD_DIMS``, unit stride along D; other
-    strides are passed through, so head-split views need no copy); CPU
-    tensors run :func:`attention_reference`."""
+def attention_reference_with_stats(q, k, v, pad_mask=None):
+    """Plain version of the forward with statistics: ``(out, m, l)``, m and
+    l (B, H, T) f32."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        counter.plain_calls += 1
-        return attention_reference(q, k, v, pad_mask)
+    return _plain_fwd(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device))
+
+
+def attention_bwd_reference(q, k, v, pad_mask, out, m, l, g):
+    """Plain version of the two backward kernels: ``(dq, dk, dv)``."""
+    _check(q, k, v)
+    return _plain_bwd(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
+                      out, m, l, g)
+
+
+def _kernel_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
-    b, t, h, d = q.shape
-    s = k.shape[1]
+    d = q.shape[-1]
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
             f"head dim {d} unsupported by the kernel; expected one of "
@@ -92,19 +152,168 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
     if (q.stride(3), k.stride(3), v.stride(3)) != (1, 1, 1):
         raise ValueError("q, k and v need unit stride along the head dim")
-    bias = pad_bias(pad_mask, b, s, q.device).contiguous()
+
+
+def _strides(*tensors) -> list:
+    return [s for x in tensors for s in (x.stride(0), x.stride(1), x.stride(2))]
+
+
+def _launch_fwd(q, k, v, bias, stats: bool):
+    """The forward kernel: out, plus (m, l) when ``stats``."""
+    _kernel_dims(q, k, v)
+    b, t, h, d = q.shape
+    s = k.shape[1]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    m = l = None
+    if stats:
+        m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     if t == 0 or b == 0:
-        return out
+        return out, m, l
     if s == 0:
         raise ValueError("attention over zero keys")
     err = build.library().attention_fwd(
         _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, t, s, h,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
+        bias.data_ptr(), out.data_ptr(), m.data_ptr() if stats else None,
+        l.data_ptr() if stats else None, b, t, s, h, *_strides(q, k, v),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("attention_fwd", err)
     counter.launches += 1
-    return out
+    return out, m, l
+
+
+def bwd_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = sum_d g * out in f32, (B, H, T) contiguous."""
+    return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _bwd_args(q, k, v, bias, m, l, delta, g):
+    _kernel_dims(q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype or g.stride(3) != 1:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q and have "
+                         f"unit stride along the head dim")
+    b, t, h, d = q.shape
+    stats = (b, h, t)
+    for name, x in (("m", m), ("l", l), ("delta", delta)):
+        if tuple(x.shape) != stats or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be {stats} f32 contiguous")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), bias.data_ptr(),
+            m.data_ptr(), l.data_ptr(), delta.data_ptr())
+    dims = (b, t, k.shape[1], h, *_strides(q, k, v, g),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return _DTYPE_CODES[q.dtype], d, ptrs, dims
+
+
+def launch_bwd_dq(q, k, v, bias, m, l, delta, g) -> torch.Tensor:
+    """The dq kernel alone: dq (B, T, H, D) in q's dtype."""
+    code, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    build.check_launch("attention_bwd_dq",
+                       build.library().attention_bwd_dq(code, d, *ptrs, dq.data_ptr(), *dims))
+    dq_counter.launches += 1
+    return dq
+
+
+def launch_bwd_dkv(q, k, v, bias, m, l, delta, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel alone: dk, dv (B, S, H, D) in k's dtype."""
+    code, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    build.check_launch("attention_bwd_dkv",
+                       build.library().attention_bwd_dkv(code, d, *ptrs, dk.data_ptr(),
+                                                         dv.data_ptr(), *dims))
+    dkv_counter.launches += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, bias, out, m, l, g):
+    """delta, then the dq kernel and the dk/dv kernel."""
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = bwd_delta(g, out)
+    m, l = m.contiguous(), l.contiguous()
+    return (launch_bwd_dq(q, k, v, bias, m, l, delta, g),
+            *launch_bwd_dkv(q, k, v, bias, m, l, delta, g))
+
+
+def _forward(q, k, v, bias, stats: bool):
+    if q.device.type == "cpu":
+        counter.plain_calls += 1
+        return _plain_fwd(q, k, v, bias)
+    return _launch_fwd(q, k, v, bias, stats)
+
+
+def _backward(q, k, v, bias, out, m, l, g):
+    if q.device.type == "cpu":
+        dq_counter.plain_calls += 1
+        dkv_counter.plain_calls += 1
+        return _plain_bwd(q, k, v, bias, out, m, l, g)
+    return _launch_bwd(q, k, v, bias, out, m, l, g)
+
+
+def attention_fwd_with_stats(q, k, v, pad_mask=None):
+    """``(out, m, l)``: the forward kernel with statistics on CUDA tensors,
+    :func:`attention_reference_with_stats` on CPU tensors."""
+    _check(q, k, v)
+    return _forward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device), True)
+
+
+def attention_bwd(q, k, v, pad_mask, out, m, l, g):
+    """``(dq, dk, dv)``: the dq and dk/dv kernels on CUDA tensors,
+    :func:`attention_bwd_reference` on CPU tensors."""
+    _check(q, k, v)
+    return _backward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
+                     out, m, l, g)
+
+
+class FusedAttention(torch.autograd.Function):
+    """Attention with the kernels' backward: the forward saves q, k, v, the
+    pad bias, out, m and l; the backward returns dq, dk, dv (the pad mask
+    gets no gradient). ``plain=True`` runs the plain versions on any device
+    (the kernels' stand-in in parity runs on the card)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, plain: bool = False):
+        bias = pad_bias(pad_mask, q.shape[0], k.shape[1], q.device)
+        out, m, l = _plain_fwd(q, k, v, bias) if plain else _forward(q, k, v, bias, True)
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v, bias, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, m, l = ctx.saved_tensors
+        bwd = _plain_bwd if ctx.plain else _backward
+        dq, dk, dv = bwd(q, k, v, bias, out, m, l, g.contiguous())
+        return dq, dk, dv, None, None
+
+
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over (B, T, H, D) q and (B, S, H, D) k/v; returns
+    (B, T, H, D) contiguous in q's dtype. CUDA tensors launch the kernels
+    (f32 or bf16, D in ``SUPPORTED_HEAD_DIMS``, unit stride along D; other
+    strides are passed through, so head-split views need no copy); CPU
+    tensors run the plain versions. When autograd records, the call goes
+    through :class:`FusedAttention` (forward with statistics, backward
+    kernels); otherwise the forward runs without statistics."""
+    _check(q, k, v)
+    if _records_grad(q, k, v):
+        return FusedAttention.apply(q, k, v, pad_mask)
+    return _forward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
+                    False)[0]
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain versions of the forward and of the backward on any device,
+    differentiable the same way: what a parity run puts in the kernels'
+    place. Counts no launch and no plain call."""
+    _check(q, k, v)
+    if _records_grad(q, k, v):
+        return FusedAttention.apply(q, k, v, pad_mask, True)
+    return attention_reference(q, k, v, pad_mask)

@@ -1,0 +1,80 @@
+"""BERT-style MLM text masking (the port's copy of
+``perceiver_io_tpu/ops/masking.py``: ``IGNORE_LABEL``, ``apply_text_masking``,
+``TextMasking``).
+
+The same corruption scheme, nested draws included:
+
+- special positions = ``(x == unk_id) | pad_mask``; only the others are
+  candidates,
+- ``selected``   = U < mask_p ∧ candidate                    (15% default),
+- ``selected_1`` = selected ∧ U < 0.9                          (become [MASK]),
+- ``selected_2`` = selected_1 ∧ U < 1/9                        (then a random
+  token in ``[num_special_tokens, vocab_size)``: the 80/10/10 split),
+- labels are ``IGNORE_LABEL`` everywhere except the selected positions.
+
+The draws come from an explicit ``torch.Generator`` on the batch's device,
+so masking is deterministic in (generator state, batch) and never touches
+the global RNG. Torch's generators draw other bits than JAX's threefry: the
+two packages agree in distribution, not bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+IGNORE_LABEL = -100
+
+
+def apply_text_masking(
+    generator: torch.Generator,
+    x: torch.Tensor,
+    pad_mask: Optional[torch.Tensor],
+    *,
+    vocab_size: int,
+    unk_token_id: int,
+    mask_token_id: int,
+    num_special_tokens: int,
+    mask_p: float = 0.15,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Corrupt token ids ``x`` (B, L) for MLM; returns ``(x_masked, labels)``,
+    labels int64 with ``IGNORE_LABEL`` off the selection. ``pad_mask`` is
+    True at padding positions."""
+    shape, device = x.shape, x.device
+
+    def uniform():
+        return torch.rand(shape, generator=generator, device=device)
+
+    is_special = x == unk_token_id
+    if pad_mask is not None:
+        is_special = is_special | pad_mask.to(device=device, dtype=torch.bool)
+    is_selected = (uniform() < mask_p) & ~is_special
+    is_selected_1 = is_selected & (uniform() < 0.9)
+    is_selected_2 = is_selected_1 & (uniform() < 1.0 / 9.0)
+    random_tokens = torch.randint(num_special_tokens, vocab_size, shape,
+                                  generator=generator, device=device, dtype=x.dtype)
+    x_masked = torch.where(is_selected_1, torch.full_like(x, mask_token_id), x)
+    x_masked = torch.where(is_selected_2, random_tokens, x_masked)
+    labels = torch.where(is_selected, x.long(), IGNORE_LABEL)
+    return x_masked, labels
+
+
+class TextMasking:
+    """The masking configuration as a callable ``(generator, x, pad_mask) ->
+    (x_masked, labels)``."""
+
+    def __init__(self, vocab_size: int, unk_token_id: int, mask_token_id: int,
+                 num_special_tokens: int, mask_p: float = 0.15):
+        self.vocab_size = vocab_size
+        self.unk_token_id = unk_token_id
+        self.mask_token_id = mask_token_id
+        self.num_special_tokens = num_special_tokens
+        self.mask_p = mask_p
+
+    def __call__(self, generator: torch.Generator, x: torch.Tensor,
+                 pad_mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        return apply_text_masking(
+            generator, x, pad_mask, vocab_size=self.vocab_size,
+            unk_token_id=self.unk_token_id, mask_token_id=self.mask_token_id,
+            num_special_tokens=self.num_special_tokens, mask_p=self.mask_p)

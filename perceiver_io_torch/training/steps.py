@@ -1,0 +1,84 @@
+"""MLM step builders (the counterpart of ``perceiver_io_tpu/training/steps.py``:
+``mlm_gather_capacity``, ``make_mlm_steps``).
+
+Batches are dicts with ``token_ids`` (B, L) int and ``pad_mask`` (B, L)
+bool, as numpy arrays or tensors; the steps move them to the model's device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from perceiver_io_torch.training.losses import cross_entropy_with_ignore
+from perceiver_io_torch.training.train_state import TrainState
+
+Metrics = Dict[str, object]
+
+
+def mlm_gather_capacity(seq_len: int, mask_p: float = 0.15) -> int:
+    """Default masked-decode capacity: 2·mask_p·L rounded up to a multiple of
+    32, capped at L (160 at L = 512)."""
+    cap = -(-int(2 * mask_p * seq_len) // 32) * 32
+    return min(seq_len, max(cap, 32))
+
+
+def _batch_to(batch, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(token_ids, pad_mask) of a batch on ``device``."""
+    ids, pad = batch["token_ids"], batch["pad_mask"]
+    if isinstance(ids, np.ndarray):
+        ids, pad = torch.from_numpy(ids), torch.from_numpy(pad)
+    return (ids.to(device, non_blocking=True),
+            pad.to(device, dtype=torch.bool, non_blocking=True))
+
+
+def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
+                   loss_gather_capacity: Optional[int] = None, fused_head=False):
+    """(train_step, eval_step, predict_fn) for a ``PerceiverMLM``.
+
+    - ``train_step(state, batch) -> (state, metrics)``: masking drawn from
+      the state's (seed, step) generator, CE over the selected positions,
+      backward, one optimizer update; metrics ``loss`` (a device scalar,
+      fetched by the caller when it logs) and, given ``schedule``, ``lr``.
+      The gradients stay on the parameters until the next step.
+    - ``eval_step(state, batch, generator) -> metrics``: the same loss on a
+      masking drawn from ``generator``, without gradients.
+    - ``predict_fn(model, token_ids, pad_mask, positions=None)``: the
+      ``masking=False`` forward's logits.
+
+    ``loss_gather_capacity`` decodes only the masked positions, up to that
+    many per row. ``fused_head`` other than False is the fused vocab-head
+    cross-entropy (the CE kernels), which the port does not have yet."""
+    if fused_head is not False:
+        raise ValueError(
+            f"fused_head={fused_head!r}: the fused vocab-head cross-entropy (the "
+            f"flash-CE kernels) is the next slice of the port (ROADMAP Queue 2 "
+            f"item 1); use fused_head=False")
+    device = next(model.parameters()).device
+
+    def loss_fn(batch, generator):
+        ids, pad = _batch_to(batch, device)
+        logits, labels = model(ids, pad, masking=True, generator=generator,
+                               loss_gather_capacity=loss_gather_capacity)
+        return cross_entropy_with_ignore(logits, labels)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+        metrics = {} if schedule is None else {"lr": schedule(state.step)}
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, state.step_generator(device))
+        loss.backward()
+        state.apply_gradients()
+        return state, {"loss": loss.detach(), **metrics}
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, generator: torch.Generator) -> Metrics:
+        return {"loss": loss_fn(batch, generator)}
+
+    @torch.no_grad()
+    def predict_fn(model_, token_ids, pad_mask, positions=None):
+        logits, _ = model_(token_ids, pad_mask, masking=False, positions=positions)
+        return logits
+
+    return train_step, eval_step, predict_fn

@@ -1,19 +1,26 @@
 """The port's attention kernel module (perceiver_io_torch/ops/attention_kernel.py)
-against the JAX package's fused attention: the plain version of the CUDA
-kernel, which the wrapper runs on CPU tensors, must compute what the Pallas
-kernel (interpret mode) and the einsum path compute — masked, unmasked, with
-a fully masked row, at T and S that are not multiples of the kernel's
-64-row tiles. f32, atol = rtol = 2e-5 (the golden bar).
+against the JAX package's fused attention: the plain versions of the CUDA
+kernels, which the wrappers run on CPU tensors, must compute what the Pallas
+kernels (interpret mode) and the einsum path compute — masked, unmasked, with
+a fully masked row, at T and S that are not multiples of the kernels'
+64-row tiles. The forward, its (m, l) statistics and the backward (dq, dk,
+dv) at f32, atol = rtol = 2e-5 (the golden bar); autograd through
+``fused_attention`` against ``jax.grad`` at 1e-5.
 
-The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py
-holds it against this plain version there."""
+The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
+holds them against these plain versions there."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from perceiver_io_tpu.ops.attention import _dot_product_attention
+from perceiver_io_tpu.ops.pallas_attention import (
+    _fused_attention_bwd_impl,
+    _fused_attention_fwd_impl,
+)
 from perceiver_io_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
 from perceiver_io_torch.ops import attention_kernel as ak
 
@@ -96,3 +103,84 @@ def test_pad_bias_is_the_tpu_kernels_bias():
     np.testing.assert_array_equal(bias.numpy(), np.where(pad.numpy(), -1e30, 0.0).astype(np.float32))
     assert not ak.pad_bias(None, 2, 3, "cpu").any()
 
+
+
+# -- forward statistics and the backward --------------------------------------
+
+
+def _bhtd(x):
+    return jnp.transpose(jnp.asarray(x), (0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("mask", ["none", "pad", "full_row"])
+@pytest.mark.parametrize("t,s,d,t_blk,s_blk", [(16, 24, 8, 8, 8), (70, 131, 16, 70, 131),
+                                               (5, 200, 32, 5, 40)])
+def test_plain_statistics_and_backward_match_jax(mask, t, s, d, t_blk, s_blk):
+    """m, l and (dq, dk, dv) of the plain versions against the Pallas
+    forward with_lse and the Pallas backward (interpret mode), each side
+    from its own residuals; on a fully masked example dq and dk are exactly
+    zero, as the TPU kernel's where-masking gives."""
+    q, k, v, pad = _inputs(t * s + d, 2, t, s, 2, d, mask)
+    g = np.random.default_rng(t + s).normal(size=q.shape).astype(np.float32)
+    bias = jnp.zeros((2, s), jnp.float32) if pad is None else jnp.where(
+        jnp.asarray(pad), ak.MASK_VALUE, 0.0).astype(jnp.float32)
+    jq, jk, jv, jg = (_bhtd(x) for x in (q, k, v, g))
+    jout, jm, jl = _fused_attention_fwd_impl(jq, jk, jv, bias, t_blk, s_blk, True,
+                                             with_lse=True)
+    jdq, jdk, jdv = _fused_attention_bwd_impl(jq, jk, jv, bias, jout, jm, jl, jg,
+                                              t_blk, s_blk, True)
+    tq, tk, tv, tpad, tg = _torch(q, k, v, pad, g)
+    out, m, l = ak.attention_fwd_with_stats(tq, tk, tv, tpad)
+    np.testing.assert_allclose(out.numpy(), np.asarray(_bhtd(jout)), **TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm)[..., 0], **TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl)[..., 0], **TOL)
+    grads = ak.attention_bwd(tq, tk, tv, tpad, out, m, l, tg)
+    for got, ref in zip(grads, (jdq, jdk, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(_bhtd(ref)), **TOL)
+    if mask == "full_row":
+        assert not grads[0][-1].any() and not grads[1][-1].any()
+        assert not np.asarray(jdq)[-1].any() and grads[2][-1].abs().max() > 0
+
+
+@pytest.mark.parametrize("mask", ["pad", "full_row"])
+def test_autograd_matches_jax_grad(mask):
+    """torch.autograd through fused_attention (the plain versions on the
+    CPU) against jax.grad through the Pallas fused_attention, interpret
+    mode, at 1e-5."""
+    q, k, v, pad = _inputs(5, 2, 33, 65, 2, 16, mask)
+    w = np.random.default_rng(6).normal(size=q.shape).astype(np.float32)
+
+    def jloss(jq, jk, jv):
+        out = jax_fused_attention(jq, jk, jv, jnp.asarray(pad), interpret=True)
+        return jnp.sum(out * jnp.asarray(w))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [x.requires_grad_(True) for x in _torch(q, k, v)]
+    before = (ak.dq_counter.plain_calls, ak.dkv_counter.plain_calls)
+    (ak.fused_attention(*leaves, torch.from_numpy(pad)) * torch.from_numpy(w)).sum().backward()
+    assert (ak.dq_counter.plain_calls, ak.dkv_counter.plain_calls) == (before[0] + 1,
+                                                                       before[1] + 1)
+    for leaf, ref in zip(leaves, jgrads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_fused_attention_gradcheck_f64():
+    """FusedAttention's backward (the plain versions, f64 on the CPU)
+    against finite differences, with padding and a fully masked example."""
+    q, k, v, pad = _inputs(7, 2, 9, 13, 2, 8, "full_row")
+    leaves = [torch.from_numpy(x).double().requires_grad_(True) for x in (q, k, v)]
+    tpad = torch.from_numpy(pad)
+    # fast mode: the Jacobian checked along random directions, not in full
+    for fn in (ak.fused_attention, ak.plain_attention):
+        assert torch.autograd.gradcheck(lambda *x: fn(*x, tpad), leaves, fast_mode=True)
+
+
+def test_serving_calls_skip_the_statistics_and_the_backward():
+    """No autograd recording: one forward call, no statistics saved, no
+    backward counted."""
+    q, k, v, pad = _torch(*_inputs(3, 1, 4, 6, 2, 8, "pad"))
+    before = (ak.counter.plain_calls, ak.dq_counter.plain_calls)
+    with torch.no_grad():
+        out = ak.fused_attention(q.requires_grad_(True), k, v, pad)
+    assert out.grad_fn is None
+    assert (ak.counter.plain_calls, ak.dq_counter.plain_calls) == (before[0] + 1, before[1])

@@ -7,9 +7,14 @@ toolkit (the JAX-side conftest is not needed there):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
+The attention forward (with and without its (m, l) statistics), the dq and
+dk/dv backward kernels (every supported head dim, f32 and bf16, a fully
+masked example whose dq and dk must be exactly zero), autograd through
+``fused_attention`` against the plain versions, and the dequant matmul.
 Tolerances against the plain version: f32 within 1e-4 of the reference's
 peak magnitude (sums taken in another order), bf16 within 2e-2 (bf16
-rounding of the probabilities / dequantized weights at other points).
+rounding of the probabilities / dequantized weights at other points); the
+statistics within 1e-5 (f32 on both sides).
 """
 
 import numpy as np
@@ -59,11 +64,73 @@ def test_attention_kernel_matches_plain(card, dtype, d):
     _close(got, ak.attention_reference(q, k, v, pad), dtype)
 
 
+def _attention_inputs(card, dtype, d, b=3, t=70, s=131, h=2, seed=0):
+    g = torch.Generator().manual_seed(seed + d)
+    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(card, dtype) for n in (t, s, s, t))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    pad[-1] = True  # a fully masked row
+    return q, k, v, go, pad.to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ak.SUPPORTED_HEAD_DIMS)
+def test_attention_statistics_match_plain(card, dtype, d):
+    q, k, v, _, pad = _attention_inputs(card, dtype, d)
+    before = ak.counter.launches
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad)
+    assert ak.counter.launches == before + 1
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad)
+    _close(out, ref_out, dtype)
+    assert m.shape == l.shape == (3, 2, 70) and m.dtype == l.dtype == torch.float32
+    # both take the statistics in f32 from the same rounded inputs
+    torch.testing.assert_close(m, ref_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
+    assert (m[-1] == ak.MASK_VALUE).all() and (l[-1] == 131).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ak.SUPPORTED_HEAD_DIMS)
+def test_attention_backward_kernels_match_plain(card, dtype, d):
+    q, k, v, go, pad = _attention_inputs(card, dtype, d)
+    out, m, l = ak.attention_reference_with_stats(q, k, v, pad)
+    m, l = m.float(), l.float()
+    before = (ak.dq_counter.launches, ak.dkv_counter.launches)
+    got = ak.attention_bwd(q, k, v, pad, out, m, l, go)
+    assert (ak.dq_counter.launches, ak.dkv_counter.launches) == (before[0] + 1, before[1] + 1)
+    ref = ak.attention_bwd_reference(q, k, v, pad, out, m, l, go)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == dtype and x.is_contiguous()
+        _close(x, r, dtype)
+    # the fully masked example: dq and dk exactly zero, dv the uniform share
+    assert not got[0][-1].any() and not got[1][-1].any()
+    assert got[2][-1].abs().max() > 0
+
+
+def test_fused_attention_autograd_runs_the_kernels(card):
+    q, k, v, go, pad = _attention_inputs(card, torch.float32, 32, t=64, s=256)
+    grads = []
+    for fn in (ak.fused_attention, ak.plain_attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = (ak.counter.launches, ak.dq_counter.launches, ak.dkv_counter.launches)
+        fn(*leaves, pad).backward(go)
+        after = (ak.counter.launches, ak.dq_counter.launches, ak.dkv_counter.launches)
+        assert [a - b for a, b in zip(after, before)] == ([1, 1, 1] if fn is ak.fused_attention
+                                                          else [0, 0, 0])
+        grads.append([x.grad for x in leaves])
+    for got, ref in zip(*grads):
+        _close(got, ref, torch.float32)
+
+
 def test_attention_kernel_takes_strided_views(card):
     g = torch.Generator().manual_seed(0)
     qkv = torch.randn(2, 65, 3, 4, 32, generator=g).to(card)  # (B, S, 3, H, D)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     _close(ak.fused_attention(q, k, v), ak.attention_reference(q, k, v), torch.float32)
+    out, m, l = ak.attention_fwd_with_stats(q, k, v)
+    go = torch.randn(out.shape, generator=g).to(card)
+    for x, r in zip(ak.attention_bwd(q, k, v, None, out, m, l, go),
+                    ak.attention_bwd_reference(q, k, v, None, out, m, l, go)):
+        _close(x, r, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -81,3 +148,42 @@ def test_dequant_kernel_matches_plain(card, dtype, bits, group_size, m, k, n):
     got = qm.dequant_matmul(x, q, scale, bits, gs)
     assert qm.counter.launches == before + 1
     _close(got, qm.dequant_matmul_reference(x, q, scale, bits, gs), dtype)
+
+
+def test_train_step_on_the_card_matches_plain(card):
+    """One f32 train step of the tiny model on the card, with the kernels and
+    with the plain versions in their place: the same loss and gradients; 5
+    forward, 5 dq and 5 dk/dv launches (2 encoder cross + 2 self + 1
+    decoder), none in the plain run."""
+    from perceiver_io_torch.models.presets import tiny_mlm
+    from perceiver_io_torch.ops.attention import MultiHeadAttention
+    from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
+    from perceiver_io_torch.training.steps import make_mlm_steps
+    from perceiver_io_torch.training.train_state import TrainState
+
+    rng = np.random.default_rng(0)
+    pad = np.zeros((4, 64), bool)
+    pad[1, 40:] = True
+    batch = {"token_ids": rng.integers(3, 503, (4, 64)).astype(np.int32), "pad_mask": pad}
+    counters = (ak.counter, ak.dq_counter, ak.dkv_counter)
+    runs = []
+    for plain in (False, True):
+        model = tiny_mlm(device=card, seed=1)
+        if plain:
+            for module in model.modules():
+                if isinstance(module, MultiHeadAttention):
+                    module.attention = ak.plain_attention
+        optimizer, schedule = make_optimizer(OptimizerConfig(), model.parameters())
+        state = TrainState.create(model, optimizer, schedule, seed=3)
+        train_step, _, _ = make_mlm_steps(model, schedule, loss_gather_capacity=32)
+        before = [c.launches for c in counters]
+        _, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [0 if plain else 5] * 3
+        runs.append((float(metrics["loss"]),
+                     {n: p.grad.detach().clone() for n, p in model.named_parameters()}))
+    (loss, grads), (ref_loss, ref_grads) = runs
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, ref in ref_grads.items():
+        if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
+            assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name

@@ -95,9 +95,21 @@ def test_encode_decode_matches_jax(twins, batch):
 
 
 def test_rejects_training_masking(twins, batch):
+    """The training forward masks and decodes at capacity K: (B, K, vocab)
+    logits and (B, K) labels. It rejects a call without a generator and one
+    with inference ``positions``."""
     _, _, model = twins
-    with pytest.raises(ValueError, match="training path"):
-        model(torch.from_numpy(batch[0]), masking=True)
+    ids, pad, positions = (torch.from_numpy(a) for a in batch)
+    logits, labels = model(ids, pad, masking=True, generator=torch.Generator().manual_seed(0),
+                           loss_gather_capacity=8)
+    assert logits.shape == (B, 8, 503) and labels.shape == (B, 8)
+    assert labels.dtype == torch.int64 and (labels != -100).any()
+    full, full_labels = model(ids, pad, masking=True, generator=torch.Generator())
+    assert full.shape == (B, L, 503) and full_labels.shape == (B, L)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        model(ids, masking=True)
+    with pytest.raises(ValueError, match="inference-path"):
+        model(ids, masking=True, generator=torch.Generator(), positions=positions)
 
 
 @pytest.mark.parametrize("mode,bits,bound", [
