@@ -20,16 +20,27 @@ Phases (any failure exits nonzero):
 4. the dequant-matmul kernel against its plain version (int8 per-channel,
    int4 group 128; bf16 and f32) at the self-attention projection
    (M=16384, K=N=512) and the vocab head (M=512, K=512, N=10003);
-5. the serving path: ``MLMServer`` at ``flagship_tpu_mlm`` width (seeded random
+5. the three fused CE kernels (forward, dx, dW/db) against their plain
+   versions at bench.py's head (R, C, V) = (10240, 64, 10003), the flagship
+   head (10240, 512, 10003) and a ragged (10239, 64, 10003), f32 and bf16,
+   ~15% of rows ignored (cotangent 0, their dx exactly 0); times of each
+   kernel, of the plain forward and backward and of the unfused head
+   (cuBLAS product + ``softmax_ce_integer``, two library calls; its
+   backward by ``autograd.grad`` over a retained graph); each kernel's
+   bound is the largest of bytes / 3.35 TB/s, its products (2.R.C.V in the
+   forward, twice that in each backward kernel) / the dtype's peak, and
+   its R.V exponentials / (16 a clock per SM x 132 SMs x the SM clock
+   nvidia-smi reports as its maximum, printed);
+6. the serving path: ``MLMServer`` at ``flagship_tpu_mlm`` width (seeded random
    weights, a tokenizer trained on the synthetic corpus, width buckets
    128/256/512, max_batch 64) fills ~200 ``[MASK]`` texts, then encodes them
    and fills from the cached latents, under bf16, int8w and int4w; the
    kernels' launch counters must advance by 22 attention and 131 dequant
    launches per quantized fused forward, and the plain versions must never
    run;
-6. the same serving pass at f32 with the plain versions put in the kernels'
+7. the same serving pass at f32 with the plain versions put in the kernels'
    place must give the same top-1 fill on every mask;
-7. the training path: ``Trainer.fit`` takes 30 Adam steps (lr 1e-3) of
+8. the training path: ``Trainer.fit`` takes 30 Adam steps (lr 1e-3) of
    ``flagship_tpu_mlm`` in bf16 over f32 weights, batch 64 of the synthetic
    ``IMDBDataModule`` at 512 tokens, masked positions gathered at capacity
    160; every step must launch exactly 22 forward, 22 dq and 22 dk/dv
@@ -39,10 +50,30 @@ Phases (any failure exits nonzero):
    steps give the train tokens/s (all tokens over the window's host time,
    the loader's collation included), and a profile of 3 more gives the
    device idle share;
-8. three f32 train steps at flagship width with the kernels, then with the
+9. three f32 train steps at flagship width with the kernels, then with the
    plain versions in their place, for each of three masking seeds: the
    losses agree within 1e-4 relative at every step and the first step's
-   gradients within 1e-3 of each leaf's peak.
+   gradients within 1e-3 of each leaf's peak;
+10. the C=64 path (bench.py's and the CLI's default configuration):
+    ``flagship_mlm`` (256 latents, C=64, 4 heads of depth 16, 3 x (cross +
+    6 self), vocab 10003, 512 tokens) trained as in phase 8 with
+    ``make_mlm_steps(fused_head='pallas')``: every step launches exactly 22
+    attention forward, 22 dq, 22 dk/dv and one CE forward, dx and dW kernel
+    (each eval batch 22 attention forward and one CE forward), and the loss
+    falls; the 10-step window and the 3-step profile; then the unfused head
+    on the same model and state (windows in turns: unfused, unfused,
+    fused), and both heads timed on bench.py's own batch (ids from
+    ``default_rng(0)``, no padding), fused / unfused / unfused / fused;
+11. ``perceiver_io_torch.cli.train_mlm --preset reference --synthetic``, 5
+    steps in-process: ``--fused_head auto`` must resolve to the CE kernels
+    on the card (their counters advance, no plain version runs);
+12. phase 9 on the C=64 path, the plain attention and CE versions in the
+    kernels' place, plus the unfused head with the kernels: its losses within
+    1e-4 relative of the fused head's.
+
+Each path's launch counters are set to 0 just before its checked
+``Trainer.fit`` and read just after; the ``kernels`` line sums them with the
+serving path's, and the script fails if any kernel was never launched.
 
 The script re-executes itself with ``PYTHONHASHSEED=0``: the WordPiece
 trainer's merge order follows string hashing, so the pin makes every run
@@ -53,8 +84,9 @@ f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2; the
 statistics m and l within 1e-5 of max(|ref|, 1) (f32 on both sides). Times
 are CUDA-event means over repeated launches after a warm-up; ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / the H100 peak for the
-inputs' type (989 TF/s bf16, 67 TF/s f32 without tensor cores). The last
-line is ``{"ok": true, "device": {...}}``.
+inputs' type (989 TF/s bf16, 67 TF/s f32 without tensor cores), for the CE
+kernels with the exponential term of phase 5 beside them. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -78,6 +110,14 @@ TRAIN_STEPS, TRAIN_BATCH, SEQ_LEN, CAPACITY = 30, 64, 512, 160
 WINDOW_STEPS, PROFILE_STEPS = 10, 3
 PARITY_SEEDS = (2, 3, 4)
 STAT_TOL = 1e-5
+KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
+                "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw")
+# (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
+# the flagship head (C=512), a ragged row count
+CE_SHAPES = (("bench_head", (10240, 64, 10003)), ("flagship_head", (10240, 512, 10003)),
+             ("ragged", (10239, 64, 10003)))
+EXP_PER_CLOCK_PER_SM, SMS = 16, 132
+BENCH_STEPS, CLI_STEPS = 10, 5
 
 
 def log(**fields) -> None:
@@ -392,16 +432,18 @@ def profile_pass(torch, run, mode: str) -> None:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = []  # kernels only: an operator's device time repeats its kernels'
+    device = []  # kernels only: an operator's device time repeats its kernels',
+    # and a user annotation's (Optimizer.step#...) spans kernels it does not run
     for event in prof.key_averages():
         ms = event.self_device_time_total / 1e3
-        if event.device_type == torch.autograd.DeviceType.CUDA and ms > 0:
+        if event.device_type == torch.autograd.DeviceType.CUDA and ms > 0 \
+                and not getattr(event, "is_user_annotation", False):
             device.append((ms, event.count, event.key[:70]))
     device.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in device)
     log(phase="profile", mode=mode, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=(1 - busy_ms / wall_ms) if device else None,
-        top=[dict(kernel=k, ms=ms, calls=c) for ms, c, k in device[:8]])
+        top=[dict(kernel=k, ms=ms, calls=c) for ms, c, k in device[:12]])
 
 
 def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
@@ -428,28 +470,60 @@ def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
             raise AssertionError(f"f32 {quantize}: {mismatched} top-1 fills differ from plain")
 
 
-def train_setup(torch, port, dtype, plain: bool = False, seed: int = 2):
-    """flagship_tpu_mlm (weights from seed 0) with Adam at 1e-3 and its train
-    state (masking from ``seed``); with ``plain`` the plain attention versions
-    stand in the kernels' place."""
-    model = port["presets"].flagship_tpu_mlm(dtype=dtype, device="cuda", seed=0)
+def train_setup(torch, port, dtype, plain: bool = False, seed: int = 2,
+                preset: str = "flagship_tpu_mlm", fused_head=False):
+    """The preset's MLM (weights from seed 0) with Adam at 1e-3 and its train
+    state (masking from ``seed``), its steps at capacity 160 with
+    ``fused_head``; with ``plain`` the plain attention and CE versions stand
+    in the kernels' place."""
+    model = port["presets"].PRESETS[preset](dtype=dtype, device="cuda", seed=0)
     if plain:
         for module in model.modules():
             if isinstance(module, port["MultiHeadAttention"]):
                 module.attention = port["ak"].plain_attention
+        model.decoder.output_adapter.linear_ce = port["ck"].plain_linear_ce_integer
     optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](learning_rate=1e-3),
                                                  model.parameters())
     state = port["TrainState"].create(model, optimizer, schedule, seed=seed)
-    steps = port["make_mlm_steps"](model, schedule, loss_gather_capacity=CAPACITY)
+    steps = port["make_mlm_steps"](model, schedule, loss_gather_capacity=CAPACITY,
+                                   fused_head=fused_head)
     return model, state, steps
 
 
-def training_phase(torch, port, data, logdir):
+def path_counters(port):
+    ak, ck = port["ak"], port["ck"]
+    return (ak.counter, ak.dq_counter, ak.dkv_counter,
+            ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+
+
+def per_step_launches(fused_head) -> list:
+    """Launches of one train step, in ``path_counters`` order."""
+    ce = 1 if fused_head else 0
+    return [ATTN_PER_FORWARD] * 3 + [ce] * 3
+
+
+def bench_batch(torch):
+    """bench.py's batch: ids from default_rng(0) in [3, 10003), no padding."""
+    import numpy as np
+
+    ids = np.random.default_rng(0).integers(3, 10003, (TRAIN_BATCH, SEQ_LEN)).astype(np.int32)
+    return {"token_ids": torch.from_numpy(ids).cuda(),
+            "pad_mask": torch.zeros((TRAIN_BATCH, SEQ_LEN), dtype=torch.bool, device="cuda")}
+
+
+def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
+                   fused_head=False):
     """The training path: Trainer.fit over TRAIN_STEPS bf16 steps, each one
-    checked for its kernel launches, its plain calls and a finite loss."""
-    ak = port["ak"]
-    counters = (ak.counter, ak.dq_counter, ak.dkv_counter)
-    model, state, (train_step, eval_step, _) = train_setup(torch, port, torch.bfloat16)
+    checked for its kernel launches, its plain calls and a finite loss; then
+    the unchecked windows. With the fused head, the same window with the
+    unfused head, and both heads timed on bench.py's batch, in turns."""
+    counters = path_counters(port)
+    names = KERNEL_NAMES
+    per_step = per_step_launches(fused_head)
+    per_eval = [ATTN_PER_FORWARD, 0, 0, per_step[3], 0, 0]
+    model, state, (train_step, eval_step, _) = train_setup(torch, port, torch.bfloat16,
+                                                           preset=preset,
+                                                           fused_head=fused_head)
     losses, step_ms = [], []
 
     def checked_step(state, batch):
@@ -460,12 +534,12 @@ def training_phase(torch, port, data, logdir):
         end.record()
         torch.cuda.synchronize()
         got = [c.launches - b for c, b in zip(counters, before)]
-        if got != [ATTN_PER_FORWARD] * 3 or any(c.plain_calls for c in counters):
-            raise AssertionError(f"train step {state.step}: launches fwd/dq/dkv {got} != "
-                                 f"{ATTN_PER_FORWARD} each, or a plain version ran")
+        if got != per_step or any(c.plain_calls for c in counters):
+            raise AssertionError(f"{preset} train step {state.step}: launches {got} != "
+                                 f"{per_step}, or a plain version ran")
         loss = float(metrics["loss"])
         if loss != loss or abs(loss) == float("inf"):
-            raise AssertionError(f"train step {state.step}: loss {loss}")
+            raise AssertionError(f"{preset} train step {state.step}: loss {loss}")
         losses.append(loss)
         step_ms.append(start.elapsed_time(end))
         return state, metrics
@@ -483,49 +557,49 @@ def training_phase(torch, port, data, logdir):
     trainer.fit(data.train_dataloader(), val_loader)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in zip(
-        ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv"), counters)}
-    expect = ATTN_PER_FORWARD * TRAIN_STEPS
-    if (launches["attention_bwd_dq"], launches["attention_bwd_dkv"]) != (expect, expect) or \
-            launches["attention_fwd"] != expect + ATTN_PER_FORWARD * len(val_loader):
-        raise AssertionError(f"fit launches {launches} over {TRAIN_STEPS} steps and "
-                             f"{len(val_loader)} eval batches")
+    launches = {name: c.launches for name, c in zip(names, counters)}
+    expect = {name: s * TRAIN_STEPS + e * len(val_loader)
+              for name, s, e in zip(names, per_step, per_eval)}
+    if launches != expect:
+        raise AssertionError(f"{preset} fit launches {launches} != {expect} over "
+                             f"{TRAIN_STEPS} steps and {len(val_loader)} eval batches")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with open(f"{trainer.run_dir}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     val = [r["val_loss"] for r in rows if "val_loss" in r]
     tail = sum(losses[-5:]) / 5
     if not tail < losses[0] or len(val) != 1 or not val[0] == val[0]:
-        raise AssertionError(f"loss did not fall: first {losses[0]}, last five {tail}, "
-                             f"val {val}")
+        raise AssertionError(f"{preset}: loss did not fall: first {losses[0]}, last five "
+                             f"{tail}, val {val}")
     steady = sorted(step_ms[1:])
     median_ms = steady[len(steady) // 2]
     tokens = TRAIN_BATCH * SEQ_LEN
     state = trainer.state
 
-    def window_fit(n_steps: int, name: str) -> float:
+    def window_fit(n_steps: int, name: str, step=train_step, per=per_step) -> float:
         """Trainer.fit over n more steps as the CLI drives it (no per-step
         check or sync; the loader collates between steps); its logged
         tokens/s: all the window's tokens over its host time."""
         nonlocal state
         before = [c.launches for c in counters]
-        fit = port["Trainer"](train_step, eval_step, state,
+        fit = port["Trainer"](step, eval_step, state,
                               port["TrainerConfig"](max_steps=state.step + n_steps,
                                                     log_every_n_steps=n_steps,
                                                     logdir=f"{logdir}/{name}"),
                               tokens_per_example=SEQ_LEN)
         state = fit.fit(data.train_dataloader())
         got = [c.launches - b for c, b in zip(counters, before)]
-        if got != [ATTN_PER_FORWARD * n_steps] * 3 or any(c.plain_calls for c in counters):
-            raise AssertionError(f"{name}: launches fwd/dq/dkv {got} over {n_steps} steps")
+        if got != [n * n_steps for n in per] or any(c.plain_calls for c in counters):
+            raise AssertionError(f"{preset} {name}: launches {got} over {n_steps} steps")
         with open(f"{fit.run_dir}/metrics.jsonl") as f:
             row = [json.loads(line) for line in f][-1]
         if not math.isfinite(row["train_loss"]):
-            raise AssertionError(f"{name}: loss {row['train_loss']}")
+            raise AssertionError(f"{preset} {name}: loss {row['train_loss']}")
         return row["tokens_per_sec"]
 
     window_rate = window_fit(WINDOW_STEPS, "window")
-    profile_pass(torch, lambda: window_fit(PROFILE_STEPS, "profiled"), "train_bfloat16")
+    profile_pass(torch, lambda: window_fit(PROFILE_STEPS, "profiled"),
+                 f"train_{preset}_bfloat16" + ("_fused" if fused_head else ""))
     loader = iter(data.train_dataloader())
     collate_ms = []
     for _ in range(WINDOW_STEPS):
@@ -533,7 +607,34 @@ def training_phase(torch, port, data, logdir):
         next(loader)
         collate_ms.append((time.perf_counter() - t0) * 1e3)
     window_step_ms = tokens / window_rate * 1e3
-    log(phase="train", steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=SEQ_LEN,
+    heads = {}
+    if fused_head:
+        # the unfused head on the same model and state: windows and bench.py's
+        # batch, fused / unfused / unfused / fused
+        unfused_step = port["make_mlm_steps"](model, state.schedule,
+                                              loss_gather_capacity=CAPACITY)[0]
+        unfused_per = per_step_launches(False)
+        heads["window_tokens_per_s"] = {"fused": [window_rate], "unfused": []}
+        for i, fused in enumerate((False, False, True)):
+            rate = window_fit(WINDOW_STEPS, f"window_{i}", *((train_step, per_step) if fused
+                                                             else (unfused_step, unfused_per)))
+            heads["window_tokens_per_s"]["fused" if fused else "unfused"].append(rate)
+        batch = bench_batch(torch)
+        heads["bench_batch_tokens_per_s"] = {"fused": [], "unfused": []}
+        for fused in (True, False, False, True):
+            step = train_step if fused else unfused_step
+            state, _ = step(state, batch)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BENCH_STEPS):
+                state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            if not math.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"{preset} bench batch: loss {metrics['loss']}")
+            heads["bench_batch_tokens_per_s"]["fused" if fused else "unfused"].append(
+                BENCH_STEPS * tokens / (time.perf_counter() - t0))
+    log(phase="train", preset=preset, fused_head=fused_head, steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq_len=SEQ_LEN,
         capacity=CAPACITY, first_loss=losses[0], last5_mean_loss=tail, val_loss=val[0],
         losses=losses, tokens_per_s=window_rate, window_steps=WINDOW_STEPS,
         window_step_ms=window_step_ms, step_ms_first=step_ms[0], step_ms_median=median_ms,
@@ -542,41 +643,71 @@ def training_phase(torch, port, data, logdir):
         collate_ms_median=sorted(collate_ms)[len(collate_ms) // 2],
         checked_fit_tokens_per_s=[r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r],
         fit_s=fit_s, peak_memory_gib=peak_gib, launches=launches,
-        launches_per_step=ATTN_PER_FORWARD)
+        launches_per_step=dict(zip(names, per_step)), **heads)
     del model, state, trainer
     return launches
 
 
-def train_parity_phase(torch, port, data):
+def cli_phase(torch, port, root: str) -> None:
+    """The training CLI's default preset (``reference``: 64 latents x 64
+    channels) on the card for CLI_STEPS steps, in-process: ``--fused_head
+    auto`` must resolve to the CE kernels there."""
+    counters = path_counters(port)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    run_dir = port["train_mlm"].main([
+        "--preset", "reference", "--synthetic", "--max_steps", str(CLI_STEPS),
+        "--log_every_n_steps", str(CLI_STEPS), "--root", root, "--logdir", f"{root}/cli"])
+    torch.cuda.synchronize()
+    with open(f"{run_dir}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    launches = dict(zip(KERNEL_NAMES, (c.launches for c in counters)))
+    train = [r for r in rows if "train_loss" in r]
+    if (launches["linear_ce_bwd_dx"], launches["linear_ce_bwd_dw"]) != (CLI_STEPS, CLI_STEPS) \
+            or launches["linear_ce_fwd"] <= CLI_STEPS or any(c.plain_calls for c in counters) \
+            or not all(math.isfinite(r["train_loss"]) for r in train):
+        raise AssertionError(f"train_mlm --preset reference: launches {launches}, rows {rows}")
+    log(phase="cli", preset="reference", steps=CLI_STEPS, launches=launches,
+        train_loss=train[-1]["train_loss"], tokens_per_s=train[-1]["tokens_per_sec"],
+        val_loss=[r["val_loss"] for r in rows if "val_loss" in r], wall_s=time.perf_counter() - t0)
+
+
+def train_parity_phase(torch, port, data, preset: str = "flagship_tpu_mlm", fused_head=False):
     """Three f32 steps with the kernels, then with the plain versions in
     their place, from the same weights, batches and masking, for each of
     PARITY_SEEDS: the losses within 1e-4 relative, the first step's
     gradients within 1e-3 of each leaf's peak (k_proj.bias is zero in exact
     arithmetic, softmax being shift-invariant per row: there both sides must
-    be noise far below the other gradients)."""
-    ak = port["ak"]
+    be noise far below the other gradients). With the fused head, also the
+    unfused head with the kernels: its losses within 1e-4 relative."""
+    counters = path_counters(port)
     batches = [b for _, b in zip(range(3), data.train_dataloader())]
     readings = []
+    runs_of = [(fused_head, False), (fused_head, True)] + ([(False, False)] if fused_head else [])
     for seed in PARITY_SEEDS:
         runs = []
-        for plain in (False, True):
+        for head, plain in runs_of:
             model, state, (train_step, _, _) = train_setup(torch, port, torch.float32, plain,
-                                                           seed)
-            before = (ak.counter.launches, ak.dq_counter.launches, ak.dkv_counter.launches)
+                                                           seed, preset, head)
+            before = [c.launches for c in counters]
             losses, grads = [], None
             for batch in batches:
                 state, metrics = train_step(state, batch)
                 losses.append(float(metrics["loss"]))
                 if grads is None:
                     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
-            after = (ak.counter.launches, ak.dq_counter.launches, ak.dkv_counter.launches)
-            expect = (0, 0, 0) if plain else (3 * ATTN_PER_FORWARD,) * 3
-            if tuple(a - b for a, b in zip(after, before)) != expect:
-                raise AssertionError(f"plain={plain}: launches {before} -> {after}")
+            got = [c.launches - b for c, b in zip(counters, before)]
+            expect = [0] * 6 if plain else [3 * n for n in per_step_launches(head)]
+            if got != expect:
+                raise AssertionError(f"{preset} head={head} plain={plain}: launches {got} != "
+                                     f"{expect}")
             runs.append((losses, grads))
             del model, state
-        (k_losses, k_grads), (p_losses, p_grads) = runs
+        (k_losses, k_grads), (p_losses, p_grads) = runs[:2]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+        head_rel = (max(abs(a - b) / abs(b) for a, b in zip(k_losses, runs[2][0]))
+                    if fused_head else 0.0)
         peak_all = max(float(g.abs().max()) for g in p_grads.values())
         worst, worst_name, symmetric = 0.0, None, 0.0
         for name, ref in p_grads.items():
@@ -590,15 +721,105 @@ def train_parity_phase(torch, port, data):
             err = err / peak if peak else err
             if err > worst:
                 worst, worst_name = err, name
-        log(phase="train_parity", dtype="float32", seed=seed, kernel_losses=k_losses,
-            plain_losses=p_losses, loss_max_rel_diff=loss_rel,
-            grad_max_err_over_leaf_peak=worst, worst_leaf=worst_name,
-            k_proj_bias_over_global_peak=symmetric)
-        readings.append((loss_rel, worst, worst_name, symmetric))
-    for seed, (loss_rel, worst, worst_name, symmetric) in zip(PARITY_SEEDS, readings):
-        if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5):
-            raise AssertionError(f"f32 train parity, seed {seed}: losses {loss_rel}, grads "
-                                 f"{worst} ({worst_name}), k_proj.bias {symmetric}")
+        extra = dict(unfused_losses=runs[2][0], fused_vs_unfused_loss_max_rel_diff=head_rel) \
+            if fused_head else {}
+        log(phase="train_parity", preset=preset, fused_head=fused_head, dtype="float32",
+            seed=seed, kernel_losses=k_losses, plain_losses=p_losses,
+            loss_max_rel_diff=loss_rel, grad_max_err_over_leaf_peak=worst,
+            worst_leaf=worst_name, k_proj_bias_over_global_peak=symmetric, **extra)
+        readings.append((loss_rel, worst, worst_name, symmetric, head_rel))
+    for seed, (loss_rel, worst, worst_name, symmetric, head_rel) in zip(PARITY_SEEDS, readings):
+        if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5 and head_rel <= 1e-4):
+            raise AssertionError(f"{preset} f32 train parity, seed {seed}: losses {loss_rel}, "
+                                 f"grads {worst} ({worst_name}), k_proj.bias {symmetric}, "
+                                 f"fused vs unfused head {head_rel}")
+
+
+def sm_clock_hz() -> float:
+    """The SM clock the exponential bound assumes: the card's maximum, as
+    nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def ce_bound(nbytes: float, products: float, exps: float, dtype: str, clock_hz: float):
+    """(ms, bound_by, term): the largest of the bytes over the memory rate,
+    the products over the dtype's peak and the exponentials over 16 a clock
+    per SM on 132 SMs."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, "products": products / PEAK_OPS[dtype],
+             "exponentials": exps / (EXP_PER_CLOCK_PER_SM * SMS * clock_hz)}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, ("bytes" if term == "bytes" else "operations"), term
+
+
+def ce_phase(torch, ck, softmax_ce_integer, clock_hz: float):
+    """The three CE kernels against their plain versions at bench.py's head,
+    the flagship head and a ragged row count, f32 and bf16, with ~15% of
+    rows ignored (label 0, cotangent 0): loss and lse, then dx, dW and db
+    from the plain lse. Times of each kernel, of the plain forward and
+    backward, and of the unfused head (cuBLAS product plus
+    ``softmax_ce_integer``; its backward by ``autograd.grad`` over a retained
+    graph); each kernel's bound."""
+    rows = []
+    for name, (r, c, v) in CE_SHAPES:
+        gen = torch.Generator().manual_seed(r + c + v)
+        w = ((torch.rand(c, v, generator=gen) * 2 - 1) * c**-0.5).cuda()
+        b = ((torch.rand(v, generator=gen) * 2 - 1) * c**-0.5).cuda()
+        valid = torch.rand(r, generator=gen) >= 0.15
+        labels = torch.where(valid, torch.randint(0, v, (r,), generator=gen), 0).cuda()
+        g = (valid.float() / valid.sum()).cuda()
+        x32 = torch.randn(r, c, generator=gen)
+        ignored = (~valid).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            x = x32.to("cuda", dtype)
+            loss, lse = ck.linear_ce_fwd(x, w, b, labels)
+            ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+            fwd_err = check(f"ce loss {name} {dt}", loss, ref_loss, dt)
+            lse_rel = check_stats(f"ce lse {name} {dt}", lse, ref_lse)
+            dx = ck.linear_ce_bwd_dx(x, w, b, labels, ref_lse, g)
+            dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, ref_lse, g)
+            ref_dx, ref_dw, ref_db = ck.linear_ce_bwd_reference(x, w, b, labels, ref_lse, g)
+            dx_err = check(f"ce dx {name} {dt}", dx, ref_dx, dt)
+            dw_err = max(check(f"ce dW {name} {dt}", dw, ref_dw, dt),
+                         check(f"ce db {name} {dt}", db, ref_db, dt))
+            if dx[ignored].any():
+                raise AssertionError(f"ce {name} {dt}: dx of an ignored row is not 0")
+            item = x.element_size()
+            inputs = item * r * c + 4 * c * v + 4 * v + 4 * r  # x, W, b, labels (int32)
+            bounds = {
+                "fwd": ce_bound(inputs + 8 * r, 2 * r * c * v, r * v, dt, clock_hz),
+                "dx": ce_bound(inputs + 8 * r + item * r * c, 4 * r * c * v, r * v, dt,
+                               clock_hz),
+                "dw": ce_bound(inputs + 8 * r + 4 * c * v + 4 * v, 4 * r * c * v, r * v, dt,
+                               clock_hz),
+            }
+            leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+            unfused = softmax_ce_integer(leaves[0] @ leaves[1].to(dtype) + leaves[2].to(dtype),
+                                         labels)
+            row = dict(
+                kernel="linear_ce", shape=name, dims=[r, c, v], dtype=dt,
+                ignored_rows=int(ignored.sum()), fwd_max_abs_err=fwd_err,
+                lse_max_rel_err=lse_rel, dx_max_abs_err=dx_err, dw_max_abs_err=dw_err,
+                fwd_ms=time_ms(lambda: ck.launch_fwd(x, w, b, labels)),
+                dx_ms=time_ms(lambda: ck.launch_bwd_dx(x, w, b, labels, ref_lse, g)),
+                dw_ms=time_ms(lambda: ck.launch_bwd_dw(x, w, b, labels, ref_lse, g)),
+                plain_fwd_ms=time_ms(lambda: ck.linear_ce_fwd_reference(x, w, b, labels), 3),
+                plain_bwd_ms=time_ms(lambda: ck.linear_ce_bwd_reference(x, w, b, labels,
+                                                                        ref_lse, g), 3),
+                library_fwd_ms=time_ms(lambda: softmax_ce_integer(
+                    x @ w.to(dtype) + b.to(dtype), labels)),
+                library_bwd_ms=time_ms(lambda: torch.autograd.grad(unfused, leaves, g,
+                                                                   retain_graph=True)),
+                sm_clock_mhz=clock_hz / 1e6,
+                **{f"{k}_bound_{f}": val for k, bnd in bounds.items()
+                   for f, val in zip(("ms", "by", "term"), bnd)})
+            log(**row)
+            rows.append(row)
+            del x, loss, lse, ref_loss, ref_lse, dx, dw, db, ref_dx, ref_dw, ref_db, leaves, unfused
+    return rows
 
 
 def main() -> int:
@@ -610,15 +831,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from perceiver_io_torch.cli import train_mlm
     from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
     from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
     from perceiver_io_torch.inference.engine import MLMServer
     from perceiver_io_torch.models import presets
     from perceiver_io_torch.ops import attention_kernel as ak
     from perceiver_io_torch.ops import build
+    from perceiver_io_torch.ops import ce_kernel as ck
     from perceiver_io_torch.ops import qmatmul as qm
     from perceiver_io_torch.ops.attention import Linear, MultiHeadAttention
     from perceiver_io_torch.quant.int8 import QKernel, pack_int4, quantize_array
+    from perceiver_io_torch.training.losses import softmax_ce_integer
     from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
     from perceiver_io_torch.training.steps import make_mlm_steps
     from perceiver_io_torch.training.train_state import TrainState
@@ -636,6 +860,8 @@ def main() -> int:
     attn_rows = attention_phase(torch, ak)
     bwd_rows = attention_bwd_phase(torch, ak)
     deq_rows = dequant_phase(torch, qm, QKernel, pack_int4, quantize_array)
+    clock_hz = sm_clock_hz()
+    ce_rows = ce_phase(torch, ck, softmax_ce_integer, clock_hz)
 
     trained = WordPieceTokenizer()
     trained.train_from_iterator(synthetic_reviews(2000, seed=0)[0], 10003)
@@ -646,9 +872,10 @@ def main() -> int:
     tokenizer = WordPieceTokenizer(vocab=vocab)
     texts = masked_texts(synthetic_reviews)
     port = dict(presets=presets, MLMServer=MLMServer, MultiHeadAttention=MultiHeadAttention,
-                Linear=Linear, ak=ak, make_optimizer=make_optimizer,
+                Linear=Linear, ak=ak, ck=ck, make_optimizer=make_optimizer,
                 OptimizerConfig=OptimizerConfig, TrainState=TrainState,
-                make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig)
+                make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig,
+                train_mlm=train_mlm)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
 
@@ -657,11 +884,14 @@ def main() -> int:
                               batch_size=TRAIN_BATCH, synthetic=True, seed=0)
         data.prepare_data()
         data.setup()
-        train_launches = training_phase(torch, port, data, f"{root}/logs")
+        path_launches = [training_phase(torch, port, data, f"{root}/logs")]
         train_parity_phase(torch, port, data)
-    launches["attention_fwd"] += train_launches["attention_fwd"]
-    launches.update(attention_bwd_dq=train_launches["attention_bwd_dq"],
-                    attention_bwd_dkv=train_launches["attention_bwd_dkv"])
+        path_launches.append(training_phase(torch, port, data, f"{root}/logs_c64",
+                                            "flagship_mlm", "pallas"))
+        cli_phase(torch, port, root)
+        train_parity_phase(torch, port, data, "flagship_mlm", "pallas")
+    for name in KERNEL_NAMES:
+        launches[name] = launches.get(name, 0) + sum(p[name] for p in path_launches)
 
     def entry(rows, name, source, replaces, pick, ms="kernel_ms", bound="bound"):
         row = next(r for r in rows if pick(r))
@@ -688,6 +918,25 @@ def main() -> int:
               lambda r: r["shape"] == "self_proj" and r["quant"] == "int8"
               and r["dtype"] == "bfloat16"),
     ]
+    # the CE kernels at bench.py's head in bf16; plain_ms and library_ms of
+    # the two backward kernels are those of the whole backward (the plain
+    # version and the unfused head's autograd compute dx, dW and db in one call)
+    head = next(r for r in ce_rows if r["shape"] == "bench_head" and r["dtype"] == "bfloat16")
+    for name, part, replaces, plain, library in (
+            ("linear_ce_fwd", "fwd", 95, "plain_fwd_ms", "library_fwd_ms"),
+            ("linear_ce_bwd_dx", "dx", 143, "plain_bwd_ms", "library_bwd_ms"),
+            ("linear_ce_bwd_dw", "dw", 161, "plain_bwd_ms", "library_bwd_ms")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"perceiver_io_torch/csrc/linear_ce_{'fwd' if part == 'fwd' else 'bwd'}.cu",
+            replaces=f"perceiver_io_tpu/ops/pallas_ce.py:{replaces}",
+            launches=launches[name], max_abs_err=head[f"{part}_max_abs_err"],
+            ms=head[f"{part}_ms"], plain_ms=head[plain], bound_ms=head[f"{part}_bound_ms"],
+            bound_by=head[f"{part}_bound_by"], library_ms=head[library], shape=head["shape"],
+            dims=head["dims"], dtype=head["dtype"]))
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels the main paths never launched: {missing}")
     log(phase="done", total_s=time.perf_counter() - t_start)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

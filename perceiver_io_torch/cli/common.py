@@ -29,6 +29,9 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--num_self_attention_layers_per_block", type=int, default=6)
     g.add_argument("--dropout", type=float, default=0.0,
                    help="only 0 is ported (ROADMAP Queue 1 item 2)")
+    g.add_argument("--pad_vocab_multiple", type=int, default=None,
+                   help="round the vocab projection width up to this multiple (padded "
+                        "logits pinned to -1e30)")
 
 
 def add_optimizer_args(parser: argparse.ArgumentParser) -> None:
@@ -97,4 +100,5 @@ def build_mlm(args, vocab_size: int, max_seq_len: int, device):
         vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=args.num_latents,
         num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
         num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
-        dtype=DTYPES[args.dtype], device=device, seed=args.seed)
+        dtype=DTYPES[args.dtype], device=device, seed=args.seed,
+        pad_classes_to=args.pad_vocab_multiple)

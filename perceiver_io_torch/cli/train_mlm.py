@@ -10,9 +10,12 @@ channels (head depth 128). The model's vocab is ``--vocab_size``: the
 tokenizer trains at most that many pieces, so every id it emits has a row
 (on the small synthetic corpus most rows go unused, and the head keeps the
 configured width). Masked positions decode through the gathered head at
-``--loss_gather_capacity`` (-1 = ``mlm_gather_capacity``) into the unfused
-vocab head: ``--fused_head auto`` resolves to ``off``, as the JAX package's
-does at C > 128, and ``pallas`` is the next slice. Runs on the CUDA card;
+``--loss_gather_capacity`` (-1 = ``mlm_gather_capacity``) into the vocab
+head: ``--fused_head pallas`` is the CE kernels, ``xla`` the chunked
+plain-PyTorch head, ``off`` the unfused head, and ``auto`` (the default)
+resolves to ``pallas`` on the CUDA card at C <= 128 and to ``off`` otherwise,
+as the JAX package's rule does with its accelerator (so ``reference`` trains
+through the CE kernels, ``flagship_tpu`` unfused). Runs on the CUDA card;
 ``--cpu`` runs the kernels' plain versions. Writes ``metrics.jsonl`` under
 ``<logdir>/mlm/version_n``.
 """
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
+
+import torch
 
 from perceiver_io_torch.cli import common
 from perceiver_io_torch.data.imdb import IMDBDataModule
@@ -55,20 +60,28 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--loss_gather_capacity", type=int, default=-1,
                    help="decode only the masked positions, up to this many per row; "
                         "-1 = auto (2·mask_p·seq_len), 0 = full decode")
-    g.add_argument("--fused_head", choices=["auto", "pallas", "off"], default="auto",
-                   help="auto = off (the unfused head; the JAX package picks it at "
-                        "C > 128); pallas = the fused CE kernels, not ported yet")
+    g.add_argument("--fused_head", choices=["auto", "pallas", "xla", "off"], default="auto",
+                   help="fuse the vocab projection into the CE: pallas = the CE kernels, "
+                        "xla = the chunked plain-PyTorch head, off = unfused; auto = "
+                        "pallas on the CUDA card at C <= 128, else off")
     return parser
+
+
+def resolve_fused_head(choice: str, device, num_latent_channels: int) -> str:
+    """``--fused_head`` as the run takes it: ``auto`` is ``pallas`` on the
+    CUDA card at C <= 128 and ``off`` elsewhere (the JAX package's rule,
+    with the card in its accelerator's place)."""
+    if choice != "auto":
+        return choice
+    on_card = torch.device(device).type == "cuda"
+    return "pallas" if on_card and num_latent_channels <= 128 else "off"
 
 
 def main(argv: Optional[Sequence[str]] = None):
     args = apply_preset(build_parser().parse_args(argv))
     common.check_dropout(args)
-    if args.fused_head == "pallas":
-        raise SystemExit(
-            "--fused_head pallas: the fused vocab-head cross-entropy kernels (#6-#8) "
-            "are the next slice of the port (ROADMAP Queue 2 item 1); use off")
     device = resolve_device("cpu" if args.cpu else None)
+    fused = resolve_fused_head(args.fused_head, device, args.num_latent_channels)
 
     data = IMDBDataModule(root=args.root, max_seq_len=args.max_seq_len,
                           vocab_size=args.vocab_size, batch_size=args.batch_size,
@@ -82,8 +95,9 @@ def main(argv: Optional[Sequence[str]] = None):
     capacity = args.loss_gather_capacity
     if capacity < 0:
         capacity = mlm_gather_capacity(args.max_seq_len)
-    train_step, eval_step, _ = make_mlm_steps(model, schedule,
-                                              loss_gather_capacity=capacity or None)
+    train_step, eval_step, _ = make_mlm_steps(
+        model, schedule, loss_gather_capacity=capacity or None,
+        fused_head={"pallas": "pallas", "xla": True, "off": False}[fused])
     trainer = Trainer(train_step, eval_step, state, common.trainer_config(args, "mlm"),
                       tokens_per_example=args.max_seq_len)
     trainer.fit(data.train_dataloader(), data.val_dataloader())

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceiver_io_torch.ops.attention import Linear
+from perceiver_io_torch.ops.ce_kernel import linear_ce_integer
 
 
 class TextEmbedding(nn.Module):
@@ -74,7 +75,12 @@ class ClassificationOutputAdapter(nn.Module):
 
     ``pad_classes_to`` rounds the projection width up to a multiple, with
     the extra logits pinned to ``-1e30`` so no softmax, argmax or top-k
-    picks them."""
+    picks them.
+
+    ``linear_ce`` is the fused head's per-position CE (the CE kernels on a
+    CUDA tensor); the plain version can be put in its place on an instance."""
+
+    linear_ce = staticmethod(linear_ce_integer)
 
     def __init__(self, num_classes: int = 2, num_outputs: int = 1,
                  num_output_channels: Optional[int] = None, dtype=torch.float32,
@@ -103,6 +109,21 @@ class ClassificationOutputAdapter(nn.Module):
         if m < 1:
             raise ValueError(f"pad_classes_to must be >= 1, got {m}")
         return -(-self.num_classes // m) * m
+
+    def masked_head(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(kernel, bias) of the linear head with the padded classes masked
+        out of the bias (``-1e9``, as the JAX package's ``masked_head``): what
+        a caller that fuses the head into the loss uses instead of applying
+        this adapter. The padded columns vanish from any softmax and get zero
+        gradient."""
+        if self.linear.kernel is None:
+            raise ValueError("the fused head needs the float kernel, not a quantized one")
+        kernel, bias = self.linear.kernel, self.linear.bias
+        if self.padded_num_classes != self.num_classes:
+            col = torch.arange(bias.shape[-1], device=bias.device)
+            bias = torch.where(col < self.num_classes, bias,
+                               torch.tensor(-1e9, dtype=bias.dtype, device=bias.device))
+        return kernel, bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.linear(x)

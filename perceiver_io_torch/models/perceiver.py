@@ -14,6 +14,7 @@ counterparts of ``perceiver_io_tpu/models/perceiver.py``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -103,9 +104,12 @@ class PerceiverDecoder(nn.Module):
         self.cross_attention_layer = CrossAttentionLayer(
             output_shape[-1], latent_shape[1], num_cross_attention_heads, dtype)
 
-    def forward(self, x, positions: Optional[torch.Tensor] = None):
+    def forward(self, x, positions: Optional[torch.Tensor] = None,
+                return_features: bool = False):
         """``positions``: optional (B, K) int — decode only these rows of
-        the output-query array."""
+        the output-query array. ``return_features`` skips the output adapter
+        and returns the (B, K, C) decoder stream, for a caller that fuses the
+        head into the loss."""
         b, *d = x.shape
         if tuple(d) != self.latent_shape:
             raise ValueError(
@@ -116,6 +120,8 @@ class PerceiverDecoder(nn.Module):
         else:
             x_output = self.output.to(self.dtype).expand(b, *self.output.shape)
         x_output, _ = self.cross_attention_layer(x_output, x)
+        if return_features:
+            return x_output
         return self.output_adapter(x_output)
 
 
@@ -132,8 +138,10 @@ class PerceiverMLM(nn.Module):
     def forward(self, x_input: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 masking: bool = False, positions: Optional[torch.Tensor] = None,
                 loss_gather_capacity: Optional[int] = None,
-                generator: Optional[torch.Generator] = None):
-        """``(logits, labels)``.
+                generator: Optional[torch.Generator] = None,
+                return_features: bool = False):
+        """``(logits, labels)``; with ``return_features`` the decoder's
+        (B, K, C) features in the logits' place (the fused head's input).
 
         Serving (``masking=False``): (B, L, vocab) logits, or (B, K, vocab)
         at the (B, K) ``positions``; labels None.
@@ -158,8 +166,10 @@ class PerceiverMLM(nn.Module):
         else:
             x_masked, labels = x_input, None
         x_latent = self.encoder(x_masked, pad_mask)
+        decode = (functools.partial(self.decoder, return_features=True) if return_features
+                  else self.decoder)
         if positions is not None:
-            return self.decoder(x_latent, positions), None
+            return decode(x_latent, positions), None
         if masking and loss_gather_capacity is not None:
             capacity = min(loss_gather_capacity, l)
             # stable, so ties keep index order: jax.lax.top_k's order on the
@@ -167,19 +177,20 @@ class PerceiverMLM(nn.Module):
             valid = (labels != IGNORE_LABEL).to(torch.int32)
             order = torch.sort(valid, dim=1, descending=True, stable=True).indices
             gather = order[:, :capacity]
-            return self.decoder(x_latent, gather), torch.gather(labels, 1, gather)
-        return self.decoder(x_latent)[:, :l, :], labels
+            return decode(x_latent, gather), torch.gather(labels, 1, gather)
+        return decode(x_latent)[:, :l, :], labels
 
     def encode(self, x_input: torch.Tensor,
                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoder half: token ids → (B, N, C) latents."""
         return self.encoder(x_input, pad_mask)
 
-    def decode(self, x_latent: torch.Tensor,
-               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def decode(self, x_latent: torch.Tensor, positions: Optional[torch.Tensor] = None,
+               return_features: bool = False) -> torch.Tensor:
         """Decoder half over cached latents: (B, K) ``positions`` → (B, K,
-        vocab) logits (None = the full max_seq_len decode)."""
-        return self.decoder(x_latent, positions)
+        vocab) logits (None = the full max_seq_len decode), or the (B, K, C)
+        features with ``return_features``."""
+        return self.decoder(x_latent, positions, return_features)
 
 
 @torch.no_grad()

@@ -7,6 +7,8 @@ no ``device`` it goes to the CUDA card and raises when there is none.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from perceiver_io_torch.device import resolve_device
@@ -23,11 +25,13 @@ from perceiver_io_torch.ops.masking import TextMasking
 def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
                  num_latents: int = 256, num_channels: int = 64, num_layers: int = 3,
                  num_self_attention_layers_per_block: int = 6,
-                 dtype=torch.float32, device=None, seed: int = 0) -> PerceiverMLM:
+                 dtype=torch.float32, device=None, seed: int = 0,
+                 pad_classes_to: Optional[int] = None) -> PerceiverMLM:
     """The reference train_mlm shapes: 512-token sequences, 256 latents,
     3 encoder layers × (cross-attention + 6-layer self-attention block),
     text in/out adapters, C=64 (4 heads of depth 16); masking with [UNK] 1,
-    [MASK] 2 and 3 special tokens, as the tokenizer lays them out."""
+    [MASK] 2 and 3 special tokens, as the tokenizer lays them out.
+    ``pad_classes_to`` rounds the vocab head's width up to a multiple."""
     device = resolve_device(device)
     latent_shape = (num_latents, num_channels)
     model = PerceiverMLM(
@@ -39,7 +43,7 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
         decoder=PerceiverDecoder(
             output_adapter=TextOutputAdapter(
                 vocab_size, max_seq_len, num_output_channels=num_channels,
-                dtype=dtype),
+                dtype=dtype, pad_classes_to=pad_classes_to),
             latent_shape=latent_shape, dtype=dtype),
         masking=TextMasking(vocab_size, unk_token_id=1, mask_token_id=2,
                             num_special_tokens=3),

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them through ``ctypes``.
 
-Every ``csrc/*.cu`` source has a plain C interface (pointers, ints and a
-stream; the return value is the launch's ``cudaError_t``), so the build needs
+Every ``csrc/*.cu`` source (with the ``*.cuh`` headers it includes) has a
+plain C interface (pointers, ints and a stream; the return value is the
+launch's ``cudaError_t``), so the build needs
 no PyTorch headers: each source compiles to an object in parallel, and the
 objects link into one shared library under ``perceiver_io_torch/_build/``,
 named by a digest of the sources and flags so a changed source never loads a
@@ -39,6 +40,9 @@ _SIGNATURES = {
                          + [_c_i64] * 12 + [_c_ptr],
     "dequant_matmul": [_c_int, _c_int, _c_int] + [_c_ptr] * 4 + [_c_int] * 3
                       + [_c_ptr],
+    "linear_ce_fwd": [_c_int] + [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr],
+    "linear_ce_bwd_dx": [_c_int] + [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
+    "linear_ce_bwd_dw": [_c_int] + [_c_ptr] * 8 + [_c_int] * 3 + [_c_ptr],
 }
 
 _lock = threading.Lock()
@@ -78,7 +82,7 @@ def sources() -> list:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libperceiver_kernels-{digest.hexdigest()[:16]}.so"

@@ -12,7 +12,11 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from perceiver_io_torch.training.losses import cross_entropy_with_ignore
+from perceiver_io_torch.training.losses import (
+    cross_entropy_with_ignore,
+    fused_linear_cross_entropy_with_ignore,
+    pallas_linear_cross_entropy_with_ignore,
+)
 from perceiver_io_torch.training.train_state import TrainState
 
 Metrics = Dict[str, object]
@@ -49,20 +53,30 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
       ``masking=False`` forward's logits.
 
     ``loss_gather_capacity`` decodes only the masked positions, up to that
-    many per row. ``fused_head`` other than False is the fused vocab-head
-    cross-entropy (the CE kernels), which the port does not have yet."""
-    if fused_head is not False:
-        raise ValueError(
-            f"fused_head={fused_head!r}: the fused vocab-head cross-entropy (the "
-            f"flash-CE kernels) is the next slice of the port (ROADMAP Queue 2 "
-            f"item 1); use fused_head=False")
+    many per row. ``fused_head`` fuses the vocab projection into the CE, so
+    the (B, K, V) logits never exist in train and eval: ``'pallas'`` through
+    the CE kernels (``ops/ce_kernel.py``, the output adapter's
+    ``linear_ce``), ``True`` through the chunked plain-PyTorch head
+    (``fused_linear_cross_entropy_with_ignore``), ``False`` the unfused head.
+    Both fused heads take the adapter's ``masked_head()``; predict is
+    unaffected."""
+    if fused_head not in (False, True, "pallas"):
+        raise ValueError(f"fused_head must be False, True or 'pallas', got {fused_head!r}")
     device = next(model.parameters()).device
 
     def loss_fn(batch, generator):
         ids, pad = _batch_to(batch, device)
-        logits, labels = model(ids, pad, masking=True, generator=generator,
-                               loss_gather_capacity=loss_gather_capacity)
-        return cross_entropy_with_ignore(logits, labels)
+        out, labels = model(ids, pad, masking=True, generator=generator,
+                            loss_gather_capacity=loss_gather_capacity,
+                            return_features=bool(fused_head))
+        if not fused_head:
+            return cross_entropy_with_ignore(out, labels)
+        adapter = model.decoder.output_adapter
+        kernel, bias = adapter.masked_head()
+        if fused_head == "pallas":
+            return pallas_linear_cross_entropy_with_ignore(out, kernel, bias, labels,
+                                                           linear_ce=adapter.linear_ce)
+        return fused_linear_cross_entropy_with_ignore(out, kernel, bias, labels)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
         metrics = {} if schedule is None else {"lr": schedule(state.step)}

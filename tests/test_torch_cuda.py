@@ -10,8 +10,10 @@ toolkit (the JAX-side conftest is not needed there):
 The attention forward (with and without its (m, l) statistics), the dq and
 dk/dv backward kernels (every supported head dim, f32 and bf16, a fully
 masked example whose dq and dk must be exactly zero), autograd through
-``fused_attention`` against the plain versions, and the dequant matmul.
-Tolerances against the plain version: f32 within 1e-4 of the reference's
+``fused_attention`` against the plain versions, the dequant matmul, and the
+fused CE kernels (forward, dx, dW/db at a small, a ragged and a C=512
+shape; autograd through ``linear_ce_integer``; the tiny train step with
+``fused_head='pallas'``). Tolerances against the plain version: f32 within 1e-4 of the reference's
 peak magnitude (sums taken in another order), bf16 within 2e-2 (bf16
 rounding of the probabilities / dequantized weights at other points); the
 statistics within 1e-5 (f32 on both sides).
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from perceiver_io_torch.ops import attention_kernel as ak
+from perceiver_io_torch.ops import ce_kernel as ck
 from perceiver_io_torch.ops import qmatmul as qm
 from perceiver_io_torch.quant.int8 import pack_int4, quantize_array
 
@@ -150,6 +153,58 @@ def test_dequant_kernel_matches_plain(card, dtype, bits, group_size, m, k, n):
     _close(got, qm.dequant_matmul_reference(x, q, scale, bits, gs), dtype)
 
 
+def _ce_inputs(card, dtype, r, c, v, seed=0):
+    g = torch.Generator().manual_seed(seed + r + c + v)
+    x = torch.randn(r, c, generator=g).to(card, dtype)
+    w = ((torch.rand(c, v, generator=g) * 2 - 1) * c**-0.5).to(card)
+    b = (torch.randn(v, generator=g) * 0.1).to(card)
+    labels = torch.randint(0, v, (r,), generator=g)
+    valid = torch.rand(r, generator=g) >= 0.15
+    cot = torch.where(valid, torch.rand(r, generator=g), 0.0)
+    return x, w, b, torch.where(valid, labels, 0).to(card), cot.to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c,v", [(128, 64, 1000), (37, 72, 259), (70, 512, 301),
+                                   (33, 8, 5)])
+def test_ce_kernels_match_plain(card, dtype, r, c, v):
+    x, w, b, labels, g = _ce_inputs(card, dtype, r, c, v)
+    counters = (ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+    before = [n.launches for n in counters]
+    loss, lse = ck.linear_ce_fwd(x, w, b, labels)
+    ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+    _close(loss, ref_loss, dtype)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    dx = ck.linear_ce_bwd_dx(x, w, b, labels, ref_lse, g)
+    dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, ref_lse, g)
+    assert [n.launches - m for n, m in zip(counters, before)] == [1, 1, 1]
+    refs = ck.linear_ce_bwd_reference(x, w, b, labels, ref_lse, g)
+    for got, ref in zip((dx, dw, db), refs):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        _close(got, ref, dtype)
+    ignored = g == 0  # rows that carry no cotangent add exactly nothing
+    assert not dx[ignored].any()
+
+
+def test_ce_autograd_runs_the_kernels(card):
+    x, w, b, labels, g = _ce_inputs(card, torch.float32, 100, 64, 777)
+    counters = (ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+    grads = []
+    for fn in (ck.linear_ce_integer, ck.plain_linear_ce_integer):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        before = [n.launches for n in counters]
+        fn(*leaves, labels).backward(g)
+        expect = [1, 1, 1] if fn is ck.linear_ce_integer else [0, 0, 0]
+        assert [n.launches - m for n, m in zip(counters, before)] == expect
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        _close(got, ref, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8 up to 512"):
+        ck.linear_ce_fwd(torch.zeros(4, 520, device=card), torch.zeros(520, 9, device=card),
+                         torch.zeros(9, device=card), torch.zeros(4, dtype=torch.int64,
+                                                                  device=card))
+
+
 def test_train_step_on_the_card_matches_plain(card):
     """One f32 train step of the tiny model on the card, with the kernels and
     with the plain versions in their place: the same loss and gradients; 5
@@ -180,6 +235,46 @@ def test_train_step_on_the_card_matches_plain(card):
         _, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         assert [c.launches - b for c, b in zip(counters, before)] == [0 if plain else 5] * 3
+        runs.append((float(metrics["loss"]),
+                     {n: p.grad.detach().clone() for n, p in model.named_parameters()}))
+    (loss, grads), (ref_loss, ref_grads) = runs
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, ref in ref_grads.items():
+        if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
+            assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
+
+
+def test_fused_head_train_step_on_the_card_matches_plain(card):
+    """The same with ``fused_head='pallas'``: one CE forward, dx and dW
+    launch with the kernels, none with the plain versions in their place."""
+    from perceiver_io_torch.models.presets import tiny_mlm
+    from perceiver_io_torch.ops.attention import MultiHeadAttention
+    from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
+    from perceiver_io_torch.training.steps import make_mlm_steps
+    from perceiver_io_torch.training.train_state import TrainState
+
+    rng = np.random.default_rng(1)
+    batch = {"token_ids": rng.integers(3, 503, (4, 64)).astype(np.int32),
+             "pad_mask": np.zeros((4, 64), bool)}
+    counters = (ak.counter, ak.dq_counter, ak.dkv_counter,
+                ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+    runs = []
+    for plain in (False, True):
+        model = tiny_mlm(device=card, seed=1)
+        if plain:
+            for module in model.modules():
+                if isinstance(module, MultiHeadAttention):
+                    module.attention = ak.plain_attention
+            model.decoder.output_adapter.linear_ce = ck.plain_linear_ce_integer
+        optimizer, schedule = make_optimizer(OptimizerConfig(), model.parameters())
+        state = TrainState.create(model, optimizer, schedule, seed=3)
+        train_step, _, _ = make_mlm_steps(model, schedule, loss_gather_capacity=32,
+                                          fused_head="pallas")
+        before = [c.launches for c in counters]
+        _, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        expect = [0] * 6 if plain else [5, 5, 5, 1, 1, 1]
+        assert [c.launches - b for c, b in zip(counters, before)] == expect
         runs.append((float(metrics["loss"]),
                      {n: p.grad.detach().clone() for n, p in model.named_parameters()}))
     (loss, grads), (ref_loss, ref_grads) = runs

@@ -1,8 +1,9 @@
 """The port's training entry point and its data on the CPU: the IMDB data
 module gives the JAX package's batches (same tokenizer ids, same seeded
 shuffle), the trainer writes ``metrics.jsonl``, and the CLI trains a tiny
-model with ``--cpu``, needs a card without it, and raises on what the port
-does not have yet (``--fused_head pallas``, ``--dropout``)."""
+model with ``--cpu`` (each ``--fused_head``, a padded vocab head), resolves
+``--fused_head auto`` by device and width, needs a card without ``--cpu``,
+and raises on what the port does not have yet (``--dropout``)."""
 
 import json
 
@@ -13,6 +14,7 @@ import torch
 from perceiver_io_tpu.data.imdb import IMDBDataModule as JaxIMDBDataModule
 from perceiver_io_torch.cli import train_mlm
 from perceiver_io_torch.data.imdb import IMDBDataModule
+from perceiver_io_torch.ops import ce_kernel as ck
 
 TINY = ["--preset", "reference", "--synthetic", "--batch_size", "32", "--max_seq_len", "48", "--vocab_size", "300",
         "--num_latents", "8", "--num_latent_channels", "16", "--num_encoder_layers", "2",
@@ -56,13 +58,43 @@ def test_cli_trains_on_the_cpu_and_writes_metrics(tmp_path):
 def test_cli_needs_a_card_and_refuses_what_is_not_ported(tmp_path, monkeypatch):
     args = TINY + ["--max_steps", "1", "--root", str(tmp_path),
                    "--logdir", str(tmp_path / "logs")]
-    with pytest.raises(SystemExit, match="ROADMAP Queue 2"):
-        train_mlm.main(args + ["--cpu", "--fused_head", "pallas"])
     with pytest.raises(SystemExit, match="ROADMAP Queue 1"):
         train_mlm.main(args + ["--cpu", "--dropout", "0.1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_mlm.main(args)
+
+
+@pytest.mark.parametrize("flags,ce_calls", [(["--fused_head", "pallas"], 1),
+                                            (["--fused_head", "xla"], 0),
+                                            (["--pad_vocab_multiple", "128"], 0)])
+def test_cli_trains_the_fused_heads_and_a_padded_vocab(tmp_path, flags, ce_calls):
+    """One step with each fused head, and with the vocab head padded to a
+    multiple of 128 (``--cpu`` resolves ``auto`` to the unfused head): a
+    finite loss; ``pallas`` goes through the CE kernels' wrappers (their
+    plain versions on the CPU), ``xla`` and the unfused head do not."""
+    counters = (ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+    for c in counters:
+        c.reset()
+    run_dir = train_mlm.main(TINY + ["--cpu", "--max_steps", "1", "--root", str(tmp_path),
+                                     "--logdir", str(tmp_path / "logs")] + flags)
+    rows = [json.loads(line) for line in open(f"{run_dir}/metrics.jsonl")]
+    assert np.isfinite([r["train_loss"] for r in rows if "train_loss" in r]).all()
+    assert np.isfinite([r["val_loss"] for r in rows if "val_loss" in r]).all()
+    assert [c.plain_calls for c in counters][1:] == [ce_calls] * 2
+    assert counters[0].plain_calls >= ce_calls and not any(c.launches for c in counters)
+
+
+def test_fused_head_auto_resolves_by_device_and_width():
+    """``auto``: the CE kernels on the CUDA card at C <= 128, the unfused
+    head on the CPU or at C > 128; an explicit choice stands."""
+    resolve = train_mlm.resolve_fused_head
+    assert resolve("auto", torch.device("cuda"), 64) == "pallas"
+    assert resolve("auto", "cuda:0", 128) == "pallas"
+    assert resolve("auto", torch.device("cuda"), 512) == "off"
+    assert resolve("auto", torch.device("cpu"), 64) == "off"
+    assert resolve("pallas", torch.device("cpu"), 512) == "pallas"
+    assert resolve("xla", torch.device("cuda"), 64) == "xla"
 
 
 def test_presets_fill_only_the_unset_widths():

@@ -13,7 +13,11 @@ mode through ``attn_impl='pallas'``), at the tiny preset:
 - the bf16 train step's loss within 5e-4 relative (bf16 rounds at other
   points in the two frameworks; on this input the gap is an order of
   magnitude below the bound);
-- the attention call counts of one step at the flagship depth.
+- the fused heads (``fused_head='pallas'``, the CE kernels' plain versions
+  against the Pallas kernels in interpret mode, and ``True``, the chunked
+  head): the f32 step at the same bars as the unfused one, the bf16 step's
+  loss within 5e-4 relative;
+- the attention and CE call counts of one step at the flagship depth.
 """
 
 import jax
@@ -32,6 +36,7 @@ from perceiver_io_tpu.training.steps import make_mlm_steps as jax_make_mlm_steps
 from perceiver_io_torch.interop import from_jax_params
 from perceiver_io_torch.models.presets import tiny_mlm
 from perceiver_io_torch.ops import attention_kernel as ak
+from perceiver_io_torch.ops import ce_kernel as ck
 from perceiver_io_torch.ops.masking import IGNORE_LABEL, TextMasking
 from perceiver_io_torch.training import losses, optim
 from perceiver_io_torch.training.steps import make_mlm_steps, mlm_gather_capacity
@@ -200,21 +205,40 @@ def _port_state(model, config):
     return TrainState.create(model, optimizer, schedule, seed=2), schedule
 
 
-def test_train_step_loss_and_gradients_match_jax(setup):
-    jmodel, params, batch, masked = setup
-    jmodel, _, _ = _jax_state(jmodel, params, masked, joptim.OptimizerConfig())
+def _jax_loss_fn(jmodel, batch, fused_head):
+    """The loss of the JAX package's ``make_mlm_steps`` train step, as a
+    function of the params (its ``loss_fn``)."""
+    fused_ce = {"pallas": jlosses.pallas_linear_cross_entropy_with_ignore,
+                True: jlosses.fused_linear_cross_entropy_with_ignore}.get(fused_head)
 
     def jloss(p):
-        logits, labels = jmodel.apply({"params": p}, jnp.asarray(batch["token_ids"]),
-                                      jnp.asarray(batch["pad_mask"]),
-                                      rngs={"masking": jax.random.key(0)},
-                                      loss_gather_capacity=CAPACITY)
-        return jlosses.cross_entropy_with_ignore(logits, labels)
+        out, labels = jmodel.apply({"params": p}, jnp.asarray(batch["token_ids"]),
+                                   jnp.asarray(batch["pad_mask"]),
+                                   rngs={"masking": jax.random.key(0)},
+                                   loss_gather_capacity=CAPACITY,
+                                   return_features=bool(fused_head))
+        if fused_ce is None:
+            return jlosses.cross_entropy_with_ignore(out, labels)
+        kernel, bias = jmodel.decoder.output_adapter.masked_head(p["decoder"]["output_adapter"])
+        return fused_ce(out, kernel, bias, labels)
 
-    jval, jgrads = jax.value_and_grad(jloss)(params)
+    return jloss
+
+
+@pytest.mark.parametrize("fused_head", [False, "pallas", True])
+def test_train_step_loss_and_gradients_match_jax(setup, fused_head):
+    jmodel, params, batch, masked = setup
+    jmodel, jstate, _ = _jax_state(jmodel, params, masked, joptim.OptimizerConfig())
+    jval, jgrads = jax.value_and_grad(_jax_loss_fn(jmodel, batch, fused_head))(params)
+    if fused_head:  # the JAX package's own step gives the same loss
+        jstep, _, _ = jax_make_mlm_steps(jmodel, loss_gather_capacity=CAPACITY,
+                                         fused_head=fused_head)
+        _, jmetrics = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        np.testing.assert_allclose(float(jmetrics["loss"]), float(jval), rtol=1e-6)
     model = _port_model(params, masked)
     state, _ = _port_state(model, optim.OptimizerConfig())
-    train_step, _, _ = make_mlm_steps(model, loss_gather_capacity=CAPACITY)
+    train_step, _, _ = make_mlm_steps(model, loss_gather_capacity=CAPACITY,
+                                      fused_head=fused_head)
     _, metrics = train_step(state, batch)
     np.testing.assert_allclose(float(metrics["loss"]), float(jval), rtol=2e-5, atol=2e-5)
     jflat = _flat(jgrads)
@@ -291,22 +315,20 @@ def test_unported_optimizer_options_raise():
     params = [torch.nn.Parameter(torch.zeros(2))]
     with pytest.raises(ValueError, match="not ported"):
         optim.make_optimizer(optim.OptimizerConfig(optimizer="SGD"), params)
-    with pytest.raises(ValueError, match="next slice"):
-        make_mlm_steps(tiny_mlm(device="cpu"), fused_head="pallas")
+    with pytest.raises(ValueError, match="fused_head must be False, True or 'pallas'"):
+        make_mlm_steps(tiny_mlm(device="cpu"), fused_head="xla")
 
 
-def test_bf16_train_step_loss_matches_jax(setup):
+@pytest.mark.parametrize("fused_head", [False, "pallas"])
+def test_bf16_train_step_loss_matches_jax(setup, fused_head):
     jmodel, params, batch, masked = setup
     jmodel = jax_tiny_mlm(attn_impl="pallas", max_seq_len=L, dtype=jnp.bfloat16).clone(
         masking=_Fixed(jnp.asarray(masked[0]), jnp.asarray(masked[1])))
-    logits, labels = jmodel.apply({"params": params}, jnp.asarray(batch["token_ids"]),
-                                  jnp.asarray(batch["pad_mask"]),
-                                  rngs={"masking": jax.random.key(0)},
-                                  loss_gather_capacity=CAPACITY)
-    jval = float(jlosses.cross_entropy_with_ignore(logits, labels))
+    jval = float(_jax_loss_fn(jmodel, batch, fused_head)(params))
     model = _port_model(params, masked, dtype=torch.bfloat16)
     state, _ = _port_state(model, optim.OptimizerConfig())
-    train_step, _, _ = make_mlm_steps(model, loss_gather_capacity=CAPACITY)
+    train_step, _, _ = make_mlm_steps(model, loss_gather_capacity=CAPACITY,
+                                      fused_head=fused_head)
     _, metrics = train_step(state, batch)
     assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
                for p in model.parameters())
@@ -314,24 +336,31 @@ def test_bf16_train_step_loss_matches_jax(setup):
     assert rel <= 5e-4, rel
 
 
-def test_attention_calls_per_train_step_at_flagship_depth():
+@pytest.mark.parametrize("fused_head", [False, "pallas"])
+def test_attention_calls_per_train_step_at_flagship_depth(fused_head):
     """One train step at the flagship depth (3 layers x (cross + 6 self)):
-    22 forward, 22 dq and 22 dk/dv attention calls; on CPU tensors the
-    wrappers count plain calls where the card counts launches."""
+    22 forward, 22 dq and 22 dk/dv attention calls, and with the fused head
+    one CE forward, dx and dW call; an eval step one forward of each. On CPU
+    tensors the wrappers count plain calls where the card counts launches."""
     model = tiny_mlm(num_layers=3, num_self_attention_layers_per_block=6, device="cpu")
     optimizer, schedule = optim.make_optimizer(optim.OptimizerConfig(), model.parameters())
     state = TrainState.create(model, optimizer, schedule, seed=0)
-    train_step, _, _ = make_mlm_steps(model, schedule, loss_gather_capacity=32)
+    train_step, eval_step, _ = make_mlm_steps(model, schedule, loss_gather_capacity=32,
+                                              fused_head=fused_head)
     rng = np.random.default_rng(5)
     batch = {"token_ids": rng.integers(3, 503, (2, 64)).astype(np.int32),
              "pad_mask": np.zeros((2, 64), bool)}
-    counters = (ak.counter, ak.dq_counter, ak.dkv_counter)
+    counters = (ak.counter, ak.dq_counter, ak.dkv_counter,
+                ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
     for c in counters:
         c.reset()
     _, metrics = train_step(state, batch)
-    assert [c.plain_calls for c in counters] == [22, 22, 22]
-    assert [c.launches for c in counters] == [0, 0, 0]
+    ce = 1 if fused_head else 0
+    assert [c.plain_calls for c in counters] == [22, 22, 22, ce, ce, ce]
+    assert [c.launches for c in counters] == [0] * 6
     assert np.isfinite(float(metrics["loss"])) and metrics["lr"] == 1e-3
+    eval_step(state, batch, torch.Generator().manual_seed(0))
+    assert [c.plain_calls for c in counters] == [44, 22, 22, 2 * ce, ce, ce]
 
 
 def test_mlm_gather_capacity_matches_jax():
