@@ -69,11 +69,43 @@ Phases (any failure exits nonzero):
     on the card (their counters advance, no plain version runs);
 12. phase 9 on the C=64 path, the plain attention and CE versions in the
     kernels' place, plus the unfused head with the kernels: its losses within
-    1e-4 relative of the fused head's.
+    1e-4 relative of the fused head's;
+13. the packed-heads kernels (forward, dq, dk/dv) against their plain
+    versions at B=64: the C=64 encoder cross (T, S, E, H) = (256, 512, 64, 4)
+    with ~30% of keys padded and one fully masked example (its dq and dk
+    exactly 0), self (256, 256, 64, 4), the gathered decoder (160, 256, 64,
+    4), the flagship encoder cross (256, 512, 512, 4) and a ragged (250, 509,
+    64, 4), f32 and bf16; times of each kernel, of the plain forward and
+    backward, of SDPA's forward and backward on the head-split views (one
+    library call for the same function; it rounds at other points) and of
+    kernel #1's forward and backward at the same shape; each kernel's bound
+    is the largest of bytes / 3.35 TB/s, its products (4.B.H.T.S.d forward,
+    10.B.H.T.S.d the backward, 6 and 8 of them the dq and dk/dv kernels) /
+    the dtype's peak, and the B.H.T.S exponentials / (16 a clock per SM x
+    132 SMs x the maximum SM clock);
+14. the C=64 path with ``attn_impl='packed'``: phase 10 with every step
+    launching exactly 22 packed forward, 22 packed dq, 22 packed dk/dv and
+    one CE forward, dx and dW kernel and none of the fused attention kernels
+    (each eval batch 22 packed forwards and one CE forward), the loss
+    falling; the window and the profile; then ``attn_impl='pallas'`` on the
+    same model and state, windows and bench.py's batch in turns (packed /
+    pallas / pallas / packed);
+15. phase 9 on the packed path, the plain packed attention and CE versions
+    in the kernels' place, plus the pallas kernels: their losses within 1e-4
+    relative of the packed kernels';
+16. the entry points on the packed path: ``train_mlm --preset reference
+    --synthetic --attn_impl packed``, 5 steps in-process (the packed counters
+    advance, kernels #1-#3 never launch); ``MLMServer`` over
+    ``flagship_mlm(attn_impl='packed')`` fills the texts of phase 6 in bf16
+    with 22 packed forwards per fused forward, and in f32 its top-1 fill of
+    every mask equals that of the same weights under ``'pallas'``.
 
 Each path's launch counters are set to 0 just before its checked
-``Trainer.fit`` and read just after; the ``kernels`` line sums them with the
-serving path's, and the script fails if any kernel was never launched.
+``Trainer.fit`` (or its serving pass) and read just after; the ``kernels``
+line sums them with the serving path's, and the script fails if any kernel
+was never launched. A failure prints one line on stdout naming the phase
+(``chip_smoke: failed in phase ...``) before the nonzero exit; a machine
+without a CUDA card, or a directory without the package, fails so too.
 
 The script re-executes itself with ``PYTHONHASHSEED=0``: the WordPiece
 trainer's merge order follows string hashing, so the pin makes every run
@@ -111,13 +143,26 @@ WINDOW_STEPS, PROFILE_STEPS = 10, 3
 PARITY_SEEDS = (2, 3, 4)
 STAT_TOL = 1e-5
 KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
-                "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw")
+                "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw",
+                "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv")
 # (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
 # the flagship head (C=512), a ragged row count
 CE_SHAPES = (("bench_head", (10240, 64, 10003)), ("flagship_head", (10240, 512, 10003)),
              ("ragged", (10239, 64, 10003)))
 EXP_PER_CLOCK_PER_SM, SMS = 16, 132
 BENCH_STEPS, CLI_STEPS = 10, 5
+# name, (B, T, S, H, D), padded keys: the packed path's attention shapes
+PACKED_SHAPES = (("enc_cross", (64, 256, 512, 4, 16), True),
+                 ("self", (64, 256, 256, 4, 16), False),
+                 ("dec_cross", (64, CAPACITY, 256, 4, 16), False),
+                 ("flagship_enc_cross", (64, 256, 512, 4, 128), True),
+                 ("ragged", (64, 250, 509, 4, 16), True))
+phase_name = "start"  # the phase running now, named in a failure's stdout line
+
+
+def enter(name: str) -> None:
+    global phase_name
+    phase_name = name
 
 
 def log(**fields) -> None:
@@ -348,13 +393,22 @@ def masked_texts(synthetic_reviews, n: int = 200):
     return texts
 
 
-def use_plain_kernels(model, ak, qm, attention_cls, linear_cls) -> None:
+def use_plain_kernels(model, port) -> None:
     """Put the plain versions in the kernels' place on every layer."""
     for module in model.modules():
-        if isinstance(module, attention_cls):
-            module.attention = ak.attention_reference
-        if isinstance(module, linear_cls):
-            module.qmatmul = qm.dequant_matmul_reference
+        if isinstance(module, port["MultiHeadAttention"]):
+            module.attention = port["ak"].attention_reference
+            module.packed_attention = port["pk"].packed_attention_reference
+        if isinstance(module, port["Linear"]):
+            module.qmatmul = port["qm"].dequant_matmul_reference
+
+
+def use_attn_impl(model, port, impl: str) -> None:
+    """Route every attention layer of ``model`` through ``impl``'s kernels
+    (the weights do not depend on it)."""
+    for module in model.modules():
+        if isinstance(module, port["MultiHeadAttention"]):
+            module.attn_impl = impl
 
 
 def serving_phase(torch, ak, qm, port, tokenizer, texts):
@@ -457,7 +511,7 @@ def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
         del kernel
         plain = port["MLMServer"](model, None, tokenizer, 512, bucket_widths=[128, 256, 512],
                                   max_batch=64, quantize=quantize, device="cuda")
-        use_plain_kernels(plain.model, ak, qm, port["MultiHeadAttention"], port["Linear"])
+        use_plain_kernels(plain.model, port)
         before = (ak.counter.launches, qm.counter.launches)
         top_plain = [f[0] for r in plain.fill_masks(texts, k=1) for f in r]
         if (ak.counter.launches, qm.counter.launches) != before:
@@ -471,16 +525,18 @@ def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
 
 
 def train_setup(torch, port, dtype, plain: bool = False, seed: int = 2,
-                preset: str = "flagship_tpu_mlm", fused_head=False):
+                preset: str = "flagship_tpu_mlm", fused_head=False, attn_impl: str = "pallas"):
     """The preset's MLM (weights from seed 0) with Adam at 1e-3 and its train
     state (masking from ``seed``), its steps at capacity 160 with
-    ``fused_head``; with ``plain`` the plain attention and CE versions stand
-    in the kernels' place."""
-    model = port["presets"].PRESETS[preset](dtype=dtype, device="cuda", seed=0)
+    ``fused_head`` and ``attn_impl``; with ``plain`` the plain attention and
+    CE versions stand in the kernels' place."""
+    model = port["presets"].PRESETS[preset](dtype=dtype, device="cuda", seed=0,
+                                            attn_impl=attn_impl)
     if plain:
         for module in model.modules():
             if isinstance(module, port["MultiHeadAttention"]):
                 module.attention = port["ak"].plain_attention
+                module.packed_attention = port["pk"].plain_packed_attention
         model.decoder.output_adapter.linear_ce = port["ck"].plain_linear_ce_integer
     optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](learning_rate=1e-3),
                                                  model.parameters())
@@ -491,15 +547,23 @@ def train_setup(torch, port, dtype, plain: bool = False, seed: int = 2,
 
 
 def path_counters(port):
-    ak, ck = port["ak"], port["ck"]
+    """The counters of KERNEL_NAMES, in that order."""
+    ak, ck, pk = port["ak"], port["ck"], port["pk"]
     return (ak.counter, ak.dq_counter, ak.dkv_counter,
-            ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+            ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter,
+            pk.fwd_counter, pk.dq_counter, pk.dkv_counter)
 
 
-def per_step_launches(fused_head) -> list:
+def per_step_launches(fused_head, attn_impl: str = "pallas") -> list:
     """Launches of one train step, in ``path_counters`` order."""
     ce = 1 if fused_head else 0
-    return [ATTN_PER_FORWARD] * 3 + [ce] * 3
+    fused, packed = (0, ATTN_PER_FORWARD) if attn_impl == "packed" else (ATTN_PER_FORWARD, 0)
+    return [fused] * 3 + [ce] * 3 + [packed] * 3
+
+
+def per_eval_launches(per_step: list) -> list:
+    """Launches of one eval batch: the forward kernels of a train step."""
+    return [per_step[0], 0, 0, per_step[3], 0, 0, per_step[6], 0, 0]
 
 
 def bench_batch(torch):
@@ -512,18 +576,22 @@ def bench_batch(torch):
 
 
 def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
-                   fused_head=False):
+                   fused_head=False, attn_impl: str = "pallas"):
     """The training path: Trainer.fit over TRAIN_STEPS bf16 steps, each one
     checked for its kernel launches, its plain calls and a finite loss; then
-    the unchecked windows. With the fused head, the same window with the
-    unfused head, and both heads timed on bench.py's batch, in turns."""
+    the unchecked windows. With the fused head and the pallas attention, the
+    same window with the unfused head; with the packed attention, the same
+    window with the pallas attention; each pair also timed on bench.py's
+    batch, in turns."""
     counters = path_counters(port)
     names = KERNEL_NAMES
-    per_step = per_step_launches(fused_head)
-    per_eval = [ATTN_PER_FORWARD, 0, 0, per_step[3], 0, 0]
+    per_step = per_step_launches(fused_head, attn_impl)
+    per_eval = per_eval_launches(per_step)
     model, state, (train_step, eval_step, _) = train_setup(torch, port, torch.bfloat16,
                                                            preset=preset,
-                                                           fused_head=fused_head)
+                                                           fused_head=fused_head,
+                                                           attn_impl=attn_impl)
+    label = f"{preset} {attn_impl}"
     losses, step_ms = [], []
 
     def checked_step(state, batch):
@@ -535,11 +603,11 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
         torch.cuda.synchronize()
         got = [c.launches - b for c, b in zip(counters, before)]
         if got != per_step or any(c.plain_calls for c in counters):
-            raise AssertionError(f"{preset} train step {state.step}: launches {got} != "
+            raise AssertionError(f"{label} train step {state.step}: launches {got} != "
                                  f"{per_step}, or a plain version ran")
         loss = float(metrics["loss"])
         if loss != loss or abs(loss) == float("inf"):
-            raise AssertionError(f"{preset} train step {state.step}: loss {loss}")
+            raise AssertionError(f"{label} train step {state.step}: loss {loss}")
         losses.append(loss)
         step_ms.append(start.elapsed_time(end))
         return state, metrics
@@ -561,7 +629,7 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
     expect = {name: s * TRAIN_STEPS + e * len(val_loader)
               for name, s, e in zip(names, per_step, per_eval)}
     if launches != expect:
-        raise AssertionError(f"{preset} fit launches {launches} != {expect} over "
+        raise AssertionError(f"{label} fit launches {launches} != {expect} over "
                              f"{TRAIN_STEPS} steps and {len(val_loader)} eval batches")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with open(f"{trainer.run_dir}/metrics.jsonl") as f:
@@ -569,7 +637,7 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
     val = [r["val_loss"] for r in rows if "val_loss" in r]
     tail = sum(losses[-5:]) / 5
     if not tail < losses[0] or len(val) != 1 or not val[0] == val[0]:
-        raise AssertionError(f"{preset}: loss did not fall: first {losses[0]}, last five "
+        raise AssertionError(f"{label}: loss did not fall: first {losses[0]}, last five "
                              f"{tail}, val {val}")
     steady = sorted(step_ms[1:])
     median_ms = steady[len(steady) // 2]
@@ -590,16 +658,17 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
         state = fit.fit(data.train_dataloader())
         got = [c.launches - b for c, b in zip(counters, before)]
         if got != [n * n_steps for n in per] or any(c.plain_calls for c in counters):
-            raise AssertionError(f"{preset} {name}: launches {got} over {n_steps} steps")
+            raise AssertionError(f"{label} {name}: launches {got} over {n_steps} steps")
         with open(f"{fit.run_dir}/metrics.jsonl") as f:
             row = [json.loads(line) for line in f][-1]
         if not math.isfinite(row["train_loss"]):
-            raise AssertionError(f"{preset} {name}: loss {row['train_loss']}")
+            raise AssertionError(f"{label} {name}: loss {row['train_loss']}")
         return row["tokens_per_sec"]
 
     window_rate = window_fit(WINDOW_STEPS, "window")
     profile_pass(torch, lambda: window_fit(PROFILE_STEPS, "profiled"),
-                 f"train_{preset}_bfloat16" + ("_fused" if fused_head else ""))
+                 f"train_{preset}_bfloat16" + ("_fused" if fused_head else "")
+                 + ("_packed" if attn_impl == "packed" else ""))
     loader = iter(data.train_dataloader())
     collate_ms = []
     for _ in range(WINDOW_STEPS):
@@ -607,22 +676,33 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
         next(loader)
         collate_ms.append((time.perf_counter() - t0) * 1e3)
     window_step_ms = tokens / window_rate * 1e3
-    heads = {}
-    if fused_head:
-        # the unfused head on the same model and state: windows and bench.py's
-        # batch, fused / unfused / unfused / fused
+    # the arm this path runs and the arm it is compared with, on the same
+    # model and state: (step, launches per step, attention impl)
+    arms = {}
+    if attn_impl == "packed":
+        arms = {"packed": (train_step, per_step, "packed"),
+                "pallas": (train_step, per_step_launches(fused_head, "pallas"), "pallas")}
+    elif fused_head:
         unfused_step = port["make_mlm_steps"](model, state.schedule,
                                               loss_gather_capacity=CAPACITY)[0]
-        unfused_per = per_step_launches(False)
-        heads["window_tokens_per_s"] = {"fused": [window_rate], "unfused": []}
-        for i, fused in enumerate((False, False, True)):
-            rate = window_fit(WINDOW_STEPS, f"window_{i}", *((train_step, per_step) if fused
-                                                             else (unfused_step, unfused_per)))
-            heads["window_tokens_per_s"]["fused" if fused else "unfused"].append(rate)
+        arms = {"fused": (train_step, per_step, attn_impl),
+                "unfused": (unfused_step, per_step_launches(False, attn_impl), attn_impl)}
+    turns = {}
+    if arms:
+        # windows this, other, other, this (the first is the window above),
+        # then bench.py's batch this, other, other, this
+        this, other = arms
+        turns["window_tokens_per_s"] = {this: [window_rate], other: []}
+        for i, arm in enumerate((other, other, this)):
+            step, per, impl = arms[arm]
+            use_attn_impl(model, port, impl)
+            turns["window_tokens_per_s"][arm].append(
+                window_fit(WINDOW_STEPS, f"window_{i}", step, per))
         batch = bench_batch(torch)
-        heads["bench_batch_tokens_per_s"] = {"fused": [], "unfused": []}
-        for fused in (True, False, False, True):
-            step = train_step if fused else unfused_step
+        turns["bench_batch_tokens_per_s"] = {this: [], other: []}
+        for arm in (this, other, other, this):
+            step, _, impl = arms[arm]
+            use_attn_impl(model, port, impl)
             state, _ = step(state, batch)  # warm-up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -630,11 +710,11 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
                 state, metrics = step(state, batch)
             torch.cuda.synchronize()
             if not math.isfinite(float(metrics["loss"])):
-                raise AssertionError(f"{preset} bench batch: loss {metrics['loss']}")
-            heads["bench_batch_tokens_per_s"]["fused" if fused else "unfused"].append(
+                raise AssertionError(f"{label} bench batch: loss {metrics['loss']}")
+            turns["bench_batch_tokens_per_s"][arm].append(
                 BENCH_STEPS * tokens / (time.perf_counter() - t0))
-    log(phase="train", preset=preset, fused_head=fused_head, steps=TRAIN_STEPS,
-        batch=TRAIN_BATCH, seq_len=SEQ_LEN,
+    log(phase="train", preset=preset, fused_head=fused_head, attn_impl=attn_impl,
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=SEQ_LEN,
         capacity=CAPACITY, first_loss=losses[0], last5_mean_loss=tail, val_loss=val[0],
         losses=losses, tokens_per_s=window_rate, window_steps=WINDOW_STEPS,
         window_step_ms=window_step_ms, step_ms_first=step_ms[0], step_ms_median=median_ms,
@@ -643,53 +723,70 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
         collate_ms_median=sorted(collate_ms)[len(collate_ms) // 2],
         checked_fit_tokens_per_s=[r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r],
         fit_s=fit_s, peak_memory_gib=peak_gib, launches=launches,
-        launches_per_step=dict(zip(names, per_step)), **heads)
+        launches_per_step=dict(zip(names, per_step)), **turns)
     del model, state, trainer
     return launches
 
 
-def cli_phase(torch, port, root: str) -> None:
+def cli_phase(torch, port, root: str, attn_impl: str = "pallas") -> None:
     """The training CLI's default preset (``reference``: 64 latents x 64
-    channels) on the card for CLI_STEPS steps, in-process: ``--fused_head
-    auto`` must resolve to the CE kernels there."""
+    channels) on the card for CLI_STEPS steps, in-process, with
+    ``--attn_impl``: ``--fused_head auto`` must resolve to the CE kernels
+    there, and only ``attn_impl``'s attention kernels may launch."""
     counters = path_counters(port)
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
     run_dir = port["train_mlm"].main([
         "--preset", "reference", "--synthetic", "--max_steps", str(CLI_STEPS),
-        "--log_every_n_steps", str(CLI_STEPS), "--root", root, "--logdir", f"{root}/cli"])
+        "--attn_impl", attn_impl, "--log_every_n_steps", str(CLI_STEPS), "--root", root,
+        "--logdir", f"{root}/cli_{attn_impl}"])
     torch.cuda.synchronize()
     with open(f"{run_dir}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     launches = dict(zip(KERNEL_NAMES, (c.launches for c in counters)))
     train = [r for r in rows if "train_loss" in r]
+    used, unused = ("packed_attention", "attention") if attn_impl == "packed" \
+        else ("attention", "packed_attention")
+    attention_ok = (launches[f"{used}_bwd_dq"] == launches[f"{used}_bwd_dkv"]
+                    == ATTN_PER_FORWARD * CLI_STEPS
+                    and not any(launches[f"{unused}_{k}"] for k in ("fwd", "bwd_dq", "bwd_dkv")))
     if (launches["linear_ce_bwd_dx"], launches["linear_ce_bwd_dw"]) != (CLI_STEPS, CLI_STEPS) \
             or launches["linear_ce_fwd"] <= CLI_STEPS or any(c.plain_calls for c in counters) \
-            or not all(math.isfinite(r["train_loss"]) for r in train):
-        raise AssertionError(f"train_mlm --preset reference: launches {launches}, rows {rows}")
-    log(phase="cli", preset="reference", steps=CLI_STEPS, launches=launches,
-        train_loss=train[-1]["train_loss"], tokens_per_s=train[-1]["tokens_per_sec"],
+            or not attention_ok or not all(math.isfinite(r["train_loss"]) for r in train):
+        raise AssertionError(f"train_mlm --preset reference --attn_impl {attn_impl}: "
+                             f"launches {launches}, rows {rows}")
+    log(phase="cli", preset="reference", attn_impl=attn_impl, steps=CLI_STEPS,
+        launches=launches, train_loss=train[-1]["train_loss"],
+        tokens_per_s=train[-1]["tokens_per_sec"],
         val_loss=[r["val_loss"] for r in rows if "val_loss" in r], wall_s=time.perf_counter() - t0)
 
 
-def train_parity_phase(torch, port, data, preset: str = "flagship_tpu_mlm", fused_head=False):
+def train_parity_phase(torch, port, data, preset: str = "flagship_tpu_mlm", fused_head=False,
+                       attn_impl: str = "pallas"):
     """Three f32 steps with the kernels, then with the plain versions in
     their place, from the same weights, batches and masking, for each of
     PARITY_SEEDS: the losses within 1e-4 relative, the first step's
     gradients within 1e-3 of each leaf's peak (k_proj.bias is zero in exact
     arithmetic, softmax being shift-invariant per row: there both sides must
-    be noise far below the other gradients). With the fused head, also the
-    unfused head with the kernels: its losses within 1e-4 relative."""
+    be noise far below the other gradients). Then the same function through
+    other kernels, its losses within 1e-4 relative: with the packed
+    attention the pallas attention kernels, else with the fused head the
+    unfused head."""
     counters = path_counters(port)
     batches = [b for _, b in zip(range(3), data.train_dataloader())]
     readings = []
-    runs_of = [(fused_head, False), (fused_head, True)] + ([(False, False)] if fused_head else [])
+    # (head, plain, attention) of each run: the kernels, the plain versions,
+    # and the comparison run, if any
+    versus = ((fused_head, False, "pallas") if attn_impl == "packed"
+              else (False, False, attn_impl) if fused_head else None)
+    runs_of = [(fused_head, False, attn_impl), (fused_head, True, attn_impl)] \
+        + ([versus] if versus else [])
     for seed in PARITY_SEEDS:
         runs = []
-        for head, plain in runs_of:
+        for head, plain, impl in runs_of:
             model, state, (train_step, _, _) = train_setup(torch, port, torch.float32, plain,
-                                                           seed, preset, head)
+                                                           seed, preset, head, impl)
             before = [c.launches for c in counters]
             losses, grads = [], None
             for batch in batches:
@@ -698,16 +795,17 @@ def train_parity_phase(torch, port, data, preset: str = "flagship_tpu_mlm", fuse
                 if grads is None:
                     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
             got = [c.launches - b for c, b in zip(counters, before)]
-            expect = [0] * 6 if plain else [3 * n for n in per_step_launches(head)]
+            expect = [0] * len(counters) if plain else [3 * n for n in per_step_launches(head,
+                                                                                         impl)]
             if got != expect:
-                raise AssertionError(f"{preset} head={head} plain={plain}: launches {got} != "
-                                     f"{expect}")
+                raise AssertionError(f"{preset} head={head} plain={plain} {impl}: launches "
+                                     f"{got} != {expect}")
             runs.append((losses, grads))
             del model, state
         (k_losses, k_grads), (p_losses, p_grads) = runs[:2]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
-        head_rel = (max(abs(a - b) / abs(b) for a, b in zip(k_losses, runs[2][0]))
-                    if fused_head else 0.0)
+        versus_rel = (max(abs(a - b) / abs(b) for a, b in zip(k_losses, runs[2][0]))
+                      if versus else 0.0)
         peak_all = max(float(g.abs().max()) for g in p_grads.values())
         worst, worst_name, symmetric = 0.0, None, 0.0
         for name, ref in p_grads.items():
@@ -721,18 +819,20 @@ def train_parity_phase(torch, port, data, preset: str = "flagship_tpu_mlm", fuse
             err = err / peak if peak else err
             if err > worst:
                 worst, worst_name = err, name
-        extra = dict(unfused_losses=runs[2][0], fused_vs_unfused_loss_max_rel_diff=head_rel) \
-            if fused_head else {}
-        log(phase="train_parity", preset=preset, fused_head=fused_head, dtype="float32",
-            seed=seed, kernel_losses=k_losses, plain_losses=p_losses,
+        extra = dict(versus=dict(zip(("fused_head", "plain", "attn_impl"), versus)),
+                     versus_losses=runs[2][0], versus_loss_max_rel_diff=versus_rel) \
+            if versus else {}
+        log(phase="train_parity", preset=preset, fused_head=fused_head, attn_impl=attn_impl,
+            dtype="float32", seed=seed, kernel_losses=k_losses, plain_losses=p_losses,
             loss_max_rel_diff=loss_rel, grad_max_err_over_leaf_peak=worst,
             worst_leaf=worst_name, k_proj_bias_over_global_peak=symmetric, **extra)
-        readings.append((loss_rel, worst, worst_name, symmetric, head_rel))
-    for seed, (loss_rel, worst, worst_name, symmetric, head_rel) in zip(PARITY_SEEDS, readings):
-        if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5 and head_rel <= 1e-4):
-            raise AssertionError(f"{preset} f32 train parity, seed {seed}: losses {loss_rel}, "
-                                 f"grads {worst} ({worst_name}), k_proj.bias {symmetric}, "
-                                 f"fused vs unfused head {head_rel}")
+        readings.append((loss_rel, worst, worst_name, symmetric, versus_rel))
+    for seed, (loss_rel, worst, worst_name, symmetric, versus_rel) in zip(PARITY_SEEDS,
+                                                                           readings):
+        if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5 and versus_rel <= 1e-4):
+            raise AssertionError(f"{preset} {attn_impl} f32 train parity, seed {seed}: losses "
+                                 f"{loss_rel}, grads {worst} ({worst_name}), k_proj.bias "
+                                 f"{symmetric}, versus {versus} {versus_rel}")
 
 
 def sm_clock_hz() -> float:
@@ -744,7 +844,7 @@ def sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
-def ce_bound(nbytes: float, products: float, exps: float, dtype: str, clock_hz: float):
+def roofline_bound(nbytes: float, products: float, exps: float, dtype: str, clock_hz: float):
     """(ms, bound_by, term): the largest of the bytes over the memory rate,
     the products over the dtype's peak and the exponentials over 16 a clock
     per SM on 132 SMs."""
@@ -790,10 +890,10 @@ def ce_phase(torch, ck, softmax_ce_integer, clock_hz: float):
             item = x.element_size()
             inputs = item * r * c + 4 * c * v + 4 * v + 4 * r  # x, W, b, labels (int32)
             bounds = {
-                "fwd": ce_bound(inputs + 8 * r, 2 * r * c * v, r * v, dt, clock_hz),
-                "dx": ce_bound(inputs + 8 * r + item * r * c, 4 * r * c * v, r * v, dt,
+                "fwd": roofline_bound(inputs + 8 * r, 2 * r * c * v, r * v, dt, clock_hz),
+                "dx": roofline_bound(inputs + 8 * r + item * r * c, 4 * r * c * v, r * v, dt,
                                clock_hz),
-                "dw": ce_bound(inputs + 8 * r + 4 * c * v + 4 * v, 4 * r * c * v, r * v, dt,
+                "dw": roofline_bound(inputs + 8 * r + 4 * c * v + 4 * v, 4 * r * c * v, r * v, dt,
                                clock_hz),
             }
             leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
@@ -822,14 +922,137 @@ def ce_phase(torch, ck, softmax_ce_integer, clock_hz: float):
     return rows
 
 
+def packed_phase(torch, ak, pk, clock_hz: float):
+    """The packed kernels against their plain versions at PACKED_SHAPES, f32
+    and bf16: out, then dq, dk and dv from one cotangent (dq and dk of the
+    fully masked example exactly 0). Times of each kernel, of the whole
+    backward, of the plain forward and backward, of SDPA's forward and
+    backward on the head-split views with the float bias as its mask, and of
+    kernel #1's forward and whole backward at the same shape; each kernel's
+    bound (``roofline_bound``), counting the keys the data leaves unmasked
+    (every key of a fully masked example)."""
+    import torch.nn.functional as F
+
+    rows = []
+    for name, (b, t, s, h, d), padded in PACKED_SHAPES:
+        e = h * d
+        gen = torch.Generator().manual_seed(b + t + s + e + 2)
+        pad = None
+        if padded:
+            pad = torch.rand(b, s, generator=gen) < 0.3
+            pad[-1] = True  # one example with every key masked out
+            pad = pad.cuda()
+        bias = ak.pad_bias(pad, b, s, "cuda")
+        valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            q, g = (torch.randn(b, t, e, generator=gen).to("cuda", dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, e, generator=gen).to("cuda", dtype) for _ in range(2))
+            fwd_err = check(f"packed fwd {name} {dt}", pk.packed_attention_fwd(q, k, v, h, pad),
+                            pk.packed_attention_reference(q, k, v, h, pad), dt)
+            grads = pk.packed_attention_bwd(q, k, v, h, pad, g)
+            refs = pk.packed_attention_bwd_reference(q, k, v, bias, g, h)
+            errs = {x: check(f"packed bwd {x} {name} {dt}", got, ref, dt)
+                    for x, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
+            if pad is not None and (grads[0][-1].any() or grads[1][-1].any()):
+                raise AssertionError(f"packed {name} {dt}: dq/dk of the fully masked example "
+                                     f"not 0")
+            del grads, refs
+            stats = pk.launch_bwd_dq(q, k, v, bias, g, h)[1]
+            item = q.element_size()
+            io_t, io_s, stat_bytes = item * b * t * e, item * b * s * e, 12 * b * t * h
+            exps = h * t * valid  # one exponential per (head, query, key)
+            bounds = {
+                "fwd": roofline_bound(2 * io_t + 2 * io_s + 4 * b * s, 4 * t * e * valid, exps,
+                                      dt, clock_hz),
+                "dq": roofline_bound(3 * io_t + 2 * io_s + 4 * b * s + stat_bytes,
+                                     6 * t * e * valid, exps, dt, clock_hz),
+                "dkv": roofline_bound(2 * io_t + 4 * io_s + 4 * b * s + stat_bytes,
+                                      8 * t * e * valid, exps, dt, clock_hz),
+                "bwd": roofline_bound(3 * io_t + 4 * io_s + 4 * b * s, 10 * t * e * valid, exps,
+                                      dt, clock_hz),
+            }
+            qh, kh, vh, gh = (x.view(x.shape[0], x.shape[1], h, d) for x in (q, k, v, g))
+            mask = bias[:, None, None, :].to(dtype)
+            qt, kt, vt = (x.transpose(1, 2) for x in (qh, kh, vh))
+            out1, m1, l1 = ak.attention_fwd_with_stats(qh, kh, vh, pad)
+            row = dict(
+                kernel="packed_attention", shape=name, dims=[b, t, s, h, d], dtype=dt,
+                fwd_max_abs_err=fwd_err, **{f"{x}_max_abs_err": err for x, err in errs.items()},
+                fwd_ms=time_ms(lambda: pk.launch_fwd(q, k, v, bias, h)),
+                dq_ms=time_ms(lambda: pk.launch_bwd_dq(q, k, v, bias, g, h)),
+                dkv_ms=time_ms(lambda: pk.launch_bwd_dkv(q, k, v, bias, g, stats, h)),
+                bwd_ms=time_ms(lambda: pk.packed_attention_bwd(q, k, v, h, pad, g)),
+                plain_fwd_ms=time_ms(lambda: pk.packed_attention_reference(q, k, v, h, pad), 3),
+                plain_bwd_ms=time_ms(lambda: pk.packed_attention_bwd_reference(q, k, v, bias, g,
+                                                                               h), 3),
+                library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                              attn_mask=mask)),
+                library_bwd_ms=library_bwd_ms(torch, qh, kh, vh, gh, mask),
+                attention_fwd_ms=time_ms(lambda: ak.fused_attention(qh, kh, vh, pad)),
+                attention_bwd_ms=time_ms(lambda: ak.attention_bwd(qh, kh, vh, pad, out1, m1, l1,
+                                                                  gh)),
+                sm_clock_mhz=clock_hz / 1e6,
+                **{f"{x}_bound_{f}": val for x, bnd in bounds.items()
+                   for f, val in zip(("ms", "by", "term"), bnd)})
+            log(**row)
+            rows.append(row)
+            del q, k, v, g, stats, qh, kh, vh, gh, qt, kt, vt, out1, m1, l1
+    return rows
+
+
+def packed_serving_phase(torch, port, tokenizer, texts):
+    """``MLMServer`` over ``flagship_mlm(attn_impl='packed')``: the texts in
+    bf16, 22 packed forward launches per fused forward and no other
+    attention kernel; then in f32 the top-1 fill of every mask against the
+    same weights under ``'pallas'``."""
+    ak, pk = port["ak"], port["pk"]
+    presets, server_cls = port["presets"], port["MLMServer"]
+    kwargs = dict(bucket_widths=[128, 256, 512], max_batch=64, device="cuda")
+    model = presets.flagship_mlm(dtype=torch.bfloat16, device="cuda", seed=0, attn_impl="packed")
+    server = server_cls(model, None, tokenizer, 512, compute_dtype="bfloat16", **kwargs)
+    counters = (ak.counter, pk.fwd_counter)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fills = server.fill_masks(texts, k=5)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    n_fwd = server.engine.dispatches
+    got = tuple(c.launches for c in counters)
+    if got != (0, ATTN_PER_FORWARD * n_fwd) or any(c.plain_calls for c in counters):
+        raise AssertionError(f"packed serving: launches (#1, packed) {got} over {n_fwd} "
+                             f"forwards, or a plain version ran")
+    masks = [t.split().count("[MASK]") for t in texts]
+    if [len(r) for r in fills] != masks or any(len(f) != 5 for r in fills for f in r):
+        raise AssertionError("packed serving: fills of the wrong shape")
+    del server, model
+    top1 = {}
+    for impl in ("packed", "pallas"):
+        server = server_cls(presets.flagship_mlm(device="cuda", seed=0, attn_impl=impl), None,
+                            tokenizer, 512, **kwargs)
+        top1[impl] = [f[0] for r in server.fill_masks(texts, k=1) for f in r]
+        del server
+    mismatched = sum(a != b for a, b in zip(top1["packed"], top1["pallas"]))
+    log(phase="serve_packed", preset="flagship_mlm", mode="bfloat16", texts=len(texts),
+        masks=sum(masks), fused_forwards=n_fwd, packed_per_forward=ATTN_PER_FORWARD,
+        fill_masks_s=fused_s, f32_top1_masks=len(top1["packed"]),
+        f32_top1_mismatches_vs_pallas=mismatched, example=[texts[1][:60], fills[1]])
+    if mismatched or len(top1["packed"]) != len(top1["pallas"]):
+        raise AssertionError(f"f32 packed serving: {mismatched} top-1 fills differ from pallas")
+    return {"packed_attention_fwd": got[1]}
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         os.execve(sys.executable, [sys.executable, os.path.abspath(__file__), *sys.argv[1:]],
                   {**os.environ, "PYTHONHASHSEED": "0"})
+    enter("import")
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
+        print("chip_smoke: failed in phase device: no CUDA device", flush=True)
         return 1
     from perceiver_io_torch.cli import train_mlm
     from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
@@ -839,6 +1062,7 @@ def main() -> int:
     from perceiver_io_torch.ops import attention_kernel as ak
     from perceiver_io_torch.ops import build
     from perceiver_io_torch.ops import ce_kernel as ck
+    from perceiver_io_torch.ops import packed_attention_kernel as pk
     from perceiver_io_torch.ops import qmatmul as qm
     from perceiver_io_torch.ops.attention import Linear, MultiHeadAttention
     from perceiver_io_torch.quant.int8 import QKernel, pack_int4, quantize_array
@@ -851,18 +1075,26 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    enter("build")
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
     build.library()
     log(phase="build", build_s=time.perf_counter() - t0, library=build.library_path().name)
 
+    enter("2: attention forward")
     attn_rows = attention_phase(torch, ak)
+    enter("3: attention backward")
     bwd_rows = attention_bwd_phase(torch, ak)
+    enter("4: dequant matmul")
     deq_rows = dequant_phase(torch, qm, QKernel, pack_int4, quantize_array)
+    enter("5: CE kernels")
     clock_hz = sm_clock_hz()
     ce_rows = ce_phase(torch, ck, softmax_ce_integer, clock_hz)
+    enter("13: packed attention kernels")
+    packed_rows = packed_phase(torch, ak, pk, clock_hz)
 
+    enter("6: serving")
     trained = WordPieceTokenizer()
     trained.train_from_iterator(synthetic_reviews(2000, seed=0)[0], 10003)
     # the synthetic corpus yields a few hundred pieces; reserved entries fill
@@ -872,11 +1104,12 @@ def main() -> int:
     tokenizer = WordPieceTokenizer(vocab=vocab)
     texts = masked_texts(synthetic_reviews)
     port = dict(presets=presets, MLMServer=MLMServer, MultiHeadAttention=MultiHeadAttention,
-                Linear=Linear, ak=ak, ck=ck, make_optimizer=make_optimizer,
+                Linear=Linear, ak=ak, ck=ck, pk=pk, qm=qm, make_optimizer=make_optimizer,
                 OptimizerConfig=OptimizerConfig, TrainState=TrainState,
                 make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig,
                 train_mlm=train_mlm)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
+    enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
 
     with tempfile.TemporaryDirectory() as root:
@@ -884,14 +1117,28 @@ def main() -> int:
                               batch_size=TRAIN_BATCH, synthetic=True, seed=0)
         data.prepare_data()
         data.setup()
+        enter("8: flagship training")
         path_launches = [training_phase(torch, port, data, f"{root}/logs")]
+        enter("9: flagship training parity")
         train_parity_phase(torch, port, data)
+        enter("10: C=64 training, fused head")
         path_launches.append(training_phase(torch, port, data, f"{root}/logs_c64",
                                             "flagship_mlm", "pallas"))
+        enter("11: training CLI")
         cli_phase(torch, port, root)
+        enter("12: C=64 training parity")
         train_parity_phase(torch, port, data, "flagship_mlm", "pallas")
+        enter("14: C=64 training, packed attention")
+        path_launches.append(training_phase(torch, port, data, f"{root}/logs_packed",
+                                            "flagship_mlm", "pallas", "packed"))
+        enter("15: packed training parity")
+        train_parity_phase(torch, port, data, "flagship_mlm", "pallas", "packed")
+        enter("16: packed entry points")
+        cli_phase(torch, port, root, "packed")
+    path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
+    enter("kernels line")
     for name in KERNEL_NAMES:
-        launches[name] = launches.get(name, 0) + sum(p[name] for p in path_launches)
+        launches[name] = launches.get(name, 0) + sum(p.get(name, 0) for p in path_launches)
 
     def entry(rows, name, source, replaces, pick, ms="kernel_ms", bound="bound"):
         row = next(r for r in rows if pick(r))
@@ -918,22 +1165,30 @@ def main() -> int:
               lambda r: r["shape"] == "self_proj" and r["quant"] == "int8"
               and r["dtype"] == "bfloat16"),
     ]
-    # the CE kernels at bench.py's head in bf16; plain_ms and library_ms of
-    # the two backward kernels are those of the whole backward (the plain
-    # version and the unfused head's autograd compute dx, dW and db in one call)
+    # the CE kernels at bench.py's head in bf16, the packed kernels at the
+    # C=64 encoder cross in bf16; plain_ms and library_ms of the backward
+    # kernels are those of the whole backward (the plain version and the
+    # library's autograd compute every gradient in one call)
     head = next(r for r in ce_rows if r["shape"] == "bench_head" and r["dtype"] == "bfloat16")
-    for name, part, replaces, plain, library in (
-            ("linear_ce_fwd", "fwd", 95, "plain_fwd_ms", "library_fwd_ms"),
-            ("linear_ce_bwd_dx", "dx", 143, "plain_bwd_ms", "library_bwd_ms"),
-            ("linear_ce_bwd_dw", "dw", 161, "plain_bwd_ms", "library_bwd_ms")):
+    cross = next(r for r in packed_rows if enc_bf16(r))
+    cross["dkv_max_abs_err"] = max(cross["dk_max_abs_err"], cross["dv_max_abs_err"])
+    packed_src = "perceiver_io_torch/csrc/packed_attention.cu"
+    ce_src = "perceiver_io_torch/csrc/linear_ce_{}.cu"
+    for name, row, part, source, replaces in (
+            ("linear_ce_fwd", head, "fwd", ce_src.format("fwd"), "pallas_ce.py:95"),
+            ("linear_ce_bwd_dx", head, "dx", ce_src.format("bwd"), "pallas_ce.py:143"),
+            ("linear_ce_bwd_dw", head, "dw", ce_src.format("bwd"), "pallas_ce.py:161"),
+            ("packed_attention_fwd", cross, "fwd", packed_src, "pallas_attention.py:783"),
+            ("packed_attention_bwd_dq", cross, "dq", packed_src, "pallas_attention.py:804"),
+            ("packed_attention_bwd_dkv", cross, "dkv", packed_src, "pallas_attention.py:804")):
+        way = "fwd" if part == "fwd" else "bwd"
         kernels.append(dict(
-            name=name, route="cuda",
-            source=f"perceiver_io_torch/csrc/linear_ce_{'fwd' if part == 'fwd' else 'bwd'}.cu",
-            replaces=f"perceiver_io_tpu/ops/pallas_ce.py:{replaces}",
-            launches=launches[name], max_abs_err=head[f"{part}_max_abs_err"],
-            ms=head[f"{part}_ms"], plain_ms=head[plain], bound_ms=head[f"{part}_bound_ms"],
-            bound_by=head[f"{part}_bound_by"], library_ms=head[library], shape=head["shape"],
-            dims=head["dims"], dtype=head["dtype"]))
+            name=name, route="cuda", source=source, replaces=f"perceiver_io_tpu/ops/{replaces}",
+            launches=launches[name], max_abs_err=row[f"{part}_max_abs_err"],
+            ms=row[f"{part}_ms"], plain_ms=row[f"plain_{way}_ms"],
+            bound_ms=row[f"{part}_bound_ms"], bound_by=row[f"{part}_bound_by"],
+            library_ms=row[f"library_{way}_ms"], shape=row["shape"], dims=row["dims"],
+            dtype=row["dtype"]))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: {missing}")
@@ -947,4 +1202,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception as exc:
+        first = (str(exc).splitlines() or [""])[0][:300]
+        print(f"chip_smoke: failed in phase {phase_name}: {type(exc).__name__}: {first}",
+              flush=True)
+        raise

@@ -9,6 +9,7 @@ import os
 import torch
 
 from perceiver_io_torch.models import presets
+from perceiver_io_torch.ops.attention import ATTN_IMPLS, NOT_PORTED_ATTN_IMPLS
 from perceiver_io_torch.training.optim import (
     SUPPORTED_OPTIMIZERS,
     OptimizerConfig,
@@ -61,6 +62,11 @@ def add_compute_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions); the default "
                         "is the CUDA card")
+    g.add_argument("--attn_impl", choices=ATTN_IMPLS + NOT_PORTED_ATTN_IMPLS,
+                   default="pallas",
+                   help="attention kernels: pallas = the fused attention kernels on "
+                        "head-split views, packed = the packed-heads kernels; auto, xla "
+                        "and pallas_sp are not ported (ROADMAP Queue 1)")
 
 
 def add_imdb_args(parser: argparse.ArgumentParser) -> None:
@@ -78,6 +84,13 @@ def check_dropout(args) -> None:
         raise SystemExit(
             f"--dropout {args.dropout}: dropout is not ported yet (ROADMAP Queue 1 "
             f"item 2); the JAX package's default, 0, is what the port trains with")
+
+
+def check_attn_impl(args) -> None:
+    if args.attn_impl in NOT_PORTED_ATTN_IMPLS:
+        raise SystemExit(
+            f"--attn_impl {args.attn_impl}: not ported yet (ROADMAP Queue 1); "
+            f"the port trains with {' or '.join(ATTN_IMPLS)}")
 
 
 def trainer_config(args, experiment: str) -> TrainerConfig:
@@ -101,4 +114,4 @@ def build_mlm(args, vocab_size: int, max_seq_len: int, device):
         num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
         num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
         dtype=DTYPES[args.dtype], device=device, seed=args.seed,
-        pad_classes_to=args.pad_vocab_multiple)
+        pad_classes_to=args.pad_vocab_multiple, attn_impl=args.attn_impl)

@@ -15,8 +15,9 @@ head: ``--fused_head pallas`` is the CE kernels, ``xla`` the chunked
 plain-PyTorch head, ``off`` the unfused head, and ``auto`` (the default)
 resolves to ``pallas`` on the CUDA card at C <= 128 and to ``off`` otherwise,
 as the JAX package's rule does with its accelerator (so ``reference`` trains
-through the CE kernels, ``flagship_tpu`` unfused). Runs on the CUDA card;
-``--cpu`` runs the kernels' plain versions. Writes ``metrics.jsonl`` under
+through the CE kernels, ``flagship_tpu`` unfused). ``--attn_impl`` picks the
+attention kernels: ``pallas`` (the default) or ``packed``. Runs on the CUDA
+card; ``--cpu`` runs the kernels' plain versions. Writes ``metrics.jsonl`` under
 ``<logdir>/mlm/version_n``.
 """
 
@@ -80,6 +81,7 @@ def resolve_fused_head(choice: str, device, num_latent_channels: int) -> str:
 def main(argv: Optional[Sequence[str]] = None):
     args = apply_preset(build_parser().parse_args(argv))
     common.check_dropout(args)
+    common.check_attn_impl(args)
     device = resolve_device("cpu" if args.cpu else None)
     fused = resolve_fused_head(args.fused_head, device, args.num_latent_channels)
 

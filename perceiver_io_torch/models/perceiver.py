@@ -10,6 +10,9 @@ counterparts of ``perceiver_io_tpu/models/perceiver.py``).
   ``positions``; queries never interact, so a subset is exactly those rows.
 - the MLM's training forward masks its input (``masking=True``) and, with
   ``loss_gather_capacity``, decodes only the masked positions.
+- ``attn_impl`` (``'pallas'`` or ``'packed'``, see ``ops/attention.py``)
+  picks the attention kernels of every layer below; the weights do not
+  depend on it.
 """
 
 from __future__ import annotations
@@ -37,13 +40,15 @@ class PerceiverLayer(nn.Module):
 
     def __init__(self, num_latent_channels: int, num_input_channels: int,
                  num_cross_attention_heads: int, num_self_attention_heads: int,
-                 num_self_attention_layers_per_block: int, dtype=torch.float32):
+                 num_self_attention_layers_per_block: int, dtype=torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.cross_attention_layer = CrossAttentionLayer(
-            num_latent_channels, num_input_channels, num_cross_attention_heads, dtype)
+            num_latent_channels, num_input_channels, num_cross_attention_heads, dtype,
+            attn_impl)
         self.self_attention_block = SelfAttentionBlock(
             num_self_attention_layers_per_block, num_latent_channels,
-            num_self_attention_heads, dtype)
+            num_self_attention_heads, dtype, attn_impl)
 
     def forward(self, x_latent, x_input, pad_mask=None, kv=None):
         """Returns ``(x_latent, kv)``: the cross-attention's (k, v) of
@@ -59,7 +64,7 @@ class PerceiverEncoder(nn.Module):
                  num_layers: int, num_cross_attention_heads: int = 4,
                  num_self_attention_heads: int = 4,
                  num_self_attention_layers_per_block: int = 2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_impl: str = "pallas"):
         super().__init__()
         self.input_adapter = input_adapter
         self.latent_shape = tuple(latent_shape)
@@ -73,6 +78,7 @@ class PerceiverEncoder(nn.Module):
             num_self_attention_heads=num_self_attention_heads,
             num_self_attention_layers_per_block=num_self_attention_layers_per_block,
             dtype=dtype,
+            attn_impl=attn_impl,
         )
         self.layer_1 = PerceiverLayer(**layer)
         if num_layers > 1:
@@ -94,7 +100,8 @@ class PerceiverDecoder(nn.Module):
     cross-attends the latents, then the output adapter."""
 
     def __init__(self, output_adapter: nn.Module, latent_shape: Tuple[int, int],
-                 num_cross_attention_heads: int = 4, dtype=torch.float32):
+                 num_cross_attention_heads: int = 4, dtype=torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.output_adapter = output_adapter
         self.latent_shape = tuple(latent_shape)
@@ -102,7 +109,7 @@ class PerceiverDecoder(nn.Module):
         output_shape = output_adapter.output_shape
         self.output = nn.Parameter(torch.empty(tuple(output_shape)))
         self.cross_attention_layer = CrossAttentionLayer(
-            output_shape[-1], latent_shape[1], num_cross_attention_heads, dtype)
+            output_shape[-1], latent_shape[1], num_cross_attention_heads, dtype, attn_impl)
 
     def forward(self, x, positions: Optional[torch.Tensor] = None,
                 return_features: bool = False):

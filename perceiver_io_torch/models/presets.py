@@ -26,12 +26,16 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
                  num_latents: int = 256, num_channels: int = 64, num_layers: int = 3,
                  num_self_attention_layers_per_block: int = 6,
                  dtype=torch.float32, device=None, seed: int = 0,
-                 pad_classes_to: Optional[int] = None) -> PerceiverMLM:
+                 pad_classes_to: Optional[int] = None, attn_impl: str = "pallas",
+                 decoder_attn_impl: Optional[str] = None) -> PerceiverMLM:
     """The reference train_mlm shapes: 512-token sequences, 256 latents,
     3 encoder layers × (cross-attention + 6-layer self-attention block),
     text in/out adapters, C=64 (4 heads of depth 16); masking with [UNK] 1,
     [MASK] 2 and 3 special tokens, as the tokenizer lays them out.
-    ``pad_classes_to`` rounds the vocab head's width up to a multiple."""
+    ``pad_classes_to`` rounds the vocab head's width up to a multiple.
+    ``attn_impl`` picks the attention kernels (``'pallas'`` or
+    ``'packed'``); ``decoder_attn_impl`` overrides the decoder's (None = the
+    same). The weights do not depend on either."""
     device = resolve_device(device)
     latent_shape = (num_latents, num_channels)
     model = PerceiverMLM(
@@ -39,12 +43,13 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
             input_adapter=TextInputAdapter(vocab_size, max_seq_len, num_channels, dtype),
             latent_shape=latent_shape, num_layers=num_layers,
             num_self_attention_layers_per_block=num_self_attention_layers_per_block,
-            dtype=dtype),
+            dtype=dtype, attn_impl=attn_impl),
         decoder=PerceiverDecoder(
             output_adapter=TextOutputAdapter(
                 vocab_size, max_seq_len, num_output_channels=num_channels,
                 dtype=dtype, pad_classes_to=pad_classes_to),
-            latent_shape=latent_shape, dtype=dtype),
+            latent_shape=latent_shape, dtype=dtype,
+            attn_impl=decoder_attn_impl or attn_impl),
         masking=TextMasking(vocab_size, unk_token_id=1, mask_token_id=2,
                             num_special_tokens=3),
     )
@@ -55,26 +60,27 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
 def flagship_tpu_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
                      num_latents: int = 256, num_channels: int = 512,
                      num_layers: int = 3, num_self_attention_layers_per_block: int = 6,
-                     dtype=torch.bfloat16, device=None, seed: int = 0) -> PerceiverMLM:
+                     dtype=torch.bfloat16, device=None, seed: int = 0,
+                     attn_impl: str = "pallas") -> PerceiverMLM:
     """The MLM recipe at C=512 (4 heads of depth 128) with bf16 compute —
     the flagship serving configuration."""
     return flagship_mlm(
         vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=num_latents,
         num_channels=num_channels, num_layers=num_layers,
         num_self_attention_layers_per_block=num_self_attention_layers_per_block,
-        dtype=dtype, device=device, seed=seed)
+        dtype=dtype, device=device, seed=seed, attn_impl=attn_impl)
 
 
 def tiny_mlm(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16,
              num_channels: int = 32, num_layers: int = 2,
              num_self_attention_layers_per_block: int = 1, dtype=torch.float32,
-             device=None, seed: int = 0) -> PerceiverMLM:
+             device=None, seed: int = 0, attn_impl: str = "pallas") -> PerceiverMLM:
     """The CPU-scale twin of the flagship recipe (the tests' model)."""
     return flagship_mlm(
         vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=num_latents,
         num_channels=num_channels, num_layers=num_layers,
         num_self_attention_layers_per_block=num_self_attention_layers_per_block,
-        dtype=dtype, device=device, seed=seed)
+        dtype=dtype, device=device, seed=seed, attn_impl=attn_impl)
 
 
 PRESETS = {

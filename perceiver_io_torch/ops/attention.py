@@ -4,9 +4,12 @@ The counterparts of ``perceiver_io_tpu/ops/attention.py`` without dropout:
 
 - :class:`MultiHeadAttention`: separate q/k/v projections with bias,
   ``D**-0.5`` scaling, a key padding mask (True = ignore), an output
-  projection. Every call goes through :func:`fused_attention`, which
-  launches the CUDA kernels (forward, and the backward under autograd) on
-  a CUDA tensor.
+  projection. ``attn_impl`` picks the attention: ``'pallas'`` (the
+  default) goes through :func:`fused_attention` on head-split views,
+  ``'packed'`` through :func:`packed_latent_attention` on the packed
+  (B, T, E) tensors; each launches its CUDA kernels (forward, and the
+  backward under autograd) on a CUDA tensor. The JAX package's ``'auto'``,
+  ``'xla'`` and ``'pallas_sp'`` are not ported and raise.
 - :class:`CrossAttention`: pre-LN on both query and kv streams.
 - :class:`SelfAttention`: single pre-LN, q = kv.
 - :class:`MLP`: LayerNorm → Linear → GELU (exact) → Linear, constant width.
@@ -30,10 +33,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from perceiver_io_torch.ops.attention_kernel import fused_attention
+from perceiver_io_torch.ops.packed_attention_kernel import (
+    packed_fits_vmem,
+    packed_latent_attention,
+)
 from perceiver_io_torch.ops.qmatmul import dequant_matmul, linear_apply
 from perceiver_io_torch.quant.int8 import QKernel
 
 LN_EPS = 1e-5  # torch nn.LayerNorm's epsilon (flax defaults to 1e-6)
+ATTN_IMPLS = ("pallas", "packed")
+NOT_PORTED_ATTN_IMPLS = ("auto", "xla", "pallas_sp")
+
+
+def check_attn_impl(attn_impl: str) -> None:
+    """Raise on an ``attn_impl`` the port does not run: the JAX package's
+    names that have no counterpart yet, and unknown names."""
+    if attn_impl in NOT_PORTED_ATTN_IMPLS:
+        raise ValueError(
+            f"attn_impl {attn_impl!r} is not ported yet (ROADMAP Queue 1): the port "
+            f"runs {ATTN_IMPLS}")
+    if attn_impl not in ATTN_IMPLS:
+        # a typo'd impl must not fall through to another path
+        raise ValueError(
+            f"unknown attn_impl {attn_impl!r}; expected one of "
+            f"{ATTN_IMPLS + NOT_PORTED_ATTN_IMPLS}")
 
 
 class Linear(nn.Module):
@@ -107,19 +130,24 @@ class MultiHeadAttention(nn.Module):
     (torch ``nn.MultiheadAttention(embed_dim=num_q_channels,
     kdim=vdim=num_kv_channels, batch_first=True)`` semantics).
 
-    ``attention`` is :func:`fused_attention` (the CUDA kernel on a CUDA
-    tensor); the plain version can be put in its place on an instance."""
+    ``attention`` is :func:`fused_attention` (``attn_impl='pallas'``) and
+    ``packed_attention`` :func:`packed_latent_attention` (``'packed'``), the
+    CUDA kernels on a CUDA tensor; the plain versions can be put in their
+    place on an instance."""
 
     attention = staticmethod(fused_attention)
+    packed_attention = staticmethod(packed_latent_attention)
 
     def __init__(self, num_q_channels: int, num_kv_channels: int, num_heads: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_impl: str = "pallas"):
         super().__init__()
         if num_q_channels % num_heads:
             raise ValueError(
                 f"num_q_channels {num_q_channels} not divisible by num_heads {num_heads}")
+        check_attn_impl(attn_impl)
         e = num_q_channels
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.q_proj = Linear(num_q_channels, e, dtype)
         self.k_proj = Linear(num_kv_channels, e, dtype)
         self.v_proj = Linear(num_kv_channels, e, dtype)
@@ -138,6 +166,13 @@ class MultiHeadAttention(nn.Module):
         b, t, e = q.shape
         s = k.shape[1]
         h = self.num_heads
+        if self.attn_impl == "packed":
+            if not packed_fits_vmem(t, s, e, q.element_size()):
+                raise ValueError(
+                    f"attn_impl='packed' shapes T={t} S={s} E={e} exceed the packed "
+                    "kernel's admission rule, the TPU kernel's per-example VMEM budget "
+                    "(packed_attention_kernel.packed_vmem_bytes)")
+            return self.out_proj(self.packed_attention(q, k, v, h, pad_mask)), kv
         d = e // h
         out = self.attention(q.view(b, t, h, d), k.view(b, s, h, d),
                              v.view(b, s, h, d), pad_mask)
@@ -148,12 +183,12 @@ class CrossAttention(nn.Module):
     """Pre-LN cross-attention; embedding dim = query channels."""
 
     def __init__(self, num_q_channels: int, num_kv_channels: int, num_heads: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_impl: str = "pallas"):
         super().__init__()
         self.q_norm = LayerNorm(num_q_channels, dtype)
         self.kv_norm = LayerNorm(num_kv_channels, dtype)
         self.attention = MultiHeadAttention(num_q_channels, num_kv_channels,
-                                            num_heads, dtype)
+                                            num_heads, dtype, attn_impl)
 
     def forward(self, x_q, x_kv, pad_mask=None, kv=None):
         """Returns ``(out, (k, v))``; with ``kv`` given, kv_norm and the k/v
@@ -167,11 +202,12 @@ class CrossAttention(nn.Module):
 class SelfAttention(nn.Module):
     """Pre-LN self-attention, q = kv."""
 
-    def __init__(self, num_channels: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, num_channels: int, num_heads: int, dtype=torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
         self.norm = LayerNorm(num_channels, dtype)
         self.attention = MultiHeadAttention(num_channels, num_channels, num_heads,
-                                            dtype)
+                                            dtype, attn_impl)
 
     def forward(self, x, pad_mask=None):
         x = self.norm(x)
@@ -198,10 +234,10 @@ class CrossAttentionLayer(nn.Module):
     """Residual(CrossAttention) → Residual(MLP) on the query stream."""
 
     def __init__(self, num_q_channels: int, num_kv_channels: int, num_heads: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_impl: str = "pallas"):
         super().__init__()
         self.cross_attention = CrossAttention(num_q_channels, num_kv_channels,
-                                              num_heads, dtype)
+                                              num_heads, dtype, attn_impl)
         self.mlp = MLP(num_q_channels, dtype)
 
     def forward(self, x_q, x_kv, pad_mask=None, kv=None):
@@ -214,9 +250,10 @@ class CrossAttentionLayer(nn.Module):
 class SelfAttentionLayer(nn.Module):
     """Residual(SelfAttention) → Residual(MLP)."""
 
-    def __init__(self, num_channels: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, num_channels: int, num_heads: int, dtype=torch.float32,
+                 attn_impl: str = "pallas"):
         super().__init__()
-        self.self_attention = SelfAttention(num_channels, num_heads, dtype)
+        self.self_attention = SelfAttention(num_channels, num_heads, dtype, attn_impl)
         self.mlp = MLP(num_channels, dtype)
 
     def forward(self, x):
@@ -229,12 +266,12 @@ class SelfAttentionBlock(nn.Module):
     weights."""
 
     def __init__(self, num_layers: int, num_channels: int, num_heads: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_impl: str = "pallas"):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}",
-                            SelfAttentionLayer(num_channels, num_heads, dtype))
+                            SelfAttentionLayer(num_channels, num_heads, dtype, attn_impl))
 
     def forward(self, x):
         for i in range(self.num_layers):

@@ -13,7 +13,10 @@ masked example whose dq and dk must be exactly zero), autograd through
 ``fused_attention`` against the plain versions, the dequant matmul, and the
 fused CE kernels (forward, dx, dW/db at a small, a ragged and a C=512
 shape; autograd through ``linear_ce_integer``; the tiny train step with
-``fused_head='pallas'``). Tolerances against the plain version: f32 within 1e-4 of the reference's
+``fused_head='pallas'``), and the packed-heads kernels (forward, dq, dk/dv
+at small, ragged, wide and head-split shapes; autograd through
+``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``).
+Tolerances against the plain version: f32 within 1e-4 of the reference's
 peak magnitude (sums taken in another order), bf16 within 2e-2 (bf16
 rounding of the probabilities / dequantized weights at other points); the
 statistics within 1e-5 (f32 on both sides).
@@ -25,6 +28,7 @@ import torch
 
 from perceiver_io_torch.ops import attention_kernel as ak
 from perceiver_io_torch.ops import ce_kernel as ck
+from perceiver_io_torch.ops import packed_attention_kernel as pk
 from perceiver_io_torch.ops import qmatmul as qm
 from perceiver_io_torch.quant.int8 import pack_int4, quantize_array
 
@@ -274,6 +278,118 @@ def test_fused_head_train_step_on_the_card_matches_plain(card):
         _, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         expect = [0] * 6 if plain else [5, 5, 5, 1, 1, 1]
+        assert [c.launches - b for c, b in zip(counters, before)] == expect
+        runs.append((float(metrics["loss"]),
+                     {n: p.grad.detach().clone() for n, p in model.named_parameters()}))
+    (loss, grads), (ref_loss, ref_grads) = runs
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, ref in ref_grads.items():
+        if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
+            assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
+
+
+def _packed_inputs(card, dtype, b, t, s, h, d, seed=0):
+    g = torch.Generator().manual_seed(seed + t + s + h * d)
+    q, k, v, go = (torch.randn(b, n, h * d, generator=g).to(card, dtype) for n in (t, s, s, t))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    pad[-1] = True  # a fully masked example
+    return q, k, v, go, pad.to(card)
+
+
+# (B, T, S, H, D): the tiny model's width, a ragged C=64 shape, a flagship
+# width (E=512), three heads of 32, and 32 heads of 16 (two head groups)
+PACKED_SHAPES = [(3, 16, 24, 4, 8), (2, 70, 131, 4, 16), (2, 33, 65, 4, 128),
+                 (2, 20, 37, 3, 32), (2, 9, 40, 32, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_kernels_match_plain(card, dtype, shape):
+    b, t, s, h, d = shape
+    q, k, v, go, pad = _packed_inputs(card, dtype, *shape)
+    counters = (pk.fwd_counter, pk.dq_counter, pk.dkv_counter)
+    before = [c.launches for c in counters]
+    out = pk.packed_attention_fwd(q, k, v, h, pad)
+    grads = pk.packed_attention_bwd(q, k, v, h, pad, go)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    _close(out, pk.packed_attention_reference(q, k, v, h, pad), dtype)
+    bias = ak.pad_bias(pad, b, s, card)
+    refs = pk.packed_attention_bwd_reference(q, k, v, bias, go, h)
+    for got, ref in zip(grads, refs):
+        assert got.shape == ref.shape and got.dtype == dtype and got.is_contiguous()
+        _close(got, ref, dtype)
+    # the fully masked example: dq and dk exactly zero, dv the uniform share
+    assert not grads[0][-1].any() and not grads[1][-1].any()
+    assert grads[2][-1].abs().max() > 0
+    # the dq kernel's (m, l, delta) scratch: l of the masked example is S
+    _, stats = pk.launch_bwd_dq(q, k, v, bias, go, h)
+    torch.cuda.synchronize()
+    assert (stats[-1, :, :, 0] == ak.MASK_VALUE).all() and (stats[-1, :, :, 1] == s).all()
+
+
+def test_packed_autograd_runs_the_kernels(card):
+    q, k, v, go, pad = _packed_inputs(card, torch.float32, 2, 64, 256, 4, 16)
+    counters = (pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.counter, ak.dq_counter)
+    grads = []
+    for fn in (pk.packed_latent_attention, pk.plain_packed_attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = [c.launches for c in counters]
+        fn(*leaves, 4, pad).backward(go)
+        expect = [1, 1, 1, 0, 0] if fn is pk.packed_latent_attention else [0] * 5
+        assert [c.launches - n for c, n in zip(counters, before)] == expect
+        grads.append([x.grad for x in leaves])
+    for got, ref in zip(*grads):
+        _close(got, ref, torch.float32)
+    with pytest.raises(ValueError, match="head dim 24 unsupported"):
+        pk.packed_attention_fwd(q[..., :48], k[..., :48], v[..., :48], 2)
+
+
+def test_packed_kernels_take_strided_views(card):
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn(2, 65, 3, 64, generator=g).to(card)  # (B, S, 3, E)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    _close(pk.packed_attention_fwd(q, k, v, 4), pk.packed_attention_reference(q, k, v, 4),
+           torch.float32)
+    go = torch.randn(2, 65, 64, generator=g).to(card)
+    bias = ak.pad_bias(None, 2, 65, card)
+    for x, r in zip(pk.packed_attention_bwd(q, k, v, 4, None, go),
+                    pk.packed_attention_bwd_reference(q, k, v, bias, go, 4)):
+        _close(x, r, torch.float32)
+
+
+def test_packed_train_step_on_the_card_matches_plain(card):
+    """One f32 train step of the tiny model with ``attn_impl='packed'`` and
+    the fused head, with the kernels and with the plain versions in their
+    place: the same loss and gradients; 5 packed forward, dq and dk/dv
+    launches, none of the fused attention kernels, none in the plain run."""
+    from perceiver_io_torch.models.presets import tiny_mlm
+    from perceiver_io_torch.ops.attention import MultiHeadAttention
+    from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
+    from perceiver_io_torch.training.steps import make_mlm_steps
+    from perceiver_io_torch.training.train_state import TrainState
+
+    rng = np.random.default_rng(2)
+    pad = np.zeros((4, 64), bool)
+    pad[2, 30:] = True
+    batch = {"token_ids": rng.integers(3, 503, (4, 64)).astype(np.int32), "pad_mask": pad}
+    counters = (pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.counter, ak.dq_counter,
+                ak.dkv_counter, ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+    runs = []
+    for plain in (False, True):
+        model = tiny_mlm(device=card, seed=1, attn_impl="packed")
+        if plain:
+            for module in model.modules():
+                if isinstance(module, MultiHeadAttention):
+                    module.packed_attention = pk.plain_packed_attention
+            model.decoder.output_adapter.linear_ce = ck.plain_linear_ce_integer
+        optimizer, schedule = make_optimizer(OptimizerConfig(), model.parameters())
+        state = TrainState.create(model, optimizer, schedule, seed=3)
+        train_step, _, _ = make_mlm_steps(model, schedule, loss_gather_capacity=32,
+                                          fused_head="pallas")
+        before = [c.launches for c in counters]
+        _, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        expect = [0] * 9 if plain else [5, 5, 5, 0, 0, 0, 1, 1, 1]
         assert [c.launches - b for c, b in zip(counters, before)] == expect
         runs.append((float(metrics["loss"]),
                      {n: p.grad.detach().clone() for n, p in model.named_parameters()}))

@@ -7,7 +7,11 @@ expression), and the int8w serving mode (bf16 compute) within the 0.05
 rel-to-peak bound tests/test_quant.py holds the JAX int8w path to.
 
 The JAX side runs both its kernels: ``attn_impl='pallas'`` and
-``PIT_QMM_IMPL=pallas`` (interpret mode off the TPU)."""
+``PIT_QMM_IMPL=pallas`` (interpret mode off the TPU). With
+``attn_impl='packed'`` on both sides (the packed-heads kernels #4 and #5)
+the fused forward and ``decode(encode(x))`` agree at 2e-5 too, the port's
+packed and pallas models agree with each other at 2e-5, ``decoder_attn_impl``
+routes only the decoder, and the JAX names the port does not run raise."""
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +23,10 @@ from perceiver_io_tpu import quant as jquant
 from perceiver_io_tpu.models.presets import tiny_mlm as jax_tiny_mlm
 from perceiver_io_torch.inference.engine import prepare_param_tree
 from perceiver_io_torch.interop import from_jax_params, load_param_tree, param_tree
-from perceiver_io_torch.models.presets import tiny_mlm
+from perceiver_io_torch.models.presets import flagship_mlm, tiny_mlm
+from perceiver_io_torch.ops import attention_kernel as ak
+from perceiver_io_torch.ops import packed_attention_kernel as pk
+from perceiver_io_torch.ops.attention import MultiHeadAttention
 
 B, L = 3, 40
 
@@ -134,3 +141,73 @@ def test_quantized_forward_matches_jax(twins, batch, monkeypatch, mode, bits, bo
     got, _ = _port(model, ids, pad, positions=torch.from_numpy(positions))
     peak = float(np.abs(ref).max())
     assert float(np.abs(got.float().numpy() - ref).max()) <= bound * peak
+
+
+# -- packed-heads attention (attn_impl='packed') --------------------------------
+
+
+@pytest.fixture(scope="module")
+def packed_twins(twins):
+    """The same weights in the JAX and port models with attn_impl='packed'."""
+    _, params, _ = twins
+    tree = jax.tree.map(np.asarray, params)
+    model = from_jax_params(tiny_mlm(device="cpu", attn_impl="packed"), tree).eval()
+    return jax_tiny_mlm(attn_impl="packed"), params, model
+
+
+def test_packed_fused_forward_matches_jax(packed_twins, batch):
+    jmodel, params, model = packed_twins
+    ids, pad, positions = batch
+    before = (pk.fwd_counter.plain_calls, ak.counter.plain_calls)
+    full, _ = _port(model, ids, pad)
+    # 2 encoder cross + 2 self + 1 decoder, all packed
+    assert (pk.fwd_counter.plain_calls, ak.counter.plain_calls) == (before[0] + 5, before[1])
+    np.testing.assert_allclose(full.numpy(), _jax(jmodel, params, ids, pad),
+                               atol=2e-5, rtol=2e-5)
+    gathered, _ = _port(model, ids, pad, positions=torch.from_numpy(positions))
+    np.testing.assert_allclose(gathered.numpy(), _jax(jmodel, params, ids, pad, positions),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_packed_encode_decode_matches_jax(packed_twins, batch):
+    jmodel, params, model = packed_twins
+    ids, pad, positions = batch
+    with torch.inference_mode():
+        latents = model.encode(torch.from_numpy(ids), torch.from_numpy(pad))
+        split = model.decode(latents, torch.from_numpy(positions)).numpy()
+    jlat = jmodel.apply({"params": params}, jnp.asarray(ids), jnp.asarray(pad),
+                        method="encode")
+    np.testing.assert_allclose(latents.numpy(), np.asarray(jlat), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(split, _jax(jmodel, params, ids, pad, positions),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_packed_and_pallas_models_agree(twins, packed_twins, batch):
+    """One function, two kernels: the port's packed and pallas models at f32."""
+    ids, pad, _ = batch
+    np.testing.assert_allclose(_port(packed_twins[2], ids, pad)[0].numpy(),
+                               _port(twins[2], ids, pad)[0].numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_decoder_attn_impl_routes_only_the_decoder(batch):
+    ids, pad, _ = batch
+    model = flagship_mlm(vocab_size=503, max_seq_len=64, num_latents=16, num_channels=32,
+                         num_layers=2, num_self_attention_layers_per_block=1, device="cpu",
+                         attn_impl="pallas", decoder_attn_impl="packed")
+    impls = {name: m.attn_impl for name, m in model.named_modules()
+             if isinstance(m, MultiHeadAttention)}
+    assert {n for n, i in impls.items() if i == "packed"} == {
+        "decoder.cross_attention_layer.cross_attention.attention"}
+    assert len(impls) == 5
+    before = (pk.fwd_counter.plain_calls, ak.counter.plain_calls)
+    _port(model, ids, pad)
+    assert (pk.fwd_counter.plain_calls, ak.counter.plain_calls) == (before[0] + 1, before[1] + 4)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas_sp", "einsum"])
+def test_unported_attn_impls_raise(impl):
+    match = "unknown attn_impl" if impl == "einsum" else "not ported"
+    with pytest.raises(ValueError, match=match):
+        tiny_mlm(device="cpu", attn_impl=impl)
+    with pytest.raises(ValueError, match=match):
+        MultiHeadAttention(32, 32, 4, attn_impl=impl)

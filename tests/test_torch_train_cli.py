@@ -3,7 +3,9 @@ module gives the JAX package's batches (same tokenizer ids, same seeded
 shuffle), the trainer writes ``metrics.jsonl``, and the CLI trains a tiny
 model with ``--cpu`` (each ``--fused_head``, a padded vocab head), resolves
 ``--fused_head auto`` by device and width, needs a card without ``--cpu``,
-and raises on what the port does not have yet (``--dropout``)."""
+and raises on what the port does not have yet (``--dropout``, the
+``--attn_impl`` names other than ``pallas`` and ``packed``); ``--attn_impl
+packed`` trains through the packed-heads attention."""
 
 import json
 
@@ -14,7 +16,9 @@ import torch
 from perceiver_io_tpu.data.imdb import IMDBDataModule as JaxIMDBDataModule
 from perceiver_io_torch.cli import train_mlm
 from perceiver_io_torch.data.imdb import IMDBDataModule
+from perceiver_io_torch.ops import attention_kernel as ak
 from perceiver_io_torch.ops import ce_kernel as ck
+from perceiver_io_torch.ops import packed_attention_kernel as pk
 
 TINY = ["--preset", "reference", "--synthetic", "--batch_size", "32", "--max_seq_len", "48", "--vocab_size", "300",
         "--num_latents", "8", "--num_latent_channels", "16", "--num_encoder_layers", "2",
@@ -102,3 +106,26 @@ def test_presets_fill_only_the_unset_widths():
         ["--preset", "flagship_tpu", "--max_steps", "1", "--num_latents", "32"]))
     assert (args.num_latents, args.num_latent_channels) == (32, 512)
     assert (args.batch_size, args.max_seq_len, args.fused_head) == (64, 512, "auto")
+
+
+def test_cli_trains_with_packed_attention(tmp_path):
+    """``--attn_impl packed``: one step of the tiny shape through the packed
+    kernels' wrappers (their plain versions on the CPU), a finite loss, no
+    call of the fused attention wrappers."""
+    counters = (pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.counter, ak.dq_counter)
+    for c in counters:
+        c.reset()
+    run_dir = train_mlm.main(TINY + ["--cpu", "--attn_impl", "packed", "--max_steps", "1",
+                                     "--root", str(tmp_path), "--logdir", str(tmp_path / "logs")])
+    rows = [json.loads(line) for line in open(f"{run_dir}/metrics.jsonl")]
+    assert np.isfinite([r["train_loss"] for r in rows if "train_loss" in r]).all()
+    # 2 encoder cross + 2 self + 1 decoder per forward
+    assert [c.plain_calls for c in counters][1:] == [5, 5, 0, 0]
+    assert counters[0].plain_calls > 5 and not any(c.launches for c in counters)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas_sp"])
+def test_cli_refuses_unported_attn_impls(tmp_path, impl):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        train_mlm.main(TINY + ["--cpu", "--attn_impl", impl, "--max_steps", "1",
+                               "--root", str(tmp_path), "--logdir", str(tmp_path / "logs")])

@@ -17,7 +17,12 @@ mode through ``attn_impl='pallas'``), at the tiny preset:
   against the Pallas kernels in interpret mode, and ``True``, the chunked
   head): the f32 step at the same bars as the unfused one, the bf16 step's
   loss within 5e-4 relative;
-- the attention and CE call counts of one step at the flagship depth.
+- the attention and CE call counts of one step at the flagship depth;
+- ``attn_impl='packed'`` on both sides (the packed-heads kernels #4 and #5)
+  with ``fused_head='pallas'``: the f32 step's loss within 2e-5 and every
+  gradient leaf within 1e-4 of its peak, the bf16 step's loss within 5e-4
+  relative, and one step's calls at the flagship depth (22 packed forward,
+  22 dq and 22 dk/dv, none of the fused attention kernels).
 """
 
 import jax
@@ -37,6 +42,7 @@ from perceiver_io_torch.interop import from_jax_params
 from perceiver_io_torch.models.presets import tiny_mlm
 from perceiver_io_torch.ops import attention_kernel as ak
 from perceiver_io_torch.ops import ce_kernel as ck
+from perceiver_io_torch.ops import packed_attention_kernel as pk
 from perceiver_io_torch.ops.masking import IGNORE_LABEL, TextMasking
 from perceiver_io_torch.training import losses, optim
 from perceiver_io_torch.training.steps import make_mlm_steps, mlm_gather_capacity
@@ -185,8 +191,9 @@ def setup():
     return jmodel, params, {"token_ids": ids, "pad_mask": pad}, masked
 
 
-def _port_model(params, masked, dtype=torch.float32):
-    model = from_jax_params(tiny_mlm(device="cpu", max_seq_len=L, dtype=dtype),
+def _port_model(params, masked, dtype=torch.float32, attn_impl="pallas"):
+    model = from_jax_params(tiny_mlm(device="cpu", max_seq_len=L, dtype=dtype,
+                                     attn_impl=attn_impl),
                             jax.tree.map(np.asarray, params))
     x, labels = (torch.from_numpy(np.array(a)).long() for a in masked)
     model.masking = lambda generator, ids, pad: (x, labels)
@@ -369,3 +376,73 @@ def test_mlm_gather_capacity_matches_jax():
     for n in (16, 64, 100, 512, 2048):
         assert mlm_gather_capacity(n) == jcap(n)
     assert mlm_gather_capacity(512) == 160
+
+
+# -- packed-heads attention (attn_impl='packed') --------------------------------
+
+
+def test_packed_train_step_loss_and_gradients_match_jax(setup):
+    """The f32 step through the packed kernels' plain versions and the CE
+    kernels' (``fused_head='pallas'``) against the JAX step with
+    ``attn_impl='packed'`` (Pallas #4, #5 and #6-#8 in interpret mode)."""
+    _, params, batch, masked = setup
+    jmodel = jax_tiny_mlm(attn_impl="packed", max_seq_len=L)
+    jmodel, _, _ = _jax_state(jmodel, params, masked, joptim.OptimizerConfig())
+    jval, jgrads = jax.value_and_grad(_jax_loss_fn(jmodel, batch, "pallas"))(params)
+    model = _port_model(params, masked, attn_impl="packed")
+    state, _ = _port_state(model, optim.OptimizerConfig())
+    train_step, _, _ = make_mlm_steps(model, loss_gather_capacity=CAPACITY, fused_head="pallas")
+    before = (pk.dq_counter.plain_calls, ak.dq_counter.plain_calls)
+    _, metrics = train_step(state, batch)
+    assert (pk.dq_counter.plain_calls, ak.dq_counter.plain_calls) == (before[0] + 5, before[1])
+    np.testing.assert_allclose(float(metrics["loss"]), float(jval), rtol=2e-5, atol=2e-5)
+    jflat = _flat(jgrads)
+    peak_all = max(float(np.abs(g).max()) for g in jflat.values())
+    for name, p in model.named_parameters():
+        ref = jflat[name.replace(".", "/")]
+        got = p.grad.numpy()
+        if name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise on both sides
+            assert max(np.abs(got).max(), np.abs(ref).max()) < 1e-5 * peak_all, name
+            continue
+        assert float(np.abs(got - ref).max()) <= 1e-4 * float(np.abs(ref).max()), name
+
+
+def test_packed_bf16_train_step_loss_matches_jax(setup):
+    _, params, batch, masked = setup
+    jmodel = jax_tiny_mlm(attn_impl="packed", max_seq_len=L, dtype=jnp.bfloat16).clone(
+        masking=_Fixed(jnp.asarray(masked[0]), jnp.asarray(masked[1])))
+    jval = float(_jax_loss_fn(jmodel, batch, "pallas")(params))
+    model = _port_model(params, masked, dtype=torch.bfloat16, attn_impl="packed")
+    state, _ = _port_state(model, optim.OptimizerConfig())
+    train_step, _, _ = make_mlm_steps(model, loss_gather_capacity=CAPACITY, fused_head="pallas")
+    _, metrics = train_step(state, batch)
+    assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    rel = abs(float(metrics["loss"]) - jval) / abs(jval)
+    assert rel <= 5e-4, rel
+
+
+def test_packed_calls_per_train_step_at_flagship_depth():
+    """One packed train step at the flagship depth with the fused head: 22
+    packed forward, dq and dk/dv calls, one CE forward, dx and dW call, no
+    call of the fused attention wrappers; an eval step 22 packed forwards
+    and one CE forward."""
+    model = tiny_mlm(num_layers=3, num_self_attention_layers_per_block=6, device="cpu",
+                     attn_impl="packed")
+    optimizer, schedule = optim.make_optimizer(optim.OptimizerConfig(), model.parameters())
+    state = TrainState.create(model, optimizer, schedule, seed=0)
+    train_step, eval_step, _ = make_mlm_steps(model, schedule, loss_gather_capacity=32,
+                                              fused_head="pallas")
+    rng = np.random.default_rng(6)
+    batch = {"token_ids": rng.integers(3, 503, (2, 64)).astype(np.int32),
+             "pad_mask": np.zeros((2, 64), bool)}
+    counters = (pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.counter, ak.dq_counter,
+                ak.dkv_counter, ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+    for c in counters:
+        c.reset()
+    _, metrics = train_step(state, batch)
+    assert [c.plain_calls for c in counters] == [22, 22, 22, 0, 0, 0, 1, 1, 1]
+    assert np.isfinite(float(metrics["loss"]))
+    eval_step(state, batch, torch.Generator().manual_seed(0))
+    assert [c.plain_calls for c in counters] == [44, 22, 22, 0, 0, 0, 2, 1, 1]
+    assert not any(c.launches for c in counters)
