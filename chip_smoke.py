@@ -10,8 +10,14 @@ Phases (any failure exits nonzero):
    build seconds;
 2. the attention forward kernel against its plain version at the flagship
    serving shapes (encoder cross-attention with ~30% of keys padded and one
-   fully masked row, latent self-attention, the gathered decoder) and at the
-   D=16 ``flagship_mlm`` cross shape, in f32 and bf16;
+   fully masked row, latent self-attention, the gathered decoder), the
+   training decoder at capacity 160 and a ragged (250, 509) cross, both
+   padded, and at the D=16 ``flagship_mlm`` cross shape, in f32 (the scalar
+   design) and bf16 (the wgmma design; each row logs its ``design``, and a
+   bf16 call must advance the wgmma counter), with the host time of one
+   call; first, the host time of the C entry points alone, f32 against
+   bf16 (whose design encodes TMA tensor maps at each launch: three for
+   the forward, one for the dequant matmul);
 3. the attention backward at the training shapes (the encoder cross with
    padding and a fully masked row, self-attention, the decoder gathered at
    capacity 160, the D=16 cross), f32 and bf16: the forward's statistics
@@ -19,7 +25,9 @@ Phases (any failure exits nonzero):
    dk of the fully masked example exactly zero;
 4. the dequant-matmul kernel against its plain version (int8 per-channel,
    int4 group 128; bf16 and f32) at the self-attention projection
-   (M=16384, K=N=512) and the vocab head (M=512, K=512, N=10003);
+   (M=16384, K=N=512) and the vocab head (M=512, K=512, N=10003), and at
+   the vocab head with M=1 (one request) and M=413 (the serving pass's
+   masks);
 5. the three fused CE kernels (forward, dx, dW/db) against their plain
    versions at bench.py's head (R, C, V) = (10240, 64, 10003), the flagship
    head (10240, 512, 10003) and a ragged (10239, 64, 10003), f32 and bf16,
@@ -36,15 +44,19 @@ Phases (any failure exits nonzero):
    128/256/512, max_batch 64) fills ~200 ``[MASK]`` texts, then encodes them
    and fills from the cached latents, under bf16, int8w and int4w; the
    kernels' launch counters must advance by 22 attention and 131 dequant
-   launches per quantized fused forward, and the plain versions must never
-   run;
+   launches per quantized fused forward, every one of them through the bf16
+   wgmma designs, and the plain versions must never run; then the bf16 pass
+   again with the plain versions in the kernels' place on the same weights:
+   its top-1 fills must agree with the kernels' on at least 95% of the
+   masks (bf16 logits tie, so agreement, not identity);
 7. the same serving pass at f32 with the plain versions put in the kernels'
    place must give the same top-1 fill on every mask;
 8. the training path: ``Trainer.fit`` takes 30 Adam steps (lr 1e-3) of
    ``flagship_tpu_mlm`` in bf16 over f32 weights, batch 64 of the synthetic
    ``IMDBDataModule`` at 512 tokens, masked positions gathered at capacity
-   160; every step must launch exactly 22 forward, 22 dq and 22 dk/dv
-   attention kernels and no plain version, give a finite loss, and the mean
+   160; every step must launch exactly 22 forward (all through the wgmma
+   design), 22 dq and 22 dk/dv attention kernels and no plain version, give
+   a finite loss, and the mean
    loss of the last 5 steps must be below the first step's. Then
    ``Trainer.fit`` runs on as the CLI drives it, with no per-step check: 10
    steps give the train tokens/s (all tokens over the window's host time,
@@ -53,7 +65,8 @@ Phases (any failure exits nonzero):
 9. three f32 train steps at flagship width with the kernels, then with the
    plain versions in their place, for each of three masking seeds: the
    losses agree within 1e-4 relative at every step and the first step's
-   gradients within 1e-3 of each leaf's peak;
+   gradients within 1e-3 of each leaf's peak; then three bf16 steps, kernels
+   against plain versions, at masking seed 2: losses within 2e-2 relative;
 10. the C=64 path (bench.py's and the CLI's default configuration):
     ``flagship_mlm`` (256 latents, C=64, 4 heads of depth 16, 3 x (cross +
     6 self), vocab 10003, 512 tokens) trained as in phase 8 with
@@ -114,7 +127,10 @@ train the same vocabulary and see the same data.
 f32 comparisons run with TF32 off. Tolerances against the plain versions:
 f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2; the
 statistics m and l within 1e-5 of max(|ref|, 1) (f32 on both sides). Times
-are CUDA-event means over repeated launches after a warm-up; ``bound_ms`` is
+are CUDA-event means over repeated launches after a warm-up (phases 2 and 4
+also give each kernel's and the library call's device time from
+torch.profiler, ``device_ms``, which the kernels line reports for #1 and
+#9: a short kernel's event time is the host's enqueue); ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / the H100 peak for the
 inputs' type (989 TF/s bf16, 67 TF/s f32 without tensor cores), for the CE
 kernels with the exponential term of phase 5 beside them. The last line is
@@ -144,7 +160,9 @@ PARITY_SEEDS = (2, 3, 4)
 STAT_TOL = 1e-5
 KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                 "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw",
-                "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv")
+                "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
+                "attention_fwd_wgmma")
+BF16_TOP1_AGREEMENT, BF16_LOSS_REL = 0.95, 2e-2
 # (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
 # the flagship head (C=512), a ragged row count
 CE_SHAPES = (("bench_head", (10240, 64, 10003)), ("flagship_head", (10240, 512, 10003)),
@@ -208,6 +226,89 @@ def check(name: str, got, ref, dtype: str) -> float:
     return err
 
 
+def host_us(torch, fn, calls: int = 30) -> float:
+    """Host microseconds of one call of ``fn`` (its enqueue: argument checks,
+    tensor maps, the launch), the median of ``calls`` calls each timed
+    alone; the device is drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return sorted(times)[calls // 2]
+
+
+def device_ms(torch, fn, match: str = "", iters: int = 20, tries: int = 3):
+    """Device time of one call of ``fn``: the kernels whose name contains
+    ``match`` (every kernel of the call when empty), summed by torch.profiler
+    over ``iters`` calls after a warm-up. Unlike CUDA events around the
+    calls, it does not count the device waiting on the host's enqueue. The
+    profiler on the card's machine now and then returns no kernel events:
+    such a window is profiled again, up to ``tries`` times, then the reading
+    is None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key
+                 and not getattr(e, "is_user_annotation", False))
+        if us:
+            return us / 1e3 / iters
+    return None
+
+
+def entry_host_us(torch, build, calls: int = 200) -> None:
+    """Host microseconds of one call of the C entry points alone (no Python
+    wrapper), median of ``calls``, f32 against bf16 on the same shapes: the
+    difference is what the bf16 design's TMA tensor maps cost to encode
+    (three for #1, one for #9; the f32 design encodes none)."""
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    b, t, s, h, d = 64, 8, 256, 4, 128  # the serving decoder: a short kernel
+    m, k, n = 1, 512, 10003             # one request's vocab head
+    readings = {}
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q = torch.randn(b, t, h, d, device="cuda").to(dtype)
+        kv = torch.randn(b, s, h, d, device="cuda").to(dtype)
+        bias = torch.zeros(b, s, device="cuda")
+        out = torch.empty_like(q)
+        x = torch.randn(m, k, device="cuda").to(dtype)
+        w = torch.zeros(k, n, dtype=torch.int8, device="cuda")
+        scale = torch.ones(n, device="cuda")
+        y = torch.empty(m, n, device="cuda", dtype=dtype)
+        strides = [q.stride(i) for i in range(3)] + [kv.stride(i) for i in range(3)] * 2
+        attn = (code, d, q.data_ptr(), kv.data_ptr(), kv.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), None, None, b, t, s, h, *strides, stream)
+        deq = (code, 8, 0, x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n,
+               stream)
+        for name, fn, args in (("attention_fwd", lib.attention_fwd, attn),
+                               ("dequant_matmul", lib.dequant_matmul, deq)):
+            times = []
+            for i in range(calls):
+                if i % 50 == 0:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                err = fn(*args)
+                times.append((time.perf_counter() - t0) * 1e6)
+                build.check_launch(name, err)
+            torch.cuda.synchronize()
+            readings[f"{name}_{str(dtype).split('.')[1]}"] = sorted(times)[calls // 2]
+    for name in ("attention_fwd", "dequant_matmul"):
+        readings[f"{name}_tensor_map_us"] = (readings[f"{name}_bfloat16"]
+                                             - readings[f"{name}_float32"])
+    log(phase="entry_host_us", calls=calls, **readings)
+
+
 def attention_phase(torch, ak):
     import torch.nn.functional as F
 
@@ -215,6 +316,8 @@ def attention_phase(torch, ak):
         ("enc_cross", (64, 256, 512, 4, 128), True),
         ("self", (64, 256, 256, 4, 128), False),
         ("dec_cross", (64, 8, 256, 4, 128), False),
+        ("dec_cross_train", (64, CAPACITY, 256, 4, 128), True),
+        ("ragged", (64, 250, 509, 4, 128), True),
         ("enc_cross_d16", (64, 256, 512, 4, 16), True),
     ]
     rows = []
@@ -230,8 +333,13 @@ def attention_phase(torch, ak):
             q = torch.randn(b, t, h, d, generator=g).to("cuda", dtype)
             k = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
             v = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
+            design = ak.forward_design(q, k, v)
+            before = ak.wgmma_counter.launches
             err = check(f"attention {name} {dt}", ak.fused_attention(q, k, v, pad),
                         ak.attention_reference(q, k, v, pad), dt)
+            if ak.wgmma_counter.launches - before != (design == "wgmma"):
+                raise AssertionError(f"attention {name} {dt}: {design} call, wgmma counter "
+                                     f"{ak.wgmma_counter.launches - before}")
             bias = ak.pad_bias(pad, b, s, "cuda")
             mask = bias[:, None, None, :].to(dtype)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -240,12 +348,17 @@ def attention_phase(torch, ak):
             nbytes = item * (2 * b * t * h * d + 2 * b * s * h * d) + 4 * b * s
             bound, by = bound_ms(nbytes, 4 * h * t * d * valid, dt)
             row = dict(kernel="attention_fwd", shape=name, dims=[b, t, s, h, d], dtype=dt,
-                       max_abs_err=err, launches_per_forward=ATTN_PER_FORWARD,
+                       design=design, max_abs_err=err, launches_per_forward=ATTN_PER_FORWARD,
                        kernel_ms=time_ms(lambda: ak.fused_attention(q, k, v, pad)),
                        plain_ms=time_ms(lambda: ak.attention_reference(q, k, v, pad)),
                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                            qt, kt, vt, attn_mask=mask)),
-                       bound_ms=bound, bound_by=by)
+                       bound_ms=bound, bound_by=by,
+                       device_ms=device_ms(torch, lambda: ak.fused_attention(q, k, v, pad),
+                                           "attention_fwd"),
+                       library_device_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, attn_mask=mask)),
+                       host_us_per_call=host_us(torch, lambda: ak.fused_attention(q, k, v, pad)))
             log(**row)
             rows.append(row)
     return rows
@@ -346,7 +459,9 @@ def dequant_phase(torch, qm, QKernel, pack_int4, quantize_array):
     import numpy as np
 
     rows = []
-    for name, (m, k, n) in (("self_proj", (16384, 512, 512)), ("vocab_head", (512, 512, 10003))):
+    shapes = (("self_proj", (16384, 512, 512)), ("vocab_head", (512, 512, 10003)),
+              ("vocab_head_m1", (1, 512, 10003)), ("vocab_head_m413", (413, 512, 10003)))
+    for name, (m, k, n) in shapes:
         rng = np.random.default_rng(m + n)
         w = rng.normal(size=(k, n)).astype(np.float32) * 0.05
         for bits, gs in ((8, None), (4, 128)):
@@ -356,21 +471,32 @@ def dequant_phase(torch, qm, QKernel, pack_int4, quantize_array):
             for dtype in (torch.float32, torch.bfloat16):
                 dt = str(dtype).split(".")[1]
                 x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to("cuda", dtype)
+                design = qm.matmul_design(x, gs)
+                before = qm.wgmma_counter.launches
                 err = check(f"dequant {name} int{bits} {dt}",
                             qm.dequant_matmul(x, q, scale, bits, gs),
                             qm.dequant_matmul_reference(x, q, scale, bits, gs), dt)
+                if qm.wgmma_counter.launches - before != (design == "wgmma"):
+                    raise AssertionError(f"dequant {name} int{bits} {dt}: {design} call, "
+                                         f"wgmma counter {qm.wgmma_counter.launches - before}")
                 w_deq = QKernel(q, scale, bits, dtype).dequantize()
                 nbytes = (x.element_size() * (m * k + m * n) + q.numel()
                           + 4 * scale.numel())
                 bound, by = bound_ms(nbytes, 2 * m * k * n, dt)
                 row = dict(kernel="dequant_matmul", shape=name, dims=[m, k, n],
                            quant=f"int{bits}" + (f"-g{gs}" if gs else ""), dtype=dt,
-                           max_abs_err=err, launches_per_forward=DEQUANT_PER_FORWARD,
+                           design=design, max_abs_err=err,
+                           launches_per_forward=DEQUANT_PER_FORWARD,
                            kernel_ms=time_ms(lambda: qm.dequant_matmul(x, q, scale, bits, gs)),
                            plain_ms=time_ms(lambda: qm.dequant_matmul_reference(
                                x, q, scale, bits, gs), 3),
                            library_ms=time_ms(lambda: torch.matmul(x, w_deq)),
-                           bound_ms=bound, bound_by=by)
+                           bound_ms=bound, bound_by=by,
+                           device_ms=device_ms(torch, lambda: qm.dequant_matmul(
+                               x, q, scale, bits, gs), "dequant_matmul"),
+                           library_device_ms=device_ms(torch, lambda: torch.matmul(x, w_deq)),
+                           host_us_per_call=host_us(torch, lambda: qm.dequant_matmul(
+                               x, q, scale, bits, gs)))
                 log(**row)
                 rows.append(row)
     return rows
@@ -411,10 +537,20 @@ def use_attn_impl(model, port, impl: str) -> None:
             module.attn_impl = impl
 
 
+def check_wgmma_share(ak, qm, what: str) -> None:
+    """Every launch of #1 and #9 since the counters' reset went through the
+    bf16 wgmma designs."""
+    got = (ak.wgmma_counter.launches, qm.wgmma_counter.launches)
+    if got != (ak.counter.launches, qm.counter.launches):
+        raise AssertionError(f"{what}: wgmma launches {got} of (#1, #9) launches "
+                             f"{(ak.counter.launches, qm.counter.launches)}")
+
+
 def serving_phase(torch, ak, qm, port, tokenizer, texts):
-    counters = (ak.counter, qm.counter)
+    counters = (ak.counter, qm.counter, ak.wgmma_counter, qm.wgmma_counter)
     model = port["presets"].flagship_tpu_mlm(device="cuda", seed=0)
-    launches = {"attention_fwd": 0, "dequant_matmul": 0}
+    names = ("attention_fwd", "dequant_matmul", "attention_fwd_wgmma", "dequant_matmul_wgmma")
+    launches = dict.fromkeys(names, 0)
     for mode in ("bfloat16", "int8w", "int4w"):
         server = port["MLMServer"](model, None, tokenizer, 512, bucket_widths=[128, 256, 512],
                                    max_batch=64, compute_dtype=mode, device="cuda")
@@ -432,8 +568,9 @@ def serving_phase(torch, ak, qm, port, tokenizer, texts):
         if got != expect or ak.counter.plain_calls or qm.counter.plain_calls:
             raise AssertionError(f"{mode} fused: launches {got} != {expect} over {n_fwd} "
                                  f"forwards, or a plain version ran")
-        launches["attention_fwd"] += got[0]
-        launches["dequant_matmul"] += got[1]
+        check_wgmma_share(ak, qm, f"{mode} fused")
+        for name, c in zip(names, counters):
+            launches[name] += c.launches
 
         for c in counters:
             c.reset()
@@ -448,8 +585,9 @@ def serving_phase(torch, ak, qm, port, tokenizer, texts):
         got = (ak.counter.launches, qm.counter.launches)
         if got != expect or ak.counter.plain_calls or qm.counter.plain_calls:
             raise AssertionError(f"{mode} cached: launches {got} != {expect}")
-        launches["attention_fwd"] += got[0]
-        launches["dequant_matmul"] += got[1]
+        check_wgmma_share(ak, qm, f"{mode} cached")
+        for name, c in zip(names, counters):
+            launches[name] += c.launches
 
         masks = [t.split().count("[MASK]") for t in texts]
         for out in (fills, cached_fills):
@@ -465,14 +603,39 @@ def serving_phase(torch, ak, qm, port, tokenizer, texts):
                                                              for f in r])]))
         if mode in ("bfloat16", "int8w"):
             profile_pass(torch, lambda: server.fill_masks(texts, k=5), mode)
+        plain_agreement = None
+        if mode == "bfloat16":
+            plain_agreement = bf16_plain_agreement(ak, qm, port, server, tokenizer, texts, top1)
         log(phase="serve", mode=mode, texts=len(texts), masks=sum(masks),
             fused_forwards=n_fwd, encodes=n_enc, decodes=n_dec,
             attention_per_forward=ATTN_PER_FORWARD,
             dequant_per_forward=DEQUANT_PER_FORWARD if quantized else 0,
             fill_masks_s=fused_s, encode_and_cached_fill_s=cached_s,
-            cached_top1_agreement=agree, example=[texts[1][:60], fills[1]])
+            cached_top1_agreement=agree, plain_top1_agreement=plain_agreement,
+            example=[texts[1][:60], fills[1]])
         del server
     return launches
+
+
+def bf16_plain_agreement(ak, qm, port, server, tokenizer, texts, top1) -> float:
+    """The bf16 pass again on the same weights with the plain versions in the
+    kernels' place: the share of masks whose top-1 fill agrees with the
+    kernels' (``top1``); fails below BF16_TOP1_AGREEMENT."""
+    import numpy as np
+
+    plain = port["MLMServer"](server.model, None, tokenizer, 512, bucket_widths=[128, 256, 512],
+                              max_batch=64, compute_dtype="bfloat16", device="cuda")
+    use_plain_kernels(plain.model, port)
+    before = (ak.counter.launches, qm.counter.launches)
+    top_plain = [f[0] for r in plain.fill_masks(texts, k=1) for f in r]
+    if (ak.counter.launches, qm.counter.launches) != before:
+        raise AssertionError("the bf16 plain pass launched a kernel")
+    del plain
+    agreement = float(np.mean([a == b for a, b in zip(top1, top_plain)]))
+    if len(top_plain) != len(top1) or not agreement >= BF16_TOP1_AGREEMENT:
+        raise AssertionError(f"bf16 serving: top-1 kernels vs plain agree on {agreement} of "
+                             f"{len(top1)} masks < {BF16_TOP1_AGREEMENT}")
+    return agreement
 
 
 def profile_pass(torch, run, mode: str) -> None:
@@ -497,7 +660,7 @@ def profile_pass(torch, run, mode: str) -> None:
     busy_ms = sum(ms for ms, _, _ in device)
     log(phase="profile", mode=mode, wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=(1 - busy_ms / wall_ms) if device else None,
-        top=[dict(kernel=k, ms=ms, calls=c) for ms, c, k in device[:12]])
+        top=[dict(kernel=k, ms=ms, calls=c) for ms, c, k in device[:20]])
 
 
 def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
@@ -551,19 +714,20 @@ def path_counters(port):
     ak, ck, pk = port["ak"], port["ck"], port["pk"]
     return (ak.counter, ak.dq_counter, ak.dkv_counter,
             ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter,
-            pk.fwd_counter, pk.dq_counter, pk.dkv_counter)
+            pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.wgmma_counter)
 
 
-def per_step_launches(fused_head, attn_impl: str = "pallas") -> list:
-    """Launches of one train step, in ``path_counters`` order."""
+def per_step_launches(fused_head, attn_impl: str = "pallas", bf16: bool = True) -> list:
+    """Launches of one train step, in ``path_counters`` order; in bf16 every
+    forward of #1 takes the wgmma design."""
     ce = 1 if fused_head else 0
     fused, packed = (0, ATTN_PER_FORWARD) if attn_impl == "packed" else (ATTN_PER_FORWARD, 0)
-    return [fused] * 3 + [ce] * 3 + [packed] * 3
+    return [fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0]
 
 
 def per_eval_launches(per_step: list) -> list:
     """Launches of one eval batch: the forward kernels of a train step."""
-    return [per_step[0], 0, 0, per_step[3], 0, 0, per_step[6], 0, 0]
+    return [per_step[0], 0, 0, per_step[3], 0, 0, per_step[6], 0, 0, per_step[9]]
 
 
 def bench_batch(torch):
@@ -795,8 +959,8 @@ def train_parity_phase(torch, port, data, preset: str = "flagship_tpu_mlm", fuse
                 if grads is None:
                     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
             got = [c.launches - b for c, b in zip(counters, before)]
-            expect = [0] * len(counters) if plain else [3 * n for n in per_step_launches(head,
-                                                                                         impl)]
+            expect = [0] * len(counters) if plain else [
+                3 * n for n in per_step_launches(head, impl, bf16=False)]
             if got != expect:
                 raise AssertionError(f"{preset} head={head} plain={plain} {impl}: launches "
                                      f"{got} != {expect}")
@@ -833,6 +997,34 @@ def train_parity_phase(torch, port, data, preset: str = "flagship_tpu_mlm", fuse
             raise AssertionError(f"{preset} {attn_impl} f32 train parity, seed {seed}: losses "
                                  f"{loss_rel}, grads {worst} ({worst_name}), k_proj.bias "
                                  f"{symmetric}, versus {versus} {versus_rel}")
+
+
+def bf16_train_parity(torch, port, data) -> None:
+    """Three bf16 flagship train steps with the kernels (the forward through
+    its wgmma design), then with the plain versions in their place, from
+    the same weights, batches and masking (seed 2): losses within
+    BF16_LOSS_REL relative at every step."""
+    counters = path_counters(port)
+    batches = [b for _, b in zip(range(3), data.train_dataloader())]
+    runs = []
+    for plain in (False, True):
+        model, state, (train_step, _, _) = train_setup(torch, port, torch.bfloat16, plain, 2)
+        before = [c.launches for c in counters]
+        losses = []
+        for batch in batches:
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+        got = [c.launches - b for c, b in zip(counters, before)]
+        expect = [0] * len(counters) if plain else [3 * n for n in per_step_launches(False)]
+        if got != expect:
+            raise AssertionError(f"bf16 parity plain={plain}: launches {got} != {expect}")
+        runs.append(losses)
+        del model, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+    log(phase="train_parity", preset="flagship_tpu_mlm", dtype="bfloat16", seed=2,
+        kernel_losses=runs[0], plain_losses=runs[1], loss_max_rel_diff=rel)
+    if not rel <= BF16_LOSS_REL:
+        raise AssertionError(f"bf16 train parity: losses differ by {rel} relative")
 
 
 def sm_clock_hz() -> float:
@@ -1083,6 +1275,7 @@ def main() -> int:
     log(phase="build", build_s=time.perf_counter() - t0, library=build.library_path().name)
 
     enter("2: attention forward")
+    entry_host_us(torch, build)
     attn_rows = attention_phase(torch, ak)
     enter("3: attention backward")
     bwd_rows = attention_bwd_phase(torch, ak)
@@ -1121,6 +1314,7 @@ def main() -> int:
         path_launches = [training_phase(torch, port, data, f"{root}/logs")]
         enter("9: flagship training parity")
         train_parity_phase(torch, port, data)
+        bf16_train_parity(torch, port, data)
         enter("10: C=64 training, fused head")
         path_launches.append(training_phase(torch, port, data, f"{root}/logs_c64",
                                             "flagship_mlm", "pallas"))
@@ -1140,19 +1334,42 @@ def main() -> int:
     for name in KERNEL_NAMES:
         launches[name] = launches.get(name, 0) + sum(p.get(name, 0) for p in path_launches)
 
-    def entry(rows, name, source, replaces, pick, ms="kernel_ms", bound="bound"):
+    def entry(rows, name, source, replaces, pick, ms="kernel_ms", bound="bound",
+              library="library_ms"):
         row = next(r for r in rows if pick(r))
+        extra = {}
+        if "design" in row:  # #1, #9: device times where the profiler gave both
+            if row[ms] is None or row[library] is None:
+                ms, library = "kernel_ms", "library_ms"
+            extra = {"design": row["design"], "event_ms": row["kernel_ms"],
+                     "ms_source": "device" if ms == "device_ms" else "event"}
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches[name], max_abs_err=row["max_abs_err"], ms=row[ms],
                     plain_ms=row["plain_ms"], bound_ms=row[f"{bound}_ms"],
-                    bound_by=row[f"{bound}_by"], library_ms=row["library_ms"],
-                    shape=row["shape"], dims=row["dims"], dtype=row["dtype"])
+                    bound_by=row[f"{bound}_by"], library_ms=row[library],
+                    shape=row["shape"], dims=row["dims"], dtype=row["dtype"], **extra)
 
     enc_bf16 = lambda r: r["shape"] == "enc_cross" and r["dtype"] == "bfloat16"  # noqa: E731
+    proj_bf16 = lambda r: (r["shape"] == "self_proj" and r["quant"] == "int8"  # noqa: E731
+                           and r["dtype"] == "bfloat16")
     bwd_src = "perceiver_io_torch/csrc/attention_bwd.cu"
+    fwd_src, deq_src = ("perceiver_io_torch/csrc/attention_fwd.cu",
+                        "perceiver_io_torch/csrc/dequant_matmul.cu")
+    # the main paths run bf16: every launch of #1 and #9 there is a wgmma one
+    for name in ("attention_fwd", "dequant_matmul"):
+        if launches[f"{name}_wgmma"] != launches[name]:
+            raise AssertionError(f"{name}: {launches[f'{name}_wgmma']} of {launches[name]} "
+                                 f"main-path launches took the wgmma design")
+    # #1 and #9: ms and library_ms are device times (torch.profiler), which
+    # the host's enqueue of a short kernel does not inflate (ms_source says
+    # where the profiler gave none); event_ms is the CUDA-event time of a
+    # call through the wrapper
+    device = dict(ms="device_ms", library="library_device_ms")
     kernels = [
-        entry(attn_rows, "attention_fwd", "perceiver_io_torch/csrc/attention_fwd.cu",
-              "perceiver_io_tpu/ops/pallas_attention.py:245", enc_bf16),
+        entry(attn_rows, "attention_fwd", fwd_src,
+              "perceiver_io_tpu/ops/pallas_attention.py:245", enc_bf16, **device),
+        entry(attn_rows, "attention_fwd_wgmma", fwd_src,
+              "perceiver_io_tpu/ops/pallas_attention.py:194", enc_bf16, **device),
         # plain_ms and library_ms of the two backward kernels are those of
         # the whole backward (the plain version and SDPA compute dq, dk, dv
         # in one call); ms and the bound are each kernel's own
@@ -1160,10 +1377,10 @@ def main() -> int:
               "perceiver_io_tpu/ops/pallas_attention.py:331", enc_bf16, "dq_ms", "dq_bound"),
         entry(bwd_rows, "attention_bwd_dkv", bwd_src,
               "perceiver_io_tpu/ops/pallas_attention.py:352", enc_bf16, "dkv_ms", "dkv_bound"),
-        entry(deq_rows, "dequant_matmul", "perceiver_io_torch/csrc/dequant_matmul.cu",
-              "perceiver_io_tpu/ops/pallas_matmul.py:163",
-              lambda r: r["shape"] == "self_proj" and r["quant"] == "int8"
-              and r["dtype"] == "bfloat16"),
+        entry(deq_rows, "dequant_matmul", deq_src, "perceiver_io_tpu/ops/pallas_matmul.py:163",
+              proj_bf16, **device),
+        entry(deq_rows, "dequant_matmul_wgmma", deq_src,
+              "perceiver_io_tpu/ops/pallas_matmul.py:125", proj_bf16, **device),
     ]
     # the CE kernels at bench.py's head in bf16, the packed kernels at the
     # C=64 encoder cross in bf16; plain_ms and library_ms of the backward

@@ -10,6 +10,10 @@ attends uniformly over all S keys instead of producing NaN.
 - forward: ``csrc/attention_fwd.cu``; with statistics it also returns each
   row's running max ``m`` and denominator ``l`` as (B, H, T) f32, the
   residuals of the backward (``_fused_attention_fwd_impl(with_lse=True)``).
+  Two designs, chosen by dtype (:func:`forward_design`): float32 runs the
+  exact scalar-FMA kernel (``wgmma`` has no full-f32 mode), bfloat16 the
+  tensor-core kernel (``wgmma`` fed by TMA), which needs 16-byte aligned
+  bases and strides; a bf16 input it cannot take raises ``ValueError``.
 - backward: ``csrc/attention_bwd.cu``, one kernel for dq and one for dk/dv
   (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), recomputing the probabilities
   from ``m`` and ``l``; ``delta = sum_d g * out`` is a plain reduction, as the
@@ -38,7 +42,8 @@ _MASK_F32 = float(torch.tensor(MASK_VALUE, dtype=torch.float32))
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-counter = build.LaunchCounter()          # attention_fwd
+counter = build.LaunchCounter()          # attention_fwd, either design
+wgmma_counter = build.LaunchCounter()    # attention_fwd, the bf16 wgmma design
 dq_counter = build.LaunchCounter()       # attention_bwd_dq
 dkv_counter = build.LaunchCounter()      # attention_bwd_dkv
 
@@ -143,6 +148,10 @@ def attention_bwd_reference(q, k, v, pad_mask, out, m, l, g):
 def _kernel_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
+    _head_dims(q, k, v)
+
+
+def _head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     d = q.shape[-1]
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
@@ -154,13 +163,36 @@ def _kernel_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v need unit stride along the head dim")
 
 
+def forward_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The design of the forward kernel a call with these tensors takes:
+    ``'scalar_f32'`` for float32 (exact f32 FMAs; TF32 would break the f32
+    parity bar, as the TPU kernel asks for HIGHEST precision there),
+    ``'wgmma'`` for bfloat16 (TMA needs 16-byte aligned bases and (batch,
+    row, head) strides that are multiples of 8 elements). Raises
+    ``ValueError`` on what neither takes. Checks layout only, not the
+    device, so it answers for CPU tensors too."""
+    _head_dims(q, k, v)
+    if q.dtype == torch.float32:
+        return "scalar_f32"
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"bf16 attention kernel: {name} is not 16-byte aligned, "
+                             f"as its TMA loads need")
+        if any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(f"bf16 attention kernel: {name} strides {tuple(x.stride())} are "
+                             f"not multiples of 8 elements (16 bytes), as its TMA loads need")
+    return "wgmma"
+
+
 def _strides(*tensors) -> list:
     return [s for x in tensors for s in (x.stride(0), x.stride(1), x.stride(2))]
 
 
 def _launch_fwd(q, k, v, bias, stats: bool):
     """The forward kernel: out, plus (m, l) when ``stats``."""
-    _kernel_dims(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    design = forward_design(q, k, v)
     b, t, h, d = q.shape
     s = k.shape[1]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -179,6 +211,8 @@ def _launch_fwd(q, k, v, bias, stats: bool):
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("attention_fwd", err)
     counter.launches += 1
+    if design == "wgmma":
+        wgmma_counter.launches += 1
     return out, m, l
 
 
@@ -297,7 +331,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over (B, T, H, D) q and (B, S, H, D) k/v; returns
     (B, T, H, D) contiguous in q's dtype. CUDA tensors launch the kernels
     (f32 or bf16, D in ``SUPPORTED_HEAD_DIMS``, unit stride along D; other
-    strides are passed through, so head-split views need no copy); CPU
+    strides are passed through, so head-split views need no copy; the
+    forward's design follows the dtype, :func:`forward_design`); CPU
     tensors run the plain versions. When autograd records, the call goes
     through :class:`FusedAttention` (forward with statistics, backward
     kernels); otherwise the forward runs without statistics."""

@@ -5,7 +5,10 @@ The counterpart of ``perceiver_io_tpu/ops/pallas_matmul.py`` (``dequant_matmul``
 ``quantized_matmul``, ``linear_apply``). On CUDA tensors :func:`dequant_matmul`
 launches ``csrc/dequant_matmul.cu``; on CPU tensors it runs
 :func:`dequant_matmul_reference` (dequantize, then matmul). There is no
-fallback between the two. Unquantized projections are a plain
+fallback between the two. The kernel has two designs, chosen by dtype
+(:func:`matmul_design`): float32 x runs the exact scalar-FMA kernel, bfloat16
+x the tensor-core kernel (``wgmma``, x by TMA); a bf16 input the latter
+cannot take raises ``ValueError``. Unquantized projections are a plain
 ``torch.matmul``, as the JAX package leaves them to XLA.
 """
 
@@ -20,7 +23,8 @@ from perceiver_io_torch.quant.int8 import QKernel, dequantize_array, unpack_int4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-counter = build.LaunchCounter()
+counter = build.LaunchCounter()          # either design
+wgmma_counter = build.LaunchCounter()    # the bf16 wgmma design
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -67,21 +71,45 @@ def dequant_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
     return (x.float() @ w.float()).to(x.dtype)
 
 
+def matmul_design(x: torch.Tensor, group_size: Optional[int]) -> str:
+    """The design of the kernel a call with this x takes: ``'scalar_f32'``
+    for float32 (exact f32 FMAs: ``wgmma`` has no full-f32 mode, as the TPU
+    kernel asks for HIGHEST precision there), ``'wgmma'`` for bfloat16 (x's
+    TMA needs a 16-byte aligned base and K a multiple of 8; a 64-deep K step
+    dequantizes 8-row chunks within one scale group, so a group size must be
+    a multiple of 8). Raises ``ValueError`` on what neither takes. Checks
+    layout only, not the device."""
+    if x.dtype == torch.float32:
+        return "scalar_f32"
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"dequant-matmul kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.data_ptr() % 16:
+        raise ValueError("bf16 dequant-matmul kernel: x is not 16-byte aligned, as its TMA "
+                         "loads need")
+    if x.shape[1] % 8:
+        raise ValueError(f"bf16 dequant-matmul kernel: K={x.shape[1]} is not a multiple of 8 "
+                         f"(x's rows must be 16-byte multiples for TMA)")
+    if group_size is not None and group_size % 8:
+        raise ValueError(f"bf16 dequant-matmul kernel: group_size {group_size} is not a "
+                         f"multiple of 8")
+    return "wgmma"
+
+
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                    bits: int = 8, group_size: Optional[int] = None) -> torch.Tensor:
     """``x (M, K) @ dequant(q, scale)`` → (M, N) in x's dtype. CUDA tensors
-    launch the kernel (f32 or bf16 x, all operands contiguous); CPU tensors
-    run :func:`dequant_matmul_reference`."""
+    launch the kernel (f32 or bf16 x, all operands contiguous; the design
+    follows the dtype, :func:`matmul_design`); CPU tensors run
+    :func:`dequant_matmul_reference`."""
     n = _check(x, q, scale, bits, group_size)
     if x.device.type == "cpu":
         counter.plain_calls += 1
         return dequant_matmul_reference(x, q, scale, bits, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"no dequant-matmul kernel for device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"dequant-matmul kernel takes float32 or bfloat16, got {x.dtype}")
     if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("dequant-matmul kernel needs contiguous operands")
+    design = matmul_design(x, group_size)
     m, k = x.shape
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
@@ -92,6 +120,8 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("dequant_matmul", err)
     counter.launches += 1
+    if design == "wgmma":
+        wgmma_counter.launches += 1
     return out
 
 

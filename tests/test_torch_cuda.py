@@ -15,7 +15,10 @@ fused CE kernels (forward, dx, dW/db at a small, a ragged and a C=512
 shape; autograd through ``linear_ce_integer``; the tiny train step with
 ``fused_head='pallas'``), and the packed-heads kernels (forward, dq, dk/dv
 at small, ragged, wide and head-split shapes; autograd through
-``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``).
+``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``),
+and the bf16 wgmma designs of the forward and the dequant matmul at ragged
+and tiny shapes (T, S, M down to 1, the vocab head's N = 10003, K not a
+multiple of 64), each case advancing the ``wgmma`` launch counter.
 Tolerances against the plain version: f32 within 1e-4 of the reference's
 peak magnitude (sums taken in another order), bf16 within 2e-2 (bf16
 rounding of the probabilities / dequantized weights at other points); the
@@ -155,6 +158,85 @@ def test_dequant_kernel_matches_plain(card, dtype, bits, group_size, m, k, n):
     got = qm.dequant_matmul(x, q, scale, bits, gs)
     assert qm.counter.launches == before + 1
     _close(got, qm.dequant_matmul_reference(x, q, scale, bits, gs), dtype)
+
+
+@pytest.mark.parametrize("d", ak.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 509])
+@pytest.mark.parametrize("t", [1, 63, 65, 250])
+def test_wgmma_attention_matches_plain(card, t, s, d):
+    """The bf16 forward's wgmma design at ragged and tiny T and S, every head
+    dim, a fully masked example (its m pinned at -1e30, l = S exactly), with
+    and without statistics."""
+    g = torch.Generator().manual_seed(t * 1000 + s + d)
+    b, h = 3, 2
+    q, k, v = (torch.randn(b, n, h, d, generator=g).to(card, torch.bfloat16) for n in (t, s, s))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    pad[-1] = True
+    pad = pad.to(card)
+    assert ak.forward_design(q, k, v) == "wgmma"
+    before = (ak.counter.launches, ak.wgmma_counter.launches)
+    got = ak.fused_attention(q, k, v, pad)
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad)
+    assert (ak.counter.launches, ak.wgmma_counter.launches) == (before[0] + 2, before[1] + 2)
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad)
+    _close(got, ref_out, torch.bfloat16)
+    _close(out, ref_out, torch.bfloat16)
+    torch.testing.assert_close(m, ref_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
+    assert (m[-1] == ak.MASK_VALUE).all() and (l[-1] == s).all()
+
+
+def test_wgmma_attention_takes_strided_views(card):
+    g = torch.Generator().manual_seed(2)
+    qkv = torch.randn(2, 130, 3, 4, 64, generator=g).to(card, torch.bfloat16)  # (B, S, 3, H, D)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = ak.wgmma_counter.launches
+    _close(ak.fused_attention(q, k, v), ak.attention_reference(q, k, v), torch.bfloat16)
+    assert ak.wgmma_counter.launches == before + 1
+    # a view whose row stride is no multiple of 16 bytes: refused, not run
+    flat = torch.randn(2 * 65 * 2 * 16 + 1, generator=g).to(card, torch.bfloat16)
+    bad = flat[1:].view(2, 65, 2, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ak.fused_attention(bad, bad, bad)
+
+
+@pytest.mark.parametrize("bits,group_size", [(8, None), (8, 64), (8, 128), (4, None), (4, 64),
+                                             (4, 128)])
+@pytest.mark.parametrize("n", [72, 144, 1003, 10003])
+@pytest.mark.parametrize("m", [1, 63, 413])
+def test_wgmma_dequant_matches_plain(card, m, n, bits, group_size):
+    """N = 144 takes the 16-byte cp.async path for the int bytes (N a
+    multiple of 16), the others the byte-load path; the vocab head's N =
+    10003 leaves no row of q or of the output aligned."""
+    rng = np.random.default_rng(m + n + bits + (group_size or 0))
+    k = 512
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    qv, scale = quantize_array(w, bits=bits, group_size=group_size)
+    q = torch.from_numpy(pack_int4(qv) if bits == 4 else qv).to(card)
+    scale = torch.from_numpy(scale).to(card)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(card, torch.bfloat16)
+    before = (qm.counter.launches, qm.wgmma_counter.launches)
+    got = qm.dequant_matmul(x, q, scale, bits, group_size)
+    assert (qm.counter.launches, qm.wgmma_counter.launches) == (before[0] + 1, before[1] + 1)
+    _close(got, qm.dequant_matmul_reference(x, q, scale, bits, group_size), torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [130, 144])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [8, 40, 200])
+def test_wgmma_dequant_ragged_depth(card, k, bits, n):
+    """K not a multiple of the 64-deep step: x and the weight tile are
+    zero-filled past K, on both load paths of the int bytes."""
+    rng = np.random.default_rng(k + bits + n)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    qv, scale = quantize_array(w, bits=bits)
+    q = torch.from_numpy(pack_int4(qv) if bits == 4 else qv).to(card)
+    scale = torch.from_numpy(scale).to(card)
+    x = torch.from_numpy(rng.normal(size=(150, k)).astype(np.float32)).to(card, torch.bfloat16)
+    before = qm.wgmma_counter.launches
+    _close(qm.dequant_matmul(x, q, scale, bits), qm.dequant_matmul_reference(x, q, scale, bits),
+           torch.bfloat16)
+    assert qm.wgmma_counter.launches == before + 1
 
 
 def _ce_inputs(card, dtype, r, c, v, seed=0):

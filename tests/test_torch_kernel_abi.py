@@ -1,0 +1,130 @@
+"""The port's kernel interface, checked on the CPU before any card sees it.
+
+- Every ``extern "C"`` entry point of ``perceiver_io_torch/csrc/*.cu`` has a
+  ``ctypes`` signature in ``build._SIGNATURES`` with the same number and
+  kinds of arguments (pointer, ``int``, ``int64_t``): a mismatch would pass
+  a cut pointer or a shifted argument at the first launch.
+- The admission rule of the two kernels with two designs: which dtype, head
+  dim and strides reach the bf16 ``wgmma`` design, which the f32 scalar one,
+  and which raise ``ValueError`` (``attention_kernel.forward_design``,
+  ``qmatmul.matmul_design``). Both rules read layouts only, so CPU tensors
+  answer them.
+"""
+
+import ctypes
+import re
+
+import pytest
+import torch
+
+from perceiver_io_torch.ops import attention_kernel as ak
+from perceiver_io_torch.ops import build
+from perceiver_io_torch.ops import qmatmul as qm
+
+_PROTOTYPE = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
+_KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_int64: "int64_t"}
+
+
+def _prototypes() -> dict:
+    found = {}
+    for src in build.sources():
+        for name, args in _PROTOTYPE.findall(src.read_text()):
+            found[name] = ["pointer" if "*" in a else a.split()[0]
+                           for a in (x.strip() for x in args.split(","))]
+    return found
+
+
+def test_every_entry_point_is_bound():
+    assert sorted(_prototypes()) == sorted(build._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(build._SIGNATURES))
+def test_signature_matches_prototype(name):
+    assert [_KINDS[t] for t in build._SIGNATURES[name]] == _prototypes()[name]
+
+
+def _heads(dtype, b=2, n=5, h=2, d=16):
+    return torch.zeros(b, n, h, d, dtype=dtype)
+
+
+def _misaligned(dtype, shape):
+    flat = torch.zeros(1 + torch.Size(shape).numel(), dtype=dtype)
+    return flat[1:].view(shape)
+
+
+@pytest.mark.parametrize("d", ak.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,design", [(torch.float32, "scalar_f32"),
+                                          (torch.bfloat16, "wgmma")])
+def test_attention_design_by_dtype(dtype, design, d):
+    q, k = _heads(dtype, d=d), _heads(dtype, n=7, d=d)
+    assert ak.forward_design(q, k, k) == design
+
+
+def test_attention_design_takes_head_split_views():
+    for dtype, design in ((torch.float32, "scalar_f32"), (torch.bfloat16, "wgmma")):
+        qkv = torch.zeros(2, 9, 3, 4, 32, dtype=dtype)  # (B, S, 3, H, D)
+        assert ak.forward_design(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]) == design
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head_dim_24", "head dim 24 unsupported"),
+    ("float16", "float32 or bfloat16"),
+    ("strided_d", "unit stride along the head dim"),
+    ("misaligned_base", "16-byte aligned"),
+    ("row_stride_12", "multiples of 8 elements"),
+])
+def test_attention_design_refusals(case, match):
+    bf = torch.bfloat16
+    q = _heads(bf)
+    if case == "head_dim_24":
+        q = _heads(bf, d=24)
+    elif case == "float16":
+        q = _heads(torch.float16)
+    elif case == "strided_d":
+        q = _heads(bf, d=32)[..., ::2]
+    elif case == "misaligned_base":
+        q = _misaligned(bf, (2, 5, 2, 16))
+    elif case == "row_stride_12":  # rows of 2 heads x 16 inside rows of 36 elements
+        q = torch.zeros(2, 5, 36, dtype=bf)[:, :, :32].unflatten(2, (2, 16))
+    k = _heads(q.dtype, n=7, d=q.shape[-1])
+    if case == "strided_d":
+        k = _heads(bf, n=7, d=32)[..., ::2]
+    with pytest.raises(ValueError, match=match):
+        ak.forward_design(q, k, k)
+
+
+def test_f32_attention_takes_any_base():
+    q = _misaligned(torch.float32, (2, 5, 2, 16))
+    assert ak.forward_design(q, q, q) == "scalar_f32"
+
+
+@pytest.mark.parametrize("dtype,k,group_size,design", [
+    (torch.float32, 512, None, "scalar_f32"),
+    (torch.float32, 36, 12, "scalar_f32"),
+    (torch.bfloat16, 512, None, "wgmma"),
+    (torch.bfloat16, 512, 64, "wgmma"),
+    (torch.bfloat16, 512, 128, "wgmma"),
+    (torch.bfloat16, 40, None, "wgmma"),
+])
+def test_dequant_design(dtype, k, group_size, design):
+    assert qm.matmul_design(torch.zeros(3, k, dtype=dtype), group_size) == design
+
+
+@pytest.mark.parametrize("case,match", [
+    ("float16", "float32 or bfloat16"),
+    ("misaligned_base", "16-byte aligned"),
+    ("depth_12", "multiple of 8"),
+    ("group_12", "group_size 12"),
+])
+def test_dequant_design_refusals(case, match):
+    x, group_size = torch.zeros(3, 48, dtype=torch.bfloat16), None
+    if case == "float16":
+        x = x.half()
+    elif case == "misaligned_base":
+        x = _misaligned(torch.bfloat16, (3, 48))
+    elif case == "depth_12":
+        x = torch.zeros(3, 12, dtype=torch.bfloat16)
+    elif case == "group_12":
+        group_size = 12
+    with pytest.raises(ValueError, match=match):
+        qm.matmul_design(x, group_size)
