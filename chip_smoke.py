@@ -20,9 +20,14 @@ Phases (any failure exits nonzero):
    the forward, one for the dequant matmul);
 3. the attention backward at the training shapes (the encoder cross with
    padding and a fully masked row, self-attention, the decoder gathered at
-   capacity 160, the D=16 cross), f32 and bf16: the forward's statistics
-   (m, l) and the dq and dk/dv kernels against their plain versions, dq and
-   dk of the fully masked example exactly zero;
+   capacity 160, the D=16 cross, a ragged (250, 509) cross whose rows are
+   padded from a random length on), f32 (the scalar design) and bf16 (the
+   wgmma design; each row logs its ``design``, a bf16 call must advance both
+   backward wgmma counters, and the share of key tiles the design skips):
+   the forward's statistics (m, l) and the dq and dk/dv kernels against
+   their plain versions, dq and dk of the fully masked example exactly
+   zero; CUDA-event and profiler device times of each kernel and of SDPA's
+   backward;
 4. the dequant-matmul kernel against its plain version (int8 per-channel,
    int4 group 128; bf16 and f32) at the self-attention projection
    (M=16384, K=N=512) and the vocab head (M=512, K=512, N=10003), and at
@@ -54,8 +59,8 @@ Phases (any failure exits nonzero):
 8. the training path: ``Trainer.fit`` takes 30 Adam steps (lr 1e-3) of
    ``flagship_tpu_mlm`` in bf16 over f32 weights, batch 64 of the synthetic
    ``IMDBDataModule`` at 512 tokens, masked positions gathered at capacity
-   160; every step must launch exactly 22 forward (all through the wgmma
-   design), 22 dq and 22 dk/dv attention kernels and no plain version, give
+   160; every step must launch exactly 22 forward, 22 dq and 22 dk/dv
+   attention kernels (all through the wgmma designs) and no plain version, give
    a finite loss, and the mean
    loss of the last 5 steps must be below the first step's. Then
    ``Trainer.fit`` runs on as the CLI drives it, with no per-step check: 10
@@ -78,8 +83,10 @@ Phases (any failure exits nonzero):
     fused), and both heads timed on bench.py's own batch (ids from
     ``default_rng(0)``, no padding), fused / unfused / unfused / fused;
 11. ``perceiver_io_torch.cli.train_mlm --preset reference --synthetic``, 5
-    steps in-process: ``--fused_head auto`` must resolve to the CE kernels
-    on the card (their counters advance, no plain version runs);
+    steps in-process with ``--eval_every_n_steps 2``: ``--fused_head auto``
+    must resolve to the CE kernels on the card (their counters advance, no
+    plain version runs), the vocab head must have the tokenizer's size, and
+    validation must run at steps 2, 4 and 5 (the JAX trainer's cadence);
 12. phase 9 on the C=64 path, the plain attention and CE versions in the
     kernels' place, plus the unfused head with the kernels: its losses within
     1e-4 relative of the fused head's;
@@ -127,10 +134,10 @@ train the same vocabulary and see the same data.
 f32 comparisons run with TF32 off. Tolerances against the plain versions:
 f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2; the
 statistics m and l within 1e-5 of max(|ref|, 1) (f32 on both sides). Times
-are CUDA-event means over repeated launches after a warm-up (phases 2 and 4
-also give each kernel's and the library call's device time from
-torch.profiler, ``device_ms``, which the kernels line reports for #1 and
-#9: a short kernel's event time is the host's enqueue); ``bound_ms`` is
+are CUDA-event means over repeated launches after a warm-up (phases 2, 3
+and 4 also give each kernel's and the library call's device time from
+torch.profiler, ``device_ms``, which the kernels line reports for #1, #2,
+#3 and #9: a short kernel's event time is the host's enqueue); ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / the H100 peak for the
 inputs' type (989 TF/s bf16, 67 TF/s f32 without tensor cores), for the CE
 kernels with the exponential term of phase 5 beside them. The last line is
@@ -161,7 +168,7 @@ STAT_TOL = 1e-5
 KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                 "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw",
                 "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
-                "attention_fwd_wgmma")
+                "attention_fwd_wgmma", "attention_bwd_dq_wgmma", "attention_bwd_dkv_wgmma")
 BF16_TOP1_AGREEMENT, BF16_LOSS_REL = 0.95, 2e-2
 # (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
 # the flagship head (C=512), a ragged row count
@@ -376,36 +383,62 @@ def check_stats(name: str, got, ref) -> float:
     return rel
 
 
-def library_bwd_ms(torch, q, k, v, g, mask) -> float:
+def library_bwd_ms(torch, q, k, v, g, mask):
     """SDPA's backward alone with the same additive mask: ``autograd.grad``
-    over one retained forward graph."""
+    over one retained forward graph; its CUDA-event time and its device time
+    (every kernel of the call)."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     gt = g.transpose(1, 2)
-    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True), 30)
+    fn = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)  # noqa: E731
+    return time_ms(fn, 30), device_ms(torch, fn)
+
+
+def skipped_tiles(pad, s: int):
+    """What the bf16 backward skips for this padding: the share of (example,
+    64-key tile) pairs that are all padding, which the dq kernel never loads,
+    and the share of the dk/dv kernel's (example, 64-key warpgroup) rows that
+    compute nothing (all padding in an example with a valid key)."""
+    import torch
+
+    if pad is None:
+        return 0.0, 0.0
+    tiles = -(-s // 64)
+    padded = torch.ones(pad.shape[0], tiles * 64, dtype=torch.bool, device=pad.device)
+    padded[:, :s] = pad
+    dead = padded.view(-1, tiles, 64).all(-1)
+    return float(dead.float().mean()), float((dead & ~pad.all(1, keepdim=True)).float().mean())
 
 
 def attention_bwd_phase(torch, ak):
     """The forward's (m, l) and the two backward kernels against their plain
     versions at the training shapes; times of the dq kernel, the dk/dv
     kernel, the whole backward (delta included), the plain backward and
-    SDPA's backward."""
-    shapes = [  # name, (B, T, S, H, D), padded keys
-        ("enc_cross", (64, 256, 512, 4, 128), True),
-        ("self", (64, 256, 256, 4, 128), False),
-        ("dec_cross", (64, CAPACITY, 256, 4, 128), False),
-        ("enc_cross_d16", (64, 256, 512, 4, 16), True),
+    SDPA's backward, CUDA events and profiler device times; the share of key
+    tiles the bf16 design skips. ``ragged`` pads each example's tail from a
+    random length (as the encoder's token rows are), the others pad ~30% of
+    keys at random; each padded shape masks every key of its last example."""
+    shapes = [  # name, (B, T, S, H, D), padding: None, "random" or "tail"
+        ("enc_cross", (64, 256, 512, 4, 128), "random"),
+        ("self", (64, 256, 256, 4, 128), None),
+        ("dec_cross", (64, CAPACITY, 256, 4, 128), None),
+        ("enc_cross_d16", (64, 256, 512, 4, 16), "random"),
+        ("ragged", (64, 250, 509, 4, 128), "tail"),
     ]
     rows = []
-    for name, (b, t, s, h, d), padded in shapes:
+    for name, (b, t, s, h, d), padding in shapes:
         gen = torch.Generator().manual_seed(b + t + s + d + 1)
         pad = None
-        if padded:
+        if padding == "random":
             pad = torch.rand(b, s, generator=gen) < 0.3
+        elif padding == "tail":
+            pad = torch.arange(s)[None, :] >= torch.randint(1, s + 1, (b, 1), generator=gen)
+        if pad is not None:
             pad[-1] = True  # one example with every key masked out
             pad = pad.cuda()
+        dq_skip, dkv_skip = skipped_tiles(pad, s)
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).split(".")[1]
             q, g = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
@@ -416,7 +449,14 @@ def attention_bwd_phase(torch, ak):
             stat_err = max(check_stats(f"m {name} {dt}", m, ref_m),
                            check_stats(f"l {name} {dt}", l, ref_l))
             # both backward versions from the same residuals
+            design = ak.backward_design(q, k, v, g)
+            before = (ak.dq_wgmma_counter.launches, ak.dkv_wgmma_counter.launches)
             grads = ak.attention_bwd(q, k, v, pad, ref_out, ref_m, ref_l, g)
+            wgmma = (ak.dq_wgmma_counter.launches - before[0],
+                     ak.dkv_wgmma_counter.launches - before[1])
+            if wgmma != ((1, 1) if design == "wgmma" else (0, 0)):
+                raise AssertionError(f"attention bwd {name} {dt}: {design} call, wgmma "
+                                     f"counters {wgmma}")
             refs = ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m, ref_l, g)
             errs = [check(f"attention bwd {x} {name} {dt}", got, ref, dt)
                     for x, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
@@ -435,16 +475,22 @@ def attention_bwd_phase(torch, ak):
                                  + 8 * b * h * t + 4 * b * s, 5 * 2 * h * t * d * valid, dt)
             plain = time_ms(lambda: ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m,
                                                                ref_l, g))
-            library = library_bwd_ms(torch, q, k, v, g, bias[:, None, None, :].to(dtype))
+            library, library_device = library_bwd_ms(torch, q, k, v, g,
+                                                     bias[:, None, None, :].to(dtype))
+            run_dq = lambda: ak.launch_bwd_dq(q, k, v, bias, ref_m, ref_l, delta, g)  # noqa: E731
+            run_dkv = lambda: ak.launch_bwd_dkv(q, k, v, bias, ref_m, ref_l, delta,  # noqa: E731
+                                                g)
             row = dict(kernel="attention_bwd", shape=name, dims=[b, t, s, h, d], dtype=dt,
-                       max_abs_err=max(errs), stats_max_rel_err=stat_err,
-                       dq_ms=time_ms(lambda: ak.launch_bwd_dq(q, k, v, bias, ref_m, ref_l,
-                                                              delta, g)),
-                       dkv_ms=time_ms(lambda: ak.launch_bwd_dkv(q, k, v, bias, ref_m, ref_l,
-                                                                delta, g)),
+                       design=design, padding=padding, max_abs_err=max(errs),
+                       stats_max_rel_err=stat_err,
+                       dq_tiles_skipped=dq_skip if design == "wgmma" else 0.0,
+                       dkv_rows_skipped=dkv_skip if design == "wgmma" else 0.0,
+                       dq_ms=time_ms(run_dq), dkv_ms=time_ms(run_dkv),
+                       dq_device_ms=device_ms(torch, run_dq, "attention_bwd_dq"),
+                       dkv_device_ms=device_ms(torch, run_dkv, "attention_bwd_dkv"),
                        kernel_ms=time_ms(lambda: ak.attention_bwd(q, k, v, pad, ref_out, ref_m,
                                                                   ref_l, g)),
-                       plain_ms=plain, library_ms=library,
+                       plain_ms=plain, library_ms=library, library_device_ms=library_device,
                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
                        dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                        dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
@@ -714,20 +760,21 @@ def path_counters(port):
     ak, ck, pk = port["ak"], port["ck"], port["pk"]
     return (ak.counter, ak.dq_counter, ak.dkv_counter,
             ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter,
-            pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.wgmma_counter)
+            pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.wgmma_counter,
+            ak.dq_wgmma_counter, ak.dkv_wgmma_counter)
 
 
 def per_step_launches(fused_head, attn_impl: str = "pallas", bf16: bool = True) -> list:
     """Launches of one train step, in ``path_counters`` order; in bf16 every
-    forward of #1 takes the wgmma design."""
+    launch of #1, #2 and #3 takes the wgmma design."""
     ce = 1 if fused_head else 0
     fused, packed = (0, ATTN_PER_FORWARD) if attn_impl == "packed" else (ATTN_PER_FORWARD, 0)
-    return [fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0]
+    return [fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0] * 3
 
 
 def per_eval_launches(per_step: list) -> list:
     """Launches of one eval batch: the forward kernels of a train step."""
-    return [per_step[0], 0, 0, per_step[3], 0, 0, per_step[6], 0, 0, per_step[9]]
+    return [per_step[0], 0, 0, per_step[3], 0, 0, per_step[6], 0, 0, per_step[9], 0, 0]
 
 
 def bench_batch(torch):
@@ -892,24 +939,40 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
     return launches
 
 
-def cli_phase(torch, port, root: str, attn_impl: str = "pallas") -> None:
+def cli_phase(torch, port, root: str, vocab: int, attn_impl: str = "pallas") -> None:
     """The training CLI's default preset (``reference``: 64 latents x 64
     channels) on the card for CLI_STEPS steps, in-process, with
-    ``--attn_impl``: ``--fused_head auto`` must resolve to the CE kernels
-    there, and only ``attn_impl``'s attention kernels may launch."""
+    ``--attn_impl`` and validation every 2 steps: ``--fused_head auto`` must
+    resolve to the CE kernels there, only ``attn_impl``'s attention kernels
+    may launch, the vocab head has the tokenizer's ``vocab`` rows (as the
+    JAX CLI builds it), and validation runs at each multiple of 2 and at the
+    last step (the JAX trainer's cadence)."""
     counters = path_counters(port)
     for c in counters:
         c.reset()
+    common = port["train_mlm"].common
+    build_mlm, built = common.build_mlm, []
+
+    def spy(args, vocab_size, *rest, **kwargs):
+        built.append(vocab_size)
+        return build_mlm(args, vocab_size, *rest, **kwargs)
+
+    common.build_mlm = spy
     t0 = time.perf_counter()
-    run_dir = port["train_mlm"].main([
-        "--preset", "reference", "--synthetic", "--max_steps", str(CLI_STEPS),
-        "--attn_impl", attn_impl, "--log_every_n_steps", str(CLI_STEPS), "--root", root,
-        "--logdir", f"{root}/cli_{attn_impl}"])
+    try:
+        run_dir = port["train_mlm"].main([
+            "--preset", "reference", "--synthetic", "--max_steps", str(CLI_STEPS),
+            "--eval_every_n_steps", "2", "--attn_impl", attn_impl,
+            "--log_every_n_steps", str(CLI_STEPS), "--root", root,
+            "--logdir", f"{root}/cli_{attn_impl}"])
+    finally:
+        common.build_mlm = build_mlm
     torch.cuda.synchronize()
     with open(f"{run_dir}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     launches = dict(zip(KERNEL_NAMES, (c.launches for c in counters)))
     train = [r for r in rows if "train_loss" in r]
+    val_steps = [r["step"] for r in rows if "val_loss" in r]
     used, unused = ("packed_attention", "attention") if attn_impl == "packed" \
         else ("attention", "packed_attention")
     attention_ok = (launches[f"{used}_bwd_dq"] == launches[f"{used}_bwd_dkv"]
@@ -917,12 +980,14 @@ def cli_phase(torch, port, root: str, attn_impl: str = "pallas") -> None:
                     and not any(launches[f"{unused}_{k}"] for k in ("fwd", "bwd_dq", "bwd_dkv")))
     if (launches["linear_ce_bwd_dx"], launches["linear_ce_bwd_dw"]) != (CLI_STEPS, CLI_STEPS) \
             or launches["linear_ce_fwd"] <= CLI_STEPS or any(c.plain_calls for c in counters) \
-            or not attention_ok or not all(math.isfinite(r["train_loss"]) for r in train):
+            or not attention_ok or not all(math.isfinite(r["train_loss"]) for r in train) \
+            or built != [vocab] or val_steps != [2, 4, CLI_STEPS]:
         raise AssertionError(f"train_mlm --preset reference --attn_impl {attn_impl}: "
-                             f"launches {launches}, rows {rows}")
-    log(phase="cli", preset="reference", attn_impl=attn_impl, steps=CLI_STEPS,
+                             f"launches {launches}, vocab {built} (tokenizer {vocab}), "
+                             f"rows {rows}")
+    log(phase="cli", preset="reference", attn_impl=attn_impl, steps=CLI_STEPS, vocab=built[0],
         launches=launches, train_loss=train[-1]["train_loss"],
-        tokens_per_s=train[-1]["tokens_per_sec"],
+        tokens_per_s=train[-1]["tokens_per_sec"], val_steps=val_steps,
         val_loss=[r["val_loss"] for r in rows if "val_loss" in r], wall_s=time.perf_counter() - t0)
 
 
@@ -1168,6 +1233,7 @@ def packed_phase(torch, ak, pk, clock_hz: float):
             mask = bias[:, None, None, :].to(dtype)
             qt, kt, vt = (x.transpose(1, 2) for x in (qh, kh, vh))
             out1, m1, l1 = ak.attention_fwd_with_stats(qh, kh, vh, pad)
+            library_bwd, library_bwd_device = library_bwd_ms(torch, qh, kh, vh, gh, mask)
             row = dict(
                 kernel="packed_attention", shape=name, dims=[b, t, s, h, d], dtype=dt,
                 fwd_max_abs_err=fwd_err, **{f"{x}_max_abs_err": err for x, err in errs.items()},
@@ -1180,7 +1246,7 @@ def packed_phase(torch, ak, pk, clock_hz: float):
                                                                                h), 3),
                 library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                               attn_mask=mask)),
-                library_bwd_ms=library_bwd_ms(torch, qh, kh, vh, gh, mask),
+                library_bwd_ms=library_bwd, library_bwd_device_ms=library_bwd_device,
                 attention_fwd_ms=time_ms(lambda: ak.fused_attention(qh, kh, vh, pad)),
                 attention_bwd_ms=time_ms(lambda: ak.attention_bwd(qh, kh, vh, pad, out1, m1, l1,
                                                                   gh)),
@@ -1234,6 +1300,23 @@ def packed_serving_phase(torch, port, tokenizer, texts):
     if mismatched or len(top1["packed"]) != len(top1["pallas"]):
         raise AssertionError(f"f32 packed serving: {mismatched} top-1 fills differ from pallas")
     return {"packed_attention_fwd": got[1]}
+
+
+def check_kernel_entry(k: dict) -> None:
+    """One entry of the ``kernels`` line carries every key of its contract,
+    each of its type: times, errors and bounds are numbers, ``library_ms``
+    a number or None, ``launches`` a count."""
+    number = (int, float)
+    ok = (isinstance(k.get("name"), str) and k.get("route") in ("cuda", "triton")
+          and isinstance(k.get("source"), str) and isinstance(k.get("replaces"), str)
+          and isinstance(k.get("launches"), int)
+          and all(isinstance(k.get(f), number) and math.isfinite(k[f])
+                  for f in ("max_abs_err", "ms", "plain_ms", "bound_ms"))
+          and k.get("bound_by") in ("bytes", "operations")
+          and "library_ms" in k and (k["library_ms"] is None
+                                     or isinstance(k["library_ms"], number)))
+    if not ok:
+        raise AssertionError(f"kernels line entry breaks its contract: {k}")
 
 
 def main() -> int:
@@ -1319,7 +1402,7 @@ def main() -> int:
         path_launches.append(training_phase(torch, port, data, f"{root}/logs_c64",
                                             "flagship_mlm", "pallas"))
         enter("11: training CLI")
-        cli_phase(torch, port, root)
+        cli_phase(torch, port, root, data.tokenizer.get_vocab_size())
         enter("12: C=64 training parity")
         train_parity_phase(torch, port, data, "flagship_mlm", "pallas")
         enter("14: C=64 training, packed attention")
@@ -1328,21 +1411,23 @@ def main() -> int:
         enter("15: packed training parity")
         train_parity_phase(torch, port, data, "flagship_mlm", "pallas", "packed")
         enter("16: packed entry points")
-        cli_phase(torch, port, root, "packed")
+        cli_phase(torch, port, root, data.tokenizer.get_vocab_size(), "packed")
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
     for name in KERNEL_NAMES:
         launches[name] = launches.get(name, 0) + sum(p.get(name, 0) for p in path_launches)
 
-    def entry(rows, name, source, replaces, pick, ms="kernel_ms", bound="bound",
-              library="library_ms"):
+    def entry(rows, name, source, replaces, pick, ms="device_ms", bound="bound",
+              library="library_device_ms", event="kernel_ms"):
+        """A kernel's row: ms and library_ms are device times (torch.profiler),
+        which the host's enqueue of a short kernel does not inflate, or the
+        CUDA-event times where the profiler gave none (ms_source says which);
+        event_ms is the CUDA-event time of a call through the wrapper."""
         row = next(r for r in rows if pick(r))
-        extra = {}
-        if "design" in row:  # #1, #9: device times where the profiler gave both
-            if row[ms] is None or row[library] is None:
-                ms, library = "kernel_ms", "library_ms"
-            extra = {"design": row["design"], "event_ms": row["kernel_ms"],
-                     "ms_source": "device" if ms == "device_ms" else "event"}
+        if row[ms] is None or row[library] is None:
+            ms, library = event, "library_ms"
+        extra = {"design": row["design"], "event_ms": row[event],
+                 "ms_source": "event" if ms == event else "device"}
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches[name], max_abs_err=row["max_abs_err"], ms=row[ms],
                     plain_ms=row["plain_ms"], bound_ms=row[f"{bound}_ms"],
@@ -1355,32 +1440,31 @@ def main() -> int:
     bwd_src = "perceiver_io_torch/csrc/attention_bwd.cu"
     fwd_src, deq_src = ("perceiver_io_torch/csrc/attention_fwd.cu",
                         "perceiver_io_torch/csrc/dequant_matmul.cu")
-    # the main paths run bf16: every launch of #1 and #9 there is a wgmma one
-    for name in ("attention_fwd", "dequant_matmul"):
+    # the main paths run bf16: every launch of #1, #2, #3 and #9 there is a
+    # wgmma one
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "dequant_matmul"):
         if launches[f"{name}_wgmma"] != launches[name]:
             raise AssertionError(f"{name}: {launches[f'{name}_wgmma']} of {launches[name]} "
                                  f"main-path launches took the wgmma design")
-    # #1 and #9: ms and library_ms are device times (torch.profiler), which
-    # the host's enqueue of a short kernel does not inflate (ms_source says
-    # where the profiler gave none); event_ms is the CUDA-event time of a
-    # call through the wrapper
-    device = dict(ms="device_ms", library="library_device_ms")
+    # plain_ms and library_ms of the two backward kernels are those of the
+    # whole backward (the plain version and SDPA compute dq, dk, dv in one
+    # call); ms and the bound are each kernel's own
+    dq = dict(ms="dq_device_ms", bound="dq_bound", event="dq_ms")
+    dkv = dict(ms="dkv_device_ms", bound="dkv_bound", event="dkv_ms")
+    tpu_attn = "perceiver_io_tpu/ops/pallas_attention.py:{}"
     kernels = [
-        entry(attn_rows, "attention_fwd", fwd_src,
-              "perceiver_io_tpu/ops/pallas_attention.py:245", enc_bf16, **device),
-        entry(attn_rows, "attention_fwd_wgmma", fwd_src,
-              "perceiver_io_tpu/ops/pallas_attention.py:194", enc_bf16, **device),
-        # plain_ms and library_ms of the two backward kernels are those of
-        # the whole backward (the plain version and SDPA compute dq, dk, dv
-        # in one call); ms and the bound are each kernel's own
-        entry(bwd_rows, "attention_bwd_dq", bwd_src,
-              "perceiver_io_tpu/ops/pallas_attention.py:331", enc_bf16, "dq_ms", "dq_bound"),
-        entry(bwd_rows, "attention_bwd_dkv", bwd_src,
-              "perceiver_io_tpu/ops/pallas_attention.py:352", enc_bf16, "dkv_ms", "dkv_bound"),
+        entry(attn_rows, "attention_fwd", fwd_src, tpu_attn.format(245), enc_bf16),
+        entry(attn_rows, "attention_fwd_wgmma", fwd_src, tpu_attn.format(194), enc_bf16),
+        entry(bwd_rows, "attention_bwd_dq", bwd_src, tpu_attn.format(402), enc_bf16, **dq),
+        entry(bwd_rows, "attention_bwd_dq_wgmma", bwd_src, tpu_attn.format(331), enc_bf16,
+              **dq),
+        entry(bwd_rows, "attention_bwd_dkv", bwd_src, tpu_attn.format(424), enc_bf16, **dkv),
+        entry(bwd_rows, "attention_bwd_dkv_wgmma", bwd_src, tpu_attn.format(352), enc_bf16,
+              **dkv),
         entry(deq_rows, "dequant_matmul", deq_src, "perceiver_io_tpu/ops/pallas_matmul.py:163",
-              proj_bf16, **device),
+              proj_bf16),
         entry(deq_rows, "dequant_matmul_wgmma", deq_src,
-              "perceiver_io_tpu/ops/pallas_matmul.py:125", proj_bf16, **device),
+              "perceiver_io_tpu/ops/pallas_matmul.py:125", proj_bf16),
     ]
     # the CE kernels at bench.py's head in bf16, the packed kernels at the
     # C=64 encoder cross in bf16; plain_ms and library_ms of the backward
@@ -1409,6 +1493,8 @@ def main() -> int:
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: {missing}")
+    for k in kernels:
+        check_kernel_entry(k)
     log(phase="done", total_s=time.perf_counter() - t_start)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -50,7 +50,7 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--max_steps", type=int, required=True)
     g.add_argument("--log_every_n_steps", type=int, default=50)
     g.add_argument("--eval_every_n_steps", type=int, default=None,
-                   help="validate every N steps (default: once, at the end)")
+                   help="validate every N steps (default: once per epoch)")
     g.add_argument("--logdir", default="logs")
 
 
@@ -77,6 +77,7 @@ def add_imdb_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--batch_size", type=int, default=64)
     g.add_argument("--synthetic", action="store_true",
                    help="the offline synthetic review corpus instead of aclImdb")
+    g.add_argument("--synthetic_size", type=int, default=2048)
 
 
 def check_dropout(args) -> None:

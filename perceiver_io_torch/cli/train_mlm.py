@@ -6,12 +6,12 @@
 
 ``--preset`` fills the widths the flags leave unset: ``reference`` is 64
 latents × 64 channels (head depth 16), ``flagship_tpu`` 256 latents × 512
-channels (head depth 128). The model's vocab is ``--vocab_size``: the
-tokenizer trains at most that many pieces, so every id it emits has a row
-(on the small synthetic corpus most rows go unused, and the head keeps the
-configured width). Masked positions decode through the gathered head at
-``--loss_gather_capacity`` (-1 = ``mlm_gather_capacity``) into the vocab
-head: ``--fused_head pallas`` is the CE kernels, ``xla`` the chunked
+channels (head depth 128). ``--vocab_size`` is the tokenizer's training
+target; the model's vocab head has a row for each piece the tokenizer
+learned (``data.tokenizer.get_vocab_size()``, as the JAX CLI builds it: 405
+rows on the synthetic corpus). Masked positions decode through the gathered
+head at ``--loss_gather_capacity`` (-1 = ``mlm_gather_capacity``) into the
+vocab head: ``--fused_head pallas`` is the CE kernels, ``xla`` the chunked
 plain-PyTorch head, ``off`` the unfused head, and ``auto`` (the default)
 resolves to ``pallas`` on the CUDA card at C <= 128 and to ``off`` otherwise,
 as the JAX package's rule does with its accelerator (so ``reference`` trains
@@ -87,11 +87,12 @@ def main(argv: Optional[Sequence[str]] = None):
 
     data = IMDBDataModule(root=args.root, max_seq_len=args.max_seq_len,
                           vocab_size=args.vocab_size, batch_size=args.batch_size,
-                          synthetic=args.synthetic, seed=args.seed)
+                          synthetic=args.synthetic, synthetic_size=args.synthetic_size,
+                          seed=args.seed)
     data.prepare_data()
     data.setup()
 
-    model = common.build_mlm(args, args.vocab_size, args.max_seq_len, device)
+    model = common.build_mlm(args, data.tokenizer.get_vocab_size(), args.max_seq_len, device)
     optimizer, schedule = common.optimizer_from_args(args, model.parameters())
     state = TrainState.create(model, optimizer, schedule, seed=args.seed + 2)
     capacity = args.loss_gather_capacity

@@ -2,8 +2,8 @@
 // written by hand for Hopper (sm_90a): one kernel for dq, one for dk and dv.
 //
 // Replaces: perceiver_io_tpu/ops/pallas_attention.py::_fused_attention_bwd_impl,
-// Pallas kernels _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk, dv), without
-// causal_offset.
+// Pallas kernels _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk, dv), with
+// _recompute_probs_and_ds, without causal_offset.
 //
 // Computes, per (batch b, head h), from the forward's saved row statistics
 // m (running max) and l (denominator) and delta[t] = sum_d g[t,d] * out[t,d]:
@@ -24,64 +24,88 @@
 // recompute the logits and g.v^T in both passes, seven products of
 // 2.B.H.T.S.D (60 GFLOP) against 201 MB of q, k, v, out, g, dq, dk, dv;
 // the least time is the bytes at 3.35 TB/s (60 us), the five products the
-// function needs at 989 TF/s close behind (43 us). Like the forward, this
-// first design runs every product as scalar f32 FMAs from shared memory (no
-// tensor cores), so it is bound by the 67 TF/s non-tensor f32 rate and by
-// shared-memory bandwidth; wgmma for the products is later work.
+// function needs at 989 TF/s close behind (43 us). Where keys are padding
+// (the flagship encoder's rows are mostly padding), the bf16 design skips
+// them whole tiles at a time, so the work follows the valid keys.
 //
-// Design: two launches, each deterministic (no atomics), each owning its
-// outputs outright, so no block ever sums into another's.
-// - dq kernel: one block per (64-query tile, head, batch), 256 threads, four
-//   per query row. The q and g tiles stay in shared memory; the block loops
-//   over 64-key K/V tiles, and each thread recomputes p and ds for 16 of the
-//   tile's keys, passes the rounded ds to its row's other three threads
-//   through a per-row shared strip, and accumulates D/4 columns of dq in
-//   registers.
-// - dk/dv kernel: one block per (64-key tile, head, batch), four threads per
-//   key row. The k and v tiles stay in shared memory; the block loops over
-//   64-query tiles (q, g, m, l, delta), each thread recomputes p and ds for
-//   16 of the tile's queries against its key, and accumulates D/4 columns of
-//   dk and of dv in registers.
-// Tiles are staged as f32 with row stride D+1, so column reads hit distinct
-// banks; rows past the end of T or S are staged as zeros and contribute 0.
+// Two designs, chosen by dtype (not a fallback). Both are two launches,
+// each deterministic (no atomics) and owning its outputs outright, so no
+// block ever sums into another's, as the TPU kernel's two pallas_calls.
+//
+// - float32: exact f32, scalar FMAs (wgmma has no full-f32 mode; the f32
+//   parity bar needs exact products). dq kernel: one block per (64-query
+//   tile, head, batch), 256 threads, four per query row; the q and g tiles
+//   stay in shared memory, the block loops over 64-key K/V tiles, each
+//   thread recomputes p and ds for 16 of the tile's keys, passes ds to its
+//   row's other three threads through a per-row shared strip, and
+//   accumulates D/4 columns of dq in registers. dk/dv kernel: one block per
+//   (64-key tile, head, batch), the same with keys and queries swapped, the
+//   query tile's m, l and delta staged beside q and g. Tiles are staged as
+//   f32 with row stride D+1, so column reads hit distinct banks; rows past
+//   the end of T or S are staged as zeros and contribute 0.
+//
+// - bfloat16: tensor cores. Each block owns 128 rows (two consumer
+//   warpgroups of 64) and streams 64-row tiles of the other side through a
+//   two-stage TMA ring (mbarriers), in swizzled layouts (rows of 32, 64 or
+//   128 bytes; D=128 as two 64-column atoms; D=8 zero-padded to 16 by TMA's
+//   out-of-bounds fill), as the forward's bf16 design does. Every product
+//   is a wgmma with f32 accumulators in registers:
+//   dq kernel, per (128-query tile, head, batch): q and g staged once; for
+//     each 64-key tile S = Q.K^T and dP = G.V^T (SS, K and V K-major since
+//     D is contiguous), p and ds in registers (keys past S masked by index:
+//     TMA's zero rows would score 0, not -1e30), ds to bf16 in registers as
+//     the A operand, and dq += ds.K (RS, K as an MN-major B: the forward's
+//     P.V with K for V). Key tiles whose bias is all -1e30 are skipped: at
+//     such keys p is exactly 0 (in f32, -1e30 + logit - m rounds to -1e30)
+//     on every row with a valid key, and ds is zeroed on a fully masked row.
+//     The live tiles are listed once per block from the bias row before the
+//     first load, so the ring streams only those.
+//   dk/dv kernel, per (128-key tile, head, batch), in the transposed frame so
+//     that no tile needs a shared-memory transpose: k and v staged once; for
+//     each 64-query tile S^T = K.Q^T and dP^T = V.G^T (SS, Q and G K-major),
+//     p^T and ds^T in registers with the query tile's m, 1/l and delta
+//     staged in shared memory (they vary along the accumulator's columns;
+//     queries past T masked by index, their statistics never read), then
+//     dv += p^T.G and dk += ds^T.Q (RS, G and Q as MN-major B). A warpgroup
+//     whose 64 keys are all padding computes nothing (dk = dv = 0 there),
+//     but only when its example has a valid key (m[b, h, 0] > -0.5e30: with
+//     no causal offset every row of an example sees the same keys); a fully
+//     masked example runs the full path, where p = 1/S and dv keeps the
+//     uniform term sum_t g[t] / S. A block with no computing warpgroup
+//     writes its zeros and loads nothing.
+//   Registers: at D=128 a dk/dv thread holds two 64x128 f32 accumulators
+//   (128 registers) beside S^T and dP^T (64), hence 64-row streamed tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float kMaskValue = -1e30f;  // pallas_attention.MASK_VALUE
+
+struct Strides {  // (batch, row, head) strides in elements of q, k, v, g
+  int64_t qb, qt, qh, kb, ks, kh, vb, vs, vh, gb, gt, gh;
+};
+
+// ---------------------------------------------------------------------------
+// float32: the exact scalar design
+// ---------------------------------------------------------------------------
 
 constexpr int kRows = 64;                 // rows (queries or keys) a block owns
 constexpr int kTile = 64;                 // rows of the tile the block loops over
 constexpr int kLanes = 4;                 // threads per owned row
 constexpr int kThreads = kRows * kLanes;  // 256
 constexpr int kPerLane = kTile / kLanes;  // tile rows each thread scores
-constexpr float kMaskValue = -1e30f;      // pallas_attention.MASK_VALUE
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// a value entering a product in the input dtype (ds.astype(k.dtype), ...)
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // rows [r0, r0 + kRows) of a (.., n, ., D) operand with row stride `rs` into
 // an f32 [kRows][D + 1] tile; rows at or past n become zeros
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* tile, const T* src, int64_t rs, int r0, int n) {
+template <int D>
+__device__ __forceinline__ void stage(float* tile, const float* src, int64_t rs, int r0, int n) {
   for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
-    tile[r * (D + 1) + d] = r0 + r < n ? to_f32(src[(r0 + r) * rs + d]) : 0.f;
+    tile[r * (D + 1) + d] = r0 + r < n ? src[(r0 + r) * rs + d] : 0.f;
   }
 }
 
@@ -96,17 +120,13 @@ constexpr size_t dkv_smem_bytes() {  // k, v, q, g tiles + p and ds strips + m, 
                           3 * kTile);
 }
 
-struct Strides {  // (batch, row, head) strides in elements of q, k, v, g
-  int64_t qb, qt, qh, kb, ks, kh, vb, vs, vh, gb, gt, gh;
-};
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
+attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ g,
                         const float* __restrict__ bias, const float* __restrict__ m,
                         const float* __restrict__ l, const float* __restrict__ delta,
-                        T* __restrict__ dq, int t_len, int s_len, int heads, Strides st,
+                        float* __restrict__ dq, int t_len, int s_len, int heads, Strides st,
                         float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTile + 1;
@@ -127,10 +147,10 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int t = t0 + row;
 
-  stage<T, D>(qs, q + b * st.qb + h * st.qh, st.qt, t0, t_len);
-  stage<T, D>(gs, g + b * st.gb + h * st.gh, st.gt, t0, t_len);
-  const T* kb = k + b * st.kb + h * st.kh;
-  const T* vb = v + b * st.vb + h * st.vh;
+  stage<D>(qs, q + b * st.qb + h * st.qh, st.qt, t0, t_len);
+  stage<D>(gs, g + b * st.gb + h * st.gh, st.gt, t0, t_len);
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
   const float* biasb = bias + int64_t(b) * s_len;
 
   const int64_t stat = (int64_t(b) * heads + h) * t_len + t;
@@ -147,8 +167,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int s0 = 0; s0 < s_len; s0 += kTile) {
     const int n = min(kTile, s_len - s0);
     __syncthreads();  // the previous tile is consumed (and the q, g tiles stored)
-    stage<T, D>(ks, kb, st.ks, s0, s_len);
-    stage<T, D>(vs, vb, st.vs, s0, s_len);
+    stage<D>(ks, kb, st.ks, s0, s_len);
+    stage<D>(vs, vb, st.vs, s0, s_len);
     if (tid < kTile) bs[tid] = tid < n ? biasb[s0 + tid] : 0.f;
     __syncthreads();
 
@@ -170,8 +190,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kPerLane; ++i) {
       const int j = lane + i * kLanes;
       const float p = expf(s[i] * scale + bs[j] - m_t) / l_t;
-      const float ds = (masked_row || j >= n) ? 0.f : p * (dp[i] - delta_t);
-      dss[row * PP + j] = round_to<T>(ds);
+      dss[row * PP + j] = (masked_row || j >= n) ? 0.f : p * (dp[i] - delta_t);
     }
     __syncwarp();  // the row's four threads see each other's ds
 
@@ -183,19 +202,19 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (live) {
-    T* o = dq + ((int64_t(b) * t_len + t) * heads + h) * D;
+    float* o = dq + ((int64_t(b) * t_len + t) * heads + h) * D;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) o[lane + i * kLanes] = from_f32<T>(acc[i] * scale);
+    for (int i = 0; i < kCols; ++i) o[lane + i * kLanes] = acc[i] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
+attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ g,
                          const float* __restrict__ bias, const float* __restrict__ m,
                          const float* __restrict__ l, const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int t_len, int s_len,
+                         float* __restrict__ dk, float* __restrict__ dv, int t_len, int s_len,
                          int heads, Strides st, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTile + 1;
@@ -219,10 +238,10 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int s_idx = s0 + row;
 
-  stage<T, D>(ks, k + b * st.kb + h * st.kh, st.ks, s0, s_len);
-  stage<T, D>(vs, v + b * st.vb + h * st.vh, st.vs, s0, s_len);
-  const T* qb = q + b * st.qb + h * st.qh;
-  const T* gb = g + b * st.gb + h * st.gh;
+  stage<D>(ks, k + b * st.kb + h * st.kh, st.ks, s0, s_len);
+  stage<D>(vs, v + b * st.vb + h * st.vh, st.vs, s0, s_len);
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* gb = g + b * st.gb + h * st.gh;
   const int64_t stat0 = (int64_t(b) * heads + h) * t_len;
   const float bias_s = s_idx < s_len ? bias[int64_t(b) * s_len + s_idx] : 0.f;
 
@@ -233,8 +252,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t0 = 0; t0 < t_len; t0 += kTile) {
     const int n = min(kTile, t_len - t0);
     __syncthreads();  // the previous tile is consumed (and the k, v tiles stored)
-    stage<T, D>(qs, qb, st.qt, t0, t_len);
-    stage<T, D>(gs, gb, st.gt, t0, t_len);
+    stage<D>(qs, qb, st.qt, t0, t_len);
+    stage<D>(gs, gb, st.gt, t0, t_len);
     if (tid < kTile) {
       const bool live = tid < n;
       ms[tid] = live ? m[stat0 + t0 + tid] : 0.f;
@@ -262,9 +281,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = lane + i * kLanes;
       const float m_j = ms[j];
       const float p = j < n ? expf(s[i] * scale + bias_s - m_j) / ls[j] : 0.f;
-      const float ds = m_j <= 0.5f * kMaskValue ? 0.f : p * (dp[i] - des[j]);
-      ps[row * PP + j] = round_to<T>(p);
-      dss[row * PP + j] = round_to<T>(ds);
+      ps[row * PP + j] = p;
+      dss[row * PP + j] = m_j <= 0.5f * kMaskValue ? 0.f : p * (dp[i] - des[j]);
     }
     __syncwarp();  // the row's four threads see each other's p and ds
 
@@ -284,9 +302,442 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t o = ((int64_t(b) * s_len + s_idx) * heads + h) * D;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
-      dk[o + lane + i * kLanes] = from_f32<T>(dk_acc[i] * scale);
-      dv[o + lane + i * kLanes] = from_f32<T>(dv_acc[i]);
+      dk[o + lane + i * kLanes] = dk_acc[i] * scale;
+      dv[o + lane + i * kLanes] = dv_acc[i];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: the wgmma design
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;               // rows of one consumer warpgroup
+constexpr int kOwnRows = 2 * kWgRows;     // rows a block owns: queries (dq) or keys (dk/dv)
+constexpr int kStreamRows = 64;           // rows of a streamed tile: keys (dq) or queries
+constexpr int kStages = 2;                // ring depth of the streamed tiles
+constexpr int kWgThreads = 256;           // two warpgroups
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Geometry {
+  static constexpr int kDp = D < 16 ? 16 : D;             // head dim in shared memory
+  static constexpr int kAtomCols = kDp > 64 ? 64 : kDp;   // columns of one swizzle atom / TMA box
+  static constexpr int kAtoms = kDp / kAtomCols;           // 2 at D = 128, else 1
+  static constexpr int kRowBytes = kAtomCols * 2;          // 32, 64 or 128
+  static constexpr uint32_t kLayout = hopper::layout_for_row_bytes(kRowBytes);
+  static constexpr uint32_t kGroup = 8 * kRowBytes;        // bytes between 8-row groups
+  static constexpr int kOwnAtom = kOwnRows * kRowBytes;
+  static constexpr int kStreamAtom = kStreamRows * kRowBytes;
+  static constexpr int kOwnBytes = kAtoms * kOwnAtom;      // one owned tile
+  static constexpr int kStreamBytes = kAtoms * kStreamAtom;  // one streamed tile
+  static constexpr int kRegs = kAtomCols / 2;              // accumulator floats per atom
+  // 1024 bytes of alignment slack, two owned tiles, two rings of streamed
+  // tiles, the ring's barriers and the owned tiles' one
+  static constexpr size_t kSmem = 1024 + 2 * kOwnBytes + 2 * kStages * kStreamBytes +
+                                  8 * (kStages + 1);
+};
+
+// one thread: the block's owned tiles of a and b (rows r0..) into shared memory
+template <int D>
+__device__ __forceinline__ void load_own(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                         uint8_t* own_a, uint8_t* own_b, uint64_t* bar, int r0,
+                                         int h, int b) {
+  using G = Geometry<D>;
+  hopper::mbar_expect_tx(bar, 2 * G::kOwnBytes);
+#pragma unroll
+  for (int a = 0; a < G::kAtoms; ++a) {
+    hopper::tma_load_4d(own_a + a * G::kOwnAtom, map_a, bar, a * G::kAtomCols, h, r0, b);
+    hopper::tma_load_4d(own_b + a * G::kOwnAtom, map_b, bar, a * G::kAtomCols, h, r0, b);
+  }
+}
+
+// one thread: streamed tile `tile` of a and b into ring stage `stage`
+template <int D>
+__device__ __forceinline__ void load_stream(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                            uint8_t* ring_a, uint8_t* ring_b, uint64_t* bars,
+                                            int tile, int stage, int h, int b) {
+  using G = Geometry<D>;
+  hopper::mbar_expect_tx(&bars[stage], 2 * G::kStreamBytes);
+#pragma unroll
+  for (int a = 0; a < G::kAtoms; ++a) {
+    hopper::tma_load_4d(ring_a + stage * G::kStreamBytes + a * G::kStreamAtom, map_a,
+                        &bars[stage], a * G::kAtomCols, h, tile * kStreamRows, b);
+    hopper::tma_load_4d(ring_b + stage * G::kStreamBytes + a * G::kStreamAtom, map_b,
+                        &bars[stage], a * G::kAtomCols, h, tile * kStreamRows, b);
+  }
+}
+
+// x = A . B^T over the padded head dim (started, not awaited): A the
+// warpgroup's 64 rows of an owned tile, B a streamed tile, both K-major;
+// x[4c + 2r + e] is (row r, column 8c + col_in_chunk + e) of the 64 x 64 tile
+template <int D>
+__device__ __forceinline__ void tile_product(float (&x)[32], const uint8_t* own, int wg,
+                                             const uint8_t* stream) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int kk = 0; kk < G::kDp / 16; ++kk) {
+    const int atom = (16 * kk) / G::kAtomCols;
+    const int in_row = (16 * kk) % G::kAtomCols * 2;
+    const uint64_t da = hopper::make_desc(
+        own + atom * G::kOwnAtom + wg * kWgRows * G::kRowBytes + in_row, G::kGroup, G::kLayout);
+    const uint64_t db =
+        hopper::make_desc(stream + atom * G::kStreamAtom + in_row, G::kGroup, G::kLayout);
+    hopper::wgmma_ss_m64n64k16(x, da, db, kk > 0);
+  }
+}
+
+// a 64 x 64 f32 tile in the accumulator layout, rounded to bf16 as the A
+// fragments of its four 16-column steps
+__device__ __forceinline__ void to_fragments(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = hopper::pack_bf16x2(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = hopper::pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = hopper::pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = hopper::pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// acc += A . B (started, not awaited): A the fragments of a 64 x 64 tile whose
+// columns are the streamed rows, B the streamed tile (MN-major: D contiguous)
+template <int D>
+__device__ __forceinline__ void accumulate(
+    float (&acc)[Geometry<D>::kAtoms][Geometry<D>::kRegs], const uint32_t (&a)[4][4],
+    const uint8_t* stream) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int atom = 0; atom < G::kAtoms; ++atom)
+      hopper::wgmma_rs_tb<G::kRegs>(
+          acc[atom], a[kk],
+          hopper::make_desc(stream + atom * G::kStreamAtom + kk * 16 * G::kRowBytes, G::kGroup,
+                            G::kLayout));
+}
+
+template <int D>
+__device__ __forceinline__ void wait_acc(float (&acc)[Geometry<D>::kAtoms][Geometry<D>::kRegs]) {
+#pragma unroll
+  for (int a = 0; a < Geometry<D>::kAtoms; ++a) hopper::fence_regs(acc[a]);
+}
+
+// rows r of this thread's accumulator (eight apart) of (B, n, H, D) `out`,
+// times `mul`, in bf16; rows at or past n are not written
+template <int D>
+__device__ __forceinline__ void store_rows(
+    const float (&acc)[Geometry<D>::kAtoms][Geometry<D>::kRegs], __nv_bfloat16* out,
+    int row0, int n, int heads, int h, int b, float mul) {
+  using G = Geometry<D>;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    __nv_bfloat16* o_row = out + ((int64_t(b) * n + row) * heads + h) * D;
+#pragma unroll
+    for (int a = 0; a < G::kAtoms; ++a) {
+#pragma unroll
+      for (int c = 0; c < G::kAtomCols / 8; ++c) {
+        const int col = a * G::kAtomCols + 8 * c + 2 * (lane % 4);
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(o_row + col) = __floats2bfloat162_rn(
+              acc[a][4 * c + 2 * r] * mul, acc[a][4 * c + 2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap g_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const float* __restrict__ bias, const float* __restrict__ m,
+                              const float* __restrict__ l, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int t_len, int s_len, int heads,
+                              float scale) {
+  using G = Geometry<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* qs = smem;                                  // [atom][kOwnRows rows]
+  uint8_t* gs = qs + G::kOwnBytes;
+  uint8_t* ks = gs + G::kOwnBytes;                     // [stage][atom][kStreamRows rows]
+  uint8_t* vs = ks + kStages * G::kStreamBytes;
+  uint64_t* ring_bar = reinterpret_cast<uint64_t*>(vs + kStages * G::kStreamBytes);
+  uint64_t* own_bar = ring_bar + kStages;
+  int* live = reinterpret_cast<int*>(own_bar + 1);     // [n_tiles + 1]: live key tiles, count
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int t0 = blockIdx.x * kOwnRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (s_len + kStreamRows - 1) / kStreamRows;
+  const float* bias_b = bias + int64_t(b) * s_len;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&ring_bar[st], 1);
+    hopper::mbar_init(own_bar, 1);
+    hopper::fence_barrier_init();
+  }
+  // a key tile is live if any of its keys is not padding: one warp a tile
+  for (int i = warp; i < n_tiles; i += kWgThreads / 32) {
+    const int k0 = i * kStreamRows + lane, k1 = k0 + 32;
+    const bool valid = (k0 < s_len && bias_b[k0] > 0.5f * kMaskValue) ||
+                       (k1 < s_len && bias_b[k1] > 0.5f * kMaskValue);
+    const bool any = __any_sync(0xffffffffu, valid);
+    if (lane == 0) live[i] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {  // the flags compacted in place into the list of live tiles
+    int count = 0;
+    for (int base = 0; base < n_tiles; base += 32) {
+      const bool flag = base + lane < n_tiles && live[base + lane];
+      const uint32_t ballot = __ballot_sync(0xffffffffu, flag);
+      if (flag) live[count + __popc(ballot & ((1u << lane) - 1))] = base + lane;
+      count += __popc(ballot);
+    }
+    if (lane == 0) live[n_tiles] = count;
+  }
+  __syncthreads();
+  const int n_live = live[n_tiles];
+  if (tid == 0 && n_live > 0) {
+    load_own<D>(&q_map, &g_map, qs, gs, own_bar, t0, h, b);
+    for (int st = 0; st < kStages && st < n_live; ++st)
+      load_stream<D>(&k_map, &v_map, ks, vs, ring_bar, live[st], st, h, b);
+  }
+
+  // this thread's accumulator rows: r = 0 and r = 1 (eight apart)
+  const int row0 = t0 + wg * kWgRows + (warp % 4) * 16 + lane / 4;
+  const int col_in_chunk = 2 * (lane % 4);
+  const bool active = t0 + wg * kWgRows < t_len;
+  float m_r[2], inv_l[2], delta_r[2];
+  bool zero_ds[2];  // a row past T, or one whose keys are all masked
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + 8 * r;
+    const bool valid = t < t_len;
+    const int64_t stat = (int64_t(b) * heads + h) * t_len + t;
+    m_r[r] = valid ? m[stat] : 0.f;
+    inv_l[r] = valid ? 1.f / l[stat] : 0.f;
+    delta_r[r] = valid ? delta[stat] : 0.f;
+    zero_ds[r] = !valid || m_r[r] <= 0.5f * kMaskValue;
+  }
+
+  float acc[G::kAtoms][G::kRegs];
+#pragma unroll
+  for (int a = 0; a < G::kAtoms; ++a)
+#pragma unroll
+    for (int i = 0; i < G::kRegs; ++i) acc[a][i] = 0.f;
+
+  if (active && n_live > 0) hopper::mbar_wait(own_bar, 0);
+  for (int j = 0; j < n_live; ++j) {
+    const int stage = j % kStages;
+    if (active) {
+      hopper::mbar_wait(&ring_bar[stage], (j / kStages) & 1);
+      const uint8_t* k_tile = ks + stage * G::kStreamBytes;
+      const uint8_t* v_tile = vs + stage * G::kStreamBytes;
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+      tile_product<D>(s, qs, wg, k_tile);  // S = Q . K^T
+      tile_product<D>(dp, gs, wg, v_tile);  // dP = G . V^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // ds in place of s; keys past S masked by index
+      const int s0 = live[j] * kStreamRows;
+#pragma unroll
+      for (int c = 0; c < kStreamRows / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = s0 + 8 * c + col_in_chunk + e;
+          const bool valid = key < s_len;
+          const float bj = valid ? bias_b[key] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * c + 2 * r + e;
+            const float p =
+                valid ? exp2f((s[i] * scale + bj - m_r[r]) * kLog2e) * inv_l[r] : 0.f;
+            s[i] = zero_ds[r] ? 0.f : p * (dp[i] - delta_r[r]);
+          }
+        }
+      }
+      uint32_t ds_a[4][4];
+      to_fragments(s, ds_a);
+      hopper::wgmma_fence();
+      accumulate<D>(acc, ds_a, k_tile);  // dq += ds . K
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      wait_acc<D>(acc);
+    }
+    __syncthreads();  // both warpgroups are done with this stage
+    if (tid == 0 && j + kStages < n_live)
+      load_stream<D>(&k_map, &v_map, ks, vs, ring_bar, live[j + kStages], stage, h, b);
+  }
+
+  if (active) store_rows<D>(acc, dq, row0, t_len, heads, h, b, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap g_map,
+                               const float* __restrict__ bias, const float* __restrict__ m,
+                               const float* __restrict__ l, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int t_len, int s_len, int heads, float scale) {
+  using G = Geometry<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* ks = smem;                                  // [atom][kOwnRows rows]
+  uint8_t* vs = ks + G::kOwnBytes;
+  uint8_t* qs = vs + G::kOwnBytes;                     // [stage][atom][kStreamRows rows]
+  uint8_t* gs = qs + kStages * G::kStreamBytes;
+  uint64_t* ring_bar = reinterpret_cast<uint64_t*>(gs + kStages * G::kStreamBytes);
+  uint64_t* own_bar = ring_bar + kStages;
+  float* stats = reinterpret_cast<float*>(own_bar + 1);  // [stage][m, 1/l, delta][kStreamRows]
+  int* wg_live = reinterpret_cast<int*>(stats + kStages * 3 * kStreamRows);  // [2]
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int s0 = blockIdx.x * kOwnRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (t_len + kStreamRows - 1) / kStreamRows;
+  const int64_t stat0 = (int64_t(b) * heads + h) * t_len;
+  const float* bias_b = bias + int64_t(b) * s_len;
+
+  // the statistics of query tile `tile` into ring stage `stage`; queries
+  // past T are never read
+  auto stage_stats = [&](int tile, int stage) {
+    if (tid < kStreamRows) {
+      const int t = tile * kStreamRows + tid;
+      const bool valid = t < t_len;
+      float* slot = stats + stage * 3 * kStreamRows;
+      slot[tid] = valid ? m[stat0 + t] : 0.f;
+      slot[kStreamRows + tid] = valid ? 1.f / l[stat0 + t] : 0.f;
+      slot[2 * kStreamRows + tid] = valid ? delta[stat0 + t] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&ring_bar[st], 1);
+    hopper::mbar_init(own_bar, 1);
+    hopper::fence_barrier_init();
+  }
+  if (tid < 2) wg_live[tid] = 0;
+  for (int st = 0; st < kStages && st < n_tiles; ++st) stage_stats(st, st);
+  __syncthreads();
+  {  // does the warpgroup own a key that is not padding? (two threads a key)
+    const int key = s0 + wg * kWgRows + tid % kWgRows;
+    if (key < s_len && bias_b[key] > 0.5f * kMaskValue) wg_live[wg] = 1;
+  }
+  __syncthreads();
+  // all-padding keys give dk = dv = 0 exactly where the example has a valid
+  // key; a fully masked example runs the full path (p = 1/S there)
+  const bool example_live = t_len > 0 && m[stat0] > 0.5f * kMaskValue;
+  const bool computes0 = s0 < s_len && (wg_live[0] || !example_live);
+  const bool computes1 = s0 + kWgRows < s_len && (wg_live[1] || !example_live);
+  const bool active = wg == 0 ? computes0 : computes1;
+  const bool block_active = computes0 || computes1;
+  if (tid == 0 && block_active) {
+    load_own<D>(&k_map, &v_map, ks, vs, own_bar, s0, h, b);
+    for (int st = 0; st < kStages && st < n_tiles; ++st)
+      load_stream<D>(&q_map, &g_map, qs, gs, ring_bar, st, st, h, b);
+  }
+
+  // this thread's accumulator rows (keys): r = 0 and r = 1 (eight apart)
+  const int row0 = s0 + wg * kWgRows + (warp % 4) * 16 + lane / 4;
+  const int col_in_chunk = 2 * (lane % 4);
+  float bias_r[2];
+  bool key_valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_valid[r] = row0 + 8 * r < s_len;
+    bias_r[r] = key_valid[r] ? bias_b[row0 + 8 * r] : 0.f;
+  }
+
+  float dk_acc[G::kAtoms][G::kRegs], dv_acc[G::kAtoms][G::kRegs];
+#pragma unroll
+  for (int a = 0; a < G::kAtoms; ++a)
+#pragma unroll
+    for (int i = 0; i < G::kRegs; ++i) dk_acc[a][i] = dv_acc[a][i] = 0.f;
+
+  if (block_active) {
+    if (active) hopper::mbar_wait(own_bar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kStages;
+      if (active) {
+        hopper::mbar_wait(&ring_bar[stage], (j / kStages) & 1);
+        const uint8_t* q_tile = qs + stage * G::kStreamBytes;
+        const uint8_t* g_tile = gs + stage * G::kStreamBytes;
+        const float* st_m = stats + stage * 3 * kStreamRows;
+        const float* st_inv_l = st_m + kStreamRows;
+        const float* st_delta = st_inv_l + kStreamRows;
+        float x[32], dp[32];
+        hopper::wgmma_fence();
+        tile_product<D>(x, ks, wg, q_tile);   // S^T = K . Q^T
+        tile_product<D>(dp, vs, wg, g_tile);  // dP^T = V . G^T
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(x);
+        hopper::fence_regs(dp);
+
+        // p^T in place of x, ds^T in place of dp; queries past T masked by index
+        const int q0 = j * kStreamRows;
+#pragma unroll
+        for (int c = 0; c < kStreamRows / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * c + col_in_chunk + e;
+            const bool valid = q0 + col < t_len;
+            const float m_c = st_m[col];
+            const bool zero_ds = !valid || m_c <= 0.5f * kMaskValue;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * c + 2 * r + e;
+              const float p = valid && key_valid[r]
+                                  ? exp2f((x[i] * scale + bias_r[r] - m_c) * kLog2e) *
+                                        st_inv_l[col]
+                                  : 0.f;
+              dp[i] = zero_ds ? 0.f : p * (dp[i] - st_delta[col]);
+              x[i] = p;
+            }
+          }
+        }
+        uint32_t p_a[4][4], ds_a[4][4];
+        to_fragments(x, p_a);
+        to_fragments(dp, ds_a);
+        hopper::wgmma_fence();
+        accumulate<D>(dv_acc, p_a, g_tile);   // dv += p^T . G
+        accumulate<D>(dk_acc, ds_a, q_tile);  // dk += ds^T . Q
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        wait_acc<D>(dv_acc);
+        wait_acc<D>(dk_acc);
+      }
+      __syncthreads();  // both warpgroups are done with this stage
+      if (j + kStages < n_tiles) {
+        stage_stats(j + kStages, stage);  // read after the next iteration's barrier
+        if (tid == 0)
+          load_stream<D>(&q_map, &g_map, qs, gs, ring_bar, j + kStages, stage, h, b);
+      }
+    }
+  }
+
+  if (s0 + wg * kWgRows < s_len) {  // a skipped warpgroup writes its zeros
+    store_rows<D>(dk_acc, dk, row0, s_len, heads, h, b, scale);
+    store_rows<D>(dv_acc, dv, row0, s_len, heads, h, b, 1.f);
   }
 }
 
@@ -299,53 +750,107 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.t_len + kRows - 1) / kRows, a.heads, a.batch);
-  attention_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.g), a.bias, a.m, a.l, a.delta, static_cast<T*>(a.dq),
-      a.t_len, a.s_len, a.heads, a.st, 1.0f / sqrtf(float(D)));
+  attention_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.bias, a.m, a.l, a.delta,
+      static_cast<float*>(a.dq), a.t_len, a.s_len, a.heads, a.st, 1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.s_len + kRows - 1) / kRows, a.heads, a.batch);
-  attention_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.g), a.bias, a.m, a.l, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.t_len, a.s_len, a.heads, a.st, 1.0f / sqrtf(float(D)));
+  attention_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.bias, a.m, a.l, a.delta,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.t_len, a.s_len, a.heads, a.st,
+      1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
-template <bool kDq, typename T>
-cudaError_t dispatch_head_dim(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 8: return kDq ? launch_dq<T, 8>(a) : launch_dkv<T, 8>(a);
-    case 16: return kDq ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
-    case 32: return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    default: return cudaErrorInvalidValue;
-  }
+// The four TMA maps of the wgmma design: q and g (T rows), k and v (S rows),
+// boxes of one swizzle atom of columns and `q_rows` or `k_rows` rows
+template <int D>
+bool encode_maps(const Args& a, int q_rows, int k_rows, CUtensorMap* q_map, CUtensorMap* g_map,
+                 CUtensorMap* k_map, CUtensorMap* v_map) {
+  constexpr int cols = Geometry<D>::kAtomCols;
+  const Strides& st = a.st;
+  const int64_t sq[3] = {st.qb, st.qt, st.qh}, sg[3] = {st.gb, st.gt, st.gh};
+  const int64_t sk[3] = {st.kb, st.ks, st.kh}, sv[3] = {st.vb, st.vs, st.vh};
+  return hopper::encode_head_map(q_map, a.q, a.batch, a.t_len, a.heads, D, sq, cols, q_rows) &&
+         hopper::encode_head_map(g_map, a.g, a.batch, a.t_len, a.heads, D, sg, cols, q_rows) &&
+         hopper::encode_head_map(k_map, a.k, a.batch, a.s_len, a.heads, D, sk, cols, k_rows) &&
+         hopper::encode_head_map(v_map, a.v, a.batch, a.s_len, a.heads, D, sv, cols, k_rows);
 }
 
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  if (smem > 232448) return cudaErrorInvalidValue;  // a block's most on the H100
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  CUtensorMap q_map, g_map, k_map, v_map;
+  if (!encode_maps<D>(a, kOwnRows, kStreamRows, &q_map, &g_map, &k_map, &v_map))
+    return cudaErrorInvalidValue;
+  const int n_tiles = (a.s_len + kStreamRows - 1) / kStreamRows;
+  const size_t smem = Geometry<D>::kSmem + sizeof(int) * (n_tiles + 1);  // + the live list
+  cudaError_t err = set_smem(attention_bwd_dq_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.t_len + kOwnRows - 1) / kOwnRows, a.heads, a.batch);
+  attention_bwd_dq_wgmma_kernel<D><<<grid, kWgThreads, smem, a.stream>>>(
+      q_map, g_map, k_map, v_map, a.bias, a.m, a.l, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+      a.t_len, a.s_len, a.heads, 1.0f / sqrtf(float(D)));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  CUtensorMap q_map, g_map, k_map, v_map;
+  if (!encode_maps<D>(a, kStreamRows, kOwnRows, &q_map, &g_map, &k_map, &v_map))
+    return cudaErrorInvalidValue;
+  // + the statistics ring and the two warpgroups' flags
+  const size_t smem = Geometry<D>::kSmem + sizeof(float) * kStages * 3 * kStreamRows +
+                      2 * sizeof(int);
+  cudaError_t err = set_smem(attention_bwd_dkv_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.s_len + kOwnRows - 1) / kOwnRows, a.heads, a.batch);
+  attention_bwd_dkv_wgmma_kernel<D><<<grid, kWgThreads, smem, a.stream>>>(
+      k_map, v_map, q_map, g_map, a.bias, a.m, a.l, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.t_len, a.s_len, a.heads, 1.0f / sqrtf(float(D)));
+  return cudaGetLastError();
+}
+
+// dtype 0 (float32) runs the scalar design, 1 (bfloat16) the wgmma design
 template <bool kDq>
 int dispatch(int dtype, int head_dim, const Args& a) {
-  if (dtype == 0) return dispatch_head_dim<kDq, float>(head_dim, a);
-  if (dtype == 1) return dispatch_head_dim<kDq, __nv_bfloat16>(head_dim, a);
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+#define PIT_LAUNCH(D)                                                      \
+  (dtype == 0 ? (kDq ? launch_dq<D>(a) : launch_dkv<D>(a))                 \
+              : (kDq ? launch_dq_wgmma<D>(a) : launch_dkv_wgmma<D>(a)))
+  switch (head_dim) {
+    case 8: return PIT_LAUNCH(8);
+    case 16: return PIT_LAUNCH(16);
+    case 32: return PIT_LAUNCH(32);
+    case 64: return PIT_LAUNCH(64);
+    case 128: return PIT_LAUNCH(128);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PIT_LAUNCH
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* g, const void* bias,
@@ -368,11 +873,14 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q and g are (B, T, H, D), k and v are
-// (B, S, H, D), each with unit stride along D and the given (batch, row, head)
-// strides in elements; bias is (B, S) f32 contiguous; m, l and delta are
+// dtype: 0 = float32 (the scalar design), 1 = bfloat16 (the wgmma design).
+// q and g are (B, T, H, D), k and v are (B, S, H, D), each with unit stride
+// along D and the given (batch, row, head) strides in elements (bf16:
+// 16-byte aligned bases and strides that are nonzero multiples of 8, for
+// TMA); bias is (B, S) f32 contiguous; m, l and delta are
 // (B, H, T) f32 contiguous; dq is (B, T, H, D) and dk, dv are (B, S, H, D),
-// contiguous. Each returns the cudaError_t of its launch (0 on success).
+// contiguous. Each returns the cudaError_t of its launch (0 on success;
+// cudaErrorInvalidValue if a tensor map cannot be encoded).
 extern "C" int attention_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                                 const void* v, const void* g, const void* bias,
                                 const void* m, const void* l, const void* delta, void* dq,

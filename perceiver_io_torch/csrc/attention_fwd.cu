@@ -241,24 +241,6 @@ struct Geometry {
   static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 64;
 };
 
-template <int N>
-__device__ __forceinline__ void pv_product(float (&o)[N], const uint32_t (&a)[4], uint64_t desc);
-template <>
-__device__ __forceinline__ void pv_product<8>(float (&o)[8], const uint32_t (&a)[4],
-                                              uint64_t desc) {
-  hopper::wgmma_rs_m64n16k16_tb(o, a, desc);
-}
-template <>
-__device__ __forceinline__ void pv_product<16>(float (&o)[16], const uint32_t (&a)[4],
-                                               uint64_t desc) {
-  hopper::wgmma_rs_m64n32k16_tb(o, a, desc);
-}
-template <>
-__device__ __forceinline__ void pv_product<32>(float (&o)[32], const uint32_t (&a)[4],
-                                               uint64_t desc) {
-  hopper::wgmma_rs_m64n64k16_tb(o, a, desc);
-}
-
 // one thread: K and V tile `tile` of (b, h) into ring stage `stage`
 template <int D>
 __device__ __forceinline__ void load_kv_tile(const CUtensorMap* k_map, const CUtensorMap* v_map,
@@ -425,7 +407,7 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int kk = 0; kk < kTileKeys / 16; ++kk)
 #pragma unroll
         for (int a = 0; a < G::kAtoms; ++a)
-          pv_product<G::kORegs>(
+          hopper::wgmma_rs_tb<G::kORegs>(
               o[a], pa[kk],
               hopper::make_desc(v_tile + a * G::kKVAtom + kk * 16 * G::kRowBytes, G::kGroup,
                                 G::kLayout));
@@ -463,20 +445,6 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// A 4-D map over a (B, rows, H, D) bf16 view with the given element strides:
-// boxes of (one atom of columns, one head, `box_rows` rows, one batch).
-template <int D>
-bool encode_head_map(CUtensorMap* map, const void* base, int batch, int rows, int heads,
-                     const int64_t* strides, int box_rows) {
-  using G = Geometry<D>;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(rows),
-                              cuuint64_t(batch)};
-  const cuuint64_t bytes[3] = {cuuint64_t(strides[2]) * 2, cuuint64_t(strides[1]) * 2,
-                               cuuint64_t(strides[0]) * 2};
-  const cuuint32_t box[4] = {cuuint32_t(G::kAtomCols), 1, cuuint32_t(box_rows), 1};
-  return hopper::encode_bf16_map(map, 4, base, dims, bytes, box);
-}
-
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
                          void* out, float* m_out, float* l_out, int batch, int t_len,
@@ -484,9 +452,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const floa
                          const int64_t* sv, cudaStream_t stream) {
   using G = Geometry<D>;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_head_map<D>(&q_map, q, batch, t_len, heads, sq, kBlockRows) ||
-      !encode_head_map<D>(&k_map, k, batch, s_len, heads, sk, kTileKeys) ||
-      !encode_head_map<D>(&v_map, v, batch, s_len, heads, sv, kTileKeys))
+  // boxes of one swizzle atom of columns and a q tile's or a K/V tile's rows
+  if (!hopper::encode_head_map(&q_map, q, batch, t_len, heads, D, sq, G::kAtomCols, kBlockRows) ||
+      !hopper::encode_head_map(&k_map, k, batch, s_len, heads, D, sk, G::kAtomCols, kTileKeys) ||
+      !hopper::encode_head_map(&v_map, v, batch, s_len, heads, D, sv, G::kAtomCols, kTileKeys))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_wgmma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -165,6 +165,19 @@ inline bool encode_bf16_map(CUtensorMap* map, int rank, const void* base, const 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A 4-D map over a (B, rows, H, head_dim) bf16 view with the given element
+// strides (batch, row, head): boxes of (box_cols columns, one head, box_rows
+// rows, one batch). Columns past head_dim and rows past `rows` land as zeros.
+inline bool encode_head_map(CUtensorMap* map, const void* base, int batch, int rows, int heads,
+                            int head_dim, const int64_t* strides, int box_cols, int box_rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(head_dim), cuuint64_t(heads), cuuint64_t(rows),
+                              cuuint64_t(batch)};
+  const cuuint64_t bytes[3] = {cuuint64_t(strides[2]) * 2, cuuint64_t(strides[1]) * 2,
+                               cuuint64_t(strides[0]) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(box_cols), 1, cuuint32_t(box_rows), 1};
+  return encode_bf16_map(map, 4, base, dims, bytes, box);
+}
+
 // ---- wgmma ----
 
 // A shared-memory matrix descriptor: start address, stride between 8-row
@@ -230,6 +243,25 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (m64 x n64, f32) {=, +=} A (m64 x k16) . B (k16 x n64), both read from shared
+// memory through K-major descriptors; accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (m64 x n16, f32) += A (m64 x k16, bf16 in registers) . B (k16 x n16) read from
 // shared memory through an MN-major descriptor (B transposed).
 __device__ __forceinline__ void wgmma_rs_m64n16k16_tb(float (&d)[8], const uint32_t (&a)[4],
@@ -276,6 +308,26 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// the RS product of an m64 tile whose accumulator holds N floats a thread
+// (n = 2N columns: 16, 32 or 64), B MN-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N], const uint32_t (&a)[4], uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<8>(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  wgmma_rs_m64n16k16_tb(d, a, desc_b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  wgmma_rs_m64n32k16_tb(d, a, desc_b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  wgmma_rs_m64n64k16_tb(d, a, desc_b);
 }
 
 }  // namespace hopper

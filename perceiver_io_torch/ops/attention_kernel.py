@@ -17,7 +17,11 @@ attends uniformly over all S keys instead of producing NaN.
 - backward: ``csrc/attention_bwd.cu``, one kernel for dq and one for dk/dv
   (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), recomputing the probabilities
   from ``m`` and ``l``; ``delta = sum_d g * out`` is a plain reduction, as the
-  JAX package computes it outside its kernels.
+  JAX package computes it outside its kernels. Two designs, chosen by dtype
+  (:func:`backward_design`) as the forward's: float32 the exact scalar-FMA
+  kernels, bfloat16 the tensor-core kernels (``wgmma`` fed by TMA, key
+  tiles that are all padding skipped); a bf16 input they cannot take
+  raises ``ValueError``.
 - :class:`FusedAttention`: the ``torch.autograd.Function`` twin of the
   ``_fused_attention`` custom VJP. :func:`fused_attention` applies it when
   autograd records; serving calls launch the forward without statistics.
@@ -44,8 +48,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 counter = build.LaunchCounter()          # attention_fwd, either design
 wgmma_counter = build.LaunchCounter()    # attention_fwd, the bf16 wgmma design
-dq_counter = build.LaunchCounter()       # attention_bwd_dq
-dkv_counter = build.LaunchCounter()      # attention_bwd_dkv
+dq_counter = build.LaunchCounter()       # attention_bwd_dq, either design
+dkv_counter = build.LaunchCounter()      # attention_bwd_dkv, either design
+dq_wgmma_counter = build.LaunchCounter()   # attention_bwd_dq, the bf16 wgmma design
+dkv_wgmma_counter = build.LaunchCounter()  # attention_bwd_dkv, the bf16 wgmma design
 
 
 def pad_bias(pad_mask: Optional[torch.Tensor], batch: int, keys: int,
@@ -163,6 +169,17 @@ def _head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v need unit stride along the head dim")
 
 
+def _tma_refusal(name: str, x: torch.Tensor) -> Optional[str]:
+    """Why TMA cannot load the bf16 view ``x`` (16-byte aligned base, (batch,
+    row, head) strides that are multiples of 8 elements), or None."""
+    if x.data_ptr() % 16:
+        return f"{name} is not 16-byte aligned, as its TMA loads need"
+    if any(st % 8 for st in x.stride()[:3]):
+        return (f"{name} strides {tuple(x.stride())} are not multiples of 8 "
+                f"elements (16 bytes), as its TMA loads need")
+    return None
+
+
 def forward_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The design of the forward kernel a call with these tensors takes:
     ``'scalar_f32'`` for float32 (exact f32 FMAs; TF32 would break the f32
@@ -175,13 +192,38 @@ def forward_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if q.dtype == torch.float32:
         return "scalar_f32"
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"bf16 attention kernel: {name} is not 16-byte aligned, "
-                             f"as its TMA loads need")
-        if any(st % 8 for st in x.stride()[:3]):
-            raise ValueError(f"bf16 attention kernel: {name} strides {tuple(x.stride())} are "
-                             f"not multiples of 8 elements (16 bytes), as its TMA loads need")
+        why = _tma_refusal(name, x)
+        if why:
+            raise ValueError(f"bf16 attention kernel: {why}")
     return "wgmma"
+
+
+def backward_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor) -> str:
+    """The design of the two backward kernels for these tensors, by the
+    forward's rule (:func:`forward_design`): ``'scalar_f32'`` for float32,
+    ``'wgmma'`` for bfloat16, whose q, k and v must meet TMA's rules or the
+    call raises ``ValueError``. The cotangent ``g`` is not held to them:
+    autograd may hand over a layout TMA refuses (a broadcast zero has
+    stride 0), and the launch then makes ``g`` contiguous first
+    (:func:`_kernel_grad`), one copy of a tensor the kernels read anyway.
+    ``g`` must match q's shape and dtype. Checks layout only, so it answers
+    for CPU tensors too."""
+    design = forward_design(q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    return design
+
+
+def _kernel_grad(g: torch.Tensor, design: str) -> torch.Tensor:
+    """g as the backward kernels read it: as it is where its layout serves
+    the design (unit stride along D; for ``'wgmma'`` TMA's rules and no
+    broadcast stride too), else a contiguous copy in fresh (aligned) memory."""
+    tma_ready = _tma_refusal("g", g) is None and 0 not in g.stride()[:3]
+    if g.stride(3) == 1 and (design != "wgmma" or tma_ready):
+        return g
+    return g.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(*tensors) -> list:
@@ -223,9 +265,8 @@ def bwd_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 def _bwd_args(q, k, v, bias, m, l, delta, g):
     _kernel_dims(q, k, v)
-    if g.shape != q.shape or g.dtype != q.dtype or g.stride(3) != 1:
-        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q and have "
-                         f"unit stride along the head dim")
+    design = backward_design(q, k, v, g)
+    g = _kernel_grad(g, design)
     b, t, h, d = q.shape
     stats = (b, h, t)
     for name, x in (("m", m), ("l", l), ("delta", delta)):
@@ -235,28 +276,31 @@ def _bwd_args(q, k, v, bias, m, l, delta, g):
             m.data_ptr(), l.data_ptr(), delta.data_ptr())
     dims = (b, t, k.shape[1], h, *_strides(q, k, v, g),
             torch.cuda.current_stream(q.device).cuda_stream)
-    return _DTYPE_CODES[q.dtype], d, ptrs, dims
+    return design, d, ptrs, dims
 
 
 def launch_bwd_dq(q, k, v, bias, m, l, delta, g) -> torch.Tensor:
     """The dq kernel alone: dq (B, T, H, D) in q's dtype."""
-    code, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
+    design, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    build.check_launch("attention_bwd_dq",
-                       build.library().attention_bwd_dq(code, d, *ptrs, dq.data_ptr(), *dims))
+    build.check_launch("attention_bwd_dq", build.library().attention_bwd_dq(
+        _DTYPE_CODES[q.dtype], d, *ptrs, dq.data_ptr(), *dims))
     dq_counter.launches += 1
+    if design == "wgmma":
+        dq_wgmma_counter.launches += 1
     return dq
 
 
 def launch_bwd_dkv(q, k, v, bias, m, l, delta, g) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel alone: dk, dv (B, S, H, D) in k's dtype."""
-    code, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
+    design, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    build.check_launch("attention_bwd_dkv",
-                       build.library().attention_bwd_dkv(code, d, *ptrs, dk.data_ptr(),
-                                                         dv.data_ptr(), *dims))
+    build.check_launch("attention_bwd_dkv", build.library().attention_bwd_dkv(
+        _DTYPE_CODES[q.dtype], d, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims))
     dkv_counter.launches += 1
+    if design == "wgmma":
+        dkv_wgmma_counter.launches += 1
     return dk, dv
 
 
@@ -265,6 +309,7 @@ def _launch_bwd(q, k, v, bias, out, m, l, g):
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = bwd_delta(g, out)
+    g = _kernel_grad(g, backward_design(q, k, v, g))  # one copy for both kernels, if any
     m, l = m.contiguous(), l.contiguous()
     return (launch_bwd_dq(q, k, v, bias, m, l, delta, g),
             *launch_bwd_dkv(q, k, v, bias, m, l, delta, g))
@@ -318,7 +363,7 @@ class FusedAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, out, m, l = ctx.saved_tensors
         bwd = _plain_bwd if ctx.plain else _backward
-        dq, dk, dv = bwd(q, k, v, bias, out, m, l, g.contiguous())
+        dq, dk, dv = bwd(q, k, v, bias, out, m, l, g)
         return dq, dk, dv, None, None
 
 
@@ -332,7 +377,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, T, H, D) contiguous in q's dtype. CUDA tensors launch the kernels
     (f32 or bf16, D in ``SUPPORTED_HEAD_DIMS``, unit stride along D; other
     strides are passed through, so head-split views need no copy; the
-    forward's design follows the dtype, :func:`forward_design`); CPU
+    designs follow the dtype, :func:`forward_design` and
+    :func:`backward_design`); CPU
     tensors run the plain versions. When autograd records, the call goes
     through :class:`FusedAttention` (forward with statistics, backward
     kernels); otherwise the forward runs without statistics."""

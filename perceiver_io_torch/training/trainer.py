@@ -3,10 +3,13 @@
 ``Trainer.fit`` runs ``train_step`` over the train loader, epoch after epoch,
 until ``max_steps``; every ``log_every_n_steps`` it writes one row to
 ``<logdir>/version_n/metrics.jsonl`` with the train loss, the
-lr, the mean step seconds of the window and tokens per second; every
-``eval_every_n_steps`` (else once at the end) it evaluates the validation
-loader and writes ``val_loss``. A non-finite train loss at a log point stops
-the run. Checkpoints, recovery and profiling are not ported yet.
+lr, the mean step seconds of the window and tokens per second. It evaluates
+the validation loader and writes ``val_loss`` as the JAX ``Trainer.fit``
+does: every ``eval_every_n_steps`` steps and once more at ``max_steps`` if
+the last interval is partial; with ``eval_every_n_steps`` unset, at the end
+of every epoch and at ``max_steps`` if that falls inside an epoch; never
+twice at one step. A non-finite train loss at a log point stops the run.
+Checkpoints, recovery and profiling are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,14 +80,26 @@ class Trainer:
             weight += n
         return {f"val_{k}": v / weight for k, v in totals.items()} if weight else {}
 
+    def _validate(self, step: int, val_loader) -> float:
+        """Evaluate and log at ``step``; returns the seconds it took."""
+        if val_loader is None:
+            return 0.0
+        t_eval = time.perf_counter()
+        self.log(step, self.evaluate(val_loader))
+        _sync(self.device)
+        return time.perf_counter() - t_eval
+
     def fit(self, train_loader, val_loader=None):
         cfg = self.config
-        step = self.state.step
+        every = cfg.eval_every_n_steps
+        step = last_validated = self.state.step
         _sync(self.device)
         window_start, window_steps, window_examples = time.perf_counter(), 0, 0
         metrics: Dict[str, object] = {}
         while step < cfg.max_steps:
+            batches = 0
             for batch in train_loader:
+                batches += 1
                 self.state, metrics = self.train_step(self.state, batch)
                 step += 1
                 window_steps += 1
@@ -101,16 +116,16 @@ class Trainer:
                         raise FloatingPointError(
                             f"non-finite train loss {row['train_loss']} at step {step}")
                     window_start, window_steps, window_examples = time.perf_counter(), 0, 0
-                evaluate = (cfg.eval_every_n_steps and step % cfg.eval_every_n_steps == 0) or (
-                    not cfg.eval_every_n_steps and step == cfg.max_steps)
-                if val_loader is not None and evaluate:
-                    t_eval = time.perf_counter()
-                    self.log(step, self.evaluate(val_loader))
-                    _sync(self.device)
-                    window_start += time.perf_counter() - t_eval  # steps only
+                if every and step % every == 0:
+                    window_start += self._validate(step, val_loader)  # steps only
+                    last_validated = step
                 if step >= cfg.max_steps:
                     break
-            else:
-                if len(train_loader) == 0:
-                    raise ValueError("the train loader yields no batch")
+            if batches == 0:
+                raise ValueError("the train loader yields no batch")
+            if not every:  # the epoch's end, or max_steps inside it
+                window_start += self._validate(step, val_loader)
+                last_validated = step
+        if step > last_validated:  # the final partial interval
+            self._validate(step, val_loader)
         return self.state

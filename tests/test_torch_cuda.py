@@ -16,13 +16,18 @@ shape; autograd through ``linear_ce_integer``; the tiny train step with
 ``fused_head='pallas'``), and the packed-heads kernels (forward, dq, dk/dv
 at small, ragged, wide and head-split shapes; autograd through
 ``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``),
-and the bf16 wgmma designs of the forward and the dequant matmul at ragged
-and tiny shapes (T, S, M down to 1, the vocab head's N = 10003, K not a
-multiple of 64), each case advancing the ``wgmma`` launch counter.
+and the bf16 wgmma designs of the forward, of the two backward kernels
+and of the dequant matmul at ragged and tiny shapes (T, S, M down to 1, the
+vocab head's N = 10003, K not a multiple of 64; for the backward a fully
+masked example, trailing key tiles that are all padding, head-split views
+and cotangents whose strides TMA refuses), each case advancing its
+``wgmma`` launch counter.
 Tolerances against the plain version: f32 within 1e-4 of the reference's
 peak magnitude (sums taken in another order), bf16 within 2e-2 (bf16
 rounding of the probabilities / dequantized weights at other points); the
-statistics within 1e-5 (f32 on both sides).
+statistics within 1e-5 (f32 on both sides); the bf16 backward's wgmma
+cases add an absolute 1e-5 where dq and dk cancel to 0 in exact arithmetic
+(one key), which leaves both sides only f32 rounding noise.
 """
 
 import numpy as np
@@ -51,12 +56,12 @@ def _tol(dtype):
     return 1e-4 if dtype == torch.float32 else 2e-2
 
 
-def _close(got, ref, dtype):
+def _close(got, ref, dtype, atol=0.0):
     torch.cuda.synchronize()
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all()
     err = float((got - ref).abs().max())
-    assert err <= _tol(dtype) * float(ref.abs().max()), err
+    assert err <= _tol(dtype) * float(ref.abs().max()) + atol, err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -198,6 +203,73 @@ def test_wgmma_attention_takes_strided_views(card):
     bad = flat[1:].view(2, 65, 2, 16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         ak.fused_attention(bad, bad, bad)
+
+
+BWD_ATOL = 1e-5
+
+
+def _wgmma_bwd(q, k, v, pad, go):
+    """The two bf16 backward kernels from the plain forward's residuals
+    against the plain backward; each advances its wgmma counter once."""
+    out, m, l = ak.attention_reference_with_stats(q, k, v, pad)
+    assert ak.backward_design(q, k, v, go) == "wgmma"
+    before = (ak.dq_wgmma_counter.launches, ak.dkv_wgmma_counter.launches)
+    got = ak.attention_bwd(q, k, v, pad, out, m, l, go)
+    assert (ak.dq_wgmma_counter.launches, ak.dkv_wgmma_counter.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = ak.attention_bwd_reference(q, k, v, pad, out, m, l, go)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.bfloat16 and x.is_contiguous()
+        # BWD_ATOL: where ds = p (g.v - delta) cancels in exact arithmetic
+        # (one key: the softmax has no gradient), both sides hold only the f32
+        # rounding of the unit-scale g.v and delta, summed in another order
+        _close(x, r, torch.bfloat16, BWD_ATOL)
+    return got
+
+
+@pytest.mark.parametrize("d", ak.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 509])
+@pytest.mark.parametrize("t", [1, 63, 65, 160, 250])
+def test_wgmma_attention_backward_matches_plain(card, t, s, d):
+    """The bf16 backward's wgmma design at ragged and tiny T and S, every
+    head dim: example 0 has trailing key tiles that are all padding (the
+    skipped tiles), the last one every key masked (dq and dk exactly 0, dv
+    the uniform share of g)."""
+    g = torch.Generator().manual_seed(t * 1000 + s + d + 7)
+    b, h = 3, 2
+    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(card, torch.bfloat16)
+                   for n in (t, s, s, t))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    pad[0, max(1, s // 5):] = True
+    pad[-1] = True
+    dq, dk, dv = _wgmma_bwd(q, k, v, pad.to(card), go)
+    assert not dq[-1].any() and not dk[-1].any() and dv[-1].abs().max() > 0
+    keys = max(1, s // 5)
+    assert not dk[0, keys:].any() and not dv[0, keys:].any()
+
+
+def test_wgmma_attention_backward_takes_strided_views(card):
+    """Head-split q, k, v views, and cotangents with strides TMA refuses (a
+    row stride that is no multiple of 16 bytes, a broadcast with stride 0):
+    g is copied, q, k and v are read in place; autograd through
+    ``fused_attention`` runs the wgmma kernels from ``.sum()``'s broadcast g."""
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(2, 130, 3, 4, 64, generator=g).to(card, torch.bfloat16)  # (B, S, 3, H, D)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    pad = (torch.rand(2, 130, generator=g) < 0.3).to(card)
+    wide = torch.randn(2, 130, 4, 68, generator=g).to(card, torch.bfloat16)[..., :64]
+    broadcast = torch.full((), 0.5, dtype=torch.bfloat16, device=card).expand(q.shape)
+    for go in (torch.randn(q.shape, generator=g).to(card, torch.bfloat16), wide, broadcast):
+        _wgmma_bwd(q, k, v, pad, go)
+    grads = []
+    for fn in (ak.fused_attention, ak.plain_attention):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        before = ak.dq_wgmma_counter.launches
+        fn(*leaves, pad).float().sum().backward()
+        assert ak.dq_wgmma_counter.launches - before == (fn is ak.fused_attention)
+        grads.append([x.grad for x in leaves])
+    for got, ref in zip(*grads):
+        _close(got, ref, torch.bfloat16)
 
 
 @pytest.mark.parametrize("bits,group_size", [(8, None), (8, 64), (8, 128), (4, None), (4, 64),

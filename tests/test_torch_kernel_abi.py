@@ -4,11 +4,12 @@
   ``ctypes`` signature in ``build._SIGNATURES`` with the same number and
   kinds of arguments (pointer, ``int``, ``int64_t``): a mismatch would pass
   a cut pointer or a shifted argument at the first launch.
-- The admission rule of the two kernels with two designs: which dtype, head
+- The admission rule of the kernels with two designs: which dtype, head
   dim and strides reach the bf16 ``wgmma`` design, which the f32 scalar one,
-  and which raise ``ValueError`` (``attention_kernel.forward_design``,
-  ``qmatmul.matmul_design``). Both rules read layouts only, so CPU tensors
-  answer them.
+  and which raise ``ValueError`` (``attention_kernel.forward_design`` and
+  ``backward_design``, ``qmatmul.matmul_design``); which cotangent layouts
+  the backward reads in place and which it copies first. The rules read
+  layouts only, so CPU tensors answer them.
 """
 
 import ctypes
@@ -91,6 +92,77 @@ def test_attention_design_refusals(case, match):
         k = _heads(bf, n=7, d=32)[..., ::2]
     with pytest.raises(ValueError, match=match):
         ak.forward_design(q, k, k)
+
+
+@pytest.mark.parametrize("d", ak.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,design", [(torch.float32, "scalar_f32"),
+                                          (torch.bfloat16, "wgmma")])
+def test_attention_backward_design_by_dtype(dtype, design, d):
+    q, k = _heads(dtype, d=d), _heads(dtype, n=7, d=d)
+    assert ak.backward_design(q, k, k, torch.zeros_like(q)) == design
+    qkv = torch.zeros(2, 9, 3, 4, d, dtype=dtype)  # head-split views
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert ak.backward_design(q, k, v, q) == design
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head_dim_24", "head dim 24 unsupported"),
+    ("float16", "float32 or bfloat16"),
+    ("misaligned_q", "16-byte aligned"),
+    ("row_stride_12_k", "multiples of 8 elements"),
+    ("g_shape", "must match q"),
+    ("g_dtype", "must match q"),
+])
+def test_attention_backward_design_refusals(case, match):
+    bf = torch.bfloat16
+    q, k = _heads(bf), _heads(bf, n=7)
+    g = torch.zeros_like(q)
+    if case == "head_dim_24":
+        q, k, g = _heads(bf, d=24), _heads(bf, n=7, d=24), _heads(bf, d=24)
+    elif case == "float16":
+        q, k, g = q.half(), k.half(), g.half()
+    elif case == "misaligned_q":
+        q = _misaligned(bf, (2, 5, 2, 16))
+    elif case == "row_stride_12_k":  # rows of 2 heads x 16 inside rows of 36 elements
+        k = torch.zeros(2, 7, 36, dtype=bf)[:, :, :32].unflatten(2, (2, 16))
+    elif case == "g_shape":
+        g = _heads(bf, n=6)
+    elif case == "g_dtype":
+        g = g.float()
+    with pytest.raises(ValueError, match=match):
+        ak.backward_design(q, k, k, g)
+
+
+@pytest.mark.parametrize("layout,copied", [
+    ("contiguous", False),
+    ("head_split", False),
+    ("row_stride_12", True),
+    ("broadcast", True),
+    ("misaligned", True),
+    ("strided_d", True),
+])
+def test_attention_backward_cotangent_layouts(layout, copied):
+    """A cotangent TMA can load is read in place; one it refuses (as autograd
+    may hand over: a broadcast has stride 0) is copied to contiguous first
+    for the wgmma design. The f32 design copies only a g without unit
+    stride along D."""
+    bf = torch.bfloat16
+    q = _heads(bf)
+    g = {"contiguous": lambda: torch.zeros_like(q),
+         "head_split": lambda: torch.zeros(2, 5, 3, 2, 16, dtype=bf)[:, :, 1],
+         "row_stride_12": lambda: torch.zeros(2, 5, 36, dtype=bf)[:, :, :32].unflatten(2, (2, 16)),
+         "broadcast": lambda: torch.zeros((), dtype=bf).expand(q.shape),
+         "misaligned": lambda: _misaligned(bf, tuple(q.shape)),
+         "strided_d": lambda: torch.zeros(2, 5, 2, 32, dtype=bf)[..., ::2]}[layout]()
+    design = ak.backward_design(q, q, q, g)
+    assert design == "wgmma"
+    read = ak._kernel_grad(g, design)
+    assert (read is not g) == copied
+    assert read.stride(3) == 1 and torch.equal(read, g)
+    if copied:
+        assert read.is_contiguous()
+    g32 = g.float() if layout != "strided_d" else torch.zeros(2, 5, 2, 32)[..., ::2]
+    assert (ak._kernel_grad(g32, "scalar_f32") is not g32) == (layout == "strided_d")
 
 
 def test_f32_attention_takes_any_base():

@@ -5,7 +5,9 @@ model with ``--cpu`` (each ``--fused_head``, a padded vocab head), resolves
 ``--fused_head auto`` by device and width, needs a card without ``--cpu``,
 and raises on what the port does not have yet (``--dropout``, the
 ``--attn_impl`` names other than ``pallas`` and ``packed``); ``--attn_impl
-packed`` trains through the packed-heads attention."""
+packed`` trains through the packed-heads attention. Against the JAX CLI on
+the same flags: the vocab head has the tokenizer's size, and validation
+runs at the same steps (per epoch, or every N steps plus the tail)."""
 
 import json
 
@@ -13,7 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from perceiver_io_tpu.cli import common as jax_common
+from perceiver_io_tpu.cli import train_mlm as jax_train_mlm
 from perceiver_io_tpu.data.imdb import IMDBDataModule as JaxIMDBDataModule
+from perceiver_io_tpu.training import read_metrics
+from perceiver_io_torch.cli import common
 from perceiver_io_torch.cli import train_mlm
 from perceiver_io_torch.data.imdb import IMDBDataModule
 from perceiver_io_torch.ops import attention_kernel as ak
@@ -56,7 +62,8 @@ def test_cli_trains_on_the_cpu_and_writes_metrics(tmp_path):
         assert np.isfinite(r["train_loss"]) and r["lr"] == 1e-3
         assert r["step_s"] > 0 and r["tokens_per_sec"] > 0
     val = [r for r in rows if "val_loss" in r]
-    assert [r["step"] for r in val] == [2] and np.isfinite(val[0]["val_loss"])
+    # step 2, and the final partial interval at step 3, as the JAX trainer does
+    assert [r["step"] for r in val] == [2, 3] and np.isfinite([r["val_loss"] for r in val]).all()
 
 
 def test_cli_needs_a_card_and_refuses_what_is_not_ported(tmp_path, monkeypatch):
@@ -129,3 +136,50 @@ def test_cli_refuses_unported_attn_impls(tmp_path, impl):
     with pytest.raises(SystemExit, match="not ported yet"):
         train_mlm.main(TINY + ["--cpu", "--attn_impl", impl, "--max_steps", "1",
                                "--root", str(tmp_path), "--logdir", str(tmp_path / "logs")])
+
+
+# flags both CLIs take: 64 synthetic texts in batches of 32 are two steps an
+# epoch; the tokenizer's target is above what the small corpus yields
+BOTH = ["--preset", "reference", "--synthetic", "--synthetic_size", "64", "--batch_size", "32",
+        "--max_seq_len", "48", "--vocab_size", "1000", "--num_latents", "8",
+        "--num_latent_channels", "16", "--num_encoder_layers", "2",
+        "--num_self_attention_layers_per_block", "1", "--log_every_n_steps", "1",
+        "--dtype", "float32"]
+
+
+def _spy_vocab(monkeypatch, module) -> list:
+    """Records the vocab size each ``build_mlm`` call of ``module`` gets."""
+    seen, build = [], module.build_mlm
+
+    def spy(args, vocab_size, *rest, **kwargs):
+        seen.append(vocab_size)
+        return build(args, vocab_size, *rest, **kwargs)
+
+    monkeypatch.setattr(module, "build_mlm", spy)
+    return seen
+
+
+@pytest.mark.parametrize("flags,val_steps", [(["--max_steps", "5"], [2, 4, 5]),
+                                             (["--max_steps", "3", "--eval_every_n_steps", "2"],
+                                              [2, 3])])
+def test_cli_vocab_and_validation_steps_match_jax(tmp_path, monkeypatch, flags, val_steps):
+    """The two CLIs on the same flags, over more than one epoch: both build
+    the vocab head at the tokenizer's size (below ``--vocab_size``), and
+    validate at the same steps: at each epoch's end and at ``max_steps``
+    with ``--eval_every_n_steps`` unset; at each multiple and at the tail
+    with it set."""
+    jax_vocab = _spy_vocab(monkeypatch, jax_common)
+    port_vocab = _spy_vocab(monkeypatch, common)
+    jax_dir = jax_train_mlm.main(BOTH + flags + ["--root", str(tmp_path / "jax"),
+                                                 "--logdir", str(tmp_path / "jax_logs")])
+    port_dir = train_mlm.main(BOTH + flags + ["--cpu", "--root", str(tmp_path / "port"),
+                                              "--logdir", str(tmp_path / "port_logs")])
+    module = IMDBDataModule(root=str(tmp_path / "port"), max_seq_len=48, vocab_size=1000,
+                            synthetic=True, synthetic_size=64)
+    module.setup()
+    assert port_vocab == jax_vocab == [module.tokenizer.get_vocab_size()]
+    assert port_vocab[0] < 1000
+    jax_val = [r["step"] for r in read_metrics(jax_dir) if "val_loss" in r]
+    port_val = [json.loads(line)["step"] for line in open(f"{port_dir}/metrics.jsonl")
+                if "val_loss" in line]
+    assert port_val == jax_val == val_steps
