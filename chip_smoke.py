@@ -93,18 +93,25 @@ Phases (any failure exits nonzero):
 13. the packed-heads kernels (forward, dq, dk/dv) against their plain
     versions at B=64: the C=64 encoder cross (T, S, E, H) = (256, 512, 64, 4)
     with ~30% of keys padded and one fully masked example (its dq and dk
-    exactly 0), self (256, 256, 64, 4), the gathered decoder (160, 256, 64,
-    4), the flagship encoder cross (256, 512, 512, 4) and a ragged (250, 509,
-    64, 4), f32 and bf16; times of each kernel, of the plain forward and
+    exactly 0), the same with each example's keys valid up to a random
+    length (``enc_cross_tail``, as the encoder's token rows), self (256,
+    256, 64, 4), the gathered decoder (160, 256, 64, 4), the flagship
+    encoder cross (256, 512, 512, 4) and a ragged (250, 509, 64, 4), f32
+    (the scalar design) and bf16 (the wgmma design; a bf16 call must
+    advance the three packed wgmma counters, and the row logs the share of
+    key tiles the design skips); CUDA-event and profiler device times of
+    each kernel, times of the plain forward and
     backward, of SDPA's forward and backward on the head-split views (one
-    library call for the same function; it rounds at other points) and of
+    library call for the same function; it rounds at other points; events
+    and device times) and of
     kernel #1's forward and backward at the same shape; each kernel's bound
     is the largest of bytes / 3.35 TB/s, its products (4.B.H.T.S.d forward,
     10.B.H.T.S.d the backward, 6 and 8 of them the dq and dk/dv kernels) /
     the dtype's peak, and the B.H.T.S exponentials / (16 a clock per SM x
     132 SMs x the maximum SM clock);
 14. the C=64 path with ``attn_impl='packed'``: phase 10 with every step
-    launching exactly 22 packed forward, 22 packed dq, 22 packed dk/dv and
+    launching exactly 22 packed forward, 22 packed dq, 22 packed dk/dv (all
+    through the wgmma designs) and
     one CE forward, dx and dW kernel and none of the fused attention kernels
     (each eval batch 22 packed forwards and one CE forward), the loss
     falling; the window and the profile; then ``attn_impl='pallas'`` on the
@@ -115,9 +122,11 @@ Phases (any failure exits nonzero):
     relative of the packed kernels';
 16. the entry points on the packed path: ``train_mlm --preset reference
     --synthetic --attn_impl packed``, 5 steps in-process (the packed counters
-    advance, kernels #1-#3 never launch); ``MLMServer`` over
+    advance, every launch through the wgmma designs, kernels #1-#3 never
+    launch); ``MLMServer`` over
     ``flagship_mlm(attn_impl='packed')`` fills the texts of phase 6 in bf16
-    with 22 packed forwards per fused forward, and in f32 its top-1 fill of
+    with 22 packed forwards per fused forward, all through the wgmma design,
+    and in f32 its top-1 fill of
     every mask equals that of the same weights under ``'pallas'``.
 
 Each path's launch counters are set to 0 just before its checked
@@ -134,10 +143,10 @@ train the same vocabulary and see the same data.
 f32 comparisons run with TF32 off. Tolerances against the plain versions:
 f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2; the
 statistics m and l within 1e-5 of max(|ref|, 1) (f32 on both sides). Times
-are CUDA-event means over repeated launches after a warm-up (phases 2, 3
-and 4 also give each kernel's and the library call's device time from
-torch.profiler, ``device_ms``, which the kernels line reports for #1, #2,
-#3 and #9: a short kernel's event time is the host's enqueue); ``bound_ms`` is
+are CUDA-event means over repeated launches after a warm-up (phases 2, 3,
+4 and 13 also give each kernel's and the library call's device time from
+torch.profiler, ``device_ms``, which the kernels line reports for #1-#5
+and #9: a short kernel's event time is the host's enqueue); ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / the H100 peak for the
 inputs' type (989 TF/s bf16, 67 TF/s f32 without tensor cores), for the CE
 kernels with the exponential term of phase 5 beside them. The last line is
@@ -146,6 +155,7 @@ kernels with the exponential term of phase 5 beside them. The last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -168,7 +178,9 @@ STAT_TOL = 1e-5
 KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                 "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw",
                 "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
-                "attention_fwd_wgmma", "attention_bwd_dq_wgmma", "attention_bwd_dkv_wgmma")
+                "attention_fwd_wgmma", "attention_bwd_dq_wgmma", "attention_bwd_dkv_wgmma",
+                "packed_attention_fwd_wgmma", "packed_attention_bwd_dq_wgmma",
+                "packed_attention_bwd_dkv_wgmma")
 BF16_TOP1_AGREEMENT, BF16_LOSS_REL = 0.95, 2e-2
 # (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
 # the flagship head (C=512), a ragged row count
@@ -176,12 +188,14 @@ CE_SHAPES = (("bench_head", (10240, 64, 10003)), ("flagship_head", (10240, 512, 
              ("ragged", (10239, 64, 10003)))
 EXP_PER_CLOCK_PER_SM, SMS = 16, 132
 BENCH_STEPS, CLI_STEPS = 10, 5
-# name, (B, T, S, H, D), padded keys: the packed path's attention shapes
-PACKED_SHAPES = (("enc_cross", (64, 256, 512, 4, 16), True),
-                 ("self", (64, 256, 256, 4, 16), False),
-                 ("dec_cross", (64, CAPACITY, 256, 4, 16), False),
-                 ("flagship_enc_cross", (64, 256, 512, 4, 128), True),
-                 ("ragged", (64, 250, 509, 4, 16), True))
+# name, (B, T, S, H, D), padding (None, "random" ~30% of keys or "tail"
+# from a random length on): the packed path's attention shapes
+PACKED_SHAPES = (("enc_cross", (64, 256, 512, 4, 16), "random"),
+                 ("enc_cross_tail", (64, 256, 512, 4, 16), "tail"),
+                 ("self", (64, 256, 256, 4, 16), None),
+                 ("dec_cross", (64, CAPACITY, 256, 4, 16), None),
+                 ("flagship_enc_cross", (64, 256, 512, 4, 128), "random"),
+                 ("ragged", (64, 250, 509, 4, 16), "random"))
 phase_name = "start"  # the phase running now, named in a failure's stdout line
 
 
@@ -397,10 +411,11 @@ def library_bwd_ms(torch, q, k, v, g, mask):
 
 
 def skipped_tiles(pad, s: int):
-    """What the bf16 backward skips for this padding: the share of (example,
-    64-key tile) pairs that are all padding, which the dq kernel never loads,
-    and the share of the dk/dv kernel's (example, 64-key warpgroup) rows that
-    compute nothing (all padding in an example with a valid key)."""
+    """What the bf16 backward (#2/#3) and the bf16 packed kernels (#4/#5)
+    skip for this padding: the share of (example, 64-key tile) pairs that
+    are all padding, which the dq kernels (and the packed forward) never
+    load, and the share of the dk/dv kernels' (example, 64-key warpgroup)
+    rows that compute nothing (all padding in an example with a valid key)."""
     import torch
 
     if pad is None:
@@ -603,6 +618,7 @@ def serving_phase(torch, ak, qm, port, tokenizer, texts):
         quantized = mode != "bfloat16"
         for c in counters:
             c.reset()
+        gc.collect()  # the earlier phases' garbage, collected outside the timed pass
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fills = server.fill_masks(texts, k=5)
@@ -761,20 +777,22 @@ def path_counters(port):
     return (ak.counter, ak.dq_counter, ak.dkv_counter,
             ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter,
             pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.wgmma_counter,
-            ak.dq_wgmma_counter, ak.dkv_wgmma_counter)
+            ak.dq_wgmma_counter, ak.dkv_wgmma_counter, pk.fwd_wgmma_counter,
+            pk.dq_wgmma_counter, pk.dkv_wgmma_counter)
 
 
 def per_step_launches(fused_head, attn_impl: str = "pallas", bf16: bool = True) -> list:
     """Launches of one train step, in ``path_counters`` order; in bf16 every
-    launch of #1, #2 and #3 takes the wgmma design."""
+    launch of #1, #2, #3, #4 and #5 takes the wgmma design."""
     ce = 1 if fused_head else 0
     fused, packed = (0, ATTN_PER_FORWARD) if attn_impl == "packed" else (ATTN_PER_FORWARD, 0)
-    return [fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0] * 3
+    return ([fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0] * 3
+            + [packed if bf16 else 0] * 3)
 
 
 def per_eval_launches(per_step: list) -> list:
     """Launches of one eval batch: the forward kernels of a train step."""
-    return [per_step[0], 0, 0, per_step[3], 0, 0, per_step[6], 0, 0, per_step[9], 0, 0]
+    return [n if i % 3 == 0 else 0 for i, n in enumerate(per_step)]
 
 
 def bench_batch(torch):
@@ -975,8 +993,11 @@ def cli_phase(torch, port, root: str, vocab: int, attn_impl: str = "pallas") -> 
     val_steps = [r["step"] for r in rows if "val_loss" in r]
     used, unused = ("packed_attention", "attention") if attn_impl == "packed" \
         else ("attention", "packed_attention")
+    # the CLI trains in bf16: every attention launch through the wgmma designs
     attention_ok = (launches[f"{used}_bwd_dq"] == launches[f"{used}_bwd_dkv"]
                     == ATTN_PER_FORWARD * CLI_STEPS
+                    and all(launches[f"{used}_{k}_wgmma"] == launches[f"{used}_{k}"]
+                            for k in ("fwd", "bwd_dq", "bwd_dkv"))
                     and not any(launches[f"{unused}_{k}"] for k in ("fwd", "bwd_dq", "bwd_dkv")))
     if (launches["linear_ce_bwd_dx"], launches["linear_ce_bwd_dw"]) != (CLI_STEPS, CLI_STEPS) \
             or launches["linear_ce_fwd"] <= CLI_STEPS or any(c.plain_calls for c in counters) \
@@ -1182,32 +1203,46 @@ def ce_phase(torch, ck, softmax_ce_integer, clock_hz: float):
 def packed_phase(torch, ak, pk, clock_hz: float):
     """The packed kernels against their plain versions at PACKED_SHAPES, f32
     and bf16: out, then dq, dk and dv from one cotangent (dq and dk of the
-    fully masked example exactly 0). Times of each kernel, of the whole
-    backward, of the plain forward and backward, of SDPA's forward and
-    backward on the head-split views with the float bias as its mask, and of
-    kernel #1's forward and whole backward at the same shape; each kernel's
-    bound (``roofline_bound``), counting the keys the data leaves unmasked
-    (every key of a fully masked example)."""
+    fully masked example exactly 0); a bf16 call must advance the three
+    wgmma counters. CUDA-event and profiler device times of each kernel;
+    times of the whole backward, of the plain forward and backward, of
+    SDPA's forward and backward on the head-split views with the float bias
+    as its mask (events and device), and of kernel #1's forward and whole
+    backward at the same shape; the share of key tiles the bf16 design
+    skips (``skipped_tiles``); each kernel's bound (``roofline_bound``),
+    counting the keys the data leaves unmasked (every key of a fully masked
+    example)."""
     import torch.nn.functional as F
 
+    wgmma_counters = (pk.fwd_wgmma_counter, pk.dq_wgmma_counter, pk.dkv_wgmma_counter)
     rows = []
-    for name, (b, t, s, h, d), padded in PACKED_SHAPES:
+    for name, (b, t, s, h, d), padding in PACKED_SHAPES:
         e = h * d
         gen = torch.Generator().manual_seed(b + t + s + e + 2)
         pad = None
-        if padded:
+        if padding == "random":
             pad = torch.rand(b, s, generator=gen) < 0.3
+        elif padding == "tail":
+            pad = torch.arange(s)[None, :] >= torch.randint(1, s + 1, (b, 1), generator=gen)
+        if pad is not None:
             pad[-1] = True  # one example with every key masked out
             pad = pad.cuda()
+        tiles_skip, rows_skip = skipped_tiles(pad, s)
         bias = ak.pad_bias(pad, b, s, "cuda")
         valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).split(".")[1]
             q, g = (torch.randn(b, t, e, generator=gen).to("cuda", dtype) for _ in range(2))
             k, v = (torch.randn(b, s, e, generator=gen).to("cuda", dtype) for _ in range(2))
+            design = pk.packed_backward_design(q, k, v, g, h)
+            before = [c.launches for c in wgmma_counters]
             fwd_err = check(f"packed fwd {name} {dt}", pk.packed_attention_fwd(q, k, v, h, pad),
                             pk.packed_attention_reference(q, k, v, h, pad), dt)
             grads = pk.packed_attention_bwd(q, k, v, h, pad, g)
+            wgmma = [c.launches - n for c, n in zip(wgmma_counters, before)]
+            if wgmma != [int(design == "wgmma")] * 3:
+                raise AssertionError(f"packed {name} {dt}: {design} call, wgmma counters "
+                                     f"{wgmma}")
             refs = pk.packed_attention_bwd_reference(q, k, v, bias, g, h)
             errs = {x: check(f"packed bwd {x} {name} {dt}", got, ref, dt)
                     for x, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
@@ -1234,18 +1269,25 @@ def packed_phase(torch, ak, pk, clock_hz: float):
             qt, kt, vt = (x.transpose(1, 2) for x in (qh, kh, vh))
             out1, m1, l1 = ak.attention_fwd_with_stats(qh, kh, vh, pad)
             library_bwd, library_bwd_device = library_bwd_ms(torch, qh, kh, vh, gh, mask)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+            run_fwd = lambda: pk.launch_fwd(q, k, v, bias, h)  # noqa: E731
+            run_dq = lambda: pk.launch_bwd_dq(q, k, v, bias, g, h)  # noqa: E731
+            run_dkv = lambda: pk.launch_bwd_dkv(q, k, v, bias, g, stats, h)  # noqa: E731
             row = dict(
                 kernel="packed_attention", shape=name, dims=[b, t, s, h, d], dtype=dt,
+                design=design, padding=padding,
                 fwd_max_abs_err=fwd_err, **{f"{x}_max_abs_err": err for x, err in errs.items()},
-                fwd_ms=time_ms(lambda: pk.launch_fwd(q, k, v, bias, h)),
-                dq_ms=time_ms(lambda: pk.launch_bwd_dq(q, k, v, bias, g, h)),
-                dkv_ms=time_ms(lambda: pk.launch_bwd_dkv(q, k, v, bias, g, stats, h)),
+                tiles_skipped=tiles_skip if design == "wgmma" else 0.0,
+                dkv_rows_skipped=rows_skip if design == "wgmma" else 0.0,
+                fwd_ms=time_ms(run_fwd), dq_ms=time_ms(run_dq), dkv_ms=time_ms(run_dkv),
+                fwd_device_ms=device_ms(torch, run_fwd, "packed_fwd"),
+                dq_device_ms=device_ms(torch, run_dq, "packed_bwd_dq"),
+                dkv_device_ms=device_ms(torch, run_dkv, "packed_bwd_dkv"),
                 bwd_ms=time_ms(lambda: pk.packed_attention_bwd(q, k, v, h, pad, g)),
                 plain_fwd_ms=time_ms(lambda: pk.packed_attention_reference(q, k, v, h, pad), 3),
                 plain_bwd_ms=time_ms(lambda: pk.packed_attention_bwd_reference(q, k, v, bias, g,
                                                                                h), 3),
-                library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                              attn_mask=mask)),
+                library_fwd_ms=time_ms(sdpa), library_fwd_device_ms=device_ms(torch, sdpa),
                 library_bwd_ms=library_bwd, library_bwd_device_ms=library_bwd_device,
                 attention_fwd_ms=time_ms(lambda: ak.fused_attention(qh, kh, vh, pad)),
                 attention_bwd_ms=time_ms(lambda: ak.attention_bwd(qh, kh, vh, pad, out1, m1, l1,
@@ -1269,7 +1311,7 @@ def packed_serving_phase(torch, port, tokenizer, texts):
     kwargs = dict(bucket_widths=[128, 256, 512], max_batch=64, device="cuda")
     model = presets.flagship_mlm(dtype=torch.bfloat16, device="cuda", seed=0, attn_impl="packed")
     server = server_cls(model, None, tokenizer, 512, compute_dtype="bfloat16", **kwargs)
-    counters = (ak.counter, pk.fwd_counter)
+    counters = (ak.counter, pk.fwd_counter, pk.fwd_wgmma_counter)
     for c in counters:
         c.reset()
     torch.cuda.synchronize()
@@ -1279,9 +1321,10 @@ def packed_serving_phase(torch, port, tokenizer, texts):
     fused_s = time.perf_counter() - t0
     n_fwd = server.engine.dispatches
     got = tuple(c.launches for c in counters)
-    if got != (0, ATTN_PER_FORWARD * n_fwd) or any(c.plain_calls for c in counters):
-        raise AssertionError(f"packed serving: launches (#1, packed) {got} over {n_fwd} "
-                             f"forwards, or a plain version ran")
+    if got != (0, ATTN_PER_FORWARD * n_fwd, ATTN_PER_FORWARD * n_fwd) \
+            or any(c.plain_calls for c in counters):
+        raise AssertionError(f"packed serving: launches (#1, packed, packed wgmma) {got} over "
+                             f"{n_fwd} forwards, or a plain version ran")
     masks = [t.split().count("[MASK]") for t in texts]
     if [len(r) for r in fills] != masks or any(len(f) != 5 for r in fills for f in r):
         raise AssertionError("packed serving: fills of the wrong shape")
@@ -1299,7 +1342,7 @@ def packed_serving_phase(torch, port, tokenizer, texts):
         f32_top1_mismatches_vs_pallas=mismatched, example=[texts[1][:60], fills[1]])
     if mismatched or len(top1["packed"]) != len(top1["pallas"]):
         raise AssertionError(f"f32 packed serving: {mismatched} top-1 fills differ from pallas")
-    return {"packed_attention_fwd": got[1]}
+    return {"packed_attention_fwd": got[1], "packed_attention_fwd_wgmma": got[2]}
 
 
 def check_kernel_entry(k: dict) -> None:
@@ -1440,9 +1483,10 @@ def main() -> int:
     bwd_src = "perceiver_io_torch/csrc/attention_bwd.cu"
     fwd_src, deq_src = ("perceiver_io_torch/csrc/attention_fwd.cu",
                         "perceiver_io_torch/csrc/dequant_matmul.cu")
-    # the main paths run bf16: every launch of #1, #2, #3 and #9 there is a
-    # wgmma one
-    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "dequant_matmul"):
+    # the main paths run bf16: every launch of #1, #2, #3, #4, #5 and #9
+    # there is a wgmma one
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "dequant_matmul",
+                 "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv"):
         if launches[f"{name}_wgmma"] != launches[name]:
             raise AssertionError(f"{name}: {launches[f'{name}_wgmma']} of {launches[name]} "
                                  f"main-path launches took the wgmma design")
@@ -1481,15 +1525,27 @@ def main() -> int:
             ("linear_ce_bwd_dw", head, "dw", ce_src.format("bwd"), "pallas_ce.py:161"),
             ("packed_attention_fwd", cross, "fwd", packed_src, "pallas_attention.py:783"),
             ("packed_attention_bwd_dq", cross, "dq", packed_src, "pallas_attention.py:804"),
-            ("packed_attention_bwd_dkv", cross, "dkv", packed_src, "pallas_attention.py:804")):
+            ("packed_attention_bwd_dkv", cross, "dkv", packed_src, "pallas_attention.py:804"),
+            ("packed_attention_fwd_wgmma", cross, "fwd", packed_src, "pallas_attention.py:843"),
+            ("packed_attention_bwd_dq_wgmma", cross, "dq", packed_src,
+             "pallas_attention.py:866"),
+            ("packed_attention_bwd_dkv_wgmma", cross, "dkv", packed_src,
+             "pallas_attention.py:866")):
         way = "fwd" if part == "fwd" else "bwd"
+        # the packed kernels' ms and library_ms are device times (torch.profiler)
+        # where the profiler gave them, else CUDA-event times (ms_source)
+        device = row is cross and row[f"{part}_device_ms"] is not None \
+            and row[f"library_{way}_device_ms"] is not None
+        extra = dict(design=row["design"], event_ms=row[f"{part}_ms"],
+                     ms_source="device" if device else "event") if row is cross else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=f"perceiver_io_tpu/ops/{replaces}",
             launches=launches[name], max_abs_err=row[f"{part}_max_abs_err"],
-            ms=row[f"{part}_ms"], plain_ms=row[f"plain_{way}_ms"],
+            ms=row[f"{part}_device_ms" if device else f"{part}_ms"],
+            plain_ms=row[f"plain_{way}_ms"],
             bound_ms=row[f"{part}_bound_ms"], bound_by=row[f"{part}_bound_by"],
-            library_ms=row[f"library_{way}_ms"], shape=row["shape"], dims=row["dims"],
-            dtype=row["dtype"]))
+            library_ms=row[f"library_{way}_device_ms" if device else f"library_{way}_ms"],
+            shape=row["shape"], dims=row["dims"], dtype=row["dtype"], **extra))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: {missing}")

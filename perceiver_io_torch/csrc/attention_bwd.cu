@@ -76,12 +76,14 @@
 //   Registers: at D=128 a dk/dv thread holds two 64x128 f32 accumulators
 //   (128 registers) beside S^T and dP^T (64), hence 64-row streamed tiles.
 
-#include "hopper.cuh"
+#include "attention_tiles.cuh"
 
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+using namespace attn_tiles;
 
 constexpr float kMaskValue = -1e30f;  // pallas_attention.MASK_VALUE
 
@@ -312,142 +314,6 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
 // bfloat16: the wgmma design
 // ---------------------------------------------------------------------------
 
-constexpr int kWgRows = 64;               // rows of one consumer warpgroup
-constexpr int kOwnRows = 2 * kWgRows;     // rows a block owns: queries (dq) or keys (dk/dv)
-constexpr int kStreamRows = 64;           // rows of a streamed tile: keys (dq) or queries
-constexpr int kStages = 2;                // ring depth of the streamed tiles
-constexpr int kWgThreads = 256;           // two warpgroups
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-struct Geometry {
-  static constexpr int kDp = D < 16 ? 16 : D;             // head dim in shared memory
-  static constexpr int kAtomCols = kDp > 64 ? 64 : kDp;   // columns of one swizzle atom / TMA box
-  static constexpr int kAtoms = kDp / kAtomCols;           // 2 at D = 128, else 1
-  static constexpr int kRowBytes = kAtomCols * 2;          // 32, 64 or 128
-  static constexpr uint32_t kLayout = hopper::layout_for_row_bytes(kRowBytes);
-  static constexpr uint32_t kGroup = 8 * kRowBytes;        // bytes between 8-row groups
-  static constexpr int kOwnAtom = kOwnRows * kRowBytes;
-  static constexpr int kStreamAtom = kStreamRows * kRowBytes;
-  static constexpr int kOwnBytes = kAtoms * kOwnAtom;      // one owned tile
-  static constexpr int kStreamBytes = kAtoms * kStreamAtom;  // one streamed tile
-  static constexpr int kRegs = kAtomCols / 2;              // accumulator floats per atom
-  // 1024 bytes of alignment slack, two owned tiles, two rings of streamed
-  // tiles, the ring's barriers and the owned tiles' one
-  static constexpr size_t kSmem = 1024 + 2 * kOwnBytes + 2 * kStages * kStreamBytes +
-                                  8 * (kStages + 1);
-};
-
-// one thread: the block's owned tiles of a and b (rows r0..) into shared memory
-template <int D>
-__device__ __forceinline__ void load_own(const CUtensorMap* map_a, const CUtensorMap* map_b,
-                                         uint8_t* own_a, uint8_t* own_b, uint64_t* bar, int r0,
-                                         int h, int b) {
-  using G = Geometry<D>;
-  hopper::mbar_expect_tx(bar, 2 * G::kOwnBytes);
-#pragma unroll
-  for (int a = 0; a < G::kAtoms; ++a) {
-    hopper::tma_load_4d(own_a + a * G::kOwnAtom, map_a, bar, a * G::kAtomCols, h, r0, b);
-    hopper::tma_load_4d(own_b + a * G::kOwnAtom, map_b, bar, a * G::kAtomCols, h, r0, b);
-  }
-}
-
-// one thread: streamed tile `tile` of a and b into ring stage `stage`
-template <int D>
-__device__ __forceinline__ void load_stream(const CUtensorMap* map_a, const CUtensorMap* map_b,
-                                            uint8_t* ring_a, uint8_t* ring_b, uint64_t* bars,
-                                            int tile, int stage, int h, int b) {
-  using G = Geometry<D>;
-  hopper::mbar_expect_tx(&bars[stage], 2 * G::kStreamBytes);
-#pragma unroll
-  for (int a = 0; a < G::kAtoms; ++a) {
-    hopper::tma_load_4d(ring_a + stage * G::kStreamBytes + a * G::kStreamAtom, map_a,
-                        &bars[stage], a * G::kAtomCols, h, tile * kStreamRows, b);
-    hopper::tma_load_4d(ring_b + stage * G::kStreamBytes + a * G::kStreamAtom, map_b,
-                        &bars[stage], a * G::kAtomCols, h, tile * kStreamRows, b);
-  }
-}
-
-// x = A . B^T over the padded head dim (started, not awaited): A the
-// warpgroup's 64 rows of an owned tile, B a streamed tile, both K-major;
-// x[4c + 2r + e] is (row r, column 8c + col_in_chunk + e) of the 64 x 64 tile
-template <int D>
-__device__ __forceinline__ void tile_product(float (&x)[32], const uint8_t* own, int wg,
-                                             const uint8_t* stream) {
-  using G = Geometry<D>;
-#pragma unroll
-  for (int kk = 0; kk < G::kDp / 16; ++kk) {
-    const int atom = (16 * kk) / G::kAtomCols;
-    const int in_row = (16 * kk) % G::kAtomCols * 2;
-    const uint64_t da = hopper::make_desc(
-        own + atom * G::kOwnAtom + wg * kWgRows * G::kRowBytes + in_row, G::kGroup, G::kLayout);
-    const uint64_t db =
-        hopper::make_desc(stream + atom * G::kStreamAtom + in_row, G::kGroup, G::kLayout);
-    hopper::wgmma_ss_m64n64k16(x, da, db, kk > 0);
-  }
-}
-
-// a 64 x 64 f32 tile in the accumulator layout, rounded to bf16 as the A
-// fragments of its four 16-column steps
-__device__ __forceinline__ void to_fragments(const float (&x)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = hopper::pack_bf16x2(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = hopper::pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = hopper::pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = hopper::pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// acc += A . B (started, not awaited): A the fragments of a 64 x 64 tile whose
-// columns are the streamed rows, B the streamed tile (MN-major: D contiguous)
-template <int D>
-__device__ __forceinline__ void accumulate(
-    float (&acc)[Geometry<D>::kAtoms][Geometry<D>::kRegs], const uint32_t (&a)[4][4],
-    const uint8_t* stream) {
-  using G = Geometry<D>;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int atom = 0; atom < G::kAtoms; ++atom)
-      hopper::wgmma_rs_tb<G::kRegs>(
-          acc[atom], a[kk],
-          hopper::make_desc(stream + atom * G::kStreamAtom + kk * 16 * G::kRowBytes, G::kGroup,
-                            G::kLayout));
-}
-
-template <int D>
-__device__ __forceinline__ void wait_acc(float (&acc)[Geometry<D>::kAtoms][Geometry<D>::kRegs]) {
-#pragma unroll
-  for (int a = 0; a < Geometry<D>::kAtoms; ++a) hopper::fence_regs(acc[a]);
-}
-
-// rows r of this thread's accumulator (eight apart) of (B, n, H, D) `out`,
-// times `mul`, in bf16; rows at or past n are not written
-template <int D>
-__device__ __forceinline__ void store_rows(
-    const float (&acc)[Geometry<D>::kAtoms][Geometry<D>::kRegs], __nv_bfloat16* out,
-    int row0, int n, int heads, int h, int b, float mul) {
-  using G = Geometry<D>;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= n) continue;
-    __nv_bfloat16* o_row = out + ((int64_t(b) * n + row) * heads + h) * D;
-#pragma unroll
-    for (int a = 0; a < G::kAtoms; ++a) {
-#pragma unroll
-      for (int c = 0; c < G::kAtomCols / 8; ++c) {
-        const int col = a * G::kAtomCols + 8 * c + 2 * (lane % 4);
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(o_row + col) = __floats2bfloat162_rn(
-              acc[a][4 * c + 2 * r] * mul, acc[a][4 * c + 2 * r + 1] * mul);
-      }
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -484,27 +350,7 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::mbar_init(own_bar, 1);
     hopper::fence_barrier_init();
   }
-  // a key tile is live if any of its keys is not padding: one warp a tile
-  for (int i = warp; i < n_tiles; i += kWgThreads / 32) {
-    const int k0 = i * kStreamRows + lane, k1 = k0 + 32;
-    const bool valid = (k0 < s_len && bias_b[k0] > 0.5f * kMaskValue) ||
-                       (k1 < s_len && bias_b[k1] > 0.5f * kMaskValue);
-    const bool any = __any_sync(0xffffffffu, valid);
-    if (lane == 0) live[i] = any;
-  }
-  __syncthreads();
-  if (warp == 0) {  // the flags compacted in place into the list of live tiles
-    int count = 0;
-    for (int base = 0; base < n_tiles; base += 32) {
-      const bool flag = base + lane < n_tiles && live[base + lane];
-      const uint32_t ballot = __ballot_sync(0xffffffffu, flag);
-      if (flag) live[count + __popc(ballot & ((1u << lane) - 1))] = base + lane;
-      count += __popc(ballot);
-    }
-    if (lane == 0) live[n_tiles] = count;
-  }
-  __syncthreads();
-  const int n_live = live[n_tiles];
+  const int n_live = list_live_tiles(bias_b, s_len, n_tiles, live, false);
   if (tid == 0 && n_live > 0) {
     load_own<D>(&q_map, &g_map, qs, gs, own_bar, t0, h, b);
     for (int st = 0; st < kStages && st < n_live; ++st)
@@ -794,12 +640,6 @@ bool encode_maps(const Args& a, int q_rows, int k_rows, CUtensorMap* q_map, CUte
          hopper::encode_head_map(g_map, a.g, a.batch, a.t_len, a.heads, D, sg, cols, q_rows) &&
          hopper::encode_head_map(k_map, a.k, a.batch, a.s_len, a.heads, D, sk, cols, k_rows) &&
          hopper::encode_head_map(v_map, a.v, a.batch, a.s_len, a.heads, D, sv, cols, k_rows);
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  if (smem > 232448) return cudaErrorInvalidValue;  // a block's most on the H100
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
 template <int D>

@@ -170,11 +170,12 @@ def _head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _tma_refusal(name: str, x: torch.Tensor) -> Optional[str]:
-    """Why TMA cannot load the bf16 view ``x`` (16-byte aligned base, (batch,
-    row, head) strides that are multiples of 8 elements), or None."""
+    """Why TMA cannot load the bf16 view ``x`` (16-byte aligned base, strides
+    of every dim but the last that are multiples of 8 elements: (batch, row,
+    head) here, (batch, row) for a packed (B, T, E) tensor), or None."""
     if x.data_ptr() % 16:
         return f"{name} is not 16-byte aligned, as its TMA loads need"
-    if any(st % 8 for st in x.stride()[:3]):
+    if any(st % 8 for st in x.stride()[:-1]):
         return (f"{name} strides {tuple(x.stride())} are not multiples of 8 "
                 f"elements (16 bytes), as its TMA loads need")
     return None
@@ -218,10 +219,11 @@ def backward_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_grad(g: torch.Tensor, design: str) -> torch.Tensor:
     """g as the backward kernels read it: as it is where its layout serves
-    the design (unit stride along D; for ``'wgmma'`` TMA's rules and no
-    broadcast stride too), else a contiguous copy in fresh (aligned) memory."""
-    tma_ready = _tma_refusal("g", g) is None and 0 not in g.stride()[:3]
-    if g.stride(3) == 1 and (design != "wgmma" or tma_ready):
+    the design (unit stride along the last dim; for ``'wgmma'`` TMA's rules
+    and no broadcast stride too), else a contiguous copy in fresh (aligned)
+    memory. Serves the packed kernels' (B, T, E) cotangent too."""
+    tma_ready = _tma_refusal("g", g) is None and 0 not in g.stride()[:-1]
+    if g.stride(-1) == 1 and (design != "wgmma" or tma_ready):
         return g
     return g.clone(memory_format=torch.contiguous_format)
 

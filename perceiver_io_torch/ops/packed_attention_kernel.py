@@ -19,6 +19,12 @@ with the heads already merged. The head-split layout never exists in memory.
   rows whose max sits at the mask value, and rounds p to q's dtype for dv.
   The two orders round at different points, and in bf16 they differ by more
   than the port's 1e-3 parity bar.
+- two designs of all three kernels, chosen by dtype (:func:`packed_design`,
+  :func:`packed_backward_design`): float32 the exact scalar-FMA kernels,
+  bfloat16 the tensor-core kernels (``wgmma`` fed by TMA, key tiles that are
+  all padding skipped), which need 16-byte aligned bases and (batch, row)
+  strides that are multiples of 8 elements; a bf16 input they cannot take
+  raises ``ValueError``.
 - :class:`PackedAttention`: the ``torch.autograd.Function`` twin of the
   ``_packed_attention`` custom VJP; it saves (q, k, v, bias) and nothing else.
 
@@ -34,14 +40,18 @@ from typing import Optional, Tuple
 import torch
 
 from perceiver_io_torch.ops import build
-from perceiver_io_torch.ops.attention_kernel import MASK_VALUE, pad_bias
+from perceiver_io_torch.ops.attention_kernel import (MASK_VALUE, _kernel_grad, _tma_refusal,
+                                                     pad_bias)
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-fwd_counter = build.LaunchCounter()   # packed_attention_fwd
-dq_counter = build.LaunchCounter()    # packed_attention_bwd_dq
-dkv_counter = build.LaunchCounter()   # packed_attention_bwd_dkv
+fwd_counter = build.LaunchCounter()   # packed_attention_fwd, either design
+dq_counter = build.LaunchCounter()    # packed_attention_bwd_dq, either design
+dkv_counter = build.LaunchCounter()   # packed_attention_bwd_dkv, either design
+fwd_wgmma_counter = build.LaunchCounter()  # packed_attention_fwd, the bf16 wgmma design
+dq_wgmma_counter = build.LaunchCounter()   # packed_attention_bwd_dq, the bf16 wgmma design
+dkv_wgmma_counter = build.LaunchCounter()  # packed_attention_bwd_dkv, the bf16 wgmma design
 
 # The JAX package's admission rule for attn_impl='packed', copied as it is
 # (pallas_attention.PACKED_VMEM_BUDGET, packed_vmem_bytes, packed_fits_vmem):
@@ -151,10 +161,16 @@ def packed_attention_bwd_reference(q, k, v, bias, g, num_heads: int):
 # -- the kernels ---------------------------------------------------------------
 
 
-def _kernel_args(q, k, v, num_heads: int) -> int:
-    """Checks what the kernels take; returns the head dim."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no packed attention kernel for device {q.device}")
+def packed_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> str:
+    """The design of the forward kernel for these packed tensors:
+    ``'scalar_f32'`` for float32 (exact f32 FMAs: the f32 parity bar, packed
+    = pallas, needs exact products), ``'wgmma'`` for bfloat16 (TMA needs
+    16-byte aligned bases and (batch, row) strides that are multiples of 8
+    elements). Raises ``ValueError`` on what neither takes: a head dim E/H
+    outside ``SUPPORTED_HEAD_DIMS``, another dtype, a stride along E that
+    is not 1. Checks layout only, not the device, so it answers for CPU
+    tensors too."""
+    _check(q, k, v, num_heads)
     d = q.shape[-1] // num_heads
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} unsupported by the packed kernels; expected one "
@@ -163,9 +179,38 @@ def _kernel_args(q, k, v, num_heads: int) -> int:
         raise ValueError(f"packed attention kernel takes float32 or bfloat16, got {q.dtype}")
     if (q.stride(2), k.stride(2), v.stride(2)) != (1, 1, 1):
         raise ValueError("q, k and v need unit stride along E")
+    if q.dtype == torch.float32:
+        return "scalar_f32"
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        why = _tma_refusal(name, x)
+        if why:
+            raise ValueError(f"bf16 packed attention kernel: {why}")
+    return "wgmma"
+
+
+def packed_backward_design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           g: torch.Tensor, num_heads: int) -> str:
+    """The design of the dq and dk/dv kernels, by the forward's rule
+    (:func:`packed_design`). The cotangent ``g`` must match q's shape and
+    dtype but not TMA's rules: autograd may hand over a layout TMA refuses
+    (``.sum().backward()`` a stride-0 broadcast), and the launch then makes
+    ``g`` contiguous first (``_kernel_grad``). Checks layout only, so it
+    answers for CPU tensors too."""
+    design = packed_design(q, k, v, num_heads)
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    return design
+
+
+def _kernel_args(q, k, v, num_heads: int) -> Tuple[int, str]:
+    """Checks what the kernels take; returns the head dim and the design."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no packed attention kernel for device {q.device}")
+    design = packed_design(q, k, v, num_heads)
     if k.shape[1] == 0:
         raise ValueError("attention over zero keys")
-    return d
+    return q.shape[-1] // num_heads, design
 
 
 def _strides(*tensors) -> list:
@@ -178,7 +223,7 @@ def _stream(x: torch.Tensor) -> int:
 
 def launch_fwd(q, k, v, bias, num_heads: int) -> torch.Tensor:
     """The forward kernel: out (B, T, E) contiguous in q's dtype."""
-    d = _kernel_args(q, k, v, num_heads)
+    d, design = _kernel_args(q, k, v, num_heads)
     b, t, e = q.shape
     out = torch.empty((b, t, e), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -187,21 +232,23 @@ def launch_fwd(q, k, v, bias, num_heads: int) -> torch.Tensor:
         _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, t, k.shape[1], num_heads, *_strides(q, k, v), _stream(q)))
     fwd_counter.launches += 1
+    if design == "wgmma":
+        fwd_wgmma_counter.launches += 1
     return out
 
 
-def _check_g(q, g) -> None:
-    if g.shape != q.shape or g.dtype != q.dtype or g.stride(2) != 1:
-        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q and have unit "
-                         f"stride along E")
+def _bwd_args(q, k, v, g, num_heads: int):
+    """(head dim, design, g as the kernels read it)."""
+    d, design = _kernel_args(q, k, v, num_heads)
+    packed_backward_design(q, k, v, g, num_heads)
+    return d, design, _kernel_grad(g, design)
 
 
 def launch_bwd_dq(q, k, v, bias, g, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dq kernel: dq (B, T, E) in q's dtype, and each (row, head)'s
     (m, l, delta) as a (B, T, H, 3) f32 tensor, which the dk/dv kernel reads
     (a scratch of the backward, not a saved residual)."""
-    d = _kernel_args(q, k, v, num_heads)
-    _check_g(q, g)
+    d, design, g = _bwd_args(q, k, v, g, num_heads)
     b, t, e = q.shape
     dq = torch.empty((b, t, e), dtype=q.dtype, device=q.device)
     stats = torch.empty((b, t, num_heads, 3), dtype=torch.float32, device=q.device)
@@ -210,13 +257,14 @@ def launch_bwd_dq(q, k, v, bias, g, num_heads: int) -> Tuple[torch.Tensor, torch
         bias.data_ptr(), dq.data_ptr(), stats.data_ptr(), b, t, k.shape[1], num_heads,
         *_strides(q, k, v, g), _stream(q)))
     dq_counter.launches += 1
+    if design == "wgmma":
+        dq_wgmma_counter.launches += 1
     return dq, stats
 
 
 def launch_bwd_dkv(q, k, v, bias, g, stats, num_heads: int):
     """The dk/dv kernel from the dq kernel's ``stats``: dk, dv (B, S, E)."""
-    d = _kernel_args(q, k, v, num_heads)
-    _check_g(q, g)
+    d, design, g = _bwd_args(q, k, v, g, num_heads)
     b, t, e = q.shape
     s = k.shape[1]
     if tuple(stats.shape) != (b, t, num_heads, 3) or stats.dtype != torch.float32 \
@@ -229,6 +277,8 @@ def launch_bwd_dkv(q, k, v, bias, g, stats, num_heads: int):
         bias.data_ptr(), stats.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, s, num_heads,
         *_strides(q, k, v, g), _stream(q)))
     dkv_counter.launches += 1
+    if design == "wgmma":
+        dkv_wgmma_counter.launches += 1
     return dk, dv
 
 
@@ -236,6 +286,7 @@ def _launch_bwd(q, k, v, bias, g, num_heads: int):
     """The dq kernel, then the dk/dv kernel."""
     if q.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    g = _bwd_args(q, k, v, g, num_heads)[2]  # one copy for both kernels, if any
     dq, stats = launch_bwd_dq(q, k, v, bias, g, num_heads)
     return (dq, *launch_bwd_dkv(q, k, v, bias, g, stats, num_heads))
 
@@ -267,8 +318,8 @@ def packed_attention_bwd(q, k, v, num_heads: int, pad_mask, g):
     """``(dq, dk, dv)``: the dq and dk/dv kernels on CUDA tensors,
     :func:`packed_attention_bwd_reference` on CPU tensors."""
     _check(q, k, v, num_heads)
-    return _backward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
-                     g.contiguous(), num_heads)
+    return _backward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device), g,
+                     num_heads)
 
 
 class PackedAttention(torch.autograd.Function):
@@ -290,7 +341,7 @@ class PackedAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
         bwd = _plain_bwd if ctx.plain else _backward
-        dq, dk, dv = bwd(q, k, v, bias, g.contiguous(), ctx.num_heads)
+        dq, dk, dv = bwd(q, k, v, bias, g, ctx.num_heads)
         return dq, dk, dv, None, None, None
 
 
@@ -304,7 +355,8 @@ def packed_latent_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention over PACKED (B, T, E) q and (B, S, E) k/v;
     returns (B, T, E) in q's dtype, heads merged. CUDA tensors launch the
     kernels (f32 or bf16, E/num_heads in ``SUPPORTED_HEAD_DIMS``, unit stride
-    along E); CPU tensors run the plain versions. When autograd records, the
+    along E; the designs follow the dtype, :func:`packed_design`); CPU
+    tensors run the plain versions. When autograd records, the
     call goes through :class:`PackedAttention`."""
     _check(q, k, v, num_heads)
     if _records_grad(q, k, v):

@@ -14,10 +14,11 @@ masked example whose dq and dk must be exactly zero), autograd through
 fused CE kernels (forward, dx, dW/db at a small, a ragged and a C=512
 shape; autograd through ``linear_ce_integer``; the tiny train step with
 ``fused_head='pallas'``), and the packed-heads kernels (forward, dq, dk/dv
-at small, ragged, wide and head-split shapes; autograd through
+at small, ragged, wide, head-split and tail-padded shapes; autograd through
 ``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``),
-and the bf16 wgmma designs of the forward, of the two backward kernels
-and of the dequant matmul at ragged and tiny shapes (T, S, M down to 1, the
+and the bf16 wgmma designs of the forward, of the two backward kernels,
+of the three packed kernels and of the dequant matmul at ragged and tiny
+shapes (T, S, M down to 1, the
 vocab head's N = 10003, K not a multiple of 64; for the backward a fully
 masked example, trailing key tiles that are all padding, head-split views
 and cotangents whose strides TMA refuses), each case advancing its
@@ -442,10 +443,16 @@ def test_fused_head_train_step_on_the_card_matches_plain(card):
             assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
 
 
-def _packed_inputs(card, dtype, b, t, s, h, d, seed=0):
+def _packed_inputs(card, dtype, b, t, s, h, d, seed=0, tail=False):
+    """q, k, v, a cotangent and a pad mask: ~30% of keys at random, or with
+    ``tail`` each example's keys valid up to a random length (the encoder's
+    token rows); the last example masked whole."""
     g = torch.Generator().manual_seed(seed + t + s + h * d)
     q, k, v, go = (torch.randn(b, n, h * d, generator=g).to(card, dtype) for n in (t, s, s, t))
-    pad = torch.rand(b, s, generator=g) < 0.3
+    if tail:
+        pad = torch.arange(s)[None, :] >= torch.randint(1, s + 1, (b, 1), generator=g)
+    else:
+        pad = torch.rand(b, s, generator=g) < 0.3
     pad[-1] = True  # a fully masked example
     return q, k, v, go, pad.to(card)
 
@@ -454,18 +461,29 @@ def _packed_inputs(card, dtype, b, t, s, h, d, seed=0):
 # width (E=512), three heads of 32, and 32 heads of 16 (two head groups)
 PACKED_SHAPES = [(3, 16, 24, 4, 8), (2, 70, 131, 4, 16), (2, 33, 65, 4, 128),
                  (2, 20, 37, 3, 32), (2, 9, 40, 32, 16)]
+# tail padding, as the encoder's rows: whole key tiles of padding, skipped
+PACKED_TAIL_SHAPE = (4, 130, 509, 4, 16)
+
+
+def _packed_counters():
+    return (pk.fwd_counter, pk.dq_counter, pk.dkv_counter, pk.fwd_wgmma_counter,
+            pk.dq_wgmma_counter, pk.dkv_wgmma_counter)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", PACKED_SHAPES)
+@pytest.mark.parametrize("shape", PACKED_SHAPES + [PACKED_TAIL_SHAPE])
 def test_packed_kernels_match_plain(card, dtype, shape):
+    """Each kernel against its plain version; bf16 through the wgmma design,
+    f32 through the scalar one (the wgmma counters say which)."""
     b, t, s, h, d = shape
-    q, k, v, go, pad = _packed_inputs(card, dtype, *shape)
-    counters = (pk.fwd_counter, pk.dq_counter, pk.dkv_counter)
-    before = [c.launches for c in counters]
+    q, k, v, go, pad = _packed_inputs(card, dtype, *shape, tail=shape == PACKED_TAIL_SHAPE)
+    design = "wgmma" if dtype == torch.bfloat16 else "scalar_f32"
+    assert pk.packed_backward_design(q, k, v, go, h) == design
+    before = [c.launches for c in _packed_counters()]
     out = pk.packed_attention_fwd(q, k, v, h, pad)
     grads = pk.packed_attention_bwd(q, k, v, h, pad, go)
-    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    wgmma = int(design == "wgmma")
+    assert [c.launches - n for c, n in zip(_packed_counters(), before)] == [1, 1, 1] + [wgmma] * 3
     _close(out, pk.packed_attention_reference(q, k, v, h, pad), dtype)
     bias = ak.pad_bias(pad, b, s, card)
     refs = pk.packed_attention_bwd_reference(q, k, v, bias, go, h)
@@ -509,6 +527,70 @@ def test_packed_kernels_take_strided_views(card):
     for x, r in zip(pk.packed_attention_bwd(q, k, v, 4, None, go),
                     pk.packed_attention_bwd_reference(q, k, v, bias, go, 4)):
         _close(x, r, torch.float32)
+
+
+@pytest.mark.parametrize("d", pk.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 509])
+@pytest.mark.parametrize("t", [1, 63, 160, 250])
+def test_wgmma_packed_kernels_match_plain(card, t, s, d):
+    """The bf16 packed kernels at tiny and ragged T and S (neither a
+    multiple of 64), every head dim: example 0 has trailing key tiles that
+    are all padding (the skipped tiles), the last one every key masked (dq
+    and dk exactly 0, dv the uniform share of g, l = S in the scratch)."""
+    b, h = 3, 2
+    q, k, v, go, pad = _packed_inputs(card, torch.bfloat16, b, t, s, h, d, seed=7)
+    keys = max(1, s // 5)
+    pad[0, keys:] = True
+    before = [c.launches for c in _packed_counters()[3:]]
+    out = pk.packed_attention_fwd(q, k, v, h, pad)
+    dq, dk, dv = pk.packed_attention_bwd(q, k, v, h, pad, go)
+    assert [c.launches - n for c, n in zip(_packed_counters()[3:], before)] == [1, 1, 1]
+    _close(out, pk.packed_attention_reference(q, k, v, h, pad), torch.bfloat16)
+    bias = ak.pad_bias(pad, b, s, card)
+    for got, ref in zip((dq, dk, dv), pk.packed_attention_bwd_reference(q, k, v, bias, go, h)):
+        _close(got, ref, torch.bfloat16, BWD_ATOL)
+    assert not dq[-1].any() and not dk[-1].any() and dv[-1].abs().max() > 0
+    assert not dk[0, keys:].any() and not dv[0, keys:].any()
+    stats = pk.launch_bwd_dq(q, k, v, bias, go, h)[1]
+    torch.cuda.synchronize()
+    assert (stats[-1, :, :, 0] == ak.MASK_VALUE).all() and (stats[-1, :, :, 1] == s).all()
+
+
+def test_wgmma_packed_kernels_take_views_and_cotangents(card):
+    """q, k, v sliced out of one (B, S, 3, E) tensor are read in place;
+    cotangents whose strides TMA refuses (a row stride no multiple of 16
+    bytes, a stride-0 broadcast) are copied by the launch; autograd through
+    ``packed_latent_attention`` runs the wgmma kernels from ``.sum()``'s
+    broadcast g; a bf16 view TMA refuses raises."""
+    g = torch.Generator().manual_seed(4)
+    qkv = torch.randn(2, 130, 3, 64, generator=g).to(card, torch.bfloat16)  # (B, S, 3, E)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    pad = (torch.rand(2, 130, generator=g) < 0.3).to(card)
+    bias = ak.pad_bias(pad, 2, 130, card)
+    _close(pk.packed_attention_fwd(q, k, v, 4, pad),
+           pk.packed_attention_reference(q, k, v, 4, pad), torch.bfloat16)
+    wide = torch.randn(2, 130, 68, generator=g).to(card, torch.bfloat16)[..., :64]
+    broadcast = torch.full((), 0.5, dtype=torch.bfloat16, device=card).expand(q.shape)
+    for go in (torch.randn(q.shape, generator=g).to(card, torch.bfloat16), wide, broadcast):
+        assert pk.packed_backward_design(q, k, v, go, 4) == "wgmma"
+        before = pk.dq_wgmma_counter.launches
+        got = pk.packed_attention_bwd(q, k, v, 4, pad, go)
+        assert pk.dq_wgmma_counter.launches == before + 1
+        for x, r in zip(got, pk.packed_attention_bwd_reference(q, k, v, bias, go, 4)):
+            _close(x, r, torch.bfloat16, BWD_ATOL)
+    grads = []
+    for fn in (pk.packed_latent_attention, pk.plain_packed_attention):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        before = pk.dq_wgmma_counter.launches
+        fn(*leaves, 4, pad).float().sum().backward()
+        assert pk.dq_wgmma_counter.launches - before == (fn is pk.packed_latent_attention)
+        grads.append([x.grad for x in leaves])
+    for got, ref in zip(*grads):
+        _close(got, ref, torch.bfloat16)
+    flat = torch.randn(2 * 65 * 64 + 1, generator=g).to(card, torch.bfloat16)
+    bad = flat[1:].view(2, 65, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pk.packed_latent_attention(bad, bad, bad, 4)
 
 
 def test_packed_train_step_on_the_card_matches_plain(card):
