@@ -35,15 +35,23 @@ Phases (any failure exits nonzero):
    masks);
 5. the three fused CE kernels (forward, dx, dW/db) against their plain
    versions at bench.py's head (R, C, V) = (10240, 64, 10003), the flagship
-   head (10240, 512, 10003) and a ragged (10239, 64, 10003), f32 and bf16,
-   ~15% of rows ignored (cotangent 0, their dx exactly 0); times of each
+   head (10240, 512, 10003) and a ragged (10239, 64, 10003), f32 (the
+   scalar backward) and bf16 (the wgmma backward; a call must advance both
+   CE wgmma counters), ~15% of rows ignored at random (cotangent 0, their
+   dx exactly 0); later, once the data module exists, ``gathered``: bench's
+   head in the training path's layout (each example's live rows first among
+   its 160, as many as the first training batch's masking gives, g 0 on the
+   rest), where the bf16 backward skips the 64-row tiles whose g are all 0
+   (the share is logged); CUDA-event and profiler device times of each
    kernel, of the plain forward and backward and of the unfused head
    (cuBLAS product + ``softmax_ce_integer``, two library calls; its
-   backward by ``autograd.grad`` over a retained graph); each kernel's
-   bound is the largest of bytes / 3.35 TB/s, its products (2.R.C.V in the
-   forward, twice that in each backward kernel) / the dtype's peak, and
-   its R.V exponentials / (16 a clock per SM x 132 SMs x the SM clock
-   nvidia-smi reports as its maximum, printed);
+   backward by ``autograd.grad`` over a retained graph), and the device
+   and host time of making round(W)^T; each kernel's bound is the largest
+   of bytes / 3.35 TB/s, its products (2.R.C.V in the forward, twice that
+   in each backward kernel, at the rows whose g is not 0) / the dtype's
+   peak, and its exponentials (R.V, the backward's at those rows) / (16 a
+   clock per SM x 132 SMs x the SM clock nvidia-smi reports as its
+   maximum, printed);
 6. the serving path: ``MLMServer`` at ``flagship_tpu_mlm`` width (seeded random
    weights, a tokenizer trained on the synthetic corpus, width buckets
    128/256/512, max_batch 64) fills ~200 ``[MASK]`` texts, then encodes them
@@ -76,16 +84,19 @@ Phases (any failure exits nonzero):
     ``flagship_mlm`` (256 latents, C=64, 4 heads of depth 16, 3 x (cross +
     6 self), vocab 10003, 512 tokens) trained as in phase 8 with
     ``make_mlm_steps(fused_head='pallas')``: every step launches exactly 22
-    attention forward, 22 dq, 22 dk/dv and one CE forward, dx and dW kernel
-    (each eval batch 22 attention forward and one CE forward), and the loss
-    falls; the 10-step window and the 3-step profile; then the unfused head
+    attention forward, 22 dq, 22 dk/dv and one CE forward, dx and dW kernel,
+    the dx and dW through the wgmma design (each eval batch 22 attention
+    forward and one CE forward), and the loss falls; the share of the CE
+    backward's 64-row tiles whose g are all 0 (skipped), per checked step;
+    the 10-step window and the 3-step profile; then the unfused head
     on the same model and state (windows in turns: unfused, unfused,
     fused), and both heads timed on bench.py's own batch (ids from
     ``default_rng(0)``, no padding), fused / unfused / unfused / fused;
 11. ``perceiver_io_torch.cli.train_mlm --preset reference --synthetic``, 5
     steps in-process with ``--eval_every_n_steps 2``: ``--fused_head auto``
-    must resolve to the CE kernels on the card (their counters advance, no
-    plain version runs), the vocab head must have the tokenizer's size, and
+    must resolve to the CE kernels on the card (their counters advance, the
+    dx and dW ones all through the wgmma design, no plain version runs),
+    the vocab head must have the tokenizer's size, and
     validation must run at steps 2, 4 and 5 (the JAX trainer's cadence);
 12. phase 9 on the C=64 path, the plain attention and CE versions in the
     kernels' place, plus the unfused head with the kernels: its losses within
@@ -144,9 +155,9 @@ f32 comparisons run with TF32 off. Tolerances against the plain versions:
 f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2; the
 statistics m and l within 1e-5 of max(|ref|, 1) (f32 on both sides). Times
 are CUDA-event means over repeated launches after a warm-up (phases 2, 3,
-4 and 13 also give each kernel's and the library call's device time from
-torch.profiler, ``device_ms``, which the kernels line reports for #1-#5
-and #9: a short kernel's event time is the host's enqueue); ``bound_ms`` is
+4, 5 and 13 also give each kernel's and the library call's device time from
+torch.profiler, ``device_ms``, which the kernels line reports for every
+kernel: a short kernel's event time is the host's enqueue); ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / the H100 peak for the
 inputs' type (989 TF/s bf16, 67 TF/s f32 without tensor cores), for the CE
 kernels with the exponential term of phase 5 beside them. The last line is
@@ -180,7 +191,8 @@ KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                 "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
                 "attention_fwd_wgmma", "attention_bwd_dq_wgmma", "attention_bwd_dkv_wgmma",
                 "packed_attention_fwd_wgmma", "packed_attention_bwd_dq_wgmma",
-                "packed_attention_bwd_dkv_wgmma")
+                "packed_attention_bwd_dkv_wgmma", "linear_ce_bwd_dx_wgmma",
+                "linear_ce_bwd_dw_wgmma")
 BF16_TOP1_AGREEMENT, BF16_LOSS_REL = 0.95, 2e-2
 # (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
 # the flagship head (C=512), a ragged row count
@@ -778,21 +790,22 @@ def path_counters(port):
             ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter,
             pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.wgmma_counter,
             ak.dq_wgmma_counter, ak.dkv_wgmma_counter, pk.fwd_wgmma_counter,
-            pk.dq_wgmma_counter, pk.dkv_wgmma_counter)
+            pk.dq_wgmma_counter, pk.dkv_wgmma_counter, ck.ce_dx_wgmma_counter,
+            ck.ce_dw_wgmma_counter)
 
 
 def per_step_launches(fused_head, attn_impl: str = "pallas", bf16: bool = True) -> list:
     """Launches of one train step, in ``path_counters`` order; in bf16 every
-    launch of #1, #2, #3, #4 and #5 takes the wgmma design."""
+    launch of #1, #2, #3, #4, #5, #7 and #8 takes the wgmma design."""
     ce = 1 if fused_head else 0
     fused, packed = (0, ATTN_PER_FORWARD) if attn_impl == "packed" else (ATTN_PER_FORWARD, 0)
     return ([fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0] * 3
-            + [packed if bf16 else 0] * 3)
+            + [packed if bf16 else 0] * 3 + [ce if bf16 else 0] * 2)
 
 
 def per_eval_launches(per_step: list) -> list:
     """Launches of one eval batch: the forward kernels of a train step."""
-    return [n if i % 3 == 0 else 0 for i, n in enumerate(per_step)]
+    return [n if "_fwd" in name else 0 for name, n in zip(KERNEL_NAMES, per_step)]
 
 
 def bench_batch(torch):
@@ -822,6 +835,7 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
                                                            attn_impl=attn_impl)
     label = f"{preset} {attn_impl}"
     losses, step_ms = [], []
+    ck, ce_cotangents = port["ck"], []  # each step's CE cotangent g: the row tiles skipped
 
     def checked_step(state, batch):
         before = [c.launches for c in counters]
@@ -850,10 +864,22 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.reset()
+    launch_bwd_dw = ck.launch_bwd_dw
+
+    def spy(x, w, b, labels, lse, g, wt=None):  # a copy of g, read after the fit (no sync)
+        ce_cotangents.append(g.detach().clone())
+        return launch_bwd_dw(x, w, b, labels, lse, g, wt)
+
+    ck.launch_bwd_dw = spy
     t0 = time.perf_counter()
-    trainer.fit(data.train_dataloader(), val_loader)
-    torch.cuda.synchronize()
+    try:
+        trainer.fit(data.train_dataloader(), val_loader)
+        torch.cuda.synchronize()
+    finally:
+        ck.launch_bwd_dw = launch_bwd_dw
     fit_s = time.perf_counter() - t0
+    ce_tiles = [zero_row_tiles(g) for g in ce_cotangents]
+    del ce_cotangents
     launches = {name: c.launches for name, c in zip(names, counters)}
     expect = {name: s * TRAIN_STEPS + e * len(val_loader)
               for name, s, e in zip(names, per_step, per_eval)}
@@ -945,6 +971,8 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
     log(phase="train", preset=preset, fused_head=fused_head, attn_impl=attn_impl,
         steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=SEQ_LEN,
         capacity=CAPACITY, first_loss=losses[0], last5_mean_loss=tail, val_loss=val[0],
+        ce_tiles_skipped=(sum(ce_tiles) / len(ce_tiles)) if ce_tiles else None,
+        ce_tiles_skipped_per_step=ce_tiles,
         losses=losses, tokens_per_s=window_rate, window_steps=WINDOW_STEPS,
         window_step_ms=window_step_ms, step_ms_first=step_ms[0], step_ms_median=median_ms,
         step_ms_mean=sum(steady) / len(steady), step_tokens_per_s=tokens / (median_ms / 1e3),
@@ -999,7 +1027,9 @@ def cli_phase(torch, port, root: str, vocab: int, attn_impl: str = "pallas") -> 
                     and all(launches[f"{used}_{k}_wgmma"] == launches[f"{used}_{k}"]
                             for k in ("fwd", "bwd_dq", "bwd_dkv"))
                     and not any(launches[f"{unused}_{k}"] for k in ("fwd", "bwd_dq", "bwd_dkv")))
-    if (launches["linear_ce_bwd_dx"], launches["linear_ce_bwd_dw"]) != (CLI_STEPS, CLI_STEPS) \
+    ce_bwd = (launches["linear_ce_bwd_dx"], launches["linear_ce_bwd_dw"],
+              launches["linear_ce_bwd_dx_wgmma"], launches["linear_ce_bwd_dw_wgmma"])
+    if ce_bwd != (CLI_STEPS,) * 4 \
             or launches["linear_ce_fwd"] <= CLI_STEPS or any(c.plain_calls for c in counters) \
             or not attention_ok or not all(math.isfinite(r["train_loss"]) for r in train) \
             or built != [vocab] or val_steps != [2, 4, CLI_STEPS]:
@@ -1132,14 +1162,107 @@ def roofline_bound(nbytes: float, products: float, exps: float, dtype: str, cloc
     return terms[term] * 1e3, ("bytes" if term == "bytes" else "operations"), term
 
 
+def zero_row_tiles(g) -> float:
+    """The share of 64-row tiles whose cotangents are all 0: the tiles the
+    bf16 CE backward skips (dW/db never loads them, dx writes their zeros)."""
+    import torch
+
+    tiles = -(-g.numel() // 64)
+    padded = torch.zeros(tiles * 64, dtype=g.dtype, device=g.device)
+    padded[:g.numel()] = g.reshape(-1)
+    return float((padded.view(tiles, 64) == 0).all(1).float().mean())
+
+
+def ce_case(torch, ck, softmax_ce_integer, clock_hz: float, name: str, x32, w, b, labels, g):
+    """One CE shape, f32 and bf16: the three kernels against their plain
+    versions (loss and lse, then dx, dW and db from the plain lse; dx of every
+    row whose g is 0 exactly 0; a bf16 backward call must advance both wgmma
+    counters), CUDA-event and profiler device times of each kernel, of the
+    plain versions and of the unfused head, the share of row tiles the bf16
+    backward skips, and what making round(W)^T costs."""
+    r, c = x32.shape
+    v = w.shape[1]
+    ignored = g == 0
+    live = int((~ignored).sum())
+    wgmma_counters = (ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        x = x32.to("cuda", dtype)
+        loss, lse = ck.linear_ce_fwd(x, w, b, labels)
+        ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+        fwd_err = check(f"ce loss {name} {dt}", loss, ref_loss, dt)
+        lse_rel = check_stats(f"ce lse {name} {dt}", lse, ref_lse)
+        design = ck.ce_backward_design(x, w)
+        before = [n.launches for n in wgmma_counters]
+        dx = ck.linear_ce_bwd_dx(x, w, b, labels, ref_lse, g)
+        dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, ref_lse, g)
+        wgmma = [n.launches - m for n, m in zip(wgmma_counters, before)]
+        if wgmma != [int(design == "wgmma")] * 2 or (design == "wgmma") != (dt == "bfloat16"):
+            raise AssertionError(f"ce {name} {dt}: {design} call, wgmma counters {wgmma}")
+        ref_dx, ref_dw, ref_db = ck.linear_ce_bwd_reference(x, w, b, labels, ref_lse, g)
+        dx_err = check(f"ce dx {name} {dt}", dx, ref_dx, dt)
+        dw_err = max(check(f"ce dW {name} {dt}", dw, ref_dw, dt),
+                     check(f"ce db {name} {dt}", db, ref_db, dt))
+        if dx[ignored].any():
+            raise AssertionError(f"ce {name} {dt}: dx of an ignored row is not 0")
+        item = x.element_size()
+        # bytes: each input read once, each output written once (x of the
+        # rows whose g is 0 need not be read by the backward); operations:
+        # the backward's products and exponentials at the rows whose g is
+        # not 0, as this run's data needs them
+        params = 4 * c * v + 4 * v
+        inputs = item * r * c + params + 4 * r  # x, W, b, labels (int32)
+        bwd_in = item * live * c + params + 4 * r + 8 * r  # + lse, g
+        bounds = {
+            "fwd": roofline_bound(inputs + 8 * r, 2 * r * c * v, r * v, dt, clock_hz),
+            "dx": roofline_bound(bwd_in + item * r * c, 4 * live * c * v, live * v, dt,
+                                 clock_hz),
+            "dw": roofline_bound(bwd_in + params, 4 * live * c * v, live * v, dt, clock_hz),
+        }
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+        unfused = softmax_ce_integer(leaves[0] @ leaves[1].to(dtype) + leaves[2].to(dtype), labels)
+        wt = ck.round_weight_t(w) if design == "wgmma" else None
+        run_fwd = lambda: ck.launch_fwd(x, w, b, labels)  # noqa: E731
+        run_dx = lambda: ck.launch_bwd_dx(x, w, b, labels, ref_lse, g, wt)  # noqa: E731
+        run_dw = lambda: ck.launch_bwd_dw(x, w, b, labels, ref_lse, g, wt)  # noqa: E731
+        library_fwd = lambda: softmax_ce_integer(x @ w.to(dtype) + b.to(dtype), labels)  # noqa: E731
+        library_bwd = lambda: torch.autograd.grad(unfused, leaves, g,  # noqa: E731
+                                                  retain_graph=True)
+        extra = {}
+        if design == "wgmma":  # round(W)^T, made once per backward
+            extra = dict(wt_device_ms=device_ms(torch, lambda: ck.round_weight_t(w)),
+                         wt_host_us=host_us(torch, lambda: ck.round_weight_t(w)))
+        row = dict(
+            kernel="linear_ce", shape=name, dims=[r, c, v], dtype=dt, design=design,
+            ignored_rows=int(ignored.sum()),
+            tiles_skipped=zero_row_tiles(g) if design == "wgmma" else 0.0,
+            fwd_max_abs_err=fwd_err, lse_max_rel_err=lse_rel, dx_max_abs_err=dx_err,
+            dw_max_abs_err=dw_err,
+            fwd_ms=time_ms(run_fwd), dx_ms=time_ms(run_dx), dw_ms=time_ms(run_dw),
+            fwd_device_ms=device_ms(torch, run_fwd, "linear_ce_fwd"),
+            dx_device_ms=device_ms(torch, run_dx, "linear_ce_bwd_dx"),
+            dw_device_ms=device_ms(torch, run_dw, "linear_ce_bwd_dw"),
+            plain_fwd_ms=time_ms(lambda: ck.linear_ce_fwd_reference(x, w, b, labels), 3),
+            plain_bwd_ms=time_ms(lambda: ck.linear_ce_bwd_reference(x, w, b, labels,
+                                                                    ref_lse, g), 3),
+            library_fwd_ms=time_ms(library_fwd), library_bwd_ms=time_ms(library_bwd),
+            library_fwd_device_ms=device_ms(torch, library_fwd),
+            library_bwd_device_ms=device_ms(torch, library_bwd),
+            sm_clock_mhz=clock_hz / 1e6, **extra,
+            **{f"{k}_bound_{f}": val for k, bnd in bounds.items()
+               for f, val in zip(("ms", "by", "term"), bnd)})
+        log(**row)
+        rows.append(row)
+        del x, loss, lse, ref_loss, ref_lse, dx, dw, db, ref_dx, ref_dw, ref_db, leaves, unfused
+    return rows
+
+
 def ce_phase(torch, ck, softmax_ce_integer, clock_hz: float):
     """The three CE kernels against their plain versions at bench.py's head,
     the flagship head and a ragged row count, f32 and bf16, with ~15% of
-    rows ignored (label 0, cotangent 0): loss and lse, then dx, dW and db
-    from the plain lse. Times of each kernel, of the plain forward and
-    backward, and of the unfused head (cuBLAS product plus
-    ``softmax_ce_integer``; its backward by ``autograd.grad`` over a retained
-    graph); each kernel's bound."""
+    rows ignored at random (label 0, cotangent 0), so no 64-row tile is all
+    ignored: ``ce_case`` for each of CE_SHAPES."""
     rows = []
     for name, (r, c, v) in CE_SHAPES:
         gen = torch.Generator().manual_seed(r + c + v)
@@ -1149,54 +1272,45 @@ def ce_phase(torch, ck, softmax_ce_integer, clock_hz: float):
         labels = torch.where(valid, torch.randint(0, v, (r,), generator=gen), 0).cuda()
         g = (valid.float() / valid.sum()).cuda()
         x32 = torch.randn(r, c, generator=gen)
-        ignored = (~valid).cuda()
-        for dtype in (torch.float32, torch.bfloat16):
-            dt = str(dtype).split(".")[1]
-            x = x32.to("cuda", dtype)
-            loss, lse = ck.linear_ce_fwd(x, w, b, labels)
-            ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
-            fwd_err = check(f"ce loss {name} {dt}", loss, ref_loss, dt)
-            lse_rel = check_stats(f"ce lse {name} {dt}", lse, ref_lse)
-            dx = ck.linear_ce_bwd_dx(x, w, b, labels, ref_lse, g)
-            dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, ref_lse, g)
-            ref_dx, ref_dw, ref_db = ck.linear_ce_bwd_reference(x, w, b, labels, ref_lse, g)
-            dx_err = check(f"ce dx {name} {dt}", dx, ref_dx, dt)
-            dw_err = max(check(f"ce dW {name} {dt}", dw, ref_dw, dt),
-                         check(f"ce db {name} {dt}", db, ref_db, dt))
-            if dx[ignored].any():
-                raise AssertionError(f"ce {name} {dt}: dx of an ignored row is not 0")
-            item = x.element_size()
-            inputs = item * r * c + 4 * c * v + 4 * v + 4 * r  # x, W, b, labels (int32)
-            bounds = {
-                "fwd": roofline_bound(inputs + 8 * r, 2 * r * c * v, r * v, dt, clock_hz),
-                "dx": roofline_bound(inputs + 8 * r + item * r * c, 4 * r * c * v, r * v, dt,
-                               clock_hz),
-                "dw": roofline_bound(inputs + 8 * r + 4 * c * v + 4 * v, 4 * r * c * v, r * v, dt,
-                               clock_hz),
-            }
-            leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
-            unfused = softmax_ce_integer(leaves[0] @ leaves[1].to(dtype) + leaves[2].to(dtype),
-                                         labels)
-            row = dict(
-                kernel="linear_ce", shape=name, dims=[r, c, v], dtype=dt,
-                ignored_rows=int(ignored.sum()), fwd_max_abs_err=fwd_err,
-                lse_max_rel_err=lse_rel, dx_max_abs_err=dx_err, dw_max_abs_err=dw_err,
-                fwd_ms=time_ms(lambda: ck.launch_fwd(x, w, b, labels)),
-                dx_ms=time_ms(lambda: ck.launch_bwd_dx(x, w, b, labels, ref_lse, g)),
-                dw_ms=time_ms(lambda: ck.launch_bwd_dw(x, w, b, labels, ref_lse, g)),
-                plain_fwd_ms=time_ms(lambda: ck.linear_ce_fwd_reference(x, w, b, labels), 3),
-                plain_bwd_ms=time_ms(lambda: ck.linear_ce_bwd_reference(x, w, b, labels,
-                                                                        ref_lse, g), 3),
-                library_fwd_ms=time_ms(lambda: softmax_ce_integer(
-                    x @ w.to(dtype) + b.to(dtype), labels)),
-                library_bwd_ms=time_ms(lambda: torch.autograd.grad(unfused, leaves, g,
-                                                                   retain_graph=True)),
-                sm_clock_mhz=clock_hz / 1e6,
-                **{f"{k}_bound_{f}": val for k, bnd in bounds.items()
-                   for f, val in zip(("ms", "by", "term"), bnd)})
-            log(**row)
-            rows.append(row)
-            del x, loss, lse, ref_loss, ref_lse, dx, dw, db, ref_dx, ref_dw, ref_db, leaves, unfused
+        rows += ce_case(torch, ck, softmax_ce_integer, clock_hz, name, x32, w, b, labels, g)
+    return rows
+
+
+def gathered_live_rows(torch, port, data):
+    """Live rows per example of the C=64 train step's gathered head on the
+    first synthetic IMDB batch that phases 10 and 14 train on: the masked
+    positions of ``flagship_mlm``'s masking under the train state's step-0
+    generator (seed 2), at most CAPACITY; the gather puts them first."""
+    from perceiver_io_torch.ops.masking import IGNORE_LABEL
+
+    masking = port["presets"].flagship_mlm(device="cuda", seed=0).masking
+    batch = next(iter(data.train_dataloader()))
+    generator = port["TrainState"](model=None, optimizer=None, schedule=None,
+                                   seed=2).step_generator("cuda")
+    ids = torch.as_tensor(batch["token_ids"]).cuda()
+    pad = torch.as_tensor(batch["pad_mask"]).to("cuda", torch.bool)
+    _, labels = masking(generator, ids, pad)
+    return (labels != IGNORE_LABEL).sum(1).clamp(max=CAPACITY).cpu()
+
+
+def ce_gathered_phase(torch, ck, port, data, softmax_ce_integer, clock_hz: float):
+    """``ce_case`` at (64 x CAPACITY, 64, 10003) in the training path's
+    layout: each example's live rows first among its CAPACITY, as many as
+    ``gathered_live_rows`` counts, g = 1/live there and 0 elsewhere."""
+    counts = gathered_live_rows(torch, port, data)
+    b_n, (r, c, v) = len(counts), (len(counts) * CAPACITY, 64, 10003)
+    gen = torch.Generator().manual_seed(r + c + v + 1)
+    w = ((torch.rand(c, v, generator=gen) * 2 - 1) * c**-0.5).cuda()
+    b = ((torch.rand(v, generator=gen) * 2 - 1) * c**-0.5).cuda()
+    valid = (torch.arange(CAPACITY)[None, :] < counts[:, None]).reshape(-1)
+    labels = torch.where(valid, torch.randint(0, v, (r,), generator=gen), 0).cuda()
+    g = (valid.float() / valid.sum().clamp(min=1)).cuda()
+    x32 = torch.randn(r, c, generator=gen)
+    rows = ce_case(torch, ck, softmax_ce_integer, clock_hz, "gathered", x32, w, b, labels, g)
+    for row in rows:
+        row.update(examples=b_n, live_rows_per_example=counts.tolist())
+    log(phase="ce_gathered", examples=b_n, capacity=CAPACITY, live_rows=int(valid.sum()),
+        live_rows_per_example=counts.tolist(), tiles_skipped=zero_row_tiles(g))
     return rows
 
 
@@ -1441,6 +1555,8 @@ def main() -> int:
         enter("9: flagship training parity")
         train_parity_phase(torch, port, data)
         bf16_train_parity(torch, port, data)
+        enter("5: CE kernels, gathered layout")
+        ce_rows += ce_gathered_phase(torch, ck, port, data, softmax_ce_integer, clock_hz)
         enter("10: C=64 training, fused head")
         path_launches.append(training_phase(torch, port, data, f"{root}/logs_c64",
                                             "flagship_mlm", "pallas"))
@@ -1483,10 +1599,11 @@ def main() -> int:
     bwd_src = "perceiver_io_torch/csrc/attention_bwd.cu"
     fwd_src, deq_src = ("perceiver_io_torch/csrc/attention_fwd.cu",
                         "perceiver_io_torch/csrc/dequant_matmul.cu")
-    # the main paths run bf16: every launch of #1, #2, #3, #4, #5 and #9
-    # there is a wgmma one
+    # the main paths run bf16: every launch of #1, #2, #3, #4, #5, #7, #8
+    # and #9 there is a wgmma one
     for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "dequant_matmul",
-                 "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv"):
+                 "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
+                 "linear_ce_bwd_dx", "linear_ce_bwd_dw"):
         if launches[f"{name}_wgmma"] != launches[name]:
             raise AssertionError(f"{name}: {launches[f'{name}_wgmma']} of {launches[name]} "
                                  f"main-path launches took the wgmma design")
@@ -1510,19 +1627,25 @@ def main() -> int:
         entry(deq_rows, "dequant_matmul_wgmma", deq_src,
               "perceiver_io_tpu/ops/pallas_matmul.py:125", proj_bf16),
     ]
-    # the CE kernels at bench.py's head in bf16, the packed kernels at the
-    # C=64 encoder cross in bf16; plain_ms and library_ms of the backward
-    # kernels are those of the whole backward (the plain version and the
-    # library's autograd compute every gradient in one call)
+    # the CE kernels at bench.py's head (the scalar dx and dW/db in f32, the
+    # others in bf16), the packed kernels at the C=64 encoder cross in bf16;
+    # plain_ms and library_ms of the backward kernels are those of the whole
+    # backward (the plain version and the library's autograd compute every
+    # gradient in one call); ms and library_ms are device times
+    # (torch.profiler) where the profiler gave both, else CUDA-event times
+    # (ms_source)
     head = next(r for r in ce_rows if r["shape"] == "bench_head" and r["dtype"] == "bfloat16")
+    head32 = next(r for r in ce_rows if r["shape"] == "bench_head" and r["dtype"] == "float32")
     cross = next(r for r in packed_rows if enc_bf16(r))
     cross["dkv_max_abs_err"] = max(cross["dk_max_abs_err"], cross["dv_max_abs_err"])
     packed_src = "perceiver_io_torch/csrc/packed_attention.cu"
     ce_src = "perceiver_io_torch/csrc/linear_ce_{}.cu"
     for name, row, part, source, replaces in (
             ("linear_ce_fwd", head, "fwd", ce_src.format("fwd"), "pallas_ce.py:95"),
-            ("linear_ce_bwd_dx", head, "dx", ce_src.format("bwd"), "pallas_ce.py:143"),
-            ("linear_ce_bwd_dw", head, "dw", ce_src.format("bwd"), "pallas_ce.py:161"),
+            ("linear_ce_bwd_dx", head32, "dx", ce_src.format("bwd"), "pallas_ce.py:248"),
+            ("linear_ce_bwd_dw", head32, "dw", ce_src.format("bwd"), "pallas_ce.py:270"),
+            ("linear_ce_bwd_dx_wgmma", head, "dx", ce_src.format("bwd"), "pallas_ce.py:143"),
+            ("linear_ce_bwd_dw_wgmma", head, "dw", ce_src.format("bwd"), "pallas_ce.py:161"),
             ("packed_attention_fwd", cross, "fwd", packed_src, "pallas_attention.py:783"),
             ("packed_attention_bwd_dq", cross, "dq", packed_src, "pallas_attention.py:804"),
             ("packed_attention_bwd_dkv", cross, "dkv", packed_src, "pallas_attention.py:804"),
@@ -1532,12 +1655,8 @@ def main() -> int:
             ("packed_attention_bwd_dkv_wgmma", cross, "dkv", packed_src,
              "pallas_attention.py:866")):
         way = "fwd" if part == "fwd" else "bwd"
-        # the packed kernels' ms and library_ms are device times (torch.profiler)
-        # where the profiler gave them, else CUDA-event times (ms_source)
-        device = row is cross and row[f"{part}_device_ms"] is not None \
+        device = row[f"{part}_device_ms"] is not None \
             and row[f"library_{way}_device_ms"] is not None
-        extra = dict(design=row["design"], event_ms=row[f"{part}_ms"],
-                     ms_source="device" if device else "event") if row is cross else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=f"perceiver_io_tpu/ops/{replaces}",
             launches=launches[name], max_abs_err=row[f"{part}_max_abs_err"],
@@ -1545,7 +1664,9 @@ def main() -> int:
             plain_ms=row[f"plain_{way}_ms"],
             bound_ms=row[f"{part}_bound_ms"], bound_by=row[f"{part}_bound_by"],
             library_ms=row[f"library_{way}_device_ms" if device else f"library_{way}_ms"],
-            shape=row["shape"], dims=row["dims"], dtype=row["dtype"], **extra))
+            shape=row["shape"], dims=row["dims"], dtype=row["dtype"],
+            design="scalar" if name == "linear_ce_fwd" else row["design"],  # #6: one design
+            event_ms=row[f"{part}_ms"], ms_source="device" if device else "event"))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: {missing}")

@@ -10,7 +10,11 @@ vocab) logits never in device memory, forward or backward.
   log-sum-exp ``lse``, both (R,) f32; ``lse`` is the backward's residual.
 - backward: ``csrc/linear_ce_bwd.cu``, one kernel for dx
   (``_bwd_dx_kernel``) and one for dW and db (``_bwd_dw_kernel``), each
-  recomputing ``d = (softmax - onehot) * g`` from ``lse``.
+  recomputing ``d = (softmax - onehot) * g`` from ``lse``, in two designs
+  chosen by x's dtype (:func:`ce_backward_design`): exact scalar FMAs for
+  float32, tensor-core ``wgmma`` for bfloat16, which reads W as
+  :func:`round_weight_t` (W rounded to bf16 and transposed, made once per
+  backward) and skips 64-row tiles whose cotangents are all 0.
 - :class:`FusedLinearCE`: the ``torch.autograd.Function`` twin of the
   ``_fused_ce`` custom VJP; :func:`linear_ce_integer` is the counterpart of
   ``pallas_linear_ce_integer``.
@@ -26,7 +30,8 @@ and the plain versions against the JAX package's Pallas path.
 CUDA tensors launch the kernels (x f32 or bf16, C a multiple of 8 up to
 ``MAX_CHANNELS``); CPU tensors run the plain versions
 (:func:`linear_ce_fwd_reference`, :func:`linear_ce_bwd_reference`). There is
-no fallback between the two.
+no fallback between the two, nor between the backward's two designs: a bf16
+call the wgmma kernels cannot take raises.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ce_fwd_counter = build.LaunchCounter()   # linear_ce_fwd
 ce_dx_counter = build.LaunchCounter()    # linear_ce_bwd_dx
 ce_dw_counter = build.LaunchCounter()    # linear_ce_bwd_dw
+ce_dx_wgmma_counter = build.LaunchCounter()  # linear_ce_bwd_dx, the bf16 wgmma design
+ce_dw_wgmma_counter = build.LaunchCounter()  # linear_ce_bwd_dw, the bf16 wgmma design
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, labels: torch.Tensor) -> None:
@@ -132,40 +139,94 @@ def launch_fwd(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     return loss, lse
 
 
-def _bwd_inputs(x, w, b, labels, lse, g):
+def ce_backward_design(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The design of the two backward kernels for x (R, C) and w (C, V):
+    ``'scalar'`` for float32 x (exact f32 FMAs), ``'wgmma'`` for bfloat16 x
+    (tensor cores; x is read by TMA, so a contiguous x needs a 16-byte
+    aligned base, and any other layout is copied to contiguous first, as the
+    scalar design copies it too). Raises ``ValueError`` on what neither
+    takes. Checks shapes and layout only, so it answers for CPU tensors
+    too."""
+    if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"expected x (R, C) and w (C, V); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    c = x.shape[1]
+    if c == 0 or c % 8 or c > MAX_CHANNELS:
+        raise ValueError(
+            f"the CE kernels take a channel count that is a multiple of 8 up to "
+            f"{MAX_CHANNELS}; got C={c}")
+    if x.dtype == torch.float32:
+        return "scalar"
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the CE kernels take float32 or bfloat16 x, got {x.dtype}")
+    if x.is_contiguous() and x.data_ptr() % 16:
+        raise ValueError("bf16 CE backward: x is not 16-byte aligned, as its TMA loads need")
+    return "wgmma"
+
+
+def round_weight_t(w: torch.Tensor) -> torch.Tensor:
+    """W (C, V) rounded to bf16 and transposed, (V, C) contiguous, in one
+    copy: the bf16 backward kernels' view of W (the same rounding as the
+    f32 W rounded inside the product)."""
+    wt = torch.empty((w.shape[1], w.shape[0]), dtype=torch.bfloat16, device=w.device)
+    return wt.copy_(w.t())
+
+
+def _bwd_inputs(x, w, b, labels, lse, g, wt):
+    design = ce_backward_design(x, w)
     x, w, b, labels = _kernel_inputs(x, w, b, labels)
     lse, g = lse.float().contiguous(), g.float().contiguous()
     if lse.shape != labels.shape or g.shape != labels.shape:
         raise ValueError(f"lse {tuple(lse.shape)} and g {tuple(g.shape)} must be "
                          f"{tuple(labels.shape)}")
-    return x, w, b, labels, lse, g
+    if design == "wgmma":
+        if wt is None:
+            wt = round_weight_t(w)
+        elif (wt.shape != w.t().shape or wt.dtype != torch.bfloat16 or wt.device != x.device
+              or not wt.is_contiguous() or wt.data_ptr() % 16):
+            raise ValueError(f"wt must be round_weight_t(w): (V, C) bf16, contiguous and "
+                             f"16-byte aligned on {x.device}; got {tuple(wt.shape)} {wt.dtype}")
+    else:
+        wt = None
+    return design, x, w, b, labels, lse, g, wt
 
 
-def launch_bwd_dx(x, w, b, labels, lse, g) -> torch.Tensor:
-    """The dx kernel alone: dx (R, C) in x's dtype."""
-    x, w, b, labels, lse, g = _bwd_inputs(x, w, b, labels, lse, g)
+def launch_bwd_dx(x, w, b, labels, lse, g, wt=None) -> torch.Tensor:
+    """The dx kernel alone: dx (R, C) in x's dtype. ``wt`` is
+    :func:`round_weight_t` of w for the bf16 design, made here when not
+    given."""
+    design, x, w, b, labels, lse, g, wt = _bwd_inputs(x, w, b, labels, lse, g, wt)
     r, c = x.shape
     dx = torch.empty_like(x)
     if r:
         build.check_launch("linear_ce_bwd_dx", build.library().linear_ce_bwd_dx(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            labels.data_ptr(), lse.data_ptr(), g.data_ptr(), dx.data_ptr(), r, c,
-            w.shape[1], _stream(x)))
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+            wt.data_ptr() if wt is not None else None, b.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dx.data_ptr(), r, c, w.shape[1], _stream(x)))
         ce_dx_counter.launches += 1
+        if design == "wgmma":
+            ce_dx_wgmma_counter.launches += 1
     return dx
 
 
-def launch_bwd_dw(x, w, b, labels, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dW/db kernel alone: dW (C, V) and db (V,), f32."""
-    x, w, b, labels, lse, g = _bwd_inputs(x, w, b, labels, lse, g)
+def launch_bwd_dw(x, w, b, labels, lse, g, wt=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dW/db kernel alone: dW (C, V) and db (V,), f32. ``wt`` as for
+    :func:`launch_bwd_dx`. With no rows the bf16 design launches nothing:
+    both are zeros."""
+    design, x, w, b, labels, lse, g, wt = _bwd_inputs(x, w, b, labels, lse, g, wt)
     r, c = x.shape
+    if design == "wgmma" and not r:
+        return torch.zeros_like(w), torch.zeros_like(b)
     dw = torch.empty_like(w)
     db = torch.empty_like(b)
     build.check_launch("linear_ce_bwd_dw", build.library().linear_ce_bwd_dw(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+        _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+        wt.data_ptr() if wt is not None else None, b.data_ptr(), labels.data_ptr(),
         lse.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(), r, c, w.shape[1],
         _stream(x)))
     ce_dw_counter.launches += 1
+    if design == "wgmma":
+        ce_dw_wgmma_counter.launches += 1
     return dw, db
 
 
@@ -203,7 +264,9 @@ def _backward(x, w, b, labels, lse, g):
         ce_dx_counter.plain_calls += 1
         ce_dw_counter.plain_calls += 1
         return linear_ce_bwd_reference(x, w, b, labels, lse, g)
-    return (launch_bwd_dx(x, w, b, labels, lse, g), *launch_bwd_dw(x, w, b, labels, lse, g))
+    wt = round_weight_t(w) if ce_backward_design(x, w) == "wgmma" else None
+    return (launch_bwd_dx(x, w, b, labels, lse, g, wt),
+            *launch_bwd_dw(x, w, b, labels, lse, g, wt))
 
 
 class FusedLinearCE(torch.autograd.Function):

@@ -12,8 +12,11 @@ relative and each gradient within 2e-2 of its peak (bf16 rounds the product's
 operands and d at the same points on both sides, the sums run in another
 order). Also: ``FusedLinearCE`` against finite differences in f64, the fused
 head against the unfused f32 head, the padded head of ``masked_head``, the
-chunked plain-PyTorch head against the JAX chunked head, and the wrappers'
-counting and validation. The CUDA kernels themselves run only on the card:
+chunked plain-PyTorch head against the JAX chunked head, the wrappers'
+counting and validation, and the exactness the bf16 backward's skipping of
+64-row tiles whose cotangents are all 0 relies on (rows with g = 0 add
+exactly nothing, in the Pallas backward too), at random and in the training
+path's gathered layout. The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda.py holds them against these plain versions there."""
 
 import jax
@@ -244,3 +247,70 @@ def test_wrappers_count_plain_calls_and_validate():
                          torch.zeros(4, dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError, match="no CE kernel for device meta"):
         ck.linear_ce_fwd(x.to("meta"), w.to("meta"), b.to("meta"), labels.to("meta"))
+
+
+GATHERED_COUNTS = [40, 3, 0, 0, 0, 17, 0, 0, 1, 0]
+
+
+def _gathered(counts, capacity, seed, c=C, v=V, dtype=torch.float32):
+    """The fused head's inputs in the training path's layout: each example's
+    ``counts[e]`` live rows first among its ``capacity`` (the gather's
+    order), g = 1/live there and 0 on the rest, whose labels are 0."""
+    rng = np.random.default_rng(seed)
+    r = len(counts) * capacity
+    live = (np.arange(capacity)[None, :] < np.asarray(counts)[:, None]).reshape(-1)
+    x = torch.from_numpy(rng.normal(size=(r, c)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.normal(0, 0.2, size=(c, v)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, size=v).astype(np.float32))
+    labels = torch.from_numpy(np.where(live, rng.integers(0, v, r), 0).astype(np.int32))
+    g = torch.from_numpy((live / max(live.sum(), 1)).astype(np.float32))
+    return x, w, b, labels, g, torch.from_numpy(live)
+
+
+@pytest.mark.parametrize("layout", ["random", "gathered"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_with_zero_cotangent_add_exactly_nothing(layout, dtype):
+    """What the bf16 backward's skip relies on: the rows whose g is 0 alone
+    give dx, dW and db exactly 0 (d = (p - onehot) * 0), so a 64-row tile
+    of them may go unread; over the whole batch dW and db equal those of
+    the live rows alone up to the order of the sums (f64: 1e-12 of each
+    peak), and dx is exactly 0 on the dead rows and equals the live rows'
+    own dx there. ``gathered``: 10 examples at capacity 40 with 40, 3, 0,
+    0, 0, 17, 0, 0, 1 and 0 live rows, so 4 of the 7 64-row tiles hold no
+    live row."""
+    if layout == "random":
+        x, w, b, labels, g = (torch.from_numpy(a) for a in _inputs(9, r=200, ignored=0.6))
+        x = x.to(dtype)
+        live = g != 0
+    else:
+        x, w, b, labels, g, live = _gathered(GATHERED_COUNTS, 40, 10, dtype=dtype)
+    _, lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+    dx, dw, db = ck.linear_ce_bwd_reference(x, w, b, labels, lse, g)
+    dead = ~live
+    zero = ck.linear_ce_bwd_reference(x[dead], w, b, labels[dead], lse[dead], g[dead])
+    assert all(not t.any() for t in zero)
+    assert not dx[dead].any()
+    alone = ck.linear_ce_bwd_reference(x[live], w, b, labels[live], lse[live], g[live])
+    assert torch.equal(dx[live], alone[0])
+    for got, ref in zip((dw, db), alone[1:]):
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    x64 = x.double()  # f64: the same sums in another order agree to rounding
+    _, lse64 = ck.linear_ce_fwd_reference(x64, w.double(), b.double(), labels)
+    full = ck.linear_ce_bwd_reference(x64, w.double(), b.double(), labels, lse64, g.double())
+    part = ck.linear_ce_bwd_reference(x64[live], w.double(), b.double(), labels[live],
+                                      lse64[live], g[live].double())
+    for got, ref in zip(full[1:], part[1:]):
+        assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    if layout == "gathered":  # whole 64-row tiles without a live row
+        tiles = torch.nn.functional.pad(live, (0, -len(live) % 64)).view(-1, 64)
+        assert (~tiles.any(1)).tolist() == [False, True, True, False, True, False, True]
+
+
+def test_zero_cotangent_rows_add_nothing_in_pallas():
+    """The same on the JAX side: the Pallas backward over the dead rows
+    alone (every g 0) gives exactly zero dx, dW and db."""
+    x, w, b, labels, g, live = _gathered(GATHERED_COUNTS, 40, 11, c=32, v=503)
+    dead = (~live).numpy()
+    grads = _jax_grads(jnp.asarray(x.numpy()[dead]), w.numpy(), b.numpy(),
+                       labels.numpy()[dead], g.numpy()[dead])
+    assert all(not np.any(t) for t in grads)

@@ -13,7 +13,9 @@ masked example whose dq and dk must be exactly zero), autograd through
 ``fused_attention`` against the plain versions, the dequant matmul, and the
 fused CE kernels (forward, dx, dW/db at a small, a ragged and a C=512
 shape; autograd through ``linear_ce_integer``; the tiny train step with
-``fused_head='pallas'``), and the packed-heads kernels (forward, dq, dk/dv
+``fused_head='pallas'``; the bf16 wgmma design of dx and dW/db at every
+width class, R and V below one tile and ragged, tiles of ignored rows
+between live ones, a wholly ignored batch, a label at V - 1, layouts), and the packed-heads kernels (forward, dq, dk/dv
 at small, ragged, wide, head-split and tail-padded shapes; autograd through
 ``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``),
 and the bf16 wgmma designs of the forward, of the two backward kernels,
@@ -334,9 +336,14 @@ def test_ce_kernels_match_plain(card, dtype, r, c, v):
     ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
     _close(loss, ref_loss, dtype)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    wgmma = (ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
+    wgmma_before = [n.launches for n in wgmma]
     dx = ck.linear_ce_bwd_dx(x, w, b, labels, ref_lse, g)
     dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, ref_lse, g)
     assert [n.launches - m for n, m in zip(counters, before)] == [1, 1, 1]
+    expect = [1, 1] if ck.ce_backward_design(x, w) == "wgmma" else [0, 0]
+    assert [n.launches - m for n, m in zip(wgmma, wgmma_before)] == expect
+    assert expect == ([1, 1] if dtype == torch.bfloat16 else [0, 0])
     refs = ck.linear_ce_bwd_reference(x, w, b, labels, ref_lse, g)
     for got, ref in zip((dx, dw, db), refs):
         assert got.shape == ref.shape and got.dtype == ref.dtype
@@ -362,6 +369,106 @@ def test_ce_autograd_runs_the_kernels(card):
         ck.linear_ce_fwd(torch.zeros(4, 520, device=card), torch.zeros(520, 9, device=card),
                          torch.zeros(9, device=card), torch.zeros(4, dtype=torch.int64,
                                                                   device=card))
+
+
+def _wgmma_ce_case(card, r, c, v, seed=0, live=0.85):
+    """bf16 inputs for the wgmma CE backward: rows ignored at random (g = 0,
+    label 0), every row of the 64-row tiles 1 and 3 ignored (tiles the dW/db
+    kernel skips between live ones, whose dx the dx kernel writes as zeros),
+    and the first live row labelled V - 1."""
+    gen = torch.Generator().manual_seed(seed + r + c + v)
+    x = torch.randn(r, c, generator=gen).to(card, torch.bfloat16)
+    w = ((torch.rand(c, v, generator=gen) * 2 - 1) * c**-0.5).to(card)
+    b = (torch.randn(v, generator=gen) * 0.1).to(card)
+    labels = torch.randint(0, v, (r,), generator=gen)
+    valid = torch.rand(r, generator=gen) < live
+    for tile in (1, 3):
+        valid[64 * tile:64 * (tile + 1)] = False
+    labels[int(valid.nonzero()[0]) if valid.any() else 0] = v - 1
+    g = torch.where(valid, torch.rand(r, generator=gen) + 0.5, 0.0) / max(int(valid.sum()), 1)
+    return x, w, b, torch.where(valid, labels, 0).to(card), g.to(card)
+
+
+def _wgmma_ce_check(card, x, w, b, labels, g):
+    """dx, dW and db of the wgmma kernels against the plain backward (2e-2 of
+    each peak), each kernel advancing its wgmma counter once; dx of every
+    row whose g is 0 exactly 0."""
+    assert ck.ce_backward_design(x, w) == "wgmma"
+    _, lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+    counters = (ck.ce_dx_counter, ck.ce_dw_counter, ck.ce_dx_wgmma_counter,
+                ck.ce_dw_wgmma_counter)
+    before = [n.launches for n in counters]
+    dx = ck.linear_ce_bwd_dx(x, w, b, labels, lse, g)
+    dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, lse, g)
+    assert [n.launches - m for n, m in zip(counters, before)] == [1, 1, 1, 1]
+    refs = ck.linear_ce_bwd_reference(x, w, b, labels, lse, g)
+    for got, ref in zip((dx, dw, db), refs):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        _close(got, ref, torch.bfloat16)
+    assert not dx[g == 0].any()
+    return dx, dw, db
+
+
+@pytest.mark.parametrize("c", [8, 16, 24, 64, 128, 256, 512])
+@pytest.mark.parametrize("r,v", [(37, 50), (37, 10003), (10239, 50), (10239, 10003)])
+def test_wgmma_ce_backward_matches_plain(card, r, v, c):
+    """The bf16 wgmma design at every width class (C = 8 and 24 zero-padded
+    by TMA, C = 512 split across two blocks), R below one tile and ragged
+    at 10239, V below one tile and ragged at 10003."""
+    _wgmma_ce_check(card, *_wgmma_ce_case(card, r, c, v))
+
+
+@pytest.mark.parametrize("c", [8, 64, 512])
+def test_wgmma_ce_backward_wholly_ignored_batch(card, c):
+    """Every cotangent 0: dx, dW and db exactly 0 (no tile runs a product)."""
+    x, w, b, labels, g = _wgmma_ce_case(card, 300, c, 777, live=0.0)
+    dx, dw, db = _wgmma_ce_check(card, x, w, b, labels, g)
+    assert not dx.any() and not dw.any() and not db.any()
+
+
+def test_wgmma_ce_backward_takes_layouts(card):
+    """A non-contiguous bf16 x is copied and taken; a misaligned contiguous
+    one raises (no scalar fallback); a given Wt must be round_weight_t(w)."""
+    x, w, b, labels, g = _wgmma_ce_case(card, 200, 64, 300)
+    wide = torch.zeros(200, 72, dtype=torch.bfloat16, device=card)
+    wide[:, :64] = x
+    _wgmma_ce_check(card, wide[:, :64], w, b, labels, g)
+    _, lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+    wt = ck.round_weight_t(w)
+    assert torch.equal(wt, w.to(torch.bfloat16).t())
+    torch.testing.assert_close(ck.launch_bwd_dx(x, w, b, labels, lse, g, wt),
+                               ck.launch_bwd_dx(x, w, b, labels, lse, g), rtol=0, atol=0)
+    flat = torch.zeros(1 + 200 * 64, dtype=torch.bfloat16, device=card)
+    misaligned = flat[1:].view(200, 64)
+    misaligned.copy_(x)
+    before = ck.ce_dx_counter.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.linear_ce_bwd_dx(misaligned, w, b, labels, lse, g)
+    with pytest.raises(ValueError, match="round_weight_t"):
+        ck.launch_bwd_dw(x, w, b, labels, lse, g, wt.float())
+    assert ck.ce_dx_counter.launches == before
+
+
+@pytest.mark.parametrize("c", [16, 64, 512])
+def test_wgmma_ce_autograd_runs_the_kernels(card, c):
+    """Autograd through ``linear_ce_integer`` in bf16 runs both wgmma kernels
+    once, from one round_weight_t, and matches the plain versions'
+    gradients; a sum's broadcast cotangent is taken too."""
+    x, w, b, labels, g = _wgmma_ce_case(card, 333, c, 1003)
+    counters = (ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
+    grads = []
+    for fn in (ck.linear_ce_integer, ck.plain_linear_ce_integer):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        before = [n.launches for n in counters]
+        fn(*leaves, labels).backward(g)
+        expect = [1, 1] if fn is ck.linear_ce_integer else [0, 0]
+        assert [n.launches - m for n, m in zip(counters, before)] == expect
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        _close(got, ref, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    ck.linear_ce_integer(*leaves, labels).sum().backward()
+    assert all(torch.isfinite(t.grad.float()).all() for t in leaves)
 
 
 def test_train_step_on_the_card_matches_plain(card):

@@ -7,19 +7,23 @@
 - The admission rule of the kernels with two designs: which dtype, head
   dim and strides reach the bf16 ``wgmma`` design, which the f32 scalar one,
   and which raise ``ValueError`` (``attention_kernel.forward_design`` and
-  ``backward_design``, ``qmatmul.matmul_design``); which cotangent layouts
-  the backward reads in place and which it copies first. The rules read
-  layouts only, so CPU tensors answer them.
+  ``backward_design``, ``qmatmul.matmul_design``,
+  ``ce_kernel.ce_backward_design``); which cotangent layouts the backward
+  reads in place and which it copies first; the CE backward's bf16 view of
+  W (``ce_kernel.round_weight_t``). The rules read layouts only, so CPU
+  tensors answer them.
 """
 
 import ctypes
 import re
 
+import numpy as np
 import pytest
 import torch
 
 from perceiver_io_torch.ops import attention_kernel as ak
 from perceiver_io_torch.ops import build
+from perceiver_io_torch.ops import ce_kernel as ck
 from perceiver_io_torch.ops import qmatmul as qm
 
 _PROTOTYPE = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
@@ -200,3 +204,93 @@ def test_dequant_design_refusals(case, match):
         group_size = 12
     with pytest.raises(ValueError, match=match):
         qm.matmul_design(x, group_size)
+
+
+def _prototype_args(name: str) -> list:
+    """The parameter names of one C entry point."""
+    for src in build.sources():
+        for found, args in _PROTOTYPE.findall(src.read_text()):
+            if found == name:
+                return [a.strip().split()[-1].lstrip("*") for a in args.split(",")]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,outputs", [("linear_ce_bwd_dx", ["dx"]),
+                                          ("linear_ce_bwd_dw", ["dw", "db"])])
+def test_ce_backward_prototypes_take_the_bf16_weight(name, outputs):
+    """Both CE backward entry points take W (f32, the scalar design) and Wt
+    (round(W)^T in bf16, the wgmma design) beside each other, in the order
+    the wrappers pass them."""
+    assert _prototype_args(name) == (["dtype", "x", "w", "wt", "b", "labels", "lse", "g"]
+                                     + outputs + ["rows", "channels", "vocab", "stream"])
+
+
+@pytest.mark.parametrize("c", [8, 16, 24, 64, 72, 128, 256, 512])
+@pytest.mark.parametrize("dtype,design", [(torch.float32, "scalar"),
+                                          (torch.bfloat16, "wgmma")])
+def test_ce_backward_design_by_dtype(dtype, design, c):
+    x, w = torch.zeros(37, c, dtype=dtype), torch.zeros(c, 11)
+    assert ck.ce_backward_design(x, w) == design
+    assert ck.ce_backward_design(x, w.to(dtype)) == design  # any W dtype: the kernels round it
+
+
+@pytest.mark.parametrize("layout", ["column_slice", "transposed", "broadcast", "one_row"])
+def test_ce_backward_design_takes_noncontiguous_x(layout):
+    """A bf16 x that is not contiguous is copied to contiguous (aligned)
+    memory by the wrapper, as the scalar design copies it: the wgmma design
+    takes it; so does a single row whatever its stride."""
+    bf = torch.bfloat16
+    x = {"column_slice": lambda: torch.zeros(37, 72, dtype=bf)[:, :64],
+         "transposed": lambda: torch.zeros(64, 37, dtype=bf).t(),
+         "broadcast": lambda: torch.zeros(64, dtype=bf).expand(37, 64),
+         "one_row": lambda: torch.zeros(3, 128, dtype=bf)[1:2, :64]}[layout]()
+    if layout == "one_row":
+        assert x.is_contiguous() and x.data_ptr() % 16 == 0
+    else:
+        assert not x.is_contiguous()
+    assert ck.ce_backward_design(x, torch.zeros(64, 11)) == "wgmma"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("channels_12", "multiple of 8 up to 512"),
+    ("channels_520", "multiple of 8 up to 512"),
+    ("channels_0", "multiple of 8 up to 512"),
+    ("float16", "float32 or bfloat16"),
+    ("misaligned_bf16", "16-byte aligned"),
+    ("w_mismatch", "expected x"),
+    ("x_3d", "expected x"),
+])
+def test_ce_backward_design_refusals(case, match):
+    bf = torch.bfloat16
+    x, w = torch.zeros(37, 64, dtype=bf), torch.zeros(64, 11)
+    if case.startswith("channels_"):
+        c = int(case.split("_")[1])
+        x, w = torch.zeros(37, c, dtype=bf), torch.zeros(c, 11)
+    elif case == "float16":
+        x = x.half()
+    elif case == "misaligned_bf16":
+        x = _misaligned(bf, (37, 64))
+    elif case == "w_mismatch":
+        w = torch.zeros(32, 11)
+    elif case == "x_3d":
+        x = x.view(37, 8, 8)
+    with pytest.raises(ValueError, match=match):
+        ck.ce_backward_design(x, w)
+
+
+def test_f32_ce_backward_takes_any_base():
+    assert ck.ce_backward_design(_misaligned(torch.float32, (37, 64)),
+                                 torch.zeros(64, 11)) == "scalar"
+
+
+@pytest.mark.parametrize("c,v", [(8, 5), (64, 10003), (512, 77)])
+def test_round_weight_t_is_w_in_bf16_transposed(c, v):
+    """The bf16 design's Wt is W rounded to bf16 exactly as ``w.to(x.dtype)``
+    rounds it (the plain backward's rounding), transposed to (V, C) and
+    contiguous in fresh memory."""
+    w = torch.from_numpy(np.random.default_rng(c + v).normal(size=(c, v)).astype(np.float32))
+    wt = ck.round_weight_t(w)
+    assert wt.shape == (v, c) and wt.dtype == torch.bfloat16 and wt.is_contiguous()
+    assert wt.data_ptr() % 16 == 0
+    assert torch.equal(wt, w.to(torch.bfloat16).t())
+    assert torch.equal(wt.t().float(), ck.round_weight_t(w.t().contiguous().t()).t().float())
