@@ -36,8 +36,8 @@ Phases (any failure exits nonzero):
 5. the three fused CE kernels (forward, dx, dW/db) against their plain
    versions at bench.py's head (R, C, V) = (10240, 64, 10003), the flagship
    head (10240, 512, 10003) and a ragged (10239, 64, 10003), f32 (the
-   scalar backward) and bf16 (the wgmma backward; a call must advance both
-   CE wgmma counters), ~15% of rows ignored at random (cotangent 0, their
+   scalar designs) and bf16 (the wgmma designs; a call must advance the
+   three CE wgmma counters), ~15% of rows ignored at random (cotangent 0, their
    dx exactly 0); later, once the data module exists, ``gathered``: bench's
    head in the training path's layout (each example's live rows first among
    its 160, as many as the first training batch's masking gives, g 0 on the
@@ -46,7 +46,8 @@ Phases (any failure exits nonzero):
    kernel, of the plain forward and backward and of the unfused head
    (cuBLAS product + ``softmax_ce_integer``, two library calls; its
    backward by ``autograd.grad`` over a retained graph), and the device
-   and host time of making round(W)^T; each kernel's bound is the largest
+   and host time of making round(W)^T and the host time of one forward call
+   (``fwd_host_us``: bf16 encodes two TMA maps); each kernel's bound is the largest
    of bytes / 3.35 TB/s, its products (2.R.C.V in the forward, twice that
    in each backward kernel, at the rows whose g is not 0) / the dtype's
    peak, and its exponentials (R.V, the backward's at those rows) / (16 a
@@ -85,7 +86,7 @@ Phases (any failure exits nonzero):
     6 self), vocab 10003, 512 tokens) trained as in phase 8 with
     ``make_mlm_steps(fused_head='pallas')``: every step launches exactly 22
     attention forward, 22 dq, 22 dk/dv and one CE forward, dx and dW kernel,
-    the dx and dW through the wgmma design (each eval batch 22 attention
+    all three through the wgmma design (each eval batch 22 attention
     forward and one CE forward), and the loss falls; the share of the CE
     backward's 64-row tiles whose g are all 0 (skipped), per checked step;
     the 10-step window and the 3-step profile; then the unfused head
@@ -95,7 +96,7 @@ Phases (any failure exits nonzero):
 11. ``perceiver_io_torch.cli.train_mlm --preset reference --synthetic``, 5
     steps in-process with ``--eval_every_n_steps 2``: ``--fused_head auto``
     must resolve to the CE kernels on the card (their counters advance, the
-    dx and dW ones all through the wgmma design, no plain version runs),
+    forward, dx and dW ones all through the wgmma design, no plain version runs),
     the vocab head must have the tokenizer's size, and
     validation must run at steps 2, 4 and 5 (the JAX trainer's cadence);
 12. phase 9 on the C=64 path, the plain attention and CE versions in the
@@ -152,8 +153,10 @@ trainer's merge order follows string hashing, so the pin makes every run
 train the same vocabulary and see the same data.
 
 f32 comparisons run with TF32 off. Tolerances against the plain versions:
-f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2; the
-statistics m and l within 1e-5 of max(|ref|, 1) (f32 on both sides). Times
+f32 within 1e-4 of the reference's peak magnitude, bf16 within 2e-2 (the CE
+loss within 1e-4 in both: its bf16 design keeps the plain version's
+rounding points); the statistics m, l and the CE lse within 1e-5 of
+max(|ref|, 1) (f32 on both sides). Times
 are CUDA-event means over repeated launches after a warm-up (phases 2, 3,
 4, 5 and 13 also give each kernel's and the library call's device time from
 torch.profiler, ``device_ms``, which the kernels line reports for every
@@ -192,7 +195,7 @@ KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                 "attention_fwd_wgmma", "attention_bwd_dq_wgmma", "attention_bwd_dkv_wgmma",
                 "packed_attention_fwd_wgmma", "packed_attention_bwd_dq_wgmma",
                 "packed_attention_bwd_dkv_wgmma", "linear_ce_bwd_dx_wgmma",
-                "linear_ce_bwd_dw_wgmma")
+                "linear_ce_bwd_dw_wgmma", "linear_ce_fwd_wgmma")
 BF16_TOP1_AGREEMENT, BF16_LOSS_REL = 0.95, 2e-2
 # (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
 # the flagship head (C=512), a ragged row count
@@ -791,16 +794,16 @@ def path_counters(port):
             pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.wgmma_counter,
             ak.dq_wgmma_counter, ak.dkv_wgmma_counter, pk.fwd_wgmma_counter,
             pk.dq_wgmma_counter, pk.dkv_wgmma_counter, ck.ce_dx_wgmma_counter,
-            ck.ce_dw_wgmma_counter)
+            ck.ce_dw_wgmma_counter, ck.ce_fwd_wgmma_counter)
 
 
 def per_step_launches(fused_head, attn_impl: str = "pallas", bf16: bool = True) -> list:
     """Launches of one train step, in ``path_counters`` order; in bf16 every
-    launch of #1, #2, #3, #4, #5, #7 and #8 takes the wgmma design."""
+    launch of #1-#8 takes the wgmma design."""
     ce = 1 if fused_head else 0
     fused, packed = (0, ATTN_PER_FORWARD) if attn_impl == "packed" else (ATTN_PER_FORWARD, 0)
     return ([fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0] * 3
-            + [packed if bf16 else 0] * 3 + [ce if bf16 else 0] * 2)
+            + [packed if bf16 else 0] * 3 + [ce if bf16 else 0] * 3)
 
 
 def per_eval_launches(per_step: list) -> list:
@@ -1029,8 +1032,9 @@ def cli_phase(torch, port, root: str, vocab: int, attn_impl: str = "pallas") -> 
                     and not any(launches[f"{unused}_{k}"] for k in ("fwd", "bwd_dq", "bwd_dkv")))
     ce_bwd = (launches["linear_ce_bwd_dx"], launches["linear_ce_bwd_dw"],
               launches["linear_ce_bwd_dx_wgmma"], launches["linear_ce_bwd_dw_wgmma"])
-    if ce_bwd != (CLI_STEPS,) * 4 \
-            or launches["linear_ce_fwd"] <= CLI_STEPS or any(c.plain_calls for c in counters) \
+    if ce_bwd != (CLI_STEPS,) * 4 or launches["linear_ce_fwd"] <= CLI_STEPS \
+            or launches["linear_ce_fwd_wgmma"] != launches["linear_ce_fwd"] \
+            or any(c.plain_calls for c in counters) \
             or not attention_ok or not all(math.isfinite(r["train_loss"]) for r in train) \
             or built != [vocab] or val_steps != [2, 4, CLI_STEPS]:
         raise AssertionError(f"train_mlm --preset reference --attn_impl {attn_impl}: "
@@ -1176,29 +1180,32 @@ def zero_row_tiles(g) -> float:
 def ce_case(torch, ck, softmax_ce_integer, clock_hz: float, name: str, x32, w, b, labels, g):
     """One CE shape, f32 and bf16: the three kernels against their plain
     versions (loss and lse, then dx, dW and db from the plain lse; dx of every
-    row whose g is 0 exactly 0; a bf16 backward call must advance both wgmma
-    counters), CUDA-event and profiler device times of each kernel, of the
+    row whose g is 0 exactly 0; a bf16 call of each must advance its wgmma
+    counter), CUDA-event and profiler device times of each kernel, of the
     plain versions and of the unfused head, the share of row tiles the bf16
-    backward skips, and what making round(W)^T costs."""
+    backward skips, what making round(W)^T costs and the forward's host time
+    a call."""
     r, c = x32.shape
     v = w.shape[1]
     ignored = g == 0
     live = int((~ignored).sum())
-    wgmma_counters = (ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
+    wgmma_counters = (ck.ce_fwd_wgmma_counter, ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[1]
         x = x32.to("cuda", dtype)
-        loss, lse = ck.linear_ce_fwd(x, w, b, labels)
-        ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
-        fwd_err = check(f"ce loss {name} {dt}", loss, ref_loss, dt)
-        lse_rel = check_stats(f"ce lse {name} {dt}", lse, ref_lse)
         design = ck.ce_backward_design(x, w)
         before = [n.launches for n in wgmma_counters]
+        loss, lse = ck.linear_ce_fwd(x, w, b, labels)
+        ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+        # both designs keep the plain version's rounding points: f32's bar
+        fwd_err = check(f"ce loss {name} {dt}", loss, ref_loss, "float32")
+        lse_rel = check_stats(f"ce lse {name} {dt}", lse, ref_lse)
         dx = ck.linear_ce_bwd_dx(x, w, b, labels, ref_lse, g)
         dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, ref_lse, g)
         wgmma = [n.launches - m for n, m in zip(wgmma_counters, before)]
-        if wgmma != [int(design == "wgmma")] * 2 or (design == "wgmma") != (dt == "bfloat16"):
+        if wgmma != [int(design == "wgmma")] * 3 or (design == "wgmma") != (dt == "bfloat16") \
+                or ck.ce_forward_design(x, w) != design:
             raise AssertionError(f"ce {name} {dt}: {design} call, wgmma counters {wgmma}")
         ref_dx, ref_dw, ref_db = ck.linear_ce_bwd_reference(x, w, b, labels, ref_lse, g)
         dx_err = check(f"ce dx {name} {dt}", dx, ref_dx, dt)
@@ -1223,14 +1230,14 @@ def ce_case(torch, ck, softmax_ce_integer, clock_hz: float, name: str, x32, w, b
         leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
         unfused = softmax_ce_integer(leaves[0] @ leaves[1].to(dtype) + leaves[2].to(dtype), labels)
         wt = ck.round_weight_t(w) if design == "wgmma" else None
-        run_fwd = lambda: ck.launch_fwd(x, w, b, labels)  # noqa: E731
+        run_fwd = lambda: ck.launch_fwd(x, w, b, labels, wt)  # noqa: E731
         run_dx = lambda: ck.launch_bwd_dx(x, w, b, labels, ref_lse, g, wt)  # noqa: E731
         run_dw = lambda: ck.launch_bwd_dw(x, w, b, labels, ref_lse, g, wt)  # noqa: E731
         library_fwd = lambda: softmax_ce_integer(x @ w.to(dtype) + b.to(dtype), labels)  # noqa: E731
         library_bwd = lambda: torch.autograd.grad(unfused, leaves, g,  # noqa: E731
                                                   retain_graph=True)
         extra = {}
-        if design == "wgmma":  # round(W)^T, made once per backward
+        if design == "wgmma":  # round(W)^T, made once per train step
             extra = dict(wt_device_ms=device_ms(torch, lambda: ck.round_weight_t(w)),
                          wt_host_us=host_us(torch, lambda: ck.round_weight_t(w)))
         row = dict(
@@ -1240,6 +1247,7 @@ def ce_case(torch, ck, softmax_ce_integer, clock_hz: float, name: str, x32, w, b
             fwd_max_abs_err=fwd_err, lse_max_rel_err=lse_rel, dx_max_abs_err=dx_err,
             dw_max_abs_err=dw_err,
             fwd_ms=time_ms(run_fwd), dx_ms=time_ms(run_dx), dw_ms=time_ms(run_dw),
+            fwd_host_us=host_us(torch, run_fwd),
             fwd_device_ms=device_ms(torch, run_fwd, "linear_ce_fwd"),
             dx_device_ms=device_ms(torch, run_dx, "linear_ce_bwd_dx"),
             dw_device_ms=device_ms(torch, run_dw, "linear_ce_bwd_dw"),
@@ -1599,11 +1607,10 @@ def main() -> int:
     bwd_src = "perceiver_io_torch/csrc/attention_bwd.cu"
     fwd_src, deq_src = ("perceiver_io_torch/csrc/attention_fwd.cu",
                         "perceiver_io_torch/csrc/dequant_matmul.cu")
-    # the main paths run bf16: every launch of #1, #2, #3, #4, #5, #7, #8
-    # and #9 there is a wgmma one
+    # the main paths run bf16: every launch of #1-#9 there is a wgmma one
     for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "dequant_matmul",
                  "packed_attention_fwd", "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
-                 "linear_ce_bwd_dx", "linear_ce_bwd_dw"):
+                 "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw"):
         if launches[f"{name}_wgmma"] != launches[name]:
             raise AssertionError(f"{name}: {launches[f'{name}_wgmma']} of {launches[name]} "
                                  f"main-path launches took the wgmma design")
@@ -1627,8 +1634,8 @@ def main() -> int:
         entry(deq_rows, "dequant_matmul_wgmma", deq_src,
               "perceiver_io_tpu/ops/pallas_matmul.py:125", proj_bf16),
     ]
-    # the CE kernels at bench.py's head (the scalar dx and dW/db in f32, the
-    # others in bf16), the packed kernels at the C=64 encoder cross in bf16;
+    # the CE kernels at bench.py's head (the scalar designs in f32, the
+    # wgmma ones in bf16), the packed kernels at the C=64 encoder cross in bf16;
     # plain_ms and library_ms of the backward kernels are those of the whole
     # backward (the plain version and the library's autograd compute every
     # gradient in one call); ms and library_ms are device times
@@ -1641,7 +1648,8 @@ def main() -> int:
     packed_src = "perceiver_io_torch/csrc/packed_attention.cu"
     ce_src = "perceiver_io_torch/csrc/linear_ce_{}.cu"
     for name, row, part, source, replaces in (
-            ("linear_ce_fwd", head, "fwd", ce_src.format("fwd"), "pallas_ce.py:95"),
+            ("linear_ce_fwd", head32, "fwd", ce_src.format("fwd"), "pallas_ce.py:206"),
+            ("linear_ce_fwd_wgmma", head, "fwd", ce_src.format("fwd"), "pallas_ce.py:95"),
             ("linear_ce_bwd_dx", head32, "dx", ce_src.format("bwd"), "pallas_ce.py:248"),
             ("linear_ce_bwd_dw", head32, "dw", ce_src.format("bwd"), "pallas_ce.py:270"),
             ("linear_ce_bwd_dx_wgmma", head, "dx", ce_src.format("bwd"), "pallas_ce.py:143"),
@@ -1665,7 +1673,7 @@ def main() -> int:
             bound_ms=row[f"{part}_bound_ms"], bound_by=row[f"{part}_bound_by"],
             library_ms=row[f"library_{way}_device_ms" if device else f"library_{way}_ms"],
             shape=row["shape"], dims=row["dims"], dtype=row["dtype"],
-            design="scalar" if name == "linear_ce_fwd" else row["design"],  # #6: one design
+            design=row["design"],
             event_ms=row[f"{part}_ms"], ms_source="device" if device else "event"))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

@@ -40,7 +40,7 @@ _SIGNATURES = {
                          + [_c_i64] * 12 + [_c_ptr],
     "dequant_matmul": [_c_int, _c_int, _c_int] + [_c_ptr] * 4 + [_c_int] * 3
                       + [_c_ptr],
-    "linear_ce_fwd": [_c_int] + [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr],
+    "linear_ce_fwd": [_c_int] + [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
     "linear_ce_bwd_dx": [_c_int] + [_c_ptr] * 8 + [_c_int] * 3 + [_c_ptr],
     "linear_ce_bwd_dw": [_c_int] + [_c_ptr] * 9 + [_c_int] * 3 + [_c_ptr],
     "packed_attention_fwd": [_c_int, _c_int] + [_c_ptr] * 5 + [_c_int] * 4

@@ -10,14 +10,17 @@ vocab) logits never in device memory, forward or backward.
   log-sum-exp ``lse``, both (R,) f32; ``lse`` is the backward's residual.
 - backward: ``csrc/linear_ce_bwd.cu``, one kernel for dx
   (``_bwd_dx_kernel``) and one for dW and db (``_bwd_dw_kernel``), each
-  recomputing ``d = (softmax - onehot) * g`` from ``lse``, in two designs
-  chosen by x's dtype (:func:`ce_backward_design`): exact scalar FMAs for
-  float32, tensor-core ``wgmma`` for bfloat16, which reads W as
-  :func:`round_weight_t` (W rounded to bf16 and transposed, made once per
-  backward) and skips 64-row tiles whose cotangents are all 0.
+  recomputing ``d = (softmax - onehot) * g`` from ``lse``.
+- Each kernel has two designs chosen by x's dtype
+  (:func:`ce_forward_design`, :func:`ce_backward_design`): exact scalar FMAs
+  for float32, tensor-core ``wgmma`` for bfloat16 (``csrc/linear_ce_wgmma.cuh``,
+  one tile-and-ring body for all three), which reads W as
+  :func:`round_weight_t` (W rounded to bf16 and transposed); the bf16
+  backward skips 64-row tiles whose cotangents are all 0.
 - :class:`FusedLinearCE`: the ``torch.autograd.Function`` twin of the
-  ``_fused_ce`` custom VJP; :func:`linear_ce_integer` is the counterpart of
-  ``pallas_linear_ce_integer``.
+  ``_fused_ce`` custom VJP, which makes round(W)^T once a step for the bf16
+  forward and hands it to the backward; :func:`linear_ce_integer` is the
+  counterpart of ``pallas_linear_ce_integer``.
 
 Rounding points, as the TPU kernels: W is rounded to x's dtype before the
 product, which accumulates in f32, and the f32 bias is added after; ``d`` is
@@ -30,7 +33,7 @@ and the plain versions against the JAX package's Pallas path.
 CUDA tensors launch the kernels (x f32 or bf16, C a multiple of 8 up to
 ``MAX_CHANNELS``); CPU tensors run the plain versions
 (:func:`linear_ce_fwd_reference`, :func:`linear_ce_bwd_reference`). There is
-no fallback between the two, nor between the backward's two designs: a bf16
+no fallback between the two, nor between a kernel's two designs: a bf16
 call the wgmma kernels cannot take raises.
 """
 
@@ -46,6 +49,7 @@ MAX_CHANNELS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 ce_fwd_counter = build.LaunchCounter()   # linear_ce_fwd
+ce_fwd_wgmma_counter = build.LaunchCounter()  # linear_ce_fwd, the bf16 wgmma design
 ce_dx_counter = build.LaunchCounter()    # linear_ce_bwd_dx
 ce_dw_counter = build.LaunchCounter()    # linear_ce_bwd_dw
 ce_dx_wgmma_counter = build.LaunchCounter()  # linear_ce_bwd_dx, the bf16 wgmma design
@@ -124,29 +128,7 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def launch_fwd(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel alone: ``(loss, lse)``, (R,) f32."""
-    x, w, b, labels = _kernel_inputs(x, w, b, labels)
-    r, c = x.shape
-    loss = torch.empty(r, dtype=torch.float32, device=x.device)
-    lse = torch.empty_like(loss)
-    if r:
-        build.check_launch("linear_ce_fwd", build.library().linear_ce_fwd(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            labels.data_ptr(), loss.data_ptr(), lse.data_ptr(), r, c, w.shape[1],
-            _stream(x)))
-        ce_fwd_counter.launches += 1
-    return loss, lse
-
-
-def ce_backward_design(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The design of the two backward kernels for x (R, C) and w (C, V):
-    ``'scalar'`` for float32 x (exact f32 FMAs), ``'wgmma'`` for bfloat16 x
-    (tensor cores; x is read by TMA, so a contiguous x needs a 16-byte
-    aligned base, and any other layout is copied to contiguous first, as the
-    scalar design copies it too). Raises ``ValueError`` on what neither
-    takes. Checks shapes and layout only, so it answers for CPU tensors
-    too."""
+def _design(x: torch.Tensor, w: torch.Tensor, kernel: str) -> str:
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"expected x (R, C) and w (C, V); got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -160,16 +142,68 @@ def ce_backward_design(x: torch.Tensor, w: torch.Tensor) -> str:
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the CE kernels take float32 or bfloat16 x, got {x.dtype}")
     if x.is_contiguous() and x.data_ptr() % 16:
-        raise ValueError("bf16 CE backward: x is not 16-byte aligned, as its TMA loads need")
+        raise ValueError(f"bf16 CE {kernel}: x is not 16-byte aligned, as its TMA loads need")
     return "wgmma"
+
+
+def ce_forward_design(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The design of the forward kernel for x (R, C) and w (C, V):
+    ``'scalar'`` for float32 x (exact f32 FMAs), ``'wgmma'`` for bfloat16 x
+    (tensor cores; x is read by TMA, so a contiguous x needs a 16-byte
+    aligned base, and any other layout is copied to contiguous first, as the
+    scalar design copies it too). Raises ``ValueError`` on what neither
+    takes. Checks shapes and layout only, so it answers for CPU tensors
+    too."""
+    return _design(x, w, "forward")
+
+
+def ce_backward_design(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The design of the two backward kernels, by the rule of
+    :func:`ce_forward_design`."""
+    return _design(x, w, "backward")
 
 
 def round_weight_t(w: torch.Tensor) -> torch.Tensor:
     """W (C, V) rounded to bf16 and transposed, (V, C) contiguous, in one
-    copy: the bf16 backward kernels' view of W (the same rounding as the
-    f32 W rounded inside the product)."""
+    copy: the bf16 kernels' view of W (the same rounding as the f32 W
+    rounded inside the product)."""
     wt = torch.empty((w.shape[1], w.shape[0]), dtype=torch.bfloat16, device=w.device)
     return wt.copy_(w.t())
+
+
+def _weight_t(design, x, w, wt):
+    """The Wt a design reads: None for the scalar design; for the wgmma one
+    ``wt`` checked, or :func:`round_weight_t` of w when it is None."""
+    if design != "wgmma":
+        return None
+    if wt is None:
+        return round_weight_t(w)
+    if (wt.shape != w.t().shape or wt.dtype != torch.bfloat16 or wt.device != x.device
+            or not wt.is_contiguous() or wt.data_ptr() % 16):
+        raise ValueError(f"wt must be round_weight_t(w): (V, C) bf16, contiguous and "
+                         f"16-byte aligned on {x.device}; got {tuple(wt.shape)} {wt.dtype}")
+    return wt
+
+
+def launch_fwd(x, w, b, labels, wt=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel alone: ``(loss, lse)``, (R,) f32. ``wt`` is
+    :func:`round_weight_t` of w for the bf16 design, made here when not
+    given."""
+    design = ce_forward_design(x, w)
+    x, w, b, labels = _kernel_inputs(x, w, b, labels)
+    wt = _weight_t(design, x, w, wt)
+    r, c = x.shape
+    loss = torch.empty(r, dtype=torch.float32, device=x.device)
+    lse = torch.empty_like(loss)
+    if r:
+        build.check_launch("linear_ce_fwd", build.library().linear_ce_fwd(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+            wt.data_ptr() if wt is not None else None, b.data_ptr(), labels.data_ptr(),
+            loss.data_ptr(), lse.data_ptr(), r, c, w.shape[1], _stream(x)))
+        ce_fwd_counter.launches += 1
+        if design == "wgmma":
+            ce_fwd_wgmma_counter.launches += 1
+    return loss, lse
 
 
 def _bwd_inputs(x, w, b, labels, lse, g, wt):
@@ -179,16 +213,7 @@ def _bwd_inputs(x, w, b, labels, lse, g, wt):
     if lse.shape != labels.shape or g.shape != labels.shape:
         raise ValueError(f"lse {tuple(lse.shape)} and g {tuple(g.shape)} must be "
                          f"{tuple(labels.shape)}")
-    if design == "wgmma":
-        if wt is None:
-            wt = round_weight_t(w)
-        elif (wt.shape != w.t().shape or wt.dtype != torch.bfloat16 or wt.device != x.device
-              or not wt.is_contiguous() or wt.data_ptr() % 16):
-            raise ValueError(f"wt must be round_weight_t(w): (V, C) bf16, contiguous and "
-                             f"16-byte aligned on {x.device}; got {tuple(wt.shape)} {wt.dtype}")
-    else:
-        wt = None
-    return design, x, w, b, labels, lse, g, wt
+    return design, x, w, b, labels, lse, g, _weight_t(design, x, w, wt)
 
 
 def launch_bwd_dx(x, w, b, labels, lse, g, wt=None) -> torch.Tensor:
@@ -230,14 +255,23 @@ def launch_bwd_dw(x, w, b, labels, lse, g, wt=None) -> Tuple[torch.Tensor, torch
     return dw, db
 
 
-def linear_ce_fwd(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(loss, lse)``: the forward kernel on CUDA tensors,
-    :func:`linear_ce_fwd_reference` on CPU tensors."""
+def _forward(x, w, b, labels):
+    """``(loss, lse, wt)``: the forward kernel on CUDA tensors, with ``wt``
+    the :func:`round_weight_t` its wgmma design read (None for the scalar
+    design), for the backward to reuse; the plain version on CPU tensors
+    (``wt`` None)."""
     _check(x, w, b, labels)
     if x.device.type == "cpu":
         ce_fwd_counter.plain_calls += 1
-        return linear_ce_fwd_reference(x, w, b, labels)
-    return launch_fwd(x, w, b, labels)
+        return (*linear_ce_fwd_reference(x, w, b, labels), None)
+    wt = round_weight_t(w) if ce_forward_design(x, w) == "wgmma" else None
+    return (*launch_fwd(x, w, b, labels, wt), wt)
+
+
+def linear_ce_fwd(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, lse)``: the forward kernel on CUDA tensors,
+    :func:`linear_ce_fwd_reference` on CPU tensors."""
+    return _forward(x, w, b, labels)[:2]
 
 
 def linear_ce_bwd_dx(x, w, b, labels, lse, g) -> torch.Tensor:
@@ -259,36 +293,42 @@ def linear_ce_bwd_dw(x, w, b, labels, lse, g) -> Tuple[torch.Tensor, torch.Tenso
     return launch_bwd_dw(x, w, b, labels, lse, g)
 
 
-def _backward(x, w, b, labels, lse, g):
+def _backward(x, w, b, labels, lse, g, wt):
+    """dx, dW, db from both backward kernels, reading the forward's ``wt``,
+    or the plain backward on CPU tensors."""
     if x.device.type == "cpu":
         ce_dx_counter.plain_calls += 1
         ce_dw_counter.plain_calls += 1
         return linear_ce_bwd_reference(x, w, b, labels, lse, g)
-    wt = round_weight_t(w) if ce_backward_design(x, w) == "wgmma" else None
     return (launch_bwd_dx(x, w, b, labels, lse, g, wt),
             *launch_bwd_dw(x, w, b, labels, lse, g, wt))
 
 
 class FusedLinearCE(torch.autograd.Function):
     """Per-row CE of ``x @ w + b`` with the kernels' backward: the forward
-    saves x, w, b, labels and lse; the backward returns dx, dW and db in the
-    parameters' dtypes (labels get no gradient). ``plain=True`` runs the
-    plain versions on any device (the kernels' stand-in in parity runs on the
-    card)."""
+    saves x, w, b, labels, lse and the bf16 design's round(W)^T, which the
+    backward reads again (one copy of W a step, V.C.2 bytes); the backward
+    returns dx, dW and db in the parameters' dtypes (labels get no
+    gradient). ``plain=True`` runs the plain versions on any device (the
+    kernels' stand-in in parity runs on the card)."""
 
     @staticmethod
     def forward(ctx, x, w, b, labels, plain: bool = False):
-        fwd = linear_ce_fwd_reference if plain else linear_ce_fwd
-        loss, lse = fwd(x, w, b, labels)
+        if plain:
+            loss, lse, wt = (*linear_ce_fwd_reference(x, w, b, labels), None)
+        else:
+            loss, lse, wt = _forward(x, w, b, labels)
         ctx.plain = plain
-        ctx.save_for_backward(x, w, b, labels, lse)
+        ctx.save_for_backward(x, w, b, labels, lse, wt)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        x, w, b, labels, lse = ctx.saved_tensors
-        bwd = linear_ce_bwd_reference if ctx.plain else _backward
-        dx, dw, db = bwd(x, w, b, labels, lse, g.contiguous())
+        x, w, b, labels, lse, wt = ctx.saved_tensors
+        if ctx.plain:
+            dx, dw, db = linear_ce_bwd_reference(x, w, b, labels, lse, g.contiguous())
+        else:
+            dx, dw, db = _backward(x, w, b, labels, lse, g.contiguous(), wt)
         return dx, dw.to(w.dtype), db.to(b.dtype), None, None
 
 

@@ -16,7 +16,9 @@ chunked plain-PyTorch head against the JAX chunked head, the wrappers'
 counting and validation, and the exactness the bf16 backward's skipping of
 64-row tiles whose cotangents are all 0 relies on (rows with g = 0 add
 exactly nothing, in the Pallas backward too), at random and in the training
-path's gathered layout. The CUDA kernels themselves run only on the card:
+path's gathered layout, and that a step makes the bf16 kernels' round(W)^T
+once and hands it from the forward to the backward. The CUDA kernels
+themselves run only on the card:
 tests/test_torch_cuda.py holds them against these plain versions there."""
 
 import jax
@@ -247,6 +249,54 @@ def test_wrappers_count_plain_calls_and_validate():
                          torch.zeros(4, dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError, match="no CE kernel for device meta"):
         ck.linear_ce_fwd(x.to("meta"), w.to("meta"), b.to("meta"), labels.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ce_makes_the_bf16_weight_once_a_step(monkeypatch, dtype):
+    """A ``FusedLinearCE`` forward and backward through the kernels' path
+    (meta tensors take it on the CPU; stand-in launches record the Wt each
+    kernel is handed): in bf16 (the wgmma design) round(W)^T is made once, in
+    the forward, and the forward, dx and dW/db launches all get that one
+    tensor; in f32 (the scalar design) none is made and each gets None.
+    Without autograd, the forward makes its own."""
+    made, handed = [], {}
+    round_weight_t = ck.round_weight_t
+
+    def counted(w):
+        made.append(round_weight_t(w))
+        return made[-1]
+
+    def fwd(x, w, b, labels, wt=None):
+        handed["fwd"] = wt
+        return torch.empty(x.shape[0], device=x.device), torch.empty(x.shape[0], device=x.device)
+
+    def dx(x, w, b, labels, lse, g, wt=None):
+        handed["dx"] = wt
+        return torch.empty_like(x)
+
+    def dw(x, w, b, labels, lse, g, wt=None):
+        handed["dw"] = wt
+        return torch.empty_like(w), torch.empty_like(b)
+
+    for name, fn in (("round_weight_t", counted), ("launch_fwd", fwd), ("launch_bwd_dx", dx),
+                     ("launch_bwd_dw", dw)):
+        monkeypatch.setattr(ck, name, fn)
+    x = torch.empty(37, 64, dtype=dtype, device="meta", requires_grad=True)
+    w = torch.empty(64, 11, device="meta", requires_grad=True)
+    b = torch.empty(11, device="meta", requires_grad=True)
+    labels = torch.zeros(37, dtype=torch.int64, device="meta")
+    ck.linear_ce_integer(x, w, b, labels).sum().backward()
+    assert sorted(handed) == ["dw", "dx", "fwd"]
+    if dtype == torch.bfloat16:
+        assert len(made) == 1 and made[0].shape == (11, 64)
+        assert all(wt is made[0] for wt in handed.values())
+    else:
+        assert not made and all(wt is None for wt in handed.values())
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape and b.grad.shape == b.shape
+    with torch.no_grad():
+        ck.linear_ce_integer(x, w, b, labels)
+    assert len(made) == (2 if dtype == torch.bfloat16 else 0)
+    assert handed["fwd"] is (made[-1] if made else None)
 
 
 GATHERED_COUNTS = [40, 3, 0, 0, 0, 17, 0, 0, 1, 0]

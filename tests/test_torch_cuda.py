@@ -15,7 +15,11 @@ fused CE kernels (forward, dx, dW/db at a small, a ragged and a C=512
 shape; autograd through ``linear_ce_integer``; the tiny train step with
 ``fused_head='pallas'``; the bf16 wgmma design of dx and dW/db at every
 width class, R and V below one tile and ragged, tiles of ignored rows
-between live ones, a wholly ignored batch, a label at V - 1, layouts), and the packed-heads kernels (forward, dq, dk/dv
+between live ones, a wholly ignored batch, a label at V - 1, layouts; the
+bf16 wgmma forward at every width class, ragged R and V, labels at 0,
+V - 1 and in the partial last tile, a row of equal logits, logits of ~1e3,
+layouts, loss within 1e-4 of its peak and lse 1e-5 relative; one
+round(W)^T a bf16 autograd step), and the packed-heads kernels (forward, dq, dk/dv
 at small, ragged, wide, head-split and tail-padded shapes; autograd through
 ``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``),
 and the bf16 wgmma designs of the forward, of the two backward kernels,
@@ -331,19 +335,21 @@ def _ce_inputs(card, dtype, r, c, v, seed=0):
 def test_ce_kernels_match_plain(card, dtype, r, c, v):
     x, w, b, labels, g = _ce_inputs(card, dtype, r, c, v)
     counters = (ck.ce_fwd_counter, ck.ce_dx_counter, ck.ce_dw_counter)
+    wgmma = (ck.ce_fwd_wgmma_counter, ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
     before = [n.launches for n in counters]
+    wgmma_before = [n.launches for n in wgmma]
     loss, lse = ck.linear_ce_fwd(x, w, b, labels)
     ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
     _close(loss, ref_loss, dtype)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
-    wgmma = (ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
-    wgmma_before = [n.launches for n in wgmma]
     dx = ck.linear_ce_bwd_dx(x, w, b, labels, ref_lse, g)
     dw, db = ck.linear_ce_bwd_dw(x, w, b, labels, ref_lse, g)
     assert [n.launches - m for n, m in zip(counters, before)] == [1, 1, 1]
-    expect = [1, 1] if ck.ce_backward_design(x, w) == "wgmma" else [0, 0]
+    design = ck.ce_backward_design(x, w)
+    assert ck.ce_forward_design(x, w) == design
+    expect = [1, 1, 1] if design == "wgmma" else [0, 0, 0]
     assert [n.launches - m for n, m in zip(wgmma, wgmma_before)] == expect
-    assert expect == ([1, 1] if dtype == torch.bfloat16 else [0, 0])
+    assert expect == ([1, 1, 1] if dtype == torch.bfloat16 else [0, 0, 0])
     refs = ck.linear_ce_bwd_reference(x, w, b, labels, ref_lse, g)
     for got, ref in zip((dx, dw, db), refs):
         assert got.shape == ref.shape and got.dtype == ref.dtype
@@ -450,25 +456,114 @@ def test_wgmma_ce_backward_takes_layouts(card):
 
 
 @pytest.mark.parametrize("c", [16, 64, 512])
-def test_wgmma_ce_autograd_runs_the_kernels(card, c):
-    """Autograd through ``linear_ce_integer`` in bf16 runs both wgmma kernels
-    once, from one round_weight_t, and matches the plain versions'
-    gradients; a sum's broadcast cotangent is taken too."""
+def test_wgmma_ce_autograd_runs_the_kernels(card, c, monkeypatch):
+    """Autograd through ``linear_ce_integer`` in bf16 runs the three wgmma
+    kernels once each, from one round_weight_t a step (made by the forward,
+    read again by the backward), and matches the plain versions' gradients;
+    a sum's broadcast cotangent is taken too."""
     x, w, b, labels, g = _wgmma_ce_case(card, 333, c, 1003)
-    counters = (ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
+    counters = (ck.ce_fwd_wgmma_counter, ck.ce_dx_wgmma_counter, ck.ce_dw_wgmma_counter)
+    made = []
+    round_weight_t = ck.round_weight_t
+    monkeypatch.setattr(ck, "round_weight_t", lambda w: made.append(1) or round_weight_t(w))
     grads = []
     for fn in (ck.linear_ce_integer, ck.plain_linear_ce_integer):
         leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
         before = [n.launches for n in counters]
+        made.clear()
         fn(*leaves, labels).backward(g)
-        expect = [1, 1] if fn is ck.linear_ce_integer else [0, 0]
+        expect = [1, 1, 1] if fn is ck.linear_ce_integer else [0, 0, 0]
         assert [n.launches - m for n, m in zip(counters, before)] == expect
+        assert len(made) == expect[0]
         grads.append([t.grad for t in leaves])
     for got, ref in zip(*grads):
         _close(got, ref, torch.bfloat16)
     leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
     ck.linear_ce_integer(*leaves, labels).sum().backward()
     assert all(torch.isfinite(t.grad.float()).all() for t in leaves)
+
+
+def _wgmma_ce_fwd_check(x, w, b, labels):
+    """loss and lse of the bf16 wgmma forward against the plain version (the
+    same rounding points; only the order of the sums and ex2.approx differ):
+    the loss within 1e-4 of its peak, lse within 1e-5 relative; the call
+    advances the wgmma counter once."""
+    assert ck.ce_forward_design(x, w) == "wgmma"
+    counters = (ck.ce_fwd_counter, ck.ce_fwd_wgmma_counter)
+    before = [n.launches for n in counters]
+    loss, lse = ck.linear_ce_fwd(x, w, b, labels)
+    assert [n.launches - m for n, m in zip(counters, before)] == [1, 1]
+    ref_loss, ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)
+    assert loss.shape == lse.shape == ref_lse.shape and loss.dtype == lse.dtype == torch.float32
+    _close(loss, ref_loss, torch.float32)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=0.0)
+    return loss, lse
+
+
+def _label_edges(labels, v):
+    """Rows 0, 1 and 2 labelled at column 0, V - 1 and inside the last vocab
+    tile (partial unless 64 divides V)."""
+    labels = labels.clone()
+    last = v - 1 - (v - 1) % 64
+    labels[:3] = torch.tensor([0, v - 1, last + (v - last) // 2])
+    return labels
+
+
+@pytest.mark.parametrize("c", [8, 16, 24, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("r,v", [(37, 50), (37, 10003), (10239, 50), (10239, 10003)])
+def test_wgmma_ce_forward_matches_plain(card, r, v, c):
+    """The bf16 wgmma forward at every width class (C = 8 and 24 zero-padded
+    by TMA), R below one tile and ragged at 10239 (TMA's zero rows computed,
+    not stored), V below one tile and ragged at 10003 (the pad bias on the
+    last tile's 45 or 14 dead columns), labels at 0, V - 1 and in the
+    partial last tile."""
+    x, w, b, labels, _ = _wgmma_ce_case(card, r, c, v)
+    _wgmma_ce_fwd_check(x, w, b, _label_edges(labels, v))
+
+
+@pytest.mark.parametrize("c", [8, 64, 512])
+@pytest.mark.parametrize("case", ["flat_row", "large_logits"])
+def test_wgmma_ce_forward_edges(card, case, c):
+    """A row whose logits are all equal (x = 0 and a constant bias: lse =
+    b + log V, loss = log V exactly in real arithmetic), and logits of
+    magnitude ~1e3 (x scaled up), where the online max carries the sum."""
+    r, v = 300, 10003
+    x, w, b, labels, _ = _wgmma_ce_case(card, r, c, v)
+    labels = _label_edges(labels, v)
+    if case == "flat_row":
+        x[3] = 0
+        b = torch.full_like(b, 0.25)
+    else:
+        x = (x.float() * 1e3 / 0.58).to(torch.bfloat16)
+    loss, lse = _wgmma_ce_fwd_check(x, w, b, labels)
+    if case == "flat_row":
+        assert abs(float(lse[3]) - (0.25 + np.log(v))) <= 1e-5 * (0.25 + np.log(v))
+        assert abs(float(loss[3]) - np.log(v)) <= 1e-5 * np.log(v)
+    else:
+        ref_lse = ck.linear_ce_fwd_reference(x, w, b, labels)[1]
+        assert float(ref_lse.abs().max()) > 500
+
+
+def test_wgmma_ce_forward_takes_layouts(card):
+    """A non-contiguous bf16 x is copied and taken; a misaligned contiguous
+    one raises (no scalar fallback); a given Wt must be round_weight_t(w),
+    and one given gives the same outputs as one made by the wrapper."""
+    x, w, b, labels, _ = _wgmma_ce_case(card, 200, 64, 300)
+    wide = torch.zeros(200, 72, dtype=torch.bfloat16, device=card)
+    wide[:, :64] = x
+    _wgmma_ce_fwd_check(wide[:, :64], w, b, labels)
+    wt = ck.round_weight_t(w)
+    for got, ref in zip(ck.launch_fwd(x, w, b, labels, wt), ck.launch_fwd(x, w, b, labels)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    flat = torch.zeros(1 + 200 * 64, dtype=torch.bfloat16, device=card)
+    misaligned = flat[1:].view(200, 64)
+    misaligned.copy_(x)
+    before = ck.ce_fwd_counter.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.linear_ce_fwd(misaligned, w, b, labels)
+    with pytest.raises(ValueError, match="round_weight_t"):
+        ck.launch_fwd(x, w, b, labels, wt.float())
+    assert ck.ce_fwd_counter.launches == before
 
 
 def test_train_step_on_the_card_matches_plain(card):

@@ -8,9 +8,9 @@
   dim and strides reach the bf16 ``wgmma`` design, which the f32 scalar one,
   and which raise ``ValueError`` (``attention_kernel.forward_design`` and
   ``backward_design``, ``qmatmul.matmul_design``,
-  ``ce_kernel.ce_backward_design``); which cotangent layouts the backward
-  reads in place and which it copies first; the CE backward's bf16 view of
-  W (``ce_kernel.round_weight_t``). The rules read layouts only, so CPU
+  ``ce_kernel.ce_forward_design`` and ``ce_backward_design``); which
+  cotangent layouts the backward reads in place and which it copies first;
+  the CE kernels' bf16 view of W (``ce_kernel.round_weight_t``). The rules read layouts only, so CPU
   tensors answer them.
 """
 
@@ -216,29 +216,40 @@ def _prototype_args(name: str) -> list:
 
 
 @pytest.mark.parametrize("name,outputs", [("linear_ce_bwd_dx", ["dx"]),
-                                          ("linear_ce_bwd_dw", ["dw", "db"])])
+                                          ("linear_ce_bwd_dw", ["dw", "db"]),
+                                          ("linear_ce_fwd", ["loss", "lse"])])
 def test_ce_backward_prototypes_take_the_bf16_weight(name, outputs):
-    """Both CE backward entry points take W (f32, the scalar design) and Wt
-    (round(W)^T in bf16, the wgmma design) beside each other, in the order
-    the wrappers pass them."""
-    assert _prototype_args(name) == (["dtype", "x", "w", "wt", "b", "labels", "lse", "g"]
+    """The CE entry points, the two backward ones and the forward, take W
+    (f32, the scalar design) and Wt (round(W)^T in bf16, the wgmma design)
+    beside each other, in the order the wrappers pass them."""
+    inputs = [] if name == "linear_ce_fwd" else ["lse", "g"]
+    assert _prototype_args(name) == (["dtype", "x", "w", "wt", "b", "labels"] + inputs
                                      + outputs + ["rows", "channels", "vocab", "stream"])
+
+
+def _ce_design_by_dtype(design_of, dtype, design, c):
+    x, w = torch.zeros(37, c, dtype=dtype), torch.zeros(c, 11)
+    assert design_of(x, w) == design
+    assert design_of(x, w.to(dtype)) == design  # any W dtype: the kernels round it
 
 
 @pytest.mark.parametrize("c", [8, 16, 24, 64, 72, 128, 256, 512])
 @pytest.mark.parametrize("dtype,design", [(torch.float32, "scalar"),
                                           (torch.bfloat16, "wgmma")])
 def test_ce_backward_design_by_dtype(dtype, design, c):
-    x, w = torch.zeros(37, c, dtype=dtype), torch.zeros(c, 11)
-    assert ck.ce_backward_design(x, w) == design
-    assert ck.ce_backward_design(x, w.to(dtype)) == design  # any W dtype: the kernels round it
+    _ce_design_by_dtype(ck.ce_backward_design, dtype, design, c)
 
 
-@pytest.mark.parametrize("layout", ["column_slice", "transposed", "broadcast", "one_row"])
-def test_ce_backward_design_takes_noncontiguous_x(layout):
-    """A bf16 x that is not contiguous is copied to contiguous (aligned)
-    memory by the wrapper, as the scalar design copies it: the wgmma design
-    takes it; so does a single row whatever its stride."""
+@pytest.mark.parametrize("c", [8, 16, 24, 64, 72, 128, 256, 512])
+@pytest.mark.parametrize("dtype,design", [(torch.float32, "scalar"),
+                                          (torch.bfloat16, "wgmma")])
+def test_ce_forward_design_by_dtype(dtype, design, c):
+    """The forward's designs follow the backward's rule: one round(W)^T
+    serves both in bf16."""
+    _ce_design_by_dtype(ck.ce_forward_design, dtype, design, c)
+
+
+def _noncontiguous_x(layout):
     bf = torch.bfloat16
     x = {"column_slice": lambda: torch.zeros(37, 72, dtype=bf)[:, :64],
          "transposed": lambda: torch.zeros(64, 37, dtype=bf).t(),
@@ -248,10 +259,24 @@ def test_ce_backward_design_takes_noncontiguous_x(layout):
         assert x.is_contiguous() and x.data_ptr() % 16 == 0
     else:
         assert not x.is_contiguous()
-    assert ck.ce_backward_design(x, torch.zeros(64, 11)) == "wgmma"
+    return x
 
 
-@pytest.mark.parametrize("case,match", [
+@pytest.mark.parametrize("layout", ["column_slice", "transposed", "broadcast", "one_row"])
+def test_ce_backward_design_takes_noncontiguous_x(layout):
+    """A bf16 x that is not contiguous is copied to contiguous (aligned)
+    memory by the wrapper, as the scalar design copies it: the wgmma design
+    takes it; so does a single row whatever its stride."""
+    assert ck.ce_backward_design(_noncontiguous_x(layout), torch.zeros(64, 11)) == "wgmma"
+
+
+@pytest.mark.parametrize("layout", ["column_slice", "transposed", "broadcast", "one_row"])
+def test_ce_forward_design_takes_noncontiguous_x(layout):
+    """The same for the forward, whose wrapper copies x alike."""
+    assert ck.ce_forward_design(_noncontiguous_x(layout), torch.zeros(64, 11)) == "wgmma"
+
+
+_CE_REFUSALS = [
     ("channels_12", "multiple of 8 up to 512"),
     ("channels_520", "multiple of 8 up to 512"),
     ("channels_0", "multiple of 8 up to 512"),
@@ -259,8 +284,10 @@ def test_ce_backward_design_takes_noncontiguous_x(layout):
     ("misaligned_bf16", "16-byte aligned"),
     ("w_mismatch", "expected x"),
     ("x_3d", "expected x"),
-])
-def test_ce_backward_design_refusals(case, match):
+]
+
+
+def _ce_refusal(design_of, case, match):
     bf = torch.bfloat16
     x, w = torch.zeros(37, 64, dtype=bf), torch.zeros(64, 11)
     if case.startswith("channels_"):
@@ -275,7 +302,18 @@ def test_ce_backward_design_refusals(case, match):
     elif case == "x_3d":
         x = x.view(37, 8, 8)
     with pytest.raises(ValueError, match=match):
-        ck.ce_backward_design(x, w)
+        design_of(x, w)
+
+
+@pytest.mark.parametrize("case,match", _CE_REFUSALS)
+def test_ce_backward_design_refusals(case, match):
+    _ce_refusal(ck.ce_backward_design, case, match)
+
+
+@pytest.mark.parametrize("case,match", _CE_REFUSALS)
+def test_ce_forward_design_refusals(case, match):
+    """The forward refuses what the backward refuses, with the same words."""
+    _ce_refusal(ck.ce_forward_design, case, match)
 
 
 def test_f32_ce_backward_takes_any_base():
