@@ -139,12 +139,43 @@ Phases (any failure exits nonzero):
     ``flagship_mlm(attn_impl='packed')`` fills the texts of phase 6 in bf16
     with 22 packed forwards per fused forward, all through the wgmma design,
     and in f32 its top-1 fill of
-    every mask equals that of the same weights under ``'pallas'``.
+    every mask equals that of the same weights under ``'pallas'``;
+17. kernel #1 with the causal offset (the Perceiver-AR path's forward)
+    against its plain version at the AR shapes, B=4, H=4, D=128: the
+    latent self-attention (256, 256, offset 0; also the W=256 prefill cross
+    and the output decode), the prefill cross at W=511 (offset 255, S not a
+    multiple of the 128-key tile) and W=512 (offset 256), and the decode
+    step (T=1 against 512 and 256 keys, pad mask only); keys padded from 300
+    on, plus rows whose visible keys are all padding; f32 and bf16, each
+    call one causal and (bf16) one wgmma launch; CUDA-event and profiler
+    times of the kernel, of the plain version and of SDPA with the same
+    boolean mask, and the bound;
+18. Perceiver-AR generation: ``ARGenerator`` over ``flagship_ar`` (vocab
+    10003, 512 tokens, 256 latents, C=512, 4 heads of depth 128, 3 x
+    (causal cross + 6 causal self), bf16, weights from seed 0) continues
+    four prompts of 250, 120, 37 and 9 tokens (cut from synthetic reviews)
+    by 32 greedy tokens each in chunks of 8; the 250-token stream crosses
+    the episode boundary and re-prefills at width 511. The counters, set to
+    0 just before, must read 22 causal #1 launches a prefill and 22 #1
+    launches a decode step, all wgmma. Then: the prefill's ms at each width,
+    the decode's host ms a token, a profiled 32-step window (device busy ms
+    a token, idle share); teacher forcing on the same streams through the
+    plain versions: every step's logits within 2e-2 of the plain ones' peak,
+    top-1 agreement at least 0.95; ``flagship_ar`` in f32 with the kernels:
+    4 incremental steps against the dense forward of the same prefix within
+    1e-4 absolute; and the entry point ``cli.serve --task generate --preset
+    flagship_ar`` on two texts;
+19. phase 18's generation with int8 weights (``int8w``): 131 #9 launches a
+    prefill and a step, every one wgmma, besides #1's; top-1 agreement with
+    the int8 plain versions under teacher forcing at least 0.95; the same
+    times.
 
 Each path's launch counters are set to 0 just before its checked
-``Trainer.fit`` (or its serving pass) and read just after; the ``kernels``
-line sums them with the serving path's, and the script fails if any kernel
-was never launched. A failure prints one line on stdout naming the phase
+``Trainer.fit`` (or its serving pass, or its generation) and read just
+after; the ``kernels`` line sums them with the serving path's, and the
+script fails if any kernel was never launched. Its ``attention_fwd_causal``
+entry is #1's causal reading (phase 17's bf16 W=512 cross), with the causal
+launches of phases 18 and 19. A failure prints one line on stdout naming the phase
 (``chip_smoke: failed in phase ...``) before the nonzero exit; a machine
 without a CUDA card, or a directory without the package, fails so too.
 
@@ -211,6 +242,20 @@ PACKED_SHAPES = (("enc_cross", (64, 256, 512, 4, 16), "random"),
                  ("dec_cross", (64, CAPACITY, 256, 4, 16), None),
                  ("flagship_enc_cross", (64, 256, 512, 4, 128), "random"),
                  ("ragged", (64, 250, 509, 4, 16), "random"))
+# the Perceiver-AR serving path (flagship_ar): 22 attention calls a prefill
+# (3 causal cross + 18 causal self + 1 causal decode) and 22 a decode step
+# (over the rings' pad masks); 131 dequant matmuls each on the int8 path
+AR_ATTN_PER_CALL, AR_DEQUANT_PER_CALL = 22, 131
+AR_PROMPT_LENS, AR_NEW_TOKENS, AR_CHUNK = (250, 120, 37, 9), 32, 8
+AR_F32_STEPS, AR_F32_TOL = 4, 1e-4
+# name, (B, T, S, H, D), causal offset (None: a decode step, pad mask only):
+# kernel #1's calls on the AR path (ar_self is also the W=256 prefill cross
+# and the output decode)
+AR_ATTN_SHAPES = (("ar_self", (4, 256, 256, 4, 128), 0),
+                  ("ar_cross_511", (4, 256, 511, 4, 128), 255),
+                  ("ar_cross_512", (4, 256, 512, 4, 128), 256),
+                  ("ar_step_512", (4, 1, 512, 4, 128), None),
+                  ("ar_step_256", (4, 1, 256, 4, 128), None))
 phase_name = "start"  # the phase running now, named in a failure's stdout line
 
 
@@ -324,7 +369,7 @@ def entry_host_us(torch, build, calls: int = 200) -> None:
         y = torch.empty(m, n, device="cuda", dtype=dtype)
         strides = [q.stride(i) for i in range(3)] + [kv.stride(i) for i in range(3)] * 2
         attn = (code, d, q.data_ptr(), kv.data_ptr(), kv.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), None, None, b, t, s, h, *strides, stream)
+                out.data_ptr(), None, None, b, t, s, h, 0, 0, *strides, stream)
         deq = (code, 8, 0, x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n,
                stream)
         for name, fn, args in (("attention_fwd", lib.attention_fwd, attn),
@@ -1467,6 +1512,263 @@ def packed_serving_phase(torch, port, tokenizer, texts):
     return {"packed_attention_fwd": got[1], "packed_attention_fwd_wgmma": got[2]}
 
 
+def ar_attention_phase(torch, ak):
+    """Phase 17: #1 with the causal offset against its plain version at the
+    AR path's shapes (AR_ATTN_SHAPES), B=4, f32 (the scalar design) and bf16
+    (the wgmma design): every example's keys padded from 300 on, and the
+    last example's first offset + 8 keys padded too, so its rows 0..7 see
+    only padding (a step shape: that example wholly padded). Each call must
+    count one launch, one causal launch (offset given) and one wgmma launch
+    (bf16). Times: CUDA events and profiler device time of the kernel, of
+    the plain version and of SDPA with the same boolean mask (it gives NaN
+    on rows with no live key: timed only); the bound counts the (row, key)
+    pairs the data needs (a row's live keys; on a row with none, the keys
+    masked exactly once, which it averages)."""
+    import torch.nn.functional as F
+    from perceiver_io_torch.ops.masking import causal_mask
+
+    log(phase="ar_attention", card=card_line())
+    rows = []
+    for name, (b, t, s, h, d), off in AR_ATTN_SHAPES:
+        pad = (torch.arange(s) >= 300)[None, :].repeat(b, 1)
+        if off is None:
+            pad[-1] = True
+            future = torch.zeros(t, s, dtype=torch.bool)
+        else:
+            pad[-1, : off + 8] = True
+            future = causal_mask(t, s, off)
+        live = ~(pad[:, None, :] | future[None])
+        once = pad[:, None, :] ^ future[None]
+        dead = ~live.any(-1, keepdim=True)
+        pairs = int(live.sum()) + int((once & dead).sum())
+        pad, live = pad.cuda(), live.cuda()
+        g = torch.Generator().manual_seed(b + t + s + d + 17)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            q = torch.randn(b, t, h, d, generator=g).to("cuda", dtype)
+            k = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
+            v = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
+            design = ak.forward_design(q, k, v)
+            counters = (ak.counter, ak.causal_counter, ak.wgmma_counter)
+            before = [c.launches for c in counters]
+            run = lambda: ak.fused_attention(q, k, v, pad, causal_offset=off)  # noqa: E731
+            err = check(f"causal attention {name} {dt}", run(),
+                        ak.attention_reference(q, k, v, pad, off), dt)
+            got = [c.launches - n for c, n in zip(counters, before)]
+            if got != [1, int(off is not None), int(design == "wgmma")]:
+                raise AssertionError(f"causal attention {name} {dt}: launches (all, causal, "
+                                     f"wgmma) {got}")
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=live[:, None])
+            item = q.element_size()
+            nbytes = item * (2 * b * t * h * d + 2 * b * s * h * d) + 4 * b * s
+            bound, by = bound_ms(nbytes, 4 * h * d * pairs, dt)
+            row = dict(kernel="attention_fwd", shape=name, dims=[b, t, s, h, d],
+                       causal_offset=off, dtype=dt, design=design, max_abs_err=err,
+                       kernel_ms=time_ms(run),
+                       plain_ms=time_ms(lambda: ak.attention_reference(q, k, v, pad, off)),
+                       library_ms=time_ms(sdpa), bound_ms=bound, bound_by=by,
+                       device_ms=device_ms(torch, run, "attention_fwd"),
+                       library_device_ms=device_ms(torch, sdpa),
+                       host_us_per_call=host_us(torch, run), pairs=pairs)
+            log(**row)
+            rows.append(row)
+    return rows
+
+
+def ar_prompts(tokenizer, synthetic_reviews):
+    """Token-id prompts of AR_PROMPT_LENS tokens, cut from synthetic reviews
+    (the longest one's stream crosses the episode boundary at 256)."""
+    reviews, _ = synthetic_reviews(200, seed=21)
+    ids = [t for review in reviews for t in tokenizer.encode_ids(review)]
+    prompts, start = [], 0
+    for n in AR_PROMPT_LENS:
+        prompts.append(ids[start: start + n])
+        start += n
+    if [len(p) for p in prompts] != list(AR_PROMPT_LENS):
+        raise AssertionError("the synthetic reviews gave too few tokens for the prompts")
+    return prompts
+
+
+def forced_logits(torch, gen, prefix, tokens):
+    """Teacher forcing along ``gen.generate``'s episodes: the logits that
+    predict each of ``tokens`` after ``prefix``, each step fed the given
+    token; (len(tokens), vocab) f32."""
+    out, session = [], None
+    with torch.inference_mode():
+        for i, tok in enumerate(tokens):
+            if session is None or session.remaining() < 1:
+                session = gen.start(prefix + tokens[:i])
+            out.append(session.next_logits[0])
+            if i + 1 < len(tokens):
+                logits, session.cache = gen.model.step(
+                    session.cache, torch.tensor([[tok]], device="cuda"))
+                session.next_logits = logits.float()
+                session.seq = session.seq + [tok]
+    return torch.stack(out)
+
+
+def ar_generation_phase(torch, ak, qm, port, prompts, mode: str):
+    """Phases 18 (``mode='bfloat16'``) and 19 (``'int8w'``): ``ARGenerator``
+    over ``flagship_ar`` (weights from seed 0), the prompts greedy,
+    AR_NEW_TOKENS each in chunks of AR_CHUNK; the counters, set to 0 just
+    before, must read 22 causal #1 launches a prefill and 22 a step, every
+    one wgmma, and on the int8 path 131 #9 launches each, every one wgmma;
+    the 250-token prompt re-prefills once (width 511). Then the times: the
+    decode's host ms a token (its chunks' wall, one sync a chunk), the
+    prefill's ms at each width (median of 3, synchronised), and a profiled
+    window of 32 steps (device busy ms a token, idle share). Then teacher
+    forcing on the same streams through the plain versions (same weights):
+    bf16 every step's logits within TOL of the plain ones' peak; top-1
+    agreement at least BF16_TOP1_AGREEMENT in both modes."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    quantized = mode == "int8w"
+    model = port["presets"].flagship_ar(device="cuda", seed=0)
+    gen = port["ARGenerator"](model, None, 512, chunk=AR_CHUNK, compute_dtype=mode,
+                              device="cuda")
+    gen.warmup()
+    counters = (ak.counter, ak.causal_counter, ak.wgmma_counter, qm.counter, qm.wgmma_counter)
+    for c in counters:
+        c.reset()
+    prefills, steps, chunk_ms = gen.prefills, gen.steps, []
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = [gen.generate(p, AR_NEW_TOKENS,
+                            on_chunk=lambda toks, info: chunk_ms.append(info["chunk_ms"]))[0]
+               for p in prompts]
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    prefills, steps = gen.prefills - prefills, gen.steps - steps
+    got = [c.launches for c in counters]
+    calls = prefills + steps
+    deq = AR_DEQUANT_PER_CALL * calls if quantized else 0
+    expect = [AR_ATTN_PER_CALL * calls, AR_ATTN_PER_CALL * prefills, AR_ATTN_PER_CALL * calls,
+              deq, deq]
+    if got != expect or any(c.plain_calls for c in counters):
+        raise AssertionError(f"{mode} generation: launches (#1, causal, wgmma, #9, #9 wgmma) "
+                             f"{got} != {expect} over {prefills} prefills and {steps} steps, "
+                             f"or a plain version ran")
+    if [len(x) for x in streams] != [AR_NEW_TOKENS] * len(prompts) \
+            or prefills != len(prompts) + 1 or steps != AR_NEW_TOKENS * len(prompts):
+        raise AssertionError(f"{mode} generation: streams {[len(x) for x in streams]}, "
+                             f"{prefills} prefills, {steps} steps")
+    launches = {"attention_fwd": got[0], "attention_fwd_causal": got[1],
+                "attention_fwd_wgmma": got[2], "dequant_matmul": got[3],
+                "dequant_matmul_wgmma": got[4]}
+
+    prefill_ms = {}
+    flat = [t for p in prompts for t in p] * 2
+    for width in gen.widths:  # each width's longest prefix: width - 1 tokens
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gen.start(flat[: width - 1])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        prefill_ms[str(width)] = sorted(times)[1]
+    session = gen.start(prompts[1])
+    greedy = port["SamplingConfig"]()
+    gen.decode_chunk(session, greedy)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t1 = time.perf_counter()
+        for _ in range(4):
+            gen.decode_chunk(session, greedy)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    attn_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "attention_fwd" in e.key) / 1e3
+
+    plain = port["ARGenerator"](model, None, 512, chunk=AR_CHUNK, compute_dtype=mode,
+                                device="cuda")
+    use_plain_kernels(plain.model, port)
+    agree, worst = [], 0.0
+    for prefix, stream in zip(prompts, streams):
+        kernel = forced_logits(torch, gen, prefix, stream)
+        before = (ak.counter.launches, qm.counter.launches)
+        ref = forced_logits(torch, plain, prefix, stream)
+        if (ak.counter.launches, qm.counter.launches) != before:
+            raise AssertionError(f"{mode}: the plain pass launched a kernel")
+        for i in range(len(stream)):
+            err = float((kernel[i] - ref[i]).abs().max())
+            worst = max(worst, err / float(ref[i].abs().max()))
+        agree += (kernel.argmax(-1) == ref.argmax(-1)).tolist()
+    top1 = float(np.mean(agree))
+    tokens = AR_NEW_TOKENS * len(prompts)
+    log(phase="ar_generate", mode=mode, card=card_line(), prompts=[len(p) for p in prompts],
+        new_tokens=tokens, prefills=prefills, steps=steps,
+        attention_per_call=AR_ATTN_PER_CALL,
+        dequant_per_call=AR_DEQUANT_PER_CALL if quantized else 0, generate_s=generate_s,
+        decode_host_ms_per_token=sum(chunk_ms) / tokens, prefill_ms=prefill_ms,
+        window_steps=4 * AR_CHUNK, window_ms=window_ms,
+        device_busy_ms_per_token=busy_ms / (4 * AR_CHUNK),
+        attention_device_ms_per_token=attn_ms / (4 * AR_CHUNK),
+        device_idle_share=1 - busy_ms / window_ms,
+        forced_max_err_over_peak=worst, forced_top1_agreement=top1,
+        example=[prompts[3], streams[3]])
+    if top1 < BF16_TOP1_AGREEMENT:
+        raise AssertionError(f"{mode} generation: top-1 kernels vs plain agree on {top1} "
+                             f"< {BF16_TOP1_AGREEMENT}")
+    if not quantized and worst > TOL["bfloat16"]:
+        raise AssertionError(f"bf16 generation: a forced step's logits differ from the "
+                             f"plain versions' by {worst} of their peak > {TOL['bfloat16']}")
+    del gen, plain
+    return launches
+
+
+def ar_f32_parity(torch, port, prompts):
+    """Phase 18, f32: ``flagship_ar`` in f32 with the kernels (the scalar
+    design, TF32 off): AR_F32_STEPS incremental steps after a 120-token
+    prefix at width 256, each step's logits against the dense forward of
+    the same prefix at the same width, within AR_F32_TOL absolute (the JAX
+    package's CPU bar is 2e-5: M=1 and M=256 products may round otherwise
+    on the card)."""
+    model = port["presets"].flagship_ar(dtype=torch.float32, device="cuda", seed=0)
+    prefix = prompts[1]
+    w, p = 256, len(prefix)
+    ids = torch.zeros((1, w), dtype=torch.long, device="cuda")
+    ids[0, :p] = torch.tensor(prefix, device="cuda")
+    errs = []
+    with torch.inference_mode():
+        logits, cache = model.prefill(ids.clone(), torch.arange(w, device="cuda")[None] >= p,
+                                      length=p)
+        nxt = logits[:, p - 1]
+        for t in range(AR_F32_STEPS):
+            tok = nxt.argmax(-1, keepdim=True)
+            nxt, cache = model.step(cache, tok)
+            ids[0, p + t] = tok[0, 0]
+            dense = model(ids, torch.arange(w, device="cuda")[None] >= p + t + 1)
+            errs.append(float((nxt - dense[:, p + t]).abs().max()))
+    log(phase="ar_f32_parity", steps=AR_F32_STEPS, max_abs_err_per_step=errs,
+        tolerance=AR_F32_TOL)
+    if max(errs) > AR_F32_TOL:
+        raise AssertionError(f"f32 AR: incremental vs dense logits differ by {max(errs)}")
+
+
+def ar_cli_phase(torch, port, tokenizer, root: str) -> None:
+    """Phase 18, the entry point: ``cli.serve --task generate --preset
+    flagship_ar --init_seed 0 --dtype bfloat16`` in-process on two texts,
+    8 tokens each: one JSON line per text."""
+    path = os.path.join(root, "tokenizer.json")
+    tokenizer.save(path)
+    texts = ["a great movie about the war", "the plot was thin but the acting"]
+    lines = port["serve"].main(["--task", "generate", "--preset", "flagship_ar",
+                                "--init_seed", "0", "--dtype", "bfloat16", "--tokenizer",
+                                path, "--max_new_tokens", "8", "--texts", *texts])
+    if [line["text"] for line in lines] != texts \
+            or any(len(line["continuation_ids"]) != 8 for line in lines):
+        raise AssertionError(f"serve --task generate: {lines}")
+
+
 def check_kernel_entry(k: dict) -> None:
     """One entry of the ``kernels`` line carries every key of its contract,
     each of its type: times, errors and bounds are numbers, ``library_ms``
@@ -1494,10 +1796,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: failed in phase device: no CUDA device", flush=True)
         return 1
-    from perceiver_io_torch.cli import train_mlm
+    from perceiver_io_torch.cli import serve, train_mlm
     from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
     from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
     from perceiver_io_torch.inference.engine import MLMServer
+    from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig
     from perceiver_io_torch.models import presets
     from perceiver_io_torch.ops import attention_kernel as ak
     from perceiver_io_torch.ops import build
@@ -1534,6 +1837,8 @@ def main() -> int:
     ce_rows = ce_phase(torch, ck, softmax_ce_integer, clock_hz)
     enter("13: packed attention kernels")
     packed_rows = packed_phase(torch, ak, pk, clock_hz)
+    enter("17: causal attention kernel")
+    ar_rows = ar_attention_phase(torch, ak)
 
     enter("6: serving")
     trained = WordPieceTokenizer()
@@ -1548,10 +1853,19 @@ def main() -> int:
                 Linear=Linear, ak=ak, ck=ck, pk=pk, qm=qm, make_optimizer=make_optimizer,
                 OptimizerConfig=OptimizerConfig, TrainState=TrainState,
                 make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig,
-                train_mlm=train_mlm)
+                train_mlm=train_mlm, ARGenerator=ARGenerator, SamplingConfig=SamplingConfig,
+                serve=serve)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
+    enter("18: AR generation, bf16")
+    prompts = ar_prompts(tokenizer, synthetic_reviews)
+    ar_launches = [ar_generation_phase(torch, ak, qm, port, prompts, "bfloat16")]
+    ar_f32_parity(torch, port, prompts)
+    with tempfile.TemporaryDirectory() as root:
+        ar_cli_phase(torch, port, tokenizer, root)
+    enter("19: AR generation, int8 weights")
+    ar_launches.append(ar_generation_phase(torch, ak, qm, port, prompts, "int8w"))
 
     with tempfile.TemporaryDirectory() as root:
         data = IMDBDataModule(root=root, max_seq_len=SEQ_LEN, vocab_size=10003,
@@ -1583,6 +1897,9 @@ def main() -> int:
     enter("kernels line")
     for name in KERNEL_NAMES:
         launches[name] = launches.get(name, 0) + sum(p.get(name, 0) for p in path_launches)
+    for name in ("attention_fwd", "attention_fwd_wgmma", "attention_fwd_causal",
+                 "dequant_matmul", "dequant_matmul_wgmma"):
+        launches[name] = launches.get(name, 0) + sum(p[name] for p in ar_launches)
 
     def entry(rows, name, source, replaces, pick, ms="device_ms", bound="bound",
               library="library_device_ms", event="kernel_ms"):
@@ -1623,6 +1940,10 @@ def main() -> int:
     kernels = [
         entry(attn_rows, "attention_fwd", fwd_src, tpu_attn.format(245), enc_bf16),
         entry(attn_rows, "attention_fwd_wgmma", fwd_src, tpu_attn.format(194), enc_bf16),
+        # the causal offset (_causal_bias, added in _attention_kernel): bf16 at
+        # the W=512 prefill cross; its launches are the AR path's causal ones
+        entry(ar_rows, "attention_fwd_causal", fwd_src, tpu_attn.format(181),
+              lambda r: r["shape"] == "ar_cross_512" and r["dtype"] == "bfloat16"),
         entry(bwd_rows, "attention_bwd_dq", bwd_src, tpu_attn.format(402), enc_bf16, **dq),
         entry(bwd_rows, "attention_bwd_dq_wgmma", bwd_src, tpu_attn.format(331), enc_bf16,
               **dq),

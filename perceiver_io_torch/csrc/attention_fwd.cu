@@ -2,14 +2,23 @@
 // written by hand for Hopper (sm_90a).
 //
 // Replaces: perceiver_io_tpu/ops/pallas_attention.py::_fused_attention_fwd_impl
-// (Pallas kernel _attention_kernel), the forward of fused_attention without
-// causal_offset, with or without the with_lse statistics.
+// (Pallas kernel _attention_kernel), the forward of fused_attention, with or
+// without causal_offset (_causal_bias) and the with_lse statistics.
 //
 // Computes, per (batch b, head h, query row t):
-//   out[b,t,h,:] = softmax_s(q[b,t,h,:] . k[b,s,h,:] * D^-0.5 + bias[b,s]) @ v[b,:,h,:]
-// with the additive pad bias of the TPU kernel (0 or -1e30). The bias is
-// finite, so a fully masked row softmaxes to uniform over all S keys (the
-// mean of v), exactly as the TPU kernel and the einsum path give. Logits,
+//   out[b,t,h,:] = softmax_s(q[b,t,h,:] . k[b,s,h,:] * D^-0.5 + bias[b,s]
+//                            + causal[t,s]) @ v[b,:,h,:]
+// with the additive pad bias of the TPU kernel (0 or -1e30) and, when the
+// causal flag is set, the TPU kernel's additive causal bias: -1e30 where key
+// s > t + causal_offset, t the GLOBAL query row (the kernel never pads the
+// query axis), added by index in f32 after the pad bias, never read from a
+// (T, S) mask. Both biases are finite, so a fully masked row softmaxes to
+// uniform over the keys masked exactly once (-1e30 + logit rounds to
+// -1e30; a key masked twice scores -2e30 and drops out): with the pad bias
+// alone, the mean of v over all S keys, exactly as the TPU kernel and the
+// einsum path give; with the causal flag, the mean over the visible padded
+// keys and the future unpadded ones. No key tile is skipped for lying
+// beyond the diagonal: such a row would lose its future keys. Logits,
 // running max (starting at -1e30), denominator and accumulator are f32; the
 // unnormalised probabilities exp(logit - m) are rounded to the value dtype
 // before the P.V product, as the TPU kernel's p.astype(v.dtype) does, while
@@ -43,7 +52,8 @@
 //   out-of-bounds fill). S = Q.K^T is an SS wgmma (K is K-major: D is
 //   contiguous) into f32 registers; the online softmax runs there, masking
 //   keys past S by index (TMA fills them with zeros, which would score 0,
-//   not -1e30); P goes to bf16 in registers, laid out as the A operand, and
+//   not -1e30) and adding the causal bias by index in the same registers;
+//   P goes to bf16 in registers, laid out as the A operand, and
 //   O += P.V is an RS wgmma with V as an MN-major B. A warpgroup whose rows
 //   all lie past T skips the products (T=8 on the serving decoder).
 //
@@ -81,12 +91,15 @@ constexpr size_t smem_bytes() {
                           size_t(kRows) * (kKeys + 1) + kKeys);
 }
 
-template <int D>
+// kCausal: the causal bias is compiled in only where it is asked for, so a
+// call without it runs the exact code it ran before the causal offset
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      float* __restrict__ out, float* __restrict__ m_out,
                      float* __restrict__ l_out, int t_len, int s_len, int heads,
+                     int causal_offset,
                      int64_t sqb, int64_t sqt, int64_t sqh,
                      int64_t skb, int64_t sks, int64_t skh,
                      int64_t svb, int64_t svs, int64_t svh, float scale) {
@@ -123,6 +136,8 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
   float m = kMaskValue;
   float l = 0.f;
+  // the last key this row sees unmasked by the causal bias
+  const int key_limit = t0 + row + causal_offset;
 
   for (int s0 = 0; s0 < s_len; s0 += kKeys) {
     const int n = min(kKeys, s_len - s0);
@@ -152,6 +167,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kKeysPerLane; ++i) {
       const int j = lane + i * kLanes;
       s[i] = s[i] * scale + bs[j];
+      if (kCausal && s0 + j > key_limit) s[i] += kMaskValue;
       if (j < n) tile_max = fmaxf(tile_max, s[i]);
     }
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
@@ -198,17 +214,19 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch_scalar(const void* q, const void* k, const void* v, const float* bias,
                           void* out, float* m_out, float* l_out, int batch, int t_len,
-                          int s_len, int heads, const int64_t* sq, const int64_t* sk,
-                          const int64_t* sv, cudaStream_t stream) {
+                          int s_len, int heads, int causal, int causal_offset,
+                          const int64_t* sq, const int64_t* sk, const int64_t* sv,
+                          cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel = causal ? attention_fwd_kernel<D, true> : attention_fwd_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((t_len + kRows - 1) / kRows, heads, batch);
-  attention_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, static_cast<float*>(out), m_out, l_out, t_len, s_len, heads, sq[0], sq[1], sq[2],
+      bias, static_cast<float*>(out), m_out, l_out, t_len, s_len, heads, causal_offset,
+      sq[0], sq[1], sq[2],
       sk[0], sk[1], sk[2], sv[0], sv[1], sv[2], 1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
@@ -257,14 +275,14 @@ __device__ __forceinline__ void load_kv_tile(const CUtensorMap* k_map, const CUt
   }
 }
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
                            const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                            float* __restrict__ m_out, float* __restrict__ l_out, int t_len,
-                           int s_len, int heads, float scale) {
+                           int s_len, int heads, int causal_offset, float scale) {
   using G = Geometry<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
@@ -304,6 +322,9 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int col_in_chunk = 2 * (lane % 4);
   const bool active = t0 + wg * kWgRows < t_len;
   const float* bias_b = bias + int64_t(b) * s_len;
+  // the last key each of this thread's two rows sees unmasked by the causal bias
+  const int key_limit[2] = {t0 + row_in_block + causal_offset,
+                            t0 + row_in_block + 8 + causal_offset};
 
   float o[G::kAtoms][G::kORegs];
 #pragma unroll
@@ -339,8 +360,9 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(s);
 
-      // logits: scale, bias, keys past S masked by index; s[4c + 2r + e] is
-      // (row r, key 8c + col_in_chunk + e) of the tile
+      // logits: scale, pad bias, then the causal bias by index (the TPU
+      // kernel's order of the two additions); keys past S masked by index;
+      // s[4c + 2r + e] is (row r, key 8c + col_in_chunk + e) of the tile
       const int s0 = j * kTileKeys;
       float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -352,7 +374,8 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           const float bj = valid ? bias_b[key] : 0.f;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const float x = s[4 * c + 2 * r + e] * scale + bj;
+            float x = s[4 * c + 2 * r + e] * scale + bj;
+            if (kCausal && key > key_limit[r]) x += kMaskValue;
             s[4 * c + 2 * r + e] = x;
             if (valid) tile_max[r] = fmaxf(tile_max[r], x);
           }
@@ -448,8 +471,9 @@ attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
                          void* out, float* m_out, float* l_out, int batch, int t_len,
-                         int s_len, int heads, const int64_t* sq, const int64_t* sk,
-                         const int64_t* sv, cudaStream_t stream) {
+                         int s_len, int heads, int causal, int causal_offset,
+                         const int64_t* sq, const int64_t* sk, const int64_t* sv,
+                         cudaStream_t stream) {
   using G = Geometry<D>;
   CUtensorMap q_map, k_map, v_map;
   // boxes of one swizzle atom of columns and a q tile's or a K/V tile's rows
@@ -457,26 +481,28 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const floa
       !hopper::encode_head_map(&k_map, k, batch, s_len, heads, D, sk, G::kAtomCols, kTileKeys) ||
       !hopper::encode_head_map(&v_map, v, batch, s_len, heads, D, sv, G::kAtomCols, kTileKeys))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel =
+      causal ? attention_fwd_wgmma_kernel<D, true> : attention_fwd_wgmma_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(G::kSmem));
   if (err != cudaSuccess) return err;
   const dim3 grid((t_len + kBlockRows - 1) / kBlockRows, heads, batch);
-  attention_fwd_wgmma_kernel<D><<<grid, kWgThreads, G::kSmem, stream>>>(
+  kernel<<<grid, kWgThreads, G::kSmem, stream>>>(
       q_map, k_map, v_map, bias, static_cast<__nv_bfloat16*>(out), m_out, l_out, t_len, s_len,
-      heads, 1.0f / sqrtf(float(D)));
+      heads, causal_offset, 1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(int dtype, int head_dim, const void* q, const void* k, const void* v,
                      const float* bias, void* out, float* m_out, float* l_out, int batch,
-                     int t_len, int s_len, int heads, const int64_t* sq, const int64_t* sk,
-                     const int64_t* sv, cudaStream_t stream) {
+                     int t_len, int s_len, int heads, int causal, int causal_offset,
+                     const int64_t* sq, const int64_t* sk, const int64_t* sv,
+                     cudaStream_t stream) {
 #define PIT_LAUNCH(D)                                                                         \
   (dtype == 0 ? launch_scalar<D>(q, k, v, bias, out, m_out, l_out, batch, t_len, s_len,        \
-                                        heads, sq, sk, sv, stream)                            \
+                                 heads, causal, causal_offset, sq, sk, sv, stream)            \
               : launch_wgmma<D>(q, k, v, bias, out, m_out, l_out, batch, t_len, s_len, heads,  \
-                                sq, sk, sv, stream))
+                                causal, causal_offset, sq, sk, sv, stream))
   switch (head_dim) {
     case 8: return PIT_LAUNCH(8);
     case 16: return PIT_LAUNCH(16);
@@ -495,12 +521,14 @@ cudaError_t dispatch(int dtype, int head_dim, const void* q, const void* k, cons
 // and the given (batch, row, head) strides in elements (bf16: 16-byte aligned
 // bases and strides that are multiples of 8, for TMA); bias is (B, S) f32
 // contiguous; out is (B, T, H, D) contiguous; m_out and l_out are both null,
-// or both (B, H, T) f32 contiguous. Returns the cudaError_t of the launch (0
-// on success; cudaErrorInvalidValue if a tensor map cannot be encoded).
+// or both (B, H, T) f32 contiguous. causal (0 or 1) adds the causal bias:
+// -1e30 where key s > t + causal_offset. Returns the cudaError_t of the
+// launch (0 on success; cudaErrorInvalidValue if a tensor map cannot be
+// encoded).
 extern "C" int attention_fwd(int dtype, int head_dim, const void* q, const void* k,
                              const void* v, const void* bias, void* out, void* m_out,
                              void* l_out, int batch,
-                             int t_len, int s_len, int heads,
+                             int t_len, int s_len, int heads, int causal, int causal_offset,
                              int64_t sqb, int64_t sqt, int64_t sqh,
                              int64_t skb, int64_t sks, int64_t skh,
                              int64_t svb, int64_t svs, int64_t svh, void* stream) {
@@ -509,8 +537,10 @@ extern "C" int attention_fwd(int dtype, int head_dim, const void* q, const void*
   const int64_t sv[3] = {svb, svs, svh};
   float* m_f = static_cast<float*>(m_out);
   float* l_f = static_cast<float*>(l_out);
-  if ((m_f == nullptr) != (l_f == nullptr) || (dtype != 0 && dtype != 1))
+  if ((m_f == nullptr) != (l_f == nullptr) || (dtype != 0 && dtype != 1) ||
+      (causal != 0 && causal != 1))
     return cudaErrorInvalidValue;
   return dispatch(dtype, head_dim, q, k, v, static_cast<const float*>(bias), out, m_f, l_f,
-                  batch, t_len, s_len, heads, sq, sk, sv, static_cast<cudaStream_t>(stream));
+                  batch, t_len, s_len, heads, causal, causal_offset, sq, sk, sv,
+                  static_cast<cudaStream_t>(stream));
 }

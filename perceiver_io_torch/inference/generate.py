@@ -1,0 +1,257 @@
+"""Incremental Perceiver-AR generation: encode the prefix once, then step the
+cache rings on the device (the port's subset of
+``perceiver_io_tpu/inference/generate.py``).
+
+The model half is :class:`~perceiver_io_torch.models.perceiver.PerceiverARLM`:
+``prefill`` runs one dense causal forward over the width-bucketed prefix and
+keeps what it attends over as cache rings; ``step`` writes one token's rows
+into them in place and recomputes only its latent row. This module is the
+engine around that pair:
+
+- **chunks**: a decode chunk chains its steps on the device; the sampled
+  token ids stay there and are read back once per chunk (one sync a
+  chunk, the counterpart of the JAX engine's ``fori_loop`` dispatch). The
+  position of every step is a host int the session knows, so no step reads
+  the device to find it.
+- **seeded, position-folded sampling**: the random draw for the token at
+  absolute position p comes from a ``torch.Generator`` on the device seeded
+  by a pure function of ``(seed, p)`` (:func:`position_seed`, the
+  counterpart of ``fold_in(key(seed), p)``). A stream re-encoded from its
+  prefix at any point reproduces the same tokens. Torch's generator draws
+  other bits than JAX's: sampled streams agree with the JAX engine's in
+  distribution, greedy streams token for token.
+- **episodes**: one prefill serves at most ``capacity - 1`` decode steps
+  (the latent window must still cover the last prefix token); a longer
+  continuation re-prefills from the extended prefix at the next width of
+  the fixed episode grid (:attr:`ARGenerator.widths`).
+
+The JAX engine's metrics (``obs``), fault injection, ``GenerateSessionStore``
+and ``load_ar_checkpoint`` are not ported (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from perceiver_io_torch.device import resolve_device
+from perceiver_io_torch.inference.engine import prepare_param_tree, resolve_params_mode
+from perceiver_io_torch.interop import load_param_tree, param_tree
+
+_MASK64 = (1 << 64) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    """How tokens are drawn from the step logits: ``temperature == 0`` is
+    greedy argmax; otherwise logits / temperature, optionally cut to the
+    ``top_k`` largest, feed a categorical draw. ``seed`` roots the
+    position-folded draws."""
+
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+
+    def normalized(self) -> "SamplingConfig":
+        t = float(self.temperature)
+        k = int(self.top_k)
+        if t < 0:
+            raise ValueError(f"temperature must be >= 0, got {t}")
+        if k < 0:
+            raise ValueError(f"top_k must be >= 0, got {k}")
+        return dataclasses.replace(self, temperature=t, top_k=k, seed=int(self.seed))
+
+
+def position_seed(seed: int, position: int) -> int:
+    """The generator seed of the token at absolute ``position`` of a stream
+    rooted at ``seed``: a splitmix64 mix of the pair, so neighbouring
+    positions and seeds draw unrelated streams."""
+    z = (seed * 0x9E3779B97F4A7C15 + (position + 1) * 0xD1B54A32D192ED03) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1  # 63 bits: what manual_seed takes
+
+
+def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  temperature: float, top_k: int) -> torch.Tensor:
+    """One token per row of (B, V) logits, as (B,) int64 on their device:
+    argmax at temperature 0; otherwise the Gumbel-max draw from
+    softmax(logits / temperature) cut to the ``top_k`` largest (0 = all),
+    with the uniforms from ``generator``."""
+    logits = logits.float()
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    logits = logits / max(temperature, 1e-6)
+    if 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, torch.finfo(torch.float32).min)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return (logits + gumbel).argmax(dim=-1)
+
+
+class GenSession:
+    """One generation stream: the device cache rings, the pending
+    next-token logits, and the accepted token sequence (prompt +
+    continuation) the cache encodes."""
+
+    __slots__ = ("cache", "next_logits", "seq", "width", "seed", "steps")
+
+    def __init__(self, cache, next_logits: torch.Tensor, seq: List[int], width: int,
+                 seed: int):
+        self.cache = cache
+        self.next_logits = next_logits
+        self.seq = seq          # the accepted sequence the cache encodes
+        self.width = width      # the cross rings' capacity (an episode-grid width)
+        self.seed = seed
+        self.steps = 0          # decode steps taken over this session
+
+    def remaining(self) -> int:
+        """Decode steps this episode's rings can still take."""
+        return self.width - len(self.seq)
+
+
+class ARGenerator:
+    """The incremental decode engine over one ``PerceiverARLM``.
+
+    Prefill widths lie on the GLOBAL episode grid ``capacity, capacity +
+    (capacity - 1), capacity + 2 (capacity - 1), ...`` capped at
+    ``max_seq_len`` (flagship: 256, 511, 512): a fixed grid anchors the
+    latent window of a stream re-encoded at any point where the
+    uninterrupted stream had it, which keeps the position-folded tokens
+    identical.
+
+    ``params``: a flat ``{flax path: array}`` f32 tree (``interop``), or
+    None for the model's own weights. The engine serves a copy of ``model``
+    on ``device`` holding the tree prepared once under the serving mode
+    (``compute_dtype='bfloat16'``, ``quantize='int8'|'int4'`` with
+    ``group_size``, or the ``'int8w'``/``'int4w'`` shorthands). ``chunk``
+    is the number of steps a decode chunk chains (and the streaming
+    granularity ``on_chunk`` sees).
+    """
+
+    def __init__(self, model, params, max_seq_len: int, chunk: int = 8,
+                 compute_dtype: Optional[str] = None, quantize: Optional[str] = None,
+                 group_size: Optional[int] = None, device=None):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.device = resolve_device(device)
+        self.max_seq_len = max_seq_len
+        self.capacity = int(model.num_latents)
+        if self.capacity < 2:
+            raise ValueError("generation needs num_latents >= 2")
+        self.chunk = int(chunk)
+        widths, w = [], self.capacity
+        while w < max_seq_len:
+            widths.append(w)
+            w += self.capacity - 1
+        widths.append(max_seq_len)
+        self.widths = widths
+        compute_dtype, quantize = resolve_params_mode(compute_dtype, quantize)
+        self.compute_dtype, self.quantize = compute_dtype, quantize
+        tree = prepare_param_tree(param_tree(model) if params is None else params,
+                                  compute_dtype, quantize, group_size)
+        self.model = load_param_tree(copy.deepcopy(model).to(self.device), tree).eval()
+        self.prefills = 0   # prefix encodes (session starts and episode re-encodes)
+        self.steps = 0      # decode steps taken
+
+    def plan_width(self, prefix_len: int) -> int:
+        """The prefill width (ring capacity, latent-window end) of a
+        ``prefix_len`` prefix: the smallest grid point past it. The grid's
+        spacing ``capacity - 1`` keeps the last prefix token inside the
+        window (``W <= prefix_len - 1 + capacity``)."""
+        if prefix_len >= self.max_seq_len:
+            raise ValueError(
+                f"prefix {prefix_len} leaves no room under max_seq_len {self.max_seq_len}")
+        return next(w for w in self.widths if w > prefix_len)
+
+    @torch.inference_mode()
+    def start(self, prefix: Sequence[int], seed: int = 0) -> GenSession:
+        """Prefix-encode a session at width :meth:`plan_width`."""
+        prefix = [int(t) for t in prefix]
+        p = len(prefix)
+        if p < 1:
+            raise ValueError("generation needs a non-empty prefix")
+        w = self.plan_width(p)
+        ids = torch.zeros((1, w), dtype=torch.long)
+        ids[0, :p] = torch.tensor(prefix)
+        pad = torch.arange(w)[None, :] >= p
+        logits, cache = self.model.prefill(ids.to(self.device), pad.to(self.device),
+                                           length=p)
+        # the next-token logits: the window row of the last real token
+        row = p - 1 - (w - logits.shape[1])
+        self.prefills += 1
+        return GenSession(cache, logits[:, row].float(), prefix, w, seed)
+
+    @torch.inference_mode()
+    def decode_chunk(self, session: GenSession, sampling: SamplingConfig,
+                     n_steps: Optional[int] = None) -> List[int]:
+        """Take ``n_steps`` (default ``chunk``) decode steps on the device and
+        return the new tokens, read back once; ``session`` now encodes
+        them."""
+        n = self.chunk if n_steps is None else n_steps
+        if n > session.remaining():
+            raise ValueError(f"chunk {n} exceeds the session's ring capacity "
+                             f"(remaining {session.remaining()})")
+        generator = None
+        if sampling.temperature != 0.0:
+            generator = torch.Generator(device=self.device)
+        logits, cache = session.next_logits, session.cache
+        position = len(session.seq)
+        tokens = []
+        for i in range(n):
+            if generator is not None:
+                generator.manual_seed(position_seed(session.seed, position + i))
+            tok = sample_logits(logits, generator, sampling.temperature, sampling.top_k)
+            tokens.append(tok)
+            logits, cache = self.model.step(cache, tok[:, None])
+            logits = logits.float()
+        new = torch.stack(tokens, dim=1)[0].tolist()  # the chunk's one sync
+        self.steps += n
+        session.cache, session.next_logits = cache, logits
+        session.seq = session.seq + new
+        session.steps += n
+        return new
+
+    def generate(self, prefix: Sequence[int], max_new: int,
+                 sampling: Optional[SamplingConfig] = None,
+                 on_chunk: Optional[Callable[[List[int], Dict[str, Any]], None]] = None,
+                 session: Optional[GenSession] = None) -> Tuple[List[int], GenSession]:
+        """Up to ``max_new`` tokens after ``prefix``, each chunk streamed to
+        ``on_chunk(tokens, info)``. When the latent window fills, the episode
+        re-prefills from the extended prefix. Returns ``(new_tokens,
+        session)``; pass the session back with the extended prefix to
+        continue without a fresh encode."""
+        sampling = (sampling or SamplingConfig()).normalized()
+        prefix = [int(t) for t in prefix]
+        produced: List[int] = []
+        if session is not None and (session.seq != prefix or session.seed != sampling.seed):
+            session = None  # the resident state diverged: re-encode
+        while len(produced) < max_new:
+            cur = prefix + produced
+            if len(cur) >= self.max_seq_len:
+                break  # the absolute position budget is spent
+            if session is None or session.remaining() < 1:
+                session = self.start(cur, seed=sampling.seed)
+            n = min(self.chunk, max_new - len(produced), session.remaining())
+            t0 = time.perf_counter()
+            tokens = self.decode_chunk(session, sampling, n_steps=n)
+            produced.extend(tokens)
+            if on_chunk is not None:
+                on_chunk(tokens, {"pos": len(session.seq), "steps": n,
+                                  "chunk_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+        return produced, session
+
+    def warmup(self, sampling: SamplingConfig = SamplingConfig()) -> int:
+        """Run each width of the grid once (a prefill and one decode step):
+        builds the kernels and brings the card's libraries up before the
+        first request. Returns the number of widths run."""
+        sampling = sampling.normalized()
+        for w in self.widths:
+            session = self.start([0] * max(1, w - self.capacity + 1), seed=sampling.seed)
+            self.decode_chunk(session, sampling, n_steps=1)
+        return len(self.widths)

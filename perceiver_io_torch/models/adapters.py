@@ -62,11 +62,18 @@ class TextInputAdapter(nn.Module):
         self.text_embedding.embedding.uniform_(-0.1, 0.1, generator=generator)
         self.pos_encoding.uniform_(-0.5, 0.5, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``positions``: optional (B, L) int, the absolute position of each
+        token, for rows that do not start at position 0 (the AR decode step
+        embeds one token at its position); None takes ``[0, L)``."""
         _, l = x.shape
         if l > self.max_seq_len:
             raise ValueError(f"sequence length {l} exceeds max_seq_len {self.max_seq_len}")
-        return self.text_embedding(x) + self.pos_encoding[:l].to(self.dtype)
+        emb = self.text_embedding(x)
+        if positions is not None:
+            return emb + F.embedding(positions.long(), self.pos_encoding).to(self.dtype)
+        return emb + self.pos_encoding[:l].to(self.dtype)
 
 
 class ClassificationOutputAdapter(nn.Module):

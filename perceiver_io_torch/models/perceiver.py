@@ -1,5 +1,6 @@
-"""The Perceiver IO core: encoder, decoder, and the MLM model (the
-counterparts of ``perceiver_io_tpu/models/perceiver.py``).
+"""The Perceiver IO core: encoder, decoder, the MLM model and the
+Perceiver-AR language model (the counterparts of
+``perceiver_io_tpu/models/perceiver.py``).
 
 - encoder layer 1 has its own weights; layers 2..num_layers share ONE
   weight set (``layer_n``) applied recurrently, and its cross-attention K/V
@@ -13,6 +14,9 @@ counterparts of ``perceiver_io_tpu/models/perceiver.py``).
 - ``attn_impl`` (``'pallas'`` or ``'packed'``, see ``ops/attention.py``)
   picks the attention kernels of every layer below; the weights do not
   depend on it.
+- :class:`PerceiverARLM` is causal: its dense forward, ``prefill`` and
+  incremental ``step`` run every attention through the kernel's causal
+  offset or a key padding mask over its cache rings (``'pallas'`` only).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ class PerceiverLayer(nn.Module):
         """Returns ``(x_latent, kv)``: the cross-attention's (k, v) of
         ``x_input`` (computed here when ``kv`` is None, else passed through)."""
         x_latent, kv = self.cross_attention_layer(x_latent, x_input, pad_mask, kv)
-        return self.self_attention_block(x_latent), kv
+        return self.self_attention_block(x_latent)[0], kv
 
 
 class PerceiverEncoder(nn.Module):
@@ -200,6 +204,229 @@ class PerceiverMLM(nn.Module):
         return self.decoder(x_latent, positions, return_features)
 
 
+class PerceiverARLayer(nn.Module):
+    """One causal encoder layer of the Perceiver-AR decode path: causal
+    cross-attention (latent window ← input prefix) + causal latent
+    self-attention block, with :class:`PerceiverLayer`'s submodule names.
+    Three call modes share the weights, as the JAX layer's:
+
+    - dense (``causal_offset``): the window query at absolute position
+      offset + i sees input keys ``<= offset + i``; the block is square
+      causal. Returns ``(x_latent, kv, self_kvs)``: the cross (k, v) and
+      each self-attention sub-layer's (k, v), the tensors a decode caches.
+    - ``kv_only``: the cross (k, v) of ``x_input`` alone, for the ring.
+    - incremental (``latent_cache``): ``x_latent`` is the (B, 1, C) new
+      latent row; the cross-attention runs over the caller's input rings
+      (``kv`` under ``pad_mask``), the block writes and attends its rings at
+      ``latent_index`` under ``latent_pad``; returns ``(x_latent, rings)``.
+    """
+
+    def __init__(self, num_latent_channels: int, num_input_channels: int,
+                 num_cross_attention_heads: int, num_self_attention_heads: int,
+                 num_self_attention_layers_per_block: int, dtype=torch.float32,
+                 attn_impl: str = "pallas"):
+        super().__init__()
+        self.cross_attention_layer = CrossAttentionLayer(
+            num_latent_channels, num_input_channels, num_cross_attention_heads, dtype,
+            attn_impl)
+        self.self_attention_block = SelfAttentionBlock(
+            num_self_attention_layers_per_block, num_latent_channels,
+            num_self_attention_heads, dtype, attn_impl)
+
+    def forward(self, x_latent, x_input, pad_mask=None, kv=None, causal_offset=None,
+                kv_only=False, latent_cache=None, latent_index=None, latent_pad=None):
+        if kv_only:
+            return self.cross_attention_layer(x_latent, x_input, kv_only=True)
+        x_latent, kv_out = self.cross_attention_layer(x_latent, x_input, pad_mask, kv,
+                                                      causal_offset)
+        block = self.self_attention_block
+        if latent_cache is not None:
+            return block(x_latent, cache=latent_cache, cache_index=latent_index,
+                         cache_pad=latent_pad)
+        x_latent, self_kvs = block(x_latent, causal_offset=0)
+        return x_latent, kv_out, self_kvs
+
+
+class PerceiverARLM(nn.Module):
+    """The Perceiver-AR causal language model: a token prefix cross-attends
+    into a causal latent window over its LAST ``num_latents`` positions, a
+    causal latent self-attention stack refines it, and learned
+    per-position output queries decode it diagonally-causally (query i
+    sees latents ``<= i``) into next-token logits.
+
+    The flax layout, so a JAX ``PerceiverARLM`` tree loads by path:
+    ``input_adapter`` (token embedding + learned positions), ``latent`` (ONE
+    learned (1, C) row added to every window query), ``layer_1`` /
+    ``layer_n`` (layer 1 unique, layers 2..num_layers one shared weight set
+    whose cross (k, v) of the input is reused across applications),
+    ``output`` + ``cross_attention_layer`` + ``output_adapter`` (the
+    decode).
+
+    Window rule: a length-L input with ``latent_offset`` o (default
+    ``L - min(num_latents, L)``) computes the n = L - o latents of positions
+    ``[o, L)``; logits row i predicts token o + i + 1.
+
+    Incremental decode: :meth:`prefill` runs the dense forward once over the
+    (right-padded) prefix and keeps every tensor it attends over as the
+    cache rings, allocated there once; :meth:`step` writes the new token's
+    rows into them IN PLACE and recomputes only its latent row, so its
+    logits are the dense forward's to float rounding. The cache's ``len``
+    (the next position) is a host int: a step never reads the device to
+    find where it writes. Run both under ``torch.inference_mode`` or
+    ``torch.no_grad``: the causal attention has no backward yet.
+    """
+
+    def __init__(self, input_adapter: nn.Module, output_adapter: nn.Module,
+                 num_latents: int, num_layers: int, num_cross_attention_heads: int = 4,
+                 num_self_attention_heads: int = 4,
+                 num_self_attention_layers_per_block: int = 2, dtype=torch.float32,
+                 attn_impl: str = "pallas"):
+        super().__init__()
+        self.input_adapter = input_adapter
+        self.output_adapter = output_adapter
+        self.num_latents = num_latents
+        self.num_layers = num_layers
+        self.dtype = dtype
+        c = input_adapter.num_input_channels
+        self.latent = nn.Parameter(torch.empty(1, c))
+        layer = dict(
+            num_latent_channels=c, num_input_channels=c,
+            num_cross_attention_heads=num_cross_attention_heads,
+            num_self_attention_heads=num_self_attention_heads,
+            num_self_attention_layers_per_block=num_self_attention_layers_per_block,
+            dtype=dtype, attn_impl=attn_impl)
+        self.layer_1 = PerceiverARLayer(**layer)
+        if num_layers > 1:
+            self.layer_n = PerceiverARLayer(**layer)
+        output_shape = tuple(output_adapter.output_shape)
+        self.output = nn.Parameter(torch.empty(output_shape))
+        self.cross_attention_layer = CrossAttentionLayer(
+            output_shape[-1], c, num_cross_attention_heads, dtype, attn_impl)
+        # later[s, j]: latent ring slot j lies after slot s (not written yet),
+        # so a step's latent pad mask is a view, made on no device
+        slots = torch.arange(num_latents)
+        self.register_buffer("later", slots[None, :] > slots[:, None], persistent=False)
+
+    def _offset(self, l: int, latent_offset: Optional[int]) -> int:
+        o = l - min(self.num_latents, l) if latent_offset is None else latent_offset
+        if not 0 <= o < l:
+            raise ValueError(f"latent_offset {o} outside [0, {l})")
+        if l - o > self.num_latents:
+            raise ValueError(f"latent window {l - o} exceeds num_latents {self.num_latents}")
+        return o
+
+    def _applications(self):
+        """(weight set name, layer) per encoder application, in order."""
+        return [("layer_1", self.layer_1)] + [("layer_n", self.layer_n)] * (
+            self.num_layers - 1)
+
+    def _encode_window(self, h, pad_mask, o: int):
+        """The dense trunk: embedded input → causal latent window, with the
+        cross (k, v) per weight set and the self-attention (k, v) per
+        application (the prefill's rings)."""
+        x = h[:, o:] + self.latent.to(self.dtype)
+        cross, caches = {}, []
+        for name, layer in self._applications():
+            x, cross[name], self_kvs = layer(x, h, pad_mask, cross.get(name),
+                                             causal_offset=o)
+            caches.append(self_kvs)
+        return x, cross, caches
+
+    def _decode_window(self, x, o: int, n: int):
+        """Diagonally-causal decode of the window: ``(logits, final (k, v))``."""
+        queries = self.output[o: o + n].to(self.dtype).expand(
+            x.shape[0], n, self.output.shape[-1])
+        out, final_kv = self.cross_attention_layer(queries, x, causal_offset=0)
+        return self.output_adapter(out), final_kv
+
+    def forward(self, token_ids: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                latent_offset: Optional[int] = None) -> torch.Tensor:
+        """Dense causal forward, the incremental path's oracle: (B, L) token
+        ids → (B, L - offset, vocab) logits, row i predicting token
+        offset + i + 1."""
+        h = self.input_adapter(token_ids)
+        l = h.shape[1]
+        o = self._offset(l, latent_offset)
+        x, _, _ = self._encode_window(h, pad_mask, o)
+        return self._decode_window(x, o, l - o)[0]
+
+    def prefill(self, token_ids: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                length: Optional[int] = None, latent_offset: Optional[int] = None):
+        """Dense forward over the (possibly right-padded) prefix and the
+        cache: ``(logits, cache)``. ``length`` (host int) is the real token
+        count; slots at positions ``>= length`` are masked and overwritten
+        as decoding goes on. The cache, as the JAX model's:
+
+        ``len``    host int, the position the next token takes,
+        ``cross``  per cross weight set, (k, v) rings (B, W, E),
+        ``pad``    (B, W) bool, True where a ring slot is invalid (beyond
+                   ``len``, or a prefix pad token),
+        ``latent`` per encoder application, per self-attention sub-layer,
+                   (k, v) rings (B, N, E),
+        ``final``  (k, v) ring (B, N, E) of the decoded latent states.
+
+        The rings are the dense forward's own k/v tensors: nothing is
+        copied, and :meth:`step` writes them in place."""
+        b, l = token_ids.shape
+        h = self.input_adapter(token_ids)
+        o = self._offset(l, latent_offset)
+        if length is None:
+            length = l
+        x, cross, latent = self._encode_window(h, pad_mask, o)
+        logits, final_kv = self._decode_window(x, o, l - o)
+        invalid = torch.arange(l, device=token_ids.device)[None, :] >= length
+        if pad_mask is not None:
+            invalid = invalid | pad_mask.to(torch.bool)
+        cache = {"len": int(length), "cross": cross,
+                 "pad": invalid.expand(b, l).clone(), "latent": latent,
+                 "final": final_kv}
+        return logits, cache
+
+    def step(self, cache, token: torch.Tensor):
+        """One incremental decode step: ``token`` (B, 1) takes position
+        ``cache['len']``; its rows are written into the rings in place, ONLY
+        its latent row is recomputed against them, and ``(next_logits (B,
+        vocab), cache)`` returns (the same dict, ``len`` advanced): the
+        logits for position ``len + 1``."""
+        k1 = cache["cross"]["layer_1"][0]
+        b, w, _ = k1.shape
+        n_cap = cache["final"][0].shape[1]
+        p = cache["len"]           # the new token's position
+        s = p - (w - n_cap)        # its latent window slot
+        if not 0 <= s < n_cap:
+            raise ValueError(f"position {p} outside the cache's window (width {w}, "
+                             f"{n_cap} latents)")
+        positions = torch.full((b, 1), p, dtype=torch.long, device=token.device)
+        h = self.input_adapter(token, positions=positions)
+
+        # this token's cross k/v per weight set, into slot p of its ring
+        layers = dict(self._applications())
+        for name, layer in layers.items():
+            k_new, v_new = layer(h, h, kv_only=True)
+            k_ring, v_ring = cache["cross"][name]
+            k_ring[:, p: p + 1] = k_new
+            v_ring[:, p: p + 1] = v_new
+        # the new slot becomes live; the slots past it stay masked
+        cache["pad"][:, p] = False
+        lat_pad = self.later[s: s + 1, :n_cap].expand(b, n_cap)
+
+        x = h + self.latent.to(self.dtype)
+        for a, (name, layer) in enumerate(self._applications()):
+            x, _ = layer(x, h, cache["pad"], cache["cross"][name],
+                         latent_cache=cache["latent"][a], latent_index=s,
+                         latent_pad=lat_pad)
+
+        # decode: the new final-latent k/v into its ring, query = output[p]
+        fk, fv = self.cross_attention_layer(x, x, kv_only=True)
+        final = cache["final"]
+        final[0][:, s: s + 1] = fk
+        final[1][:, s: s + 1] = fv
+        query = self.output[p: p + 1].to(self.dtype).expand(b, 1, self.output.shape[-1])
+        dec, _ = self.cross_attention_layer(query, x, lat_pad, final)
+        cache["len"] = p + 1
+        return self.output_adapter(dec)[:, 0, :], cache
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight of ``model`` from ``generator`` with the JAX twin's
@@ -215,4 +442,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             module.latent.normal_(0.0, 0.02, generator=generator).clamp_(-2.0, 2.0)
         elif isinstance(module, PerceiverDecoder):
             module.output.normal_(0.0, 0.02, generator=generator).clamp_(-2.0, 2.0)
+        elif isinstance(module, PerceiverARLM):
+            for array in (module.latent, module.output):
+                array.normal_(0.0, 0.02, generator=generator).clamp_(-2.0, 2.0)
     return model

@@ -1,4 +1,5 @@
-"""Named MLM presets (the counterparts of ``perceiver_io_tpu/models/presets.py``).
+"""Named MLM and Perceiver-AR presets (the counterparts of
+``perceiver_io_tpu/models/presets.py``).
 
 Each preset draws its weights from a seeded ``torch.Generator`` on the CPU
 (the same weights on every device) and moves the model to ``device``; with
@@ -14,6 +15,7 @@ import torch
 from perceiver_io_torch.device import resolve_device
 from perceiver_io_torch.models.adapters import TextInputAdapter, TextOutputAdapter
 from perceiver_io_torch.models.perceiver import (
+    PerceiverARLM,
     PerceiverDecoder,
     PerceiverEncoder,
     PerceiverMLM,
@@ -83,8 +85,55 @@ def tiny_mlm(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16
         dtype=dtype, device=device, seed=seed, attn_impl=attn_impl)
 
 
+def flagship_ar(vocab_size: int = 10003, max_seq_len: int = 512, num_latents: int = 256,
+                num_channels: int = 512, num_layers: int = 3,
+                num_self_attention_layers_per_block: int = 6, dtype=torch.bfloat16,
+                device=None, seed: int = 0, attn_impl: str = "pallas") -> PerceiverARLM:
+    """The generative (Perceiver-AR causal decode) task at the flagship
+    widths: the encoder recipe of ``flagship_tpu_mlm`` (3 layers × (cross
+    + 6-layer self block), C=512 / 4 heads of depth 128, bf16 compute),
+    with the causal latent window over the last ``num_latents`` positions
+    and a causal query decode predicting each successor token.
+
+    ``attn_impl`` defaults to ``'pallas'``, the port's convention: every
+    causal call goes through the attention kernel's causal offset. The JAX
+    preset's default ``'auto'`` resolves every causal call to its einsum
+    path (``'xla'``), which the port has not ported (ROADMAP); the two
+    compute the same function."""
+    return _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
+                     num_self_attention_layers_per_block, dtype, device, seed, attn_impl)
+
+
+def tiny_ar(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16,
+            num_channels: int = 32, num_layers: int = 2,
+            num_self_attention_layers_per_block: int = 1, dtype=torch.float32,
+            device=None, seed: int = 0, attn_impl: str = "pallas") -> PerceiverARLM:
+    """The CPU-scale twin of :func:`flagship_ar` (the tests' model)."""
+    return _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
+                     num_self_attention_layers_per_block, dtype, device, seed, attn_impl)
+
+
+def _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
+              num_self_attention_layers_per_block, dtype, device, seed,
+              attn_impl) -> PerceiverARLM:
+    device = resolve_device(device)
+    model = PerceiverARLM(
+        input_adapter=TextInputAdapter(vocab_size, max_seq_len, num_channels, dtype),
+        output_adapter=TextOutputAdapter(vocab_size, max_seq_len,
+                                         num_output_channels=num_channels, dtype=dtype),
+        num_latents=num_latents, num_layers=num_layers,
+        num_self_attention_layers_per_block=num_self_attention_layers_per_block,
+        dtype=dtype, attn_impl=attn_impl)
+    init_params(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
 PRESETS = {
     "flagship_tpu_mlm": flagship_tpu_mlm,
     "flagship_mlm": flagship_mlm,
     "tiny": tiny_mlm,
+    "flagship_ar": flagship_ar,
+    "tiny_ar": tiny_ar,
 }
+# the presets of the Perceiver-AR generation task (the others are MLMs)
+AR_PRESETS = ("flagship_ar", "tiny_ar")

@@ -15,6 +15,18 @@ The counterparts of ``perceiver_io_tpu/ops/attention.py`` without dropout:
 - :class:`MLP`: LayerNorm → Linear → GELU (exact) → Linear, constant width.
 - the layers add their residual to the FIRST argument.
 
+The causal and cache surface of the Perceiver-AR decode path follows the
+JAX package's: ``causal_offset`` (query row i attends key j only if
+j <= i + offset; ``'pallas'`` adds it in the kernel, ``'packed'`` raises),
+``kv`` (projections of an earlier call reused) and ``kv_only`` (project
+this call's k/v and nothing else: what a decode step appends to a cache
+ring; ``MultiHeadAttention.project_kv``); the self-attention modules
+return their (k, v) beside their output; :class:`SelfAttentionLayer` and
+:class:`SelfAttentionBlock` take per-layer ``cache`` rings that a decode
+step writes IN PLACE at a host-int ``cache_index`` (the port's counterpart
+of the JAX package's donated ``dynamic_update_slice``) before attending
+the new row over them under ``cache_pad``.
+
 Parameters keep the flax names and layouts (``q_proj.kernel`` is ``(in,
 out)``; LayerNorm has ``scale``/``bias``), so a flax tree carries over by
 path (``perceiver_io_torch.interop``). Each module has a compute ``dtype``:
@@ -153,20 +165,32 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = Linear(num_kv_channels, e, dtype)
         self.out_proj = Linear(e, e, dtype, init="torch")
 
+    def project_kv(self, x_kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (k, v) projections of ``x_kv`` alone, no query side and no
+        attention (the JAX module's ``kv_only`` call)."""
+        return self.k_proj(x_kv), self.v_proj(x_kv)
+
     def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor,
                 pad_mask: Optional[torch.Tensor] = None,
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                causal_offset: Optional[int] = None):
         """Returns ``(out, (k, v))``. ``kv``: the (k, v) projections of a
         previous call over the same ``x_kv`` with the same weights — the
-        shared encoder layer's reuse; the k/v projections are skipped."""
+        shared encoder layer's reuse, or a decode step's cache rings; the
+        k/v projections are skipped. ``causal_offset``: query row i attends
+        key j only if j <= i + offset."""
         q = self.q_proj(x_q)
         if kv is None:
-            kv = (self.k_proj(x_kv), self.v_proj(x_kv))
+            kv = self.project_kv(x_kv)
         k, v = kv
         b, t, e = q.shape
         s = k.shape[1]
         h = self.num_heads
         if self.attn_impl == "packed":
+            if causal_offset is not None:
+                raise ValueError(
+                    "attn_impl='packed' does not implement causal_offset: use "
+                    "'pallas' (the kernel's causal offset)")
             if not packed_fits_vmem(t, s, e, q.element_size()):
                 raise ValueError(
                     f"attn_impl='packed' shapes T={t} S={s} E={e} exceed the packed "
@@ -175,7 +199,7 @@ class MultiHeadAttention(nn.Module):
             return self.out_proj(self.packed_attention(q, k, v, h, pad_mask)), kv
         d = e // h
         out = self.attention(q.view(b, t, h, d), k.view(b, s, h, d),
-                             v.view(b, s, h, d), pad_mask)
+                             v.view(b, s, h, d), pad_mask, causal_offset=causal_offset)
         return self.out_proj(out.reshape(b, t, e)), kv
 
 
@@ -190,13 +214,19 @@ class CrossAttention(nn.Module):
         self.attention = MultiHeadAttention(num_q_channels, num_kv_channels,
                                             num_heads, dtype, attn_impl)
 
-    def forward(self, x_q, x_kv, pad_mask=None, kv=None):
+    def forward(self, x_q, x_kv, pad_mask=None, kv=None, causal_offset=None,
+                kv_only=False):
         """Returns ``(out, (k, v))``; with ``kv`` given, kv_norm and the k/v
-        projections are skipped (the cached tensors include them)."""
+        projections are skipped (the cached tensors include them). With
+        ``kv_only``, returns only the (k, v) of ``x_kv`` after kv_norm: what
+        a decode step appends to its ring, the rows a dense forward
+        projects."""
+        if kv_only:
+            return self.attention.project_kv(self.kv_norm(x_kv))
         x_q = self.q_norm(x_q)
         if kv is None:
             x_kv = self.kv_norm(x_kv)
-        return self.attention(x_q, x_kv, pad_mask, kv)
+        return self.attention(x_q, x_kv, pad_mask, kv, causal_offset)
 
 
 class SelfAttention(nn.Module):
@@ -209,10 +239,20 @@ class SelfAttention(nn.Module):
         self.attention = MultiHeadAttention(num_channels, num_channels, num_heads,
                                             dtype, attn_impl)
 
-    def forward(self, x, pad_mask=None):
+    def forward(self, x, pad_mask=None, causal_offset=None, cache=None,
+                cache_index=None):
+        """Returns ``(out, (k, v))``, the stream's post-norm k/v. With
+        ``cache`` ((k, v) rings (B, S_cap, E)), ``x`` is the (B, 1, C) new
+        row: its k/v are written into the rings at ``cache_index`` (a host
+        int) in place, the row attends over the rings under ``pad_mask``,
+        and the rings return as the (k, v)."""
         x = self.norm(x)
-        out, _ = self.attention(x, x, pad_mask)
-        return out
+        if cache is not None:
+            k_ring, v_ring = cache
+            k_new, v_new = self.attention.project_kv(x)
+            k_ring[:, cache_index: cache_index + 1] = k_new
+            v_ring[:, cache_index: cache_index + 1] = v_new
+        return self.attention(x, x, pad_mask, cache, causal_offset)
 
 
 class MLP(nn.Module):
@@ -240,9 +280,14 @@ class CrossAttentionLayer(nn.Module):
                                               num_heads, dtype, attn_impl)
         self.mlp = MLP(num_q_channels, dtype)
 
-    def forward(self, x_q, x_kv, pad_mask=None, kv=None):
-        """Returns ``(out, (k, v))`` — see :class:`CrossAttention`."""
-        attn_out, kv = self.cross_attention(x_q, x_kv, pad_mask, kv)
+    def forward(self, x_q, x_kv, pad_mask=None, kv=None, causal_offset=None,
+                kv_only=False):
+        """Returns ``(out, (k, v))`` — see :class:`CrossAttention`; with
+        ``kv_only`` only the (k, v) of ``x_kv``, no query, residual or MLP
+        work."""
+        if kv_only:
+            return self.cross_attention(x_q, x_kv, kv_only=True)
+        attn_out, kv = self.cross_attention(x_q, x_kv, pad_mask, kv, causal_offset)
         x = attn_out + x_q
         return self.mlp(x) + x, kv
 
@@ -256,14 +301,25 @@ class SelfAttentionLayer(nn.Module):
         self.self_attention = SelfAttention(num_channels, num_heads, dtype, attn_impl)
         self.mlp = MLP(num_channels, dtype)
 
-    def forward(self, x):
-        x = self.self_attention(x) + x
-        return self.mlp(x) + x
+    def forward(self, x, causal_offset=None, cache=None, cache_index=None,
+                cache_pad=None):
+        """Returns ``(out, (k, v))``. Three modes on one weight set, as the
+        JAX layer's: plain (the MLM path); dense causal (``causal_offset``),
+        the (k, v) the post-norm rows of the whole stream, what a decode
+        ring holds; incremental (``cache``): ``x`` is the (B, 1, C) new row,
+        written into the rings at ``cache_index`` and attended over them
+        under ``cache_pad`` (B, S_cap; True = empty slot), the (k, v) the
+        rings."""
+        attn_out, kv = self.self_attention(x, cache_pad, causal_offset, cache, cache_index)
+        x = attn_out + x
+        return self.mlp(x) + x, kv
 
 
 class SelfAttentionBlock(nn.Module):
     """N stacked self-attention layers (``layer_0`` …), each with its own
-    weights."""
+    weights; returns ``(x, kvs)``, with the causal and cache surface of
+    :class:`SelfAttentionLayer`: ``cache`` and ``kvs`` are lists of
+    per-layer (k, v) (rings in the incremental mode)."""
 
     def __init__(self, num_layers: int, num_channels: int, num_heads: int,
                  dtype=torch.float32, attn_impl: str = "pallas"):
@@ -273,7 +329,10 @@ class SelfAttentionBlock(nn.Module):
             self.add_module(f"layer_{i}",
                             SelfAttentionLayer(num_channels, num_heads, dtype, attn_impl))
 
-    def forward(self, x):
+    def forward(self, x, causal_offset=None, cache=None, cache_index=None, cache_pad=None):
+        kvs = []
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x)
-        return x
+            x, kv = getattr(self, f"layer_{i}")(
+                x, causal_offset, None if cache is None else cache[i], cache_index, cache_pad)
+            kvs.append(kv)
+        return x, kvs

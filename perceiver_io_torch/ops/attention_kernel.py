@@ -1,15 +1,21 @@
 """Fused attention, forward and backward: the CUDA kernels' wrappers, their
 plain versions, and the autograd function that joins them.
 
-The counterpart of ``perceiver_io_tpu/ops/pallas_attention.py::fused_attention``
-(no ``causal_offset``): (B, T, H, D) queries against (B, S, H, D) keys/values
-with an optional (B, S) key padding mask (True = masked out). The mask enters
-as the TPU kernel's finite additive bias (``-1e30``), so a fully masked row
-attends uniformly over all S keys instead of producing NaN.
+The counterpart of ``perceiver_io_tpu/ops/pallas_attention.py::fused_attention``:
+(B, T, H, D) queries against (B, S, H, D) keys/values with an optional (B, S)
+key padding mask (True = masked out) and an optional ``causal_offset`` (query
+row i attends key j only if j <= i + offset). Both enter as the TPU kernel's
+finite additive biases (``-1e30`` each, the causal one added after the pad
+one), so a fully masked row attends uniformly over the keys masked exactly
+once instead of producing NaN: over all S keys with the pad mask alone.
+The causal offset is a forward feature (the Perceiver-AR serving path): a
+causal call under autograd raises, since the backward kernels do not take
+it yet.
 
 - forward: ``csrc/attention_fwd.cu``; with statistics it also returns each
   row's running max ``m`` and denominator ``l`` as (B, H, T) f32, the
-  residuals of the backward (``_fused_attention_fwd_impl(with_lse=True)``).
+  residuals of the backward (``_fused_attention_fwd_impl(with_lse=True)``);
+  with ``causal_offset`` it adds the causal bias by index in both designs.
   Two designs, chosen by dtype (:func:`forward_design`): float32 runs the
   exact scalar-FMA kernel (``wgmma`` has no full-f32 mode), bfloat16 the
   tensor-core kernel (``wgmma`` fed by TMA), which needs 16-byte aligned
@@ -39,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from perceiver_io_torch.ops import build
+from perceiver_io_torch.ops.masking import causal_mask
 
 MASK_VALUE = -1e30
 # the mask value as the f32 bias holds it (the kernels' running-max floor)
@@ -48,6 +55,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 counter = build.LaunchCounter()          # attention_fwd, either design
 wgmma_counter = build.LaunchCounter()    # attention_fwd, the bf16 wgmma design
+causal_counter = build.LaunchCounter()   # attention_fwd with the causal bias, either design
 dq_counter = build.LaunchCounter()       # attention_bwd_dq, either design
 dkv_counter = build.LaunchCounter()      # attention_bwd_dkv, either design
 dq_wgmma_counter = build.LaunchCounter()   # attention_bwd_dq, the bf16 wgmma design
@@ -65,6 +73,14 @@ def pad_bias(pad_mask: Optional[torch.Tensor], batch: int, keys: int,
             f"pad_mask shape {tuple(pad_mask.shape)} != {(batch, keys)}")
     return bias.masked_fill(pad_mask.to(device=device, dtype=torch.bool),
                             MASK_VALUE)
+
+
+def causal_bias(num_queries: int, num_keys: int, offset: int, device) -> torch.Tensor:
+    """The (T, S) f32 additive causal bias of the TPU kernel
+    (``_causal_bias``): ``-1e30`` where key j > row i + offset."""
+    return torch.zeros((num_queries, num_keys), dtype=torch.float32,
+                       device=device).masked_fill(
+        causal_mask(num_queries, num_keys, offset, device), MASK_VALUE)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -88,8 +104,10 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _plain_fwd(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(out, m, l): logits scaled by D**-0.5 plus the bias, ``m`` the row max
+def _plain_fwd(q, k, v, bias, causal_offset: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, l): logits scaled by D**-0.5 plus the pad bias, then plus the
+    causal bias when ``causal_offset`` is given, ``m`` the row max
     floored at the mask value (the kernel's running max starts there),
     ``l = sum exp(logits - m)``, probabilities rounded to v's dtype before
     P.V, output in q's dtype; m and l are (B, H, T) f32 (f64 for f64
@@ -98,6 +116,9 @@ def _plain_fwd(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     d = q.shape[-1]
     logits = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) * d**-0.5
     logits = logits + bias.to(acc)[:, None, None, :]
+    if causal_offset is not None:
+        logits = logits + causal_bias(q.shape[1], k.shape[1], causal_offset,
+                                      q.device).to(acc)
     m = logits.amax(dim=-1).clamp_min(_MASK_F32)
     e = torch.exp(logits - m[..., None])
     l = e.sum(dim=-1)
@@ -130,18 +151,21 @@ def _plain_bwd(q, k, v, bias, out, m, l, g):
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        pad_mask: Optional[torch.Tensor] = None,
+                        causal_offset: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: f32 logits scaled by
-    D**-0.5 plus the pad bias, softmax in f32, probabilities rounded to v's
-    dtype, P.V accumulated in f32, output in q's dtype."""
-    return attention_reference_with_stats(q, k, v, pad_mask)[0]
+    D**-0.5 plus the pad bias (plus the causal bias with ``causal_offset``),
+    softmax in f32, probabilities rounded to v's dtype, P.V accumulated in
+    f32, output in q's dtype."""
+    return attention_reference_with_stats(q, k, v, pad_mask, causal_offset)[0]
 
 
-def attention_reference_with_stats(q, k, v, pad_mask=None):
+def attention_reference_with_stats(q, k, v, pad_mask=None, causal_offset=None):
     """Plain version of the forward with statistics: ``(out, m, l)``, m and
     l (B, H, T) f32."""
     _check(q, k, v)
-    return _plain_fwd(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device))
+    return _plain_fwd(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
+                      causal_offset)
 
 
 def attention_bwd_reference(q, k, v, pad_mask, out, m, l, g):
@@ -232,8 +256,9 @@ def _strides(*tensors) -> list:
     return [s for x in tensors for s in (x.stride(0), x.stride(1), x.stride(2))]
 
 
-def _launch_fwd(q, k, v, bias, stats: bool):
-    """The forward kernel: out, plus (m, l) when ``stats``."""
+def _launch_fwd(q, k, v, bias, stats: bool, causal_offset: Optional[int] = None):
+    """The forward kernel: out, plus (m, l) when ``stats``; the causal bias
+    with ``causal_offset``."""
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     design = forward_design(q, k, v)
@@ -251,12 +276,15 @@ def _launch_fwd(q, k, v, bias, stats: bool):
     err = build.library().attention_fwd(
         _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), out.data_ptr(), m.data_ptr() if stats else None,
-        l.data_ptr() if stats else None, b, t, s, h, *_strides(q, k, v),
+        l.data_ptr() if stats else None, b, t, s, h, int(causal_offset is not None),
+        causal_offset or 0, *_strides(q, k, v),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("attention_fwd", err)
     counter.launches += 1
     if design == "wgmma":
         wgmma_counter.launches += 1
+    if causal_offset is not None:
+        causal_counter.launches += 1
     return out, m, l
 
 
@@ -317,11 +345,13 @@ def _launch_bwd(q, k, v, bias, out, m, l, g):
             *launch_bwd_dkv(q, k, v, bias, m, l, delta, g))
 
 
-def _forward(q, k, v, bias, stats: bool):
+def _forward(q, k, v, bias, stats: bool, causal_offset: Optional[int] = None):
     if q.device.type == "cpu":
         counter.plain_calls += 1
-        return _plain_fwd(q, k, v, bias)
-    return _launch_fwd(q, k, v, bias, stats)
+        if causal_offset is not None:
+            causal_counter.plain_calls += 1
+        return _plain_fwd(q, k, v, bias, causal_offset)
+    return _launch_fwd(q, k, v, bias, stats, causal_offset)
 
 
 def _backward(q, k, v, bias, out, m, l, g):
@@ -332,11 +362,12 @@ def _backward(q, k, v, bias, out, m, l, g):
     return _launch_bwd(q, k, v, bias, out, m, l, g)
 
 
-def attention_fwd_with_stats(q, k, v, pad_mask=None):
+def attention_fwd_with_stats(q, k, v, pad_mask=None, causal_offset=None):
     """``(out, m, l)``: the forward kernel with statistics on CUDA tensors,
     :func:`attention_reference_with_stats` on CPU tensors."""
     _check(q, k, v)
-    return _forward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device), True)
+    return _forward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device), True,
+                    causal_offset)
 
 
 def attention_bwd(q, k, v, pad_mask, out, m, l, g):
@@ -373,8 +404,17 @@ def _records_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
+def _no_causal_backward(causal_offset: Optional[int]) -> None:
+    if causal_offset is not None:
+        raise ValueError(
+            "causal backward not ported: AR training slice (the backward kernels "
+            "take no causal_offset; run causal attention under torch.no_grad or "
+            "torch.inference_mode)")
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    pad_mask: Optional[torch.Tensor] = None,
+                    causal_offset: Optional[int] = None) -> torch.Tensor:
     """Attention over (B, T, H, D) q and (B, S, H, D) k/v; returns
     (B, T, H, D) contiguous in q's dtype. CUDA tensors launch the kernels
     (f32 or bf16, D in ``SUPPORTED_HEAD_DIMS``, unit stride along D; other
@@ -383,20 +423,27 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`backward_design`); CPU
     tensors run the plain versions. When autograd records, the call goes
     through :class:`FusedAttention` (forward with statistics, backward
-    kernels); otherwise the forward runs without statistics."""
+    kernels); otherwise the forward runs without statistics.
+    ``causal_offset``: query row i attends key j only if j <= i + offset,
+    added in the kernel by index; a causal call under autograd raises
+    ``ValueError`` (no causal backward yet)."""
     _check(q, k, v)
     if _records_grad(q, k, v):
+        _no_causal_backward(causal_offset)
         return FusedAttention.apply(q, k, v, pad_mask)
     return _forward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
-                    False)[0]
+                    False, causal_offset)[0]
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    pad_mask: Optional[torch.Tensor] = None,
+                    causal_offset: Optional[int] = None) -> torch.Tensor:
     """The plain versions of the forward and of the backward on any device,
     differentiable the same way: what a parity run puts in the kernels'
-    place. Counts no launch and no plain call."""
+    place. Counts no launch and no plain call; a causal call under autograd
+    raises, as :func:`fused_attention`'s does."""
     _check(q, k, v)
     if _records_grad(q, k, v):
+        _no_causal_backward(causal_offset)
         return FusedAttention.apply(q, k, v, pad_mask, True)
-    return attention_reference(q, k, v, pad_mask)
+    return attention_reference(q, k, v, pad_mask, causal_offset)

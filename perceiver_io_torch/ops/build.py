@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 _c_int, _c_ptr, _c_i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
 # argtypes of every C entry point, in the order of its signature
 _SIGNATURES = {
-    "attention_fwd": [_c_int, _c_int] + [_c_ptr] * 7 + [_c_int] * 4
+    "attention_fwd": [_c_int, _c_int] + [_c_ptr] * 7 + [_c_int] * 6
                      + [_c_i64] * 9 + [_c_ptr],
     "attention_bwd_dq": [_c_int, _c_int] + [_c_ptr] * 9 + [_c_int] * 4
                         + [_c_i64] * 12 + [_c_ptr],

@@ -1,6 +1,6 @@
-"""BERT-style MLM text masking (the port's copy of
-``perceiver_io_tpu/ops/masking.py``: ``IGNORE_LABEL``, ``apply_text_masking``,
-``TextMasking``).
+"""BERT-style MLM text masking and the causal attention mask (the port's
+copy of ``perceiver_io_tpu/ops/masking.py``: ``IGNORE_LABEL``,
+``causal_mask``, ``apply_text_masking``, ``TextMasking``).
 
 The same corruption scheme, nested draws included:
 
@@ -25,6 +25,19 @@ from typing import Optional, Tuple
 import torch
 
 IGNORE_LABEL = -100
+
+
+def causal_mask(num_queries: int, num_keys: int, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(T, S) bool causal mask, True = masked out: query row ``i`` (absolute
+    position ``offset + i``) may attend key positions ``<= offset + i``.
+    offset 0 is the square causal self-attention; L - N the Perceiver-AR
+    latent window's cross-attention. The attention kernel takes the same
+    rule as ``causal_offset`` and applies it by index instead of reading
+    this mask; the plain version and the tests use it."""
+    rows = torch.arange(num_queries, device=device)[:, None]
+    cols = torch.arange(num_keys, device=device)[None, :]
+    return cols > rows + offset
 
 
 def apply_text_masking(

@@ -7,6 +7,12 @@ a fully masked row, at T and S that are not multiples of the kernels'
 dv) at f32, atol = rtol = 2e-5 (the golden bar); autograd through
 ``fused_attention`` against ``jax.grad`` at 1e-5.
 
+The causal offset (the Perceiver-AR path's forward): the plain version
+against the Pallas forward with ``causal_offset`` (interpret mode) at
+offsets 0 and > 0, a one-row decode step, S not a multiple of 8, and rows
+whose visible keys are all padding (they average the keys masked exactly
+once), f32 at 1e-5; a causal call under autograd raises.
+
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there."""
 
@@ -17,12 +23,14 @@ import pytest
 import torch
 
 from perceiver_io_tpu.ops.attention import _dot_product_attention
+from perceiver_io_tpu.ops.masking import causal_mask as jax_causal_mask
 from perceiver_io_tpu.ops.pallas_attention import (
     _fused_attention_bwd_impl,
     _fused_attention_fwd_impl,
 )
 from perceiver_io_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
 from perceiver_io_torch.ops import attention_kernel as ak
+from perceiver_io_torch.ops.masking import causal_mask
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -184,3 +192,92 @@ def test_serving_calls_skip_the_statistics_and_the_backward():
         out = ak.fused_attention(q.requires_grad_(True), k, v, pad)
     assert out.grad_fn is None
     assert (ak.counter.plain_calls, ak.dq_counter.plain_calls) == (before[0] + 1, before[1])
+
+
+# -- the causal offset ----------------------------------------------------------
+
+
+CAUSAL_CASES = {  # name: (b, t, s, d, offset, mask)
+    "window_cross": (2, 5, 16, 8, 11, "pad"),
+    "square_self": (2, 16, 16, 8, 0, "pad"),
+    "decode_step": (2, 1, 19, 8, 18, "pad"),
+    "ragged_s": (2, 7, 13, 16, 6, "none"),
+    "visible_all_padding": (3, 12, 20, 8, 8, "head_padded"),
+}
+
+
+def _causal_inputs(name):
+    b, t, s, d, off, mask = CAUSAL_CASES[name]
+    q, k, v, pad = _inputs(t * s + off, b, t, s, 2, d, "none" if mask == "none" else "pad")
+    if mask == "head_padded":
+        # the last example's first 12 keys padded: rows 0..3 (offset 8) see
+        # only padding, so they average the keys masked exactly once (their
+        # visible padded keys and the unpadded future ones)
+        pad[-1, :12] = True
+        pad[-1, 12:] = False
+    return q, k, v, pad, off
+
+
+@pytest.mark.parametrize("name", sorted(CAUSAL_CASES))
+def test_plain_causal_attention_matches_jax(name):
+    """The plain forward with ``causal_offset`` (and its statistics) against
+    the Pallas forward with the in-kernel causal bias, interpret mode."""
+    q, k, v, pad, off = _causal_inputs(name)
+    b, t, s = q.shape[0], q.shape[1], k.shape[1]
+    tq, tk, tv, tpad = _torch(q, k, v, pad)
+    got = ak.fused_attention(tq, tk, tv, tpad, causal_offset=off).numpy()
+    jpad = None if pad is None else jnp.asarray(pad)
+    ref = np.asarray(jax_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         jpad, interpret=True, causal_offset=off))
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+    bias = jnp.zeros((b, s), jnp.float32) if pad is None else jnp.where(
+        jpad, ak.MASK_VALUE, 0.0).astype(jnp.float32)
+    _, jm, jl = _fused_attention_fwd_impl(*(_bhtd(x) for x in (q, k, v)), bias, t, s, True,
+                                          with_lse=True, causal_offset=off)
+    out, m, l = ak.attention_fwd_with_stats(tq, tk, tv, tpad, causal_offset=off)
+    np.testing.assert_allclose(out.numpy(), got, atol=0, rtol=0)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm)[..., 0], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl)[..., 0], atol=1e-5, rtol=1e-5)
+
+
+def test_rows_whose_visible_keys_are_all_padding():
+    """Such a row averages v over the keys masked exactly once: its visible
+    padded keys and its unpadded future keys (each scores -1e30); keys both
+    padded and in the future score -2e30 and drop out. Skipping the key
+    tiles past the diagonal would change exactly these rows."""
+    q, k, v, pad, off = _causal_inputs("visible_all_padding")
+    got = ak.fused_attention(*_torch(q, k, v, pad), causal_offset=off).numpy()
+    future = causal_mask(q.shape[1], k.shape[1], off).numpy()
+    for i in range(4):  # rows 0..3 of the last example see keys 0..i+8, all padded
+        once = pad[-1] ^ future[i]
+        assert pad[-1][: i + off + 1].all()
+        assert once.sum() == k.shape[1] - (3 - i)  # keys i+9..11 are masked twice
+        np.testing.assert_allclose(got[-1, i], v[-1][once].mean(axis=0), atol=1e-5, rtol=1e-5)
+
+
+def test_causal_mask_matches_jax():
+    for t, s, off in ((4, 6, 2), (5, 5, 0), (1, 9, 8)):
+        np.testing.assert_array_equal(causal_mask(t, s, off).numpy(),
+                                      np.asarray(jax_causal_mask(t, s, off)))
+    bias = ak.causal_bias(3, 5, 1, "cpu")
+    assert bias.dtype == torch.float32
+    np.testing.assert_array_equal(bias.numpy() == ak.MASK_VALUE, causal_mask(3, 5, 1).numpy())
+
+
+def test_causal_call_under_autograd_raises():
+    """The causal offset is a forward feature: no backward kernel takes it
+    yet, and a causal call under autograd raises rather than run the
+    non-causal backward."""
+    q, k, v, pad, off = _causal_inputs("window_cross")
+    leaves = [x.requires_grad_(True) for x in _torch(q, k, v)]
+    tpad = torch.from_numpy(pad)
+    for fn in (ak.fused_attention, ak.plain_attention):
+        with pytest.raises(ValueError, match="causal backward not ported"):
+            fn(*leaves, tpad, causal_offset=off)
+    with torch.no_grad():
+        before = (ak.counter.plain_calls, ak.causal_counter.plain_calls)
+        out = ak.fused_attention(*leaves, tpad, causal_offset=off)
+        ak.fused_attention(*leaves, tpad)
+    assert out.grad_fn is None
+    assert (ak.counter.plain_calls, ak.causal_counter.plain_calls) == (before[0] + 2,
+                                                                       before[1] + 1)

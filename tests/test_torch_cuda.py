@@ -22,6 +22,11 @@ layouts, loss within 1e-4 of its peak and lse 1e-5 relative; one
 round(W)^T a bf16 autograd step), and the packed-heads kernels (forward, dq, dk/dv
 at small, ragged, wide, head-split and tail-padded shapes; autograd through
 ``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``),
+the forward's causal offset in both designs (the Perceiver-AR shapes: a
+latent-window cross, square self-attention, a one-row step against 511
+keys, rows whose visible keys are all padding; its statistics too; a causal
+call under autograd raises), the tiny AR model's incremental steps against
+its dense forward and against the plain versions on the card,
 and the bf16 wgmma designs of the forward, of the two backward kernels,
 of the three packed kernels and of the dequant matmul at ragged and tiny
 shapes (T, S, M down to 1, the
@@ -836,3 +841,94 @@ def test_packed_train_step_on_the_card_matches_plain(card):
     for name, ref in ref_grads.items():
         if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
             assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
+
+
+# (B, T, S, H, offset, padded key prefix of the last example): the AR path's
+# causal calls, a ragged width and rows whose visible keys are all padding
+CAUSAL_SHAPES = {
+    "window_cross": (3, 70, 131, 2, 61, 0),
+    "square_self": (3, 130, 130, 2, 0, 0),
+    "window_511": (2, 256, 511, 2, 255, 0),
+    "step_511": (3, 1, 511, 2, 510, 0),
+    "visible_all_padding": (3, 64, 200, 2, 8, 80),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("shape", sorted(CAUSAL_SHAPES))
+def test_causal_attention_matches_plain(card, dtype, d, shape):
+    """The forward's causal offset (both designs: the f32 scalar kernel, the
+    bf16 wgmma kernel) against the plain version, with ~30% of keys padded
+    and, in ``visible_all_padding``, the last example's first 80 keys padded
+    so that its rows 0..71 see only padding (they average the keys masked
+    exactly once); out and the statistics, each call one causal launch."""
+    b, t, s, h, off, head = CAUSAL_SHAPES[shape]
+    g = torch.Generator().manual_seed(t * 1000 + s + d)
+    q, k, v = (torch.randn(b, n, h, d, generator=g).to(card, dtype) for n in (t, s, s))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    if head:
+        pad[-1] = False
+        pad[-1, :head] = True
+    pad = pad.to(card)
+    before = (ak.counter.launches, ak.causal_counter.launches, ak.wgmma_counter.launches)
+    got = ak.fused_attention(q, k, v, pad, causal_offset=off)
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad, causal_offset=off)
+    wgmma = 2 if dtype == torch.bfloat16 else 0
+    assert (ak.counter.launches, ak.causal_counter.launches, ak.wgmma_counter.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + wgmma)
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad, off)
+    _close(got, ref_out, dtype)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(m, ref_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
+    if head:
+        assert (m[-1, :, : head - off] == ak.MASK_VALUE).all()
+
+
+def test_causal_attention_under_autograd_raises_on_the_card(card):
+    q, k, v = (torch.randn(1, 8, 2, 16, device=card, requires_grad=True) for _ in range(3))
+    before = ak.counter.launches
+    with pytest.raises(ValueError, match="causal backward not ported"):
+        ak.fused_attention(q, k, v, causal_offset=0)
+    assert ak.counter.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ar_generation_on_the_card(card, dtype):
+    """The tiny AR model's generation on the card, across an episode
+    boundary (widths 16, 31): every prefill launches 5 causal attention
+    kernels, every step 5 non-causal ones (bf16: all wgmma); with the f32
+    kernels every step's logits equal the dense forward's within 1e-4 of
+    their peak, and the prefill's equal the plain versions' on the card."""
+    from perceiver_io_torch.inference.generate import ARGenerator
+    from perceiver_io_torch.models.presets import tiny_ar
+    from perceiver_io_torch.ops.attention import MultiHeadAttention
+
+    gen = ARGenerator(tiny_ar(device=card, seed=1, dtype=dtype), None, 64, chunk=4,
+                      device=card)
+    for c in (ak.counter, ak.causal_counter, ak.wgmma_counter):
+        c.reset()
+    tokens, _ = gen.generate([5, 6, 7, 8, 9, 10, 11, 12, 13, 14], 12)
+    assert len(tokens) == 12 and gen.prefills == 2 and gen.steps == 12
+    assert (ak.counter.launches, ak.causal_counter.launches) == (5 * 14, 5 * 2)
+    assert ak.wgmma_counter.launches == (5 * 14 if dtype == torch.bfloat16 else 0)
+    if dtype == torch.bfloat16:
+        return
+    model = gen.model
+    ids = torch.tensor([[5, 6, 7, 8, 9, 10, 11, 12, 13, 14] + [0] * 6], device=card)
+    pad = torch.arange(16, device=card)[None, :] >= 10
+    with torch.inference_mode():
+        logits, cache = model.prefill(ids.clone(), pad, length=10)
+        prefix = ids.clone()
+        for t in range(6):
+            tok = torch.tensor([[t + 20]], device=card)
+            step, cache = model.step(cache, tok)
+            ids[0, 10 + t] = t + 20
+            dense = model(ids, torch.arange(16, device=card)[None, :] >= 11 + t)
+            _close(step, dense[:, 10 + t], torch.float32)
+        for module in model.modules():
+            if isinstance(module, MultiHeadAttention):
+                module.attention = ak.attention_reference
+        plain, _ = model.prefill(prefix, pad, length=10)
+    _close(logits, plain, torch.float32)

@@ -3,7 +3,8 @@
 - Every ``extern "C"`` entry point of ``perceiver_io_torch/csrc/*.cu`` has a
   ``ctypes`` signature in ``build._SIGNATURES`` with the same number and
   kinds of arguments (pointer, ``int``, ``int64_t``): a mismatch would pass
-  a cut pointer or a shifted argument at the first launch.
+  a cut pointer or a shifted argument at the first launch; the attention
+  forward's causal flag and offset stand where its wrapper passes them.
 - The admission rule of the kernels with two designs: which dtype, head
   dim and strides reach the bf16 ``wgmma`` design, which the f32 scalar one,
   and which raise ``ValueError`` (``attention_kernel.forward_design`` and
@@ -225,6 +226,17 @@ def test_ce_backward_prototypes_take_the_bf16_weight(name, outputs):
     inputs = [] if name == "linear_ce_fwd" else ["lse", "g"]
     assert _prototype_args(name) == (["dtype", "x", "w", "wt", "b", "labels"] + inputs
                                      + outputs + ["rows", "channels", "vocab", "stream"])
+
+
+def test_attention_forward_prototype_takes_the_causal_offset():
+    """The forward's entry point takes the causal flag and offset right
+    after ``heads``, in the order ``attention_kernel._launch_fwd`` passes
+    them (``int(causal_offset is not None), causal_offset or 0``)."""
+    assert _prototype_args("attention_fwd") == (
+        ["dtype", "head_dim", "q", "k", "v", "bias", "out", "m_out", "l_out", "batch",
+         "t_len", "s_len", "heads", "causal", "causal_offset"]
+        + [f"s{t}{d}" for t in "qkv" for d in ("b", "t" if t == "q" else "s", "h")]
+        + ["stream"])
 
 
 def _ce_design_by_dtype(design_of, dtype, design, c):
