@@ -168,14 +168,56 @@ Phases (any failure exits nonzero):
 19. phase 18's generation with int8 weights (``int8w``): 131 #9 launches a
     prefill and a step, every one wgmma, besides #1's; top-1 agreement with
     the int8 plain versions under teacher forcing at least 0.95; the same
-    times.
+    times;
+20. the two backward kernels (#2 dq, #3 dk/dv) with the causal offset (the
+    Perceiver-AR training path's backward) through ``FusedAttention`` under
+    autograd, against the plain backward with the same offset on the
+    kernel forward's residuals, at B=64, H=4, D=128: the AR training cross
+    (T=256, S=512, offset 256), the latent self-attention and output decode
+    (256, 256, 0) and a ragged cross (256, 511, 255); each example's keys
+    padded from a random length on, the first four examples' first keys
+    padded so that their first rows see only padding, the last example all
+    padding; f32 (the scalar designs) and bf16 (the wgmma designs): the
+    statistics, dq, dk and dv within the tolerances below, dq of every row
+    whose visible keys are all padding and dk of every padded key exactly
+    0, each call one causal launch a kernel and in bf16 one wgmma launch a
+    kernel; CUDA-event and profiler device times of each kernel, of the
+    plain backward and of SDPA's backward with the same additive mask (pad
+    and causal biases); the bound counts the (row, key) pairs the data needs;
+21. Perceiver-AR training: ``Trainer.fit`` takes 30 Adam steps (lr 1e-3) of
+    ``flagship_ar`` (vocab 10003, 512 tokens, 256 latents, C=512, 4 heads of
+    depth 128, 3 x (causal cross + 6 causal self), bf16 over f32 weights,
+    seed 0) through ``make_ar_steps``, batch 64 x 512 tokens: the synthetic
+    ``IMDBDataModule``'s (seed 0) training reviews, tokenized by its
+    tokenizer and packed end to end into rows (its collated rows are
+    shorter than the 256-token offset of the latent window, so every target
+    would be padding), every fourth row padded from a random length past
+    the window's start and each batch's last row from 200 on (its window
+    all padding); validation once, at the end, on its validation reviews
+    packed the same way. The counters, set to 0 just before the checked
+    fit, must read per step 22 causal #1 launches with statistics, 22 causal
+    dq and 22 causal dk/dv, all wgmma (3 cross, 18 self, 1 output decode),
+    and no other kernel; the loss finite and the mean of the last 5 below the
+    first step's. Then the 10-step window (tokens/s) and the profiled 3-step
+    window (device busy ms, idle share), as phase 8;
+22. three f32 ``flagship_ar`` train steps with the kernels, then with the
+    plain versions in their place, from the same weights and batches:
+    losses within 1e-4 relative at every step, the first step's gradients
+    within 1e-3 of each leaf's peak; then three bf16 steps: losses within
+    2e-2 relative;
+23. ``perceiver_io_torch.cli.train_ar --preset flagship_tpu --synthetic
+    --max_steps 5`` in-process: ``metrics.jsonl`` rows with finite losses,
+    every #1-#3 launch causal and wgmma, the vocab head at the tokenizer's
+    size.
 
 Each path's launch counters are set to 0 just before its checked
 ``Trainer.fit`` (or its serving pass, or its generation) and read just
 after; the ``kernels`` line sums them with the serving path's, and the
 script fails if any kernel was never launched. Its ``attention_fwd_causal``
 entry is #1's causal reading (phase 17's bf16 W=512 cross), with the causal
-launches of phases 18 and 19. A failure prints one line on stdout naming the phase
+launches of phases 18, 19 and 21; ``attention_bwd_dq_causal`` and
+``attention_bwd_dkv_causal`` are phase 20's bf16 AR training cross, with
+phase 21's launches. A failure prints one line on stdout naming the phase
 (``chip_smoke: failed in phase ...``) before the nonzero exit; a machine
 without a CUDA card, or a directory without the package, fails so too.
 
@@ -226,7 +268,8 @@ KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                 "attention_fwd_wgmma", "attention_bwd_dq_wgmma", "attention_bwd_dkv_wgmma",
                 "packed_attention_fwd_wgmma", "packed_attention_bwd_dq_wgmma",
                 "packed_attention_bwd_dkv_wgmma", "linear_ce_bwd_dx_wgmma",
-                "linear_ce_bwd_dw_wgmma", "linear_ce_fwd_wgmma")
+                "linear_ce_bwd_dw_wgmma", "linear_ce_fwd_wgmma",
+                "attention_bwd_dq_causal", "attention_bwd_dkv_causal")
 BF16_TOP1_AGREEMENT, BF16_LOSS_REL = 0.95, 2e-2
 # (rows, channels, vocab): bench.py's head (batch 64 x capacity 160, C=64),
 # the flagship head (C=512), a ragged row count
@@ -256,6 +299,12 @@ AR_ATTN_SHAPES = (("ar_self", (4, 256, 256, 4, 128), 0),
                   ("ar_cross_512", (4, 256, 512, 4, 128), 256),
                   ("ar_step_512", (4, 1, 512, 4, 128), None),
                   ("ar_step_256", (4, 1, 256, 4, 128), None))
+# name, (B, T, S, H, D), causal offset: #2/#3's calls on the AR training path
+# (ar_self is also the output decode)
+AR_BWD_SHAPES = (("ar_cross", (64, 256, 512, 4, 128), 256),
+                 ("ar_self", (64, 256, 256, 4, 128), 0),
+                 ("ar_cross_511", (64, 256, 511, 4, 128), 255))
+AR_LEFT_PADDED = 4  # examples whose first rows see only padding (phase 20)
 phase_name = "start"  # the phase running now, named in a failure's stdout line
 
 
@@ -327,9 +376,11 @@ def device_ms(torch, fn, match: str = "", iters: int = 20, tries: int = 3):
     ``match`` (every kernel of the call when empty), summed by torch.profiler
     over ``iters`` calls after a warm-up. Unlike CUDA events around the
     calls, it does not count the device waiting on the host's enqueue. The
-    profiler on the card's machine now and then returns no kernel events:
-    such a window is profiled again, up to ``tries`` times, then the reading
-    is None (not measured)."""
+    profiler on the card's machine now and then returns no kernel events, or
+    only some of them (a kernel counted fewer times than the calls launched
+    it, whose sum then reads below the kernel's bound): such a window is
+    profiled again, up to ``tries`` times, then the reading is None (not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -340,10 +391,11 @@ def device_ms(torch, fn, match: str = "", iters: int = 20, tries: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key
-                 and not getattr(e, "is_user_annotation", False))
-        if us:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key
+                   and not getattr(e, "is_user_annotation", False)]
+        us = sum(e.self_device_time_total for e in kernels)
+        if us and all(e.count % iters == 0 for e in kernels):
             return us / 1e3 / iters
     return None
 
@@ -839,16 +891,17 @@ def path_counters(port):
             pk.fwd_counter, pk.dq_counter, pk.dkv_counter, ak.wgmma_counter,
             ak.dq_wgmma_counter, ak.dkv_wgmma_counter, pk.fwd_wgmma_counter,
             pk.dq_wgmma_counter, pk.dkv_wgmma_counter, ck.ce_dx_wgmma_counter,
-            ck.ce_dw_wgmma_counter, ck.ce_fwd_wgmma_counter)
+            ck.ce_dw_wgmma_counter, ck.ce_fwd_wgmma_counter, ak.dq_causal_counter,
+            ak.dkv_causal_counter)
 
 
 def per_step_launches(fused_head, attn_impl: str = "pallas", bf16: bool = True) -> list:
-    """Launches of one train step, in ``path_counters`` order; in bf16 every
-    launch of #1-#8 takes the wgmma design."""
+    """Launches of one MLM train step, in ``path_counters`` order; in bf16
+    every launch of #1-#8 takes the wgmma design; none is causal."""
     ce = 1 if fused_head else 0
     fused, packed = (0, ATTN_PER_FORWARD) if attn_impl == "packed" else (ATTN_PER_FORWARD, 0)
     return ([fused] * 3 + [ce] * 3 + [packed] * 3 + [fused if bf16 else 0] * 3
-            + [packed if bf16 else 0] * 3 + [ce if bf16 else 0] * 3)
+            + [packed if bf16 else 0] * 3 + [ce if bf16 else 0] * 3 + [0, 0])
 
 
 def per_eval_launches(per_step: list) -> list:
@@ -1769,6 +1822,339 @@ def ar_cli_phase(torch, port, tokenizer, root: str) -> None:
         raise AssertionError(f"serve --task generate: {lines}")
 
 
+def ar_attention_bwd_phase(torch, ak):
+    """Phase 20: the dq and dk/dv kernels with the causal offset through
+    ``FusedAttention`` under autograd, against the plain backward with the
+    same offset on the kernel forward's residuals (AR_BWD_SHAPES, f32 and
+    bf16). Keys padded from a random length on; the first AR_LEFT_PADDED
+    examples' first keys padded too, so their first rows see only padding;
+    the last example all padding. dq of those rows and dk of every padded
+    key must be exactly 0. Times as phase 3's; the bound counts the (row,
+    key) pairs the data needs (a row's live keys; on a row with none, the
+    keys masked exactly once, which it averages)."""
+    from perceiver_io_torch.ops.masking import causal_mask
+
+    log(phase="ar_attention_bwd", card=card_line())
+    rows = []
+    for name, (b, t, s, h, d), off in AR_BWD_SHAPES:
+        gen = torch.Generator().manual_seed(b + t + s + d + off + 20)
+        pad = torch.arange(s)[None, :] >= torch.randint(1, s + 1, (b, 1), generator=gen)
+        for i in range(AR_LEFT_PADDED):
+            pad[i, : off + 16 * (i + 1)] = True
+        pad[-1] = True
+        future = causal_mask(t, s, off)
+        live = ~(pad[:, None, :] | future[None])
+        dead = ~live.any(-1)  # (B, T): rows whose visible keys are all padding
+        once = pad[:, None, :] ^ future[None]
+        pairs = int(live.sum()) + int((once & dead[..., None]).sum())
+        dead_rows = int(dead[:-1].sum())  # beside the wholly padded example's
+        pad, dead = pad.cuda(), dead.cuda()
+        mask_bias = ak.pad_bias(pad, b, s, "cuda")[:, None, None, :] + ak.causal_bias(
+            t, s, off, "cuda")[None, None]
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).split(".")[1]
+            q, g = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
+            out, m, l = ak.attention_fwd_with_stats(q, k, v, pad, off)
+            ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad, off)
+            check(f"causal attention fwd+stats {name} {dt}", out, ref_out, dt)
+            stat_err = max(check_stats(f"m {name} {dt}", m, ref_m),
+                           check_stats(f"l {name} {dt}", l, ref_l))
+            design = ak.backward_design(q, k, v, g)
+            counters = (ak.dq_causal_counter, ak.dkv_causal_counter, ak.dq_wgmma_counter,
+                        ak.dkv_wgmma_counter)
+            before = [c.launches for c in counters]
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            ak.FusedAttention.apply(*leaves, pad, off).backward(g)
+            got = [c.launches - n for c, n in zip(counters, before)]
+            wgmma = int(design == "wgmma")
+            if got != [1, 1, wgmma, wgmma]:
+                raise AssertionError(f"causal attention bwd {name} {dt}: launches (dq causal, "
+                                     f"dkv causal, dq wgmma, dkv wgmma) {got}")
+            grads = [x.grad for x in leaves]
+            refs = ak.attention_bwd_reference(q, k, v, pad, out, m, l, g, off)
+            errs = [check(f"causal attention bwd {x} {name} {dt}", got_, ref, dt)
+                    for x, got_, ref in zip(("dq", "dk", "dv"), grads, refs)]
+            if grads[0][dead].any() or grads[1][pad].any():
+                raise AssertionError(f"causal {name} {dt}: dq of a row that sees only padding, "
+                                     f"or dk of a padded key, is not 0")
+            bias = ak.pad_bias(pad, b, s, "cuda")
+            delta = ak.bwd_delta(g, out)
+            item = q.element_size()
+            stats_bytes = 4 * 3 * b * h * t + 4 * b * s  # m, l, delta, bias
+            dq_bound = bound_ms(item * (3 * b * t * h * d + 2 * b * s * h * d) + stats_bytes,
+                                3 * 2 * h * d * pairs, dt)
+            dkv_bound = bound_ms(item * (2 * b * t * h * d + 4 * b * s * h * d) + stats_bytes,
+                                 4 * 2 * h * d * pairs, dt)
+            bwd_bound = bound_ms(item * (4 * b * t * h * d + 4 * b * s * h * d)
+                                 + 8 * b * h * t + 4 * b * s, 5 * 2 * h * d * pairs, dt)
+            library, library_device = library_bwd_ms(torch, q, k, v, g, mask_bias.to(dtype))
+            run_dq = lambda: ak.launch_bwd_dq(q, k, v, bias, m, l, delta, g, off)  # noqa: E731
+            run_dkv = lambda: ak.launch_bwd_dkv(q, k, v, bias, m, l, delta, g,  # noqa: E731
+                                                off)
+            row = dict(kernel="attention_bwd_causal", shape=name, dims=[b, t, s, h, d],
+                       causal_offset=off, dtype=dt, design=design, max_abs_err=max(errs),
+                       stats_max_rel_err=stat_err, pairs=pairs, dead_rows=dead_rows,
+                       dq_ms=time_ms(run_dq), dkv_ms=time_ms(run_dkv),
+                       dq_device_ms=device_ms(torch, run_dq, "attention_bwd_dq"),
+                       dkv_device_ms=device_ms(torch, run_dkv, "attention_bwd_dkv"),
+                       kernel_ms=time_ms(lambda: ak.attention_bwd(q, k, v, pad, out, m, l, g,
+                                                                  off)),
+                       plain_ms=time_ms(lambda: ak.attention_bwd_reference(q, k, v, pad, out, m,
+                                                                           l, g, off)),
+                       library_ms=library, library_device_ms=library_device,
+                       bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                       dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                       dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+                       dq_host_us_per_call=host_us(torch, run_dq))
+            log(**row)
+            rows.append(row)
+            del q, k, v, g, out, m, l, ref_out, ref_m, ref_l, leaves, grads, refs
+    return rows
+
+
+def ar_batches(data, texts, drop_last: bool = True):
+    """Batches of TRAIN_BATCH rows of SEQ_LEN token ids for the AR path:
+    ``texts`` tokenized by the data module's tokenizer and packed end to end
+    (the collated synthetic reviews are shorter than the latent window's
+    offset of 256, so their windows would hold only padding); every fourth
+    row padded from a random length past the window's start, and each
+    batch's last row from 200 on (its window all padding, every target
+    ignored)."""
+    import numpy as np
+
+    stream = [i for ids in data.tokenizer.encode_batch(texts) for i in ids]
+    n = len(stream) // SEQ_LEN
+    ids = np.asarray(stream[: n * SEQ_LEN], dtype=np.int32).reshape(n, SEQ_LEN)
+    lengths = np.full(n, SEQ_LEN)
+    lengths[3::4] = np.random.default_rng(0).integers(SEQ_LEN // 2 + 1, SEQ_LEN,
+                                                      len(lengths[3::4]))
+    lengths[TRAIN_BATCH - 1::TRAIN_BATCH] = 200
+    pad = np.arange(SEQ_LEN)[None, :] >= lengths[:, None]
+    ids[pad] = data.collator.pad_id
+    stop = n - n % TRAIN_BATCH if drop_last else n
+    return [{"token_ids": ids[i: i + TRAIN_BATCH], "pad_mask": pad[i: i + TRAIN_BATCH]}
+            for i in range(0, stop, TRAIN_BATCH)]
+
+
+# the counters of the AR training path: KERNEL_NAMES and #1's causal one
+AR_NAMES = KERNEL_NAMES + ("attention_fwd_causal",)
+AR_PER_STEP = {name: ATTN_PER_FORWARD for name in (
+    "attention_fwd", "attention_fwd_wgmma", "attention_fwd_causal", "attention_bwd_dq",
+    "attention_bwd_dq_wgmma", "attention_bwd_dq_causal", "attention_bwd_dkv",
+    "attention_bwd_dkv_wgmma", "attention_bwd_dkv_causal")}
+
+
+def ar_counters(port):
+    return path_counters(port) + (port["ak"].causal_counter,)
+
+
+def ar_train_setup(torch, port, dtype, plain: bool = False):
+    """``flagship_ar`` (weights from seed 0) with Adam at 1e-3, its train
+    state and ``make_ar_steps``; with ``plain`` the plain attention versions
+    stand in the kernels' place."""
+    model = port["presets"].flagship_ar(dtype=dtype, device="cuda", seed=0)
+    if plain:
+        for module in model.modules():
+            if isinstance(module, port["MultiHeadAttention"]):
+                module.attention = port["ak"].plain_attention
+    optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](learning_rate=1e-3),
+                                                 model.parameters())
+    state = port["TrainState"].create(model, optimizer, schedule, seed=2)
+    return model, state, port["make_ar_steps"](model, schedule)
+
+
+def ar_training_phase(torch, port, train, val, logdir):
+    """Phase 21: Trainer.fit over TRAIN_STEPS bf16 ``flagship_ar`` steps on
+    the packed batches ``train`` (validation once, at the end, on ``val``),
+    each step checked for its launches (AR_PER_STEP, no other kernel, no
+    plain version) and a finite loss; then the 10-step window and the
+    profiled 3-step one."""
+    counters, names = ar_counters(port), AR_NAMES
+    per_step = [AR_PER_STEP.get(name, 0) for name in names]
+    per_eval = [n if "_fwd" in name else 0 for name, n in zip(names, per_step)]
+    model, state, (train_step, eval_step, _) = ar_train_setup(torch, port, torch.bfloat16)
+    losses, step_ms = [], []
+
+    def checked_step(state, batch):
+        before = [c.launches for c in counters]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        got = [c.launches - b for c, b in zip(counters, before)]
+        if got != per_step or any(c.plain_calls for c in counters):
+            raise AssertionError(f"AR train step {state.step}: launches "
+                                 f"{dict(zip(names, got))}, or a plain version ran")
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"AR train step {state.step}: loss {loss}")
+        losses.append(loss)
+        step_ms.append(start.elapsed_time(end))
+        return state, metrics
+
+    config = port["TrainerConfig"](max_steps=TRAIN_STEPS, log_every_n_steps=10,
+                                   eval_every_n_steps=TRAIN_STEPS, logdir=logdir)
+    trainer = port["Trainer"](checked_step, eval_step, state, config, tokens_per_example=SEQ_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    trainer.fit(train, val)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in zip(names, counters)}
+    expect = {name: s * TRAIN_STEPS + e * len(val)
+              for name, s, e in zip(names, per_step, per_eval)}
+    if launches != expect:
+        raise AssertionError(f"AR fit launches {launches} != {expect}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with open(f"{trainer.run_dir}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    val_loss = [r["val_loss"] for r in rows if "val_loss" in r]
+    tail = sum(losses[-5:]) / 5
+    if not tail < losses[0] or len(val_loss) != 1 or not math.isfinite(val_loss[0]):
+        raise AssertionError(f"AR: loss did not fall: first {losses[0]}, last five {tail}, "
+                             f"val {val_loss}")
+    state = trainer.state
+
+    def window_fit(n_steps: int, name: str) -> float:
+        """Trainer.fit over n more steps, no per-step check or sync; its
+        logged tokens/s."""
+        nonlocal state
+        before = [c.launches for c in counters]
+        fit = port["Trainer"](train_step, eval_step, state,
+                              port["TrainerConfig"](max_steps=state.step + n_steps,
+                                                    log_every_n_steps=n_steps,
+                                                    logdir=f"{logdir}/{name}"),
+                              tokens_per_example=SEQ_LEN)
+        state = fit.fit(train)
+        got = [c.launches - b for c, b in zip(counters, before)]
+        if got != [n * n_steps for n in per_step] or any(c.plain_calls for c in counters):
+            raise AssertionError(f"AR {name}: launches {got} over {n_steps} steps")
+        with open(f"{fit.run_dir}/metrics.jsonl") as f:
+            row = [json.loads(line) for line in f][-1]
+        if not math.isfinite(row["train_loss"]):
+            raise AssertionError(f"AR {name}: loss {row['train_loss']}")
+        return row["tokens_per_sec"]
+
+    window_rate = window_fit(WINDOW_STEPS, "window")
+    profile_pass(torch, lambda: window_fit(PROFILE_STEPS, "profiled"), "train_flagship_ar_bfloat16")
+    steady = sorted(step_ms[1:])
+    median_ms = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * SEQ_LEN
+    pads = [float(b["pad_mask"].mean()) for b in train]
+    log(phase="train_ar", preset="flagship_ar", card=card_line(), steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq_len=SEQ_LEN, batches=len(train), pad_share=sum(pads) / len(pads),
+        first_loss=losses[0], last5_mean_loss=tail, val_loss=val_loss[0], losses=losses,
+        tokens_per_s=window_rate, window_steps=WINDOW_STEPS,
+        window_step_ms=tokens / window_rate * 1e3, step_ms_first=step_ms[0],
+        step_ms_median=median_ms, step_ms_mean=sum(steady) / len(steady),
+        step_tokens_per_s=tokens / (median_ms / 1e3), fit_s=fit_s, peak_memory_gib=peak_gib,
+        launches=launches, launches_per_step=AR_PER_STEP)
+    del model, state, trainer
+    return launches
+
+
+def ar_train_parity_phase(torch, port, train) -> None:
+    """Phase 22: three f32 ``flagship_ar`` steps with the kernels, then with
+    the plain versions in their place, from the same weights and batches:
+    losses within 1e-4 relative, the first step's gradients within 1e-3 of
+    each leaf's peak (k_proj.bias, zero in exact arithmetic, below 1e-5 of
+    the largest gradient on both sides); then three bf16 steps, losses
+    within BF16_LOSS_REL relative."""
+    counters = ar_counters(port)
+    per_step = [AR_PER_STEP.get(name, 0) for name in AR_NAMES]
+    batches = train[:3]
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        runs = []
+        for plain in (False, True):
+            model, state, (train_step, _, _) = ar_train_setup(torch, port, dtype, plain)
+            before = [c.launches for c in counters]
+            losses, grads = [], None
+            for batch in batches:
+                state, metrics = train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+                if grads is None and dtype == torch.float32:
+                    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            got = [c.launches - b for c, b in zip(counters, before)]
+            expect = [0 if plain or (dtype == torch.float32 and "wgmma" in name) else 3 * n
+                      for name, n in zip(AR_NAMES, per_step)]
+            if got != expect:
+                raise AssertionError(f"AR {dt} parity plain={plain}: launches {got} != {expect}")
+            runs.append((losses, grads))
+            del model, state
+        (k_losses, k_grads), (p_losses, p_grads) = runs
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+        worst, worst_name, symmetric = 0.0, None, 0.0
+        if dtype == torch.float32:
+            peak_all = max(float(g.abs().max()) for g in p_grads.values())
+            for name, ref in p_grads.items():
+                got = k_grads[name]
+                if name.endswith("k_proj.bias"):
+                    symmetric = max(symmetric, float(got.abs().max()) / peak_all,
+                                    float(ref.abs().max()) / peak_all)
+                    continue
+                peak = float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                err = err / peak if peak else err
+                if err > worst:
+                    worst, worst_name = err, name
+        log(phase="train_parity", preset="flagship_ar", dtype=dt, kernel_losses=k_losses,
+            plain_losses=p_losses, loss_max_rel_diff=loss_rel, grad_max_err_over_leaf_peak=worst,
+            worst_leaf=worst_name, k_proj_bias_over_global_peak=symmetric)
+        bar = 1e-4 if dtype == torch.float32 else BF16_LOSS_REL
+        if not (loss_rel <= bar and worst <= 1e-3 and symmetric < 1e-5):
+            raise AssertionError(f"AR {dt} train parity: losses {loss_rel}, grads {worst} "
+                                 f"({worst_name}), k_proj.bias {symmetric}")
+
+
+def ar_train_cli_phase(torch, port, root: str, vocab: int) -> None:
+    """Phase 23: ``train_ar --preset flagship_tpu --synthetic --max_steps 5``
+    in-process: finite losses in ``metrics.jsonl``, every #1-#3 launch causal
+    and wgmma, no plain version, the vocab head at the tokenizer's size."""
+    ak, common = port["ak"], port["train_ar"].common
+    counters = ar_counters(port)
+    for c in counters:
+        c.reset()
+    build_ar, built = common.build_ar, []
+
+    def spy(args, vocab_size, *rest, **kwargs):
+        built.append(vocab_size)
+        return build_ar(args, vocab_size, *rest, **kwargs)
+
+    common.build_ar = spy
+    t0 = time.perf_counter()
+    try:
+        run_dir = port["train_ar"].main([
+            "--preset", "flagship_tpu", "--synthetic", "--max_steps", str(CLI_STEPS),
+            "--log_every_n_steps", "1", "--root", root, "--logdir", f"{root}/cli_ar"])
+    finally:
+        common.build_ar = build_ar
+    torch.cuda.synchronize()
+    with open(f"{run_dir}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    launches = dict(zip(AR_NAMES, (c.launches for c in counters)))
+    train = [r for r in rows if "train_loss" in r]
+    causal = (ak.counter.launches == ak.causal_counter.launches == ak.wgmma_counter.launches
+              and ak.dq_counter.launches == ak.dq_causal_counter.launches
+              == ak.dq_wgmma_counter.launches == ATTN_PER_FORWARD * CLI_STEPS
+              and ak.dkv_counter.launches == ak.dkv_causal_counter.launches
+              == ak.dkv_wgmma_counter.launches == ATTN_PER_FORWARD * CLI_STEPS)
+    if not causal or any(c.plain_calls for c in counters) or built != [vocab] \
+            or [r["step"] for r in train] != list(range(1, CLI_STEPS + 1)) \
+            or not all(math.isfinite(r["train_loss"]) for r in train):
+        raise AssertionError(f"train_ar --preset flagship_tpu: launches {launches}, vocab "
+                             f"{built} (tokenizer {vocab}), rows {rows}")
+    log(phase="cli_ar", preset="flagship_tpu", steps=CLI_STEPS, vocab=built[0],
+        launches=launches, train_losses=[r["train_loss"] for r in train],
+        tokens_per_s=train[-1]["tokens_per_sec"],
+        val_loss=[r["val_loss"] for r in rows if "val_loss" in r], wall_s=time.perf_counter() - t0)
+
+
 def check_kernel_entry(k: dict) -> None:
     """One entry of the ``kernels`` line carries every key of its contract,
     each of its type: times, errors and bounds are numbers, ``library_ms``
@@ -1796,7 +2182,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: failed in phase device: no CUDA device", flush=True)
         return 1
-    from perceiver_io_torch.cli import serve, train_mlm
+    from perceiver_io_torch.cli import serve, train_ar, train_mlm
     from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
     from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
     from perceiver_io_torch.inference.engine import MLMServer
@@ -1811,7 +2197,7 @@ def main() -> int:
     from perceiver_io_torch.quant.int8 import QKernel, pack_int4, quantize_array
     from perceiver_io_torch.training.losses import softmax_ce_integer
     from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
-    from perceiver_io_torch.training.steps import make_mlm_steps
+    from perceiver_io_torch.training.steps import make_ar_steps, make_mlm_steps
     from perceiver_io_torch.training.train_state import TrainState
     from perceiver_io_torch.training.trainer import Trainer, TrainerConfig
 
@@ -1839,6 +2225,8 @@ def main() -> int:
     packed_rows = packed_phase(torch, ak, pk, clock_hz)
     enter("17: causal attention kernel")
     ar_rows = ar_attention_phase(torch, ak)
+    enter("20: causal attention backward kernels")
+    ar_bwd_rows = ar_attention_bwd_phase(torch, ak)
 
     enter("6: serving")
     trained = WordPieceTokenizer()
@@ -1854,7 +2242,7 @@ def main() -> int:
                 OptimizerConfig=OptimizerConfig, TrainState=TrainState,
                 make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig,
                 train_mlm=train_mlm, ARGenerator=ARGenerator, SamplingConfig=SamplingConfig,
-                serve=serve)
+                serve=serve, make_ar_steps=make_ar_steps, train_ar=train_ar)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
@@ -1893,9 +2281,17 @@ def main() -> int:
         train_parity_phase(torch, port, data, "flagship_mlm", "pallas", "packed")
         enter("16: packed entry points")
         cli_phase(torch, port, root, data.tokenizer.get_vocab_size(), "packed")
+        enter("21: AR training")
+        ar_train = ar_batches(data, data.ds_train.texts)
+        ar_val = ar_batches(data, data.ds_valid.texts, drop_last=False)
+        path_launches.append(ar_training_phase(torch, port, ar_train, ar_val, f"{root}/logs_ar"))
+        enter("22: AR training parity")
+        ar_train_parity_phase(torch, port, ar_train)
+        enter("23: AR training CLI")
+        ar_train_cli_phase(torch, port, root, data.tokenizer.get_vocab_size())
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
-    for name in KERNEL_NAMES:
+    for name in AR_NAMES:
         launches[name] = launches.get(name, 0) + sum(p.get(name, 0) for p in path_launches)
     for name in ("attention_fwd", "attention_fwd_wgmma", "attention_fwd_causal",
                  "dequant_matmul", "dequant_matmul_wgmma"):
@@ -1919,6 +2315,7 @@ def main() -> int:
                     shape=row["shape"], dims=row["dims"], dtype=row["dtype"], **extra)
 
     enc_bf16 = lambda r: r["shape"] == "enc_cross" and r["dtype"] == "bfloat16"  # noqa: E731
+    ar_cross = lambda r: r["shape"] == "ar_cross" and r["dtype"] == "bfloat16"  # noqa: E731
     proj_bf16 = lambda r: (r["shape"] == "self_proj" and r["quant"] == "int8"  # noqa: E731
                            and r["dtype"] == "bfloat16")
     bwd_src = "perceiver_io_torch/csrc/attention_bwd.cu"
@@ -1949,6 +2346,13 @@ def main() -> int:
               **dq),
         entry(bwd_rows, "attention_bwd_dkv", bwd_src, tpu_attn.format(424), enc_bf16, **dkv),
         entry(bwd_rows, "attention_bwd_dkv_wgmma", bwd_src, tpu_attn.format(352), enc_bf16,
+              **dkv),
+        # the causal offset of the backward (_recompute_probs_and_ds with
+        # causal_offset, called from each backward kernel): bf16 at the AR
+        # training cross; its launches are the AR training path's causal ones
+        entry(ar_bwd_rows, "attention_bwd_dq_causal", bwd_src, tpu_attn.format(342), ar_cross,
+              **dq),
+        entry(ar_bwd_rows, "attention_bwd_dkv_causal", bwd_src, tpu_attn.format(364), ar_cross,
               **dkv),
         entry(deq_rows, "dequant_matmul", deq_src, "perceiver_io_tpu/ops/pallas_matmul.py:163",
               proj_bf16),

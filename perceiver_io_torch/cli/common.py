@@ -116,3 +116,14 @@ def build_mlm(args, vocab_size: int, max_seq_len: int, device):
         num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
         dtype=DTYPES[args.dtype], device=device, seed=args.seed,
         pad_classes_to=args.pad_vocab_multiple, attn_impl=args.attn_impl)
+
+
+def build_ar(args, vocab_size: int, max_seq_len: int, device):
+    """The Perceiver-AR causal LM at the parsed widths, weights drawn from
+    ``--seed`` (the counterpart of the JAX CLI's ``build_ar``)."""
+    return presets.flagship_ar(
+        vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=args.num_latents,
+        num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
+        num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
+        dtype=DTYPES[args.dtype], device=device, seed=args.seed,
+        attn_impl=args.attn_impl, pad_classes_to=args.pad_vocab_multiple)

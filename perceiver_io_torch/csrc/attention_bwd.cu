@@ -3,11 +3,14 @@
 //
 // Replaces: perceiver_io_tpu/ops/pallas_attention.py::_fused_attention_bwd_impl,
 // Pallas kernels _bwd_dq_kernel (dq) and _bwd_dkv_kernel (dk, dv), with
-// _recompute_probs_and_ds, without causal_offset.
+// _recompute_probs_and_ds, with or without causal_offset (_causal_bias).
 //
 // Computes, per (batch b, head h), from the forward's saved row statistics
 // m (running max) and l (denominator) and delta[t] = sum_d g[t,d] * out[t,d]:
 //   logit[t,s] = q[t] . k[s] * D^-0.5 + bias[b,s]        (bias after the scale)
+//                + causal[t,s]  (with the causal flag: -1e30 where key
+//                               s > t + causal_offset, t the GLOBAL query row,
+//                               added by index after the pad bias)
 //   p[t,s]     = exp(logit[t,s] - m[t]) / l[t]
 //   ds[t,s]    = p[t,s] * (g[t] . v[s] - delta[t]), and 0 on a row whose m is
 //                pinned at the mask value (m <= -0.5e30: every key masked)
@@ -18,6 +21,12 @@
 // applied at the end, outputs in the input dtype. p stays intact on a fully
 // masked row (uniform 1/S), so dv keeps that row's uniform contribution
 // while dq and dk get none, the where-masked gradient of the einsum path.
+// With the causal flag, a row whose visible keys are all padding has m at
+// -1e30 too: its p is uniform over the keys masked exactly once (a key
+// masked twice scores -2e30, p = 0), so dv keeps that share, and its ds is
+// zeroed. The causal bias is a template argument (kCausal), compiled in only
+// for a causal call, so a call without it runs the code it ran before; no
+// tile past the diagonal is skipped (the forward skips none either).
 //
 // What bounds it on the H100: at the training shapes (the encoder
 // cross-attention B=64, T=256, S=512, H=4, D=128 in bf16) the two kernels
@@ -57,7 +66,9 @@
 //     the A operand, and dq += ds.K (RS, K as an MN-major B: the forward's
 //     P.V with K for V). Key tiles whose bias is all -1e30 are skipped: at
 //     such keys p is exactly 0 (in f32, -1e30 + logit - m rounds to -1e30)
-//     on every row with a valid key, and ds is zeroed on a fully masked row.
+//     on every row with a valid key, and ds is zeroed on a fully masked row
+//     (with the causal flag too: a row with a visible valid key gives p = 0
+//     at every padded key, and a row without one has m at -1e30, ds = 0).
 //     The live tiles are listed once per block from the bias row before the
 //     first load, so the ring streams only those.
 //   dk/dv kernel, per (128-key tile, head, batch), in the transposed frame so
@@ -68,11 +79,15 @@
 //     queries past T masked by index, their statistics never read), then
 //     dv += p^T.G and dk += ds^T.Q (RS, G and Q as MN-major B). A warpgroup
 //     whose 64 keys are all padding computes nothing (dk = dv = 0 there),
-//     but only when its example has a valid key (m[b, h, 0] > -0.5e30: with
-//     no causal offset every row of an example sees the same keys); a fully
-//     masked example runs the full path, where p = 1/S and dv keeps the
-//     uniform term sum_t g[t] / S. A block with no computing warpgroup
-//     writes its zeros and loads nothing.
+//     but only when query row 0 has a valid key (m[b, h, 0] > -0.5e30).
+//     Without the causal flag every row of an example sees the same keys;
+//     with it row t sees keys <= t + offset, a superset of row 0's, so a
+//     valid key of row 0 is one of every row: every row then has p = 0 at
+//     the padded keys, and their dk and dv are exactly 0. Otherwise (a fully
+//     masked example, or a causal one whose first rows see only padding) the
+//     warpgroup runs the full path, where those rows' p is uniform over the
+//     keys masked exactly once and dv keeps that share of g. A block with no
+//     computing warpgroup writes its zeros and loads nothing.
 //   Registers: at D=128 a dk/dv thread holds two 64x128 f32 accumulators
 //   (128 registers) beside S^T and dP^T (64), hence 64-row streamed tiles.
 
@@ -122,14 +137,16 @@ constexpr size_t dkv_smem_bytes() {  // k, v, q, g tiles + p and ds strips + m, 
                           3 * kTile);
 }
 
-template <int D>
+// kCausal: the causal bias is compiled in only where it is asked for, so a
+// call without it runs the exact code it ran before the causal offset
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ g,
                         const float* __restrict__ bias, const float* __restrict__ m,
                         const float* __restrict__ l, const float* __restrict__ delta,
-                        float* __restrict__ dq, int t_len, int s_len, int heads, Strides st,
-                        float scale) {
+                        float* __restrict__ dq, int t_len, int s_len, int heads,
+                        int causal_offset, Strides st, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTile + 1;
   constexpr int kCols = D / kLanes;
@@ -161,6 +178,7 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float l_t = live ? l[stat] : 1.f;
   const float delta_t = live ? delta[stat] : 0.f;
   const bool masked_row = !live || m_t <= 0.5f * kMaskValue;
+  const int key_limit = t + causal_offset;  // the last key the row sees unmasked by causality
 
   float acc[kCols];
 #pragma unroll
@@ -191,7 +209,9 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
       const int j = lane + i * kLanes;
-      const float p = expf(s[i] * scale + bs[j] - m_t) / l_t;
+      float x = s[i] * scale + bs[j];
+      if (kCausal && s0 + j > key_limit) x += kMaskValue;
+      const float p = expf(x - m_t) / l_t;
       dss[row * PP + j] = (masked_row || j >= n) ? 0.f : p * (dp[i] - delta_t);
     }
     __syncwarp();  // the row's four threads see each other's ds
@@ -210,14 +230,14 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ g,
                          const float* __restrict__ bias, const float* __restrict__ m,
                          const float* __restrict__ l, const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv, int t_len, int s_len,
-                         int heads, Strides st, float scale) {
+                         int heads, int causal_offset, Strides st, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTile + 1;
   constexpr int kCols = D / kLanes;
@@ -282,7 +302,9 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int i = 0; i < kPerLane; ++i) {
       const int j = lane + i * kLanes;
       const float m_j = ms[j];
-      const float p = j < n ? expf(s[i] * scale + bias_s - m_j) / ls[j] : 0.f;
+      float x = s[i] * scale + bias_s;
+      if (kCausal && s_idx > t0 + j + causal_offset) x += kMaskValue;  // key past the row's limit
+      const float p = j < n ? expf(x - m_j) / ls[j] : 0.f;
       ps[row * PP + j] = p;
       dss[row * PP + j] = m_j <= 0.5f * kMaskValue ? 0.f : p * (dp[i] - des[j]);
     }
@@ -314,7 +336,7 @@ attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
 // bfloat16: the wgmma design
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap g_map,
@@ -323,7 +345,7 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                               const float* __restrict__ bias, const float* __restrict__ m,
                               const float* __restrict__ l, const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dq, int t_len, int s_len, int heads,
-                              float scale) {
+                              int causal_offset, float scale) {
   using G = Geometry<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
@@ -361,6 +383,8 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int row0 = t0 + wg * kWgRows + (warp % 4) * 16 + lane / 4;
   const int col_in_chunk = 2 * (lane % 4);
   const bool active = t0 + wg * kWgRows < t_len;
+  // the last key each of this thread's two rows sees unmasked by the causal bias
+  const int key_limit[2] = {row0 + causal_offset, row0 + 8 + causal_offset};
   float m_r[2], inv_l[2], delta_r[2];
   bool zero_ds[2];  // a row past T, or one whose keys are all masked
 #pragma unroll
@@ -396,7 +420,8 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       hopper::fence_regs(s);
       hopper::fence_regs(dp);
 
-      // ds in place of s; keys past S masked by index
+      // ds in place of s; keys past S masked by index, the causal bias by
+      // index after the pad bias
       const int s0 = live[j] * kStreamRows;
 #pragma unroll
       for (int c = 0; c < kStreamRows / 8; ++c) {
@@ -408,8 +433,9 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int i = 4 * c + 2 * r + e;
-            const float p =
-                valid ? exp2f((s[i] * scale + bj - m_r[r]) * kLog2e) * inv_l[r] : 0.f;
+            float x = s[i] * scale + bj;
+            if (kCausal && key > key_limit[r]) x += kMaskValue;
+            const float p = valid ? exp2f((x - m_r[r]) * kLog2e) * inv_l[r] : 0.f;
             s[i] = zero_ds[r] ? 0.f : p * (dp[i] - delta_r[r]);
           }
         }
@@ -430,7 +456,7 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (active) store_rows<D>(acc, dq, row0, t_len, heads, h, b, scale);
 }
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
                                const __grid_constant__ CUtensorMap v_map,
@@ -439,7 +465,8 @@ attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
                                const float* __restrict__ bias, const float* __restrict__ m,
                                const float* __restrict__ l, const float* __restrict__ delta,
                                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                               int t_len, int s_len, int heads, float scale) {
+                               int t_len, int s_len, int heads, int causal_offset,
+                               float scale) {
   using G = Geometry<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
@@ -489,8 +516,9 @@ attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
     if (key < s_len && bias_b[key] > 0.5f * kMaskValue) wg_live[wg] = 1;
   }
   __syncthreads();
-  // all-padding keys give dk = dv = 0 exactly where the example has a valid
-  // key; a fully masked example runs the full path (p = 1/S there)
+  // all-padding keys give dk = dv = 0 exactly where query row 0 has a valid
+  // key (then every row has one: a causal row sees a superset of row 0's
+  // keys); otherwise the full path runs (p uniform over the keys masked once)
   const bool example_live = t_len > 0 && m[stat0] > 0.5f * kMaskValue;
   const bool computes0 = s0 < s_len && (wg_live[0] || !example_live);
   const bool computes1 = s0 + kWgRows < s_len && (wg_live[1] || !example_live);
@@ -539,7 +567,8 @@ attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
         hopper::fence_regs(x);
         hopper::fence_regs(dp);
 
-        // p^T in place of x, ds^T in place of dp; queries past T masked by index
+        // p^T in place of x, ds^T in place of dp; queries past T masked by
+        // index, the causal bias by index after the pad bias
         const int q0 = j * kStreamRows;
 #pragma unroll
         for (int c = 0; c < kStreamRows / 8; ++c) {
@@ -552,9 +581,10 @@ attention_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int i = 4 * c + 2 * r + e;
+              float logit = x[i] * scale + bias_r[r];
+              if (kCausal && row0 + 8 * r > q0 + col + causal_offset) logit += kMaskValue;
               const float p = valid && key_valid[r]
-                                  ? exp2f((x[i] * scale + bias_r[r] - m_c) * kLog2e) *
-                                        st_inv_l[col]
+                                  ? exp2f((logit - m_c) * kLog2e) * st_inv_l[col]
                                   : 0.f;
               dp[i] = zero_ds ? 0.f : p * (dp[i] - st_delta[col]);
               x[i] = p;
@@ -591,7 +621,7 @@ struct Args {
   const void *q, *k, *v, *g;
   const float *bias, *m, *l, *delta;
   void *dq, *dk, *dv;
-  int batch, t_len, s_len, heads;
+  int batch, t_len, s_len, heads, causal, causal_offset;
   Strides st;
   cudaStream_t stream;
 };
@@ -599,31 +629,34 @@ struct Args {
 template <int D>
 cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel =
+      a.causal ? attention_bwd_dq_kernel<D, true> : attention_bwd_dq_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.t_len + kRows - 1) / kRows, a.heads, a.batch);
-  attention_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.bias, a.m, a.l, a.delta,
-      static_cast<float*>(a.dq), a.t_len, a.s_len, a.heads, a.st, 1.0f / sqrtf(float(D)));
+      static_cast<float*>(a.dq), a.t_len, a.s_len, a.heads, a.causal_offset, a.st,
+      1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const auto kernel =
+      a.causal ? attention_bwd_dkv_kernel<D, true> : attention_bwd_dkv_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.s_len + kRows - 1) / kRows, a.heads, a.batch);
-  attention_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.bias, a.m, a.l, a.delta,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.t_len, a.s_len, a.heads, a.st,
-      1.0f / sqrtf(float(D)));
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.t_len, a.s_len, a.heads,
+      a.causal_offset, a.st, 1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
@@ -649,12 +682,14 @@ cudaError_t launch_dq_wgmma(const Args& a) {
     return cudaErrorInvalidValue;
   const int n_tiles = (a.s_len + kStreamRows - 1) / kStreamRows;
   const size_t smem = Geometry<D>::kSmem + sizeof(int) * (n_tiles + 1);  // + the live list
-  cudaError_t err = set_smem(attention_bwd_dq_wgmma_kernel<D>, smem);
+  const auto kernel = a.causal ? attention_bwd_dq_wgmma_kernel<D, true>
+                               : attention_bwd_dq_wgmma_kernel<D, false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.t_len + kOwnRows - 1) / kOwnRows, a.heads, a.batch);
-  attention_bwd_dq_wgmma_kernel<D><<<grid, kWgThreads, smem, a.stream>>>(
+  kernel<<<grid, kWgThreads, smem, a.stream>>>(
       q_map, g_map, k_map, v_map, a.bias, a.m, a.l, a.delta, static_cast<__nv_bfloat16*>(a.dq),
-      a.t_len, a.s_len, a.heads, 1.0f / sqrtf(float(D)));
+      a.t_len, a.s_len, a.heads, a.causal_offset, 1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
@@ -666,19 +701,23 @@ cudaError_t launch_dkv_wgmma(const Args& a) {
   // + the statistics ring and the two warpgroups' flags
   const size_t smem = Geometry<D>::kSmem + sizeof(float) * kStages * 3 * kStreamRows +
                       2 * sizeof(int);
-  cudaError_t err = set_smem(attention_bwd_dkv_wgmma_kernel<D>, smem);
+  const auto kernel = a.causal ? attention_bwd_dkv_wgmma_kernel<D, true>
+                               : attention_bwd_dkv_wgmma_kernel<D, false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.s_len + kOwnRows - 1) / kOwnRows, a.heads, a.batch);
-  attention_bwd_dkv_wgmma_kernel<D><<<grid, kWgThreads, smem, a.stream>>>(
+  kernel<<<grid, kWgThreads, smem, a.stream>>>(
       k_map, v_map, q_map, g_map, a.bias, a.m, a.l, a.delta, static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.t_len, a.s_len, a.heads, 1.0f / sqrtf(float(D)));
+      static_cast<__nv_bfloat16*>(a.dv), a.t_len, a.s_len, a.heads, a.causal_offset,
+      1.0f / sqrtf(float(D)));
   return cudaGetLastError();
 }
 
 // dtype 0 (float32) runs the scalar design, 1 (bfloat16) the wgmma design
 template <bool kDq>
 int dispatch(int dtype, int head_dim, const Args& a) {
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || (a.causal != 0 && a.causal != 1))
+    return cudaErrorInvalidValue;
 #define PIT_LAUNCH(D)                                                      \
   (dtype == 0 ? (kDq ? launch_dq<D>(a) : launch_dkv<D>(a))                 \
               : (kDq ? launch_dq_wgmma<D>(a) : launch_dkv_wgmma<D>(a)))
@@ -695,8 +734,8 @@ int dispatch(int dtype, int head_dim, const Args& a) {
 
 Args make_args(const void* q, const void* k, const void* v, const void* g, const void* bias,
                const void* m, const void* l, const void* delta, void* dq, void* dk, void* dv,
-               int batch, int t_len, int s_len, int heads, const int64_t* strides,
-               void* stream) {
+               int batch, int t_len, int s_len, int heads, int causal, int causal_offset,
+               const int64_t* strides, void* stream) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.g = g;
   a.bias = static_cast<const float*>(bias);
@@ -705,6 +744,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
   a.delta = static_cast<const float*>(delta);
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.batch = batch; a.t_len = t_len; a.s_len = s_len; a.heads = heads;
+  a.causal = causal; a.causal_offset = causal_offset;
   a.st = Strides{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                  strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   a.stream = static_cast<cudaStream_t>(stream);
@@ -719,12 +759,14 @@ Args make_args(const void* q, const void* k, const void* v, const void* g, const
 // 16-byte aligned bases and strides that are nonzero multiples of 8, for
 // TMA); bias is (B, S) f32 contiguous; m, l and delta are
 // (B, H, T) f32 contiguous; dq is (B, T, H, D) and dk, dv are (B, S, H, D),
-// contiguous. Each returns the cudaError_t of its launch (0 on success;
-// cudaErrorInvalidValue if a tensor map cannot be encoded).
+// contiguous. causal (0 or 1) adds the forward's causal bias: -1e30 where
+// key s > t + causal_offset. Each returns the cudaError_t of its launch (0 on
+// success; cudaErrorInvalidValue if a tensor map cannot be encoded).
 extern "C" int attention_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                                 const void* v, const void* g, const void* bias,
                                 const void* m, const void* l, const void* delta, void* dq,
-                                int batch, int t_len, int s_len, int heads,
+                                int batch, int t_len, int s_len, int heads, int causal,
+                                int causal_offset,
                                 int64_t sqb, int64_t sqt, int64_t sqh,
                                 int64_t skb, int64_t sks, int64_t skh,
                                 int64_t svb, int64_t svs, int64_t svh,
@@ -732,13 +774,15 @@ extern "C" int attention_bwd_dq(int dtype, int head_dim, const void* q, const vo
   const int64_t strides[12] = {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, sgb, sgt, sgh};
   return dispatch<true>(dtype, head_dim,
                         make_args(q, k, v, g, bias, m, l, delta, dq, nullptr, nullptr,
-                                  batch, t_len, s_len, heads, strides, stream));
+                                  batch, t_len, s_len, heads, causal, causal_offset,
+                                  strides, stream));
 }
 
 extern "C" int attention_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                                  const void* v, const void* g, const void* bias,
                                  const void* m, const void* l, const void* delta, void* dk,
                                  void* dv, int batch, int t_len, int s_len, int heads,
+                                 int causal, int causal_offset,
                                  int64_t sqb, int64_t sqt, int64_t sqh,
                                  int64_t skb, int64_t sks, int64_t skh,
                                  int64_t svb, int64_t svs, int64_t svh,
@@ -746,5 +790,6 @@ extern "C" int attention_bwd_dkv(int dtype, int head_dim, const void* q, const v
   const int64_t strides[12] = {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, sgb, sgt, sgh};
   return dispatch<false>(dtype, head_dim,
                          make_args(q, k, v, g, bias, m, l, delta, nullptr, dk, dv,
-                                   batch, t_len, s_len, heads, strides, stream));
+                                   batch, t_len, s_len, heads, causal, causal_offset,
+                                   strides, stream));
 }

@@ -273,7 +273,9 @@ class PerceiverARLM(nn.Module):
     logits are the dense forward's to float rounding. The cache's ``len``
     (the next position) is a host int: a step never reads the device to
     find where it writes. Run both under ``torch.inference_mode`` or
-    ``torch.no_grad``: the causal attention has no backward yet.
+    ``torch.no_grad``: :meth:`step` writes the rings in place. The dense
+    :meth:`forward` trains: its causal attention has a backward
+    (``training.steps.make_ar_steps``).
     """
 
     def __init__(self, input_adapter: nn.Module, output_adapter: nn.Module,

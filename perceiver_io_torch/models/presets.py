@@ -88,7 +88,8 @@ def tiny_mlm(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16
 def flagship_ar(vocab_size: int = 10003, max_seq_len: int = 512, num_latents: int = 256,
                 num_channels: int = 512, num_layers: int = 3,
                 num_self_attention_layers_per_block: int = 6, dtype=torch.bfloat16,
-                device=None, seed: int = 0, attn_impl: str = "pallas") -> PerceiverARLM:
+                device=None, seed: int = 0, attn_impl: str = "pallas",
+                pad_classes_to: Optional[int] = None) -> PerceiverARLM:
     """The generative (Perceiver-AR causal decode) task at the flagship
     widths: the encoder recipe of ``flagship_tpu_mlm`` (3 layers × (cross
     + 6-layer self block), C=512 / 4 heads of depth 128, bf16 compute),
@@ -99,9 +100,11 @@ def flagship_ar(vocab_size: int = 10003, max_seq_len: int = 512, num_latents: in
     causal call goes through the attention kernel's causal offset. The JAX
     preset's default ``'auto'`` resolves every causal call to its einsum
     path (``'xla'``), which the port has not ported (ROADMAP); the two
-    compute the same function."""
+    compute the same function. ``pad_classes_to`` rounds the vocab head's
+    width up to a multiple."""
     return _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
-                     num_self_attention_layers_per_block, dtype, device, seed, attn_impl)
+                     num_self_attention_layers_per_block, dtype, device, seed, attn_impl,
+                     pad_classes_to)
 
 
 def tiny_ar(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16,
@@ -114,13 +117,14 @@ def tiny_ar(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16,
 
 
 def _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
-              num_self_attention_layers_per_block, dtype, device, seed,
-              attn_impl) -> PerceiverARLM:
+              num_self_attention_layers_per_block, dtype, device, seed, attn_impl,
+              pad_classes_to=None) -> PerceiverARLM:
     device = resolve_device(device)
     model = PerceiverARLM(
         input_adapter=TextInputAdapter(vocab_size, max_seq_len, num_channels, dtype),
         output_adapter=TextOutputAdapter(vocab_size, max_seq_len,
-                                         num_output_channels=num_channels, dtype=dtype),
+                                         num_output_channels=num_channels, dtype=dtype,
+                                         pad_classes_to=pad_classes_to),
         num_latents=num_latents, num_layers=num_layers,
         num_self_attention_layers_per_block=num_self_attention_layers_per_block,
         dtype=dtype, attn_impl=attn_impl)

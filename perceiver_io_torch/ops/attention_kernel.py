@@ -8,9 +8,9 @@ row i attends key j only if j <= i + offset). Both enter as the TPU kernel's
 finite additive biases (``-1e30`` each, the causal one added after the pad
 one), so a fully masked row attends uniformly over the keys masked exactly
 once instead of producing NaN: over all S keys with the pad mask alone.
-The causal offset is a forward feature (the Perceiver-AR serving path): a
-causal call under autograd raises, since the backward kernels do not take
-it yet.
+The forward and both backward kernels take the causal offset (the
+Perceiver-AR serving and training paths), each compiling it in only for a
+causal call.
 
 - forward: ``csrc/attention_fwd.cu``; with statistics it also returns each
   row's running max ``m`` and denominator ``l`` as (B, H, T) f32, the
@@ -23,7 +23,8 @@ it yet.
 - backward: ``csrc/attention_bwd.cu``, one kernel for dq and one for dk/dv
   (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), recomputing the probabilities
   from ``m`` and ``l``; ``delta = sum_d g * out`` is a plain reduction, as the
-  JAX package computes it outside its kernels. Two designs, chosen by dtype
+  JAX package computes it outside its kernels; with ``causal_offset`` both
+  add the forward's causal bias by index. Two designs, chosen by dtype
   (:func:`backward_design`) as the forward's: float32 the exact scalar-FMA
   kernels, bfloat16 the tensor-core kernels (``wgmma`` fed by TMA, key
   tiles that are all padding skipped); a bf16 input they cannot take
@@ -60,6 +61,8 @@ dq_counter = build.LaunchCounter()       # attention_bwd_dq, either design
 dkv_counter = build.LaunchCounter()      # attention_bwd_dkv, either design
 dq_wgmma_counter = build.LaunchCounter()   # attention_bwd_dq, the bf16 wgmma design
 dkv_wgmma_counter = build.LaunchCounter()  # attention_bwd_dkv, the bf16 wgmma design
+dq_causal_counter = build.LaunchCounter()   # attention_bwd_dq with the causal bias, either design
+dkv_causal_counter = build.LaunchCounter()  # attention_bwd_dkv with the causal bias, either design
 
 
 def pad_bias(pad_mask: Optional[torch.Tensor], batch: int, keys: int,
@@ -127,9 +130,11 @@ def _plain_fwd(q, k, v, bias, causal_offset: Optional[int] = None
     return out.to(q.dtype).contiguous(), m, l
 
 
-def _plain_bwd(q, k, v, bias, out, m, l, g):
+def _plain_bwd(q, k, v, bias, out, m, l, g, causal_offset: Optional[int] = None):
     """(dq, dk, dv) from the saved (m, l), written as the TPU kernels'
     math (``_recompute_probs_and_ds``): p recomputed as exp(logits - m)/l,
+    the logits plus the pad bias, then plus the causal bias when
+    ``causal_offset`` is given (as :func:`_plain_fwd` adds them),
     ds = p (g.v - delta) zeroed on rows whose m is pinned at the mask value,
     ds rounded to k's / q's dtype and p to g's before each product, the scale
     applied at the end. Not autograd of :func:`attention_reference`: that
@@ -140,6 +145,9 @@ def _plain_bwd(q, k, v, bias, out, m, l, g):
     m, l = m.to(acc)[..., None], l.to(acc)[..., None]
     logits = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) * scale
     logits = logits + bias.to(acc)[:, None, None, :]
+    if causal_offset is not None:
+        logits = logits + causal_bias(q.shape[1], k.shape[1], causal_offset,
+                                      q.device).to(acc)
     p = torch.exp(logits - m) / l
     dp = torch.einsum("bthd,bshd->bhts", g.to(acc), v.to(acc))
     delta = (g.to(acc) * out.to(acc)).sum(dim=-1).transpose(1, 2)[..., None]
@@ -168,11 +176,11 @@ def attention_reference_with_stats(q, k, v, pad_mask=None, causal_offset=None):
                       causal_offset)
 
 
-def attention_bwd_reference(q, k, v, pad_mask, out, m, l, g):
+def attention_bwd_reference(q, k, v, pad_mask, out, m, l, g, causal_offset=None):
     """Plain version of the two backward kernels: ``(dq, dk, dv)``."""
     _check(q, k, v)
     return _plain_bwd(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
-                      out, m, l, g)
+                      out, m, l, g, causal_offset)
 
 
 def _kernel_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -293,7 +301,7 @@ def bwd_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _bwd_args(q, k, v, bias, m, l, delta, g):
+def _bwd_args(q, k, v, bias, m, l, delta, g, causal_offset: Optional[int]):
     _kernel_dims(q, k, v)
     design = backward_design(q, k, v, g)
     g = _kernel_grad(g, design)
@@ -304,26 +312,30 @@ def _bwd_args(q, k, v, bias, m, l, delta, g):
             raise ValueError(f"{name} must be {stats} f32 contiguous")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), bias.data_ptr(),
             m.data_ptr(), l.data_ptr(), delta.data_ptr())
-    dims = (b, t, k.shape[1], h, *_strides(q, k, v, g),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    dims = (b, t, k.shape[1], h, int(causal_offset is not None), causal_offset or 0,
+            *_strides(q, k, v, g), torch.cuda.current_stream(q.device).cuda_stream)
     return design, d, ptrs, dims
 
 
-def launch_bwd_dq(q, k, v, bias, m, l, delta, g) -> torch.Tensor:
+def launch_bwd_dq(q, k, v, bias, m, l, delta, g,
+                  causal_offset: Optional[int] = None) -> torch.Tensor:
     """The dq kernel alone: dq (B, T, H, D) in q's dtype."""
-    design, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
+    design, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g, causal_offset)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     build.check_launch("attention_bwd_dq", build.library().attention_bwd_dq(
         _DTYPE_CODES[q.dtype], d, *ptrs, dq.data_ptr(), *dims))
     dq_counter.launches += 1
     if design == "wgmma":
         dq_wgmma_counter.launches += 1
+    if causal_offset is not None:
+        dq_causal_counter.launches += 1
     return dq
 
 
-def launch_bwd_dkv(q, k, v, bias, m, l, delta, g) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch_bwd_dkv(q, k, v, bias, m, l, delta, g, causal_offset: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel alone: dk, dv (B, S, H, D) in k's dtype."""
-    design, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g)
+    design, d, ptrs, dims = _bwd_args(q, k, v, bias, m, l, delta, g, causal_offset)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     build.check_launch("attention_bwd_dkv", build.library().attention_bwd_dkv(
@@ -331,18 +343,20 @@ def launch_bwd_dkv(q, k, v, bias, m, l, delta, g) -> Tuple[torch.Tensor, torch.T
     dkv_counter.launches += 1
     if design == "wgmma":
         dkv_wgmma_counter.launches += 1
+    if causal_offset is not None:
+        dkv_causal_counter.launches += 1
     return dk, dv
 
 
-def _launch_bwd(q, k, v, bias, out, m, l, g):
+def _launch_bwd(q, k, v, bias, out, m, l, g, causal_offset: Optional[int] = None):
     """delta, then the dq kernel and the dk/dv kernel."""
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = bwd_delta(g, out)
     g = _kernel_grad(g, backward_design(q, k, v, g))  # one copy for both kernels, if any
     m, l = m.contiguous(), l.contiguous()
-    return (launch_bwd_dq(q, k, v, bias, m, l, delta, g),
-            *launch_bwd_dkv(q, k, v, bias, m, l, delta, g))
+    return (launch_bwd_dq(q, k, v, bias, m, l, delta, g, causal_offset),
+            *launch_bwd_dkv(q, k, v, bias, m, l, delta, g, causal_offset))
 
 
 def _forward(q, k, v, bias, stats: bool, causal_offset: Optional[int] = None):
@@ -354,12 +368,15 @@ def _forward(q, k, v, bias, stats: bool, causal_offset: Optional[int] = None):
     return _launch_fwd(q, k, v, bias, stats, causal_offset)
 
 
-def _backward(q, k, v, bias, out, m, l, g):
+def _backward(q, k, v, bias, out, m, l, g, causal_offset: Optional[int] = None):
     if q.device.type == "cpu":
         dq_counter.plain_calls += 1
         dkv_counter.plain_calls += 1
-        return _plain_bwd(q, k, v, bias, out, m, l, g)
-    return _launch_bwd(q, k, v, bias, out, m, l, g)
+        if causal_offset is not None:
+            dq_causal_counter.plain_calls += 1
+            dkv_causal_counter.plain_calls += 1
+        return _plain_bwd(q, k, v, bias, out, m, l, g, causal_offset)
+    return _launch_bwd(q, k, v, bias, out, m, l, g, causal_offset)
 
 
 def attention_fwd_with_stats(q, k, v, pad_mask=None, causal_offset=None):
@@ -370,25 +387,31 @@ def attention_fwd_with_stats(q, k, v, pad_mask=None, causal_offset=None):
                     causal_offset)
 
 
-def attention_bwd(q, k, v, pad_mask, out, m, l, g):
+def attention_bwd(q, k, v, pad_mask, out, m, l, g, causal_offset=None):
     """``(dq, dk, dv)``: the dq and dk/dv kernels on CUDA tensors,
     :func:`attention_bwd_reference` on CPU tensors."""
     _check(q, k, v)
     return _backward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
-                     out, m, l, g)
+                     out, m, l, g, causal_offset)
 
 
 class FusedAttention(torch.autograd.Function):
-    """Attention with the kernels' backward: the forward saves q, k, v, the
-    pad bias, out, m and l; the backward returns dq, dk, dv (the pad mask
-    gets no gradient). ``plain=True`` runs the plain versions on any device
-    (the kernels' stand-in in parity runs on the card)."""
+    """Attention with the kernels' backward, the twin of the JAX custom VJP
+    ``_fused_attention``: the forward (with statistics and, given
+    ``causal_offset``, the causal bias) saves q, k, v, the pad bias, out, m
+    and l and keeps the offset; the backward returns dq, dk, dv with the same
+    causal bias (the pad mask gets no gradient). ``plain=True`` runs the
+    plain versions on any device (the kernels' stand-in in parity runs on
+    the card)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pad_mask, plain: bool = False):
+    def forward(ctx, q, k, v, pad_mask, causal_offset: Optional[int] = None,
+                plain: bool = False):
         bias = pad_bias(pad_mask, q.shape[0], k.shape[1], q.device)
-        out, m, l = _plain_fwd(q, k, v, bias) if plain else _forward(q, k, v, bias, True)
+        out, m, l = (_plain_fwd(q, k, v, bias, causal_offset) if plain
+                     else _forward(q, k, v, bias, True, causal_offset))
         ctx.plain = plain
+        ctx.causal_offset = causal_offset
         ctx.save_for_backward(q, k, v, bias, out, m, l)
         return out
 
@@ -396,20 +419,12 @@ class FusedAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, out, m, l = ctx.saved_tensors
         bwd = _plain_bwd if ctx.plain else _backward
-        dq, dk, dv = bwd(q, k, v, bias, out, m, l, g)
-        return dq, dk, dv, None, None
+        dq, dk, dv = bwd(q, k, v, bias, out, m, l, g, ctx.causal_offset)
+        return dq, dk, dv, None, None, None
 
 
 def _records_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
-
-
-def _no_causal_backward(causal_offset: Optional[int]) -> None:
-    if causal_offset is not None:
-        raise ValueError(
-            "causal backward not ported: AR training slice (the backward kernels "
-            "take no causal_offset; run causal attention under torch.no_grad or "
-            "torch.inference_mode)")
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -425,12 +440,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through :class:`FusedAttention` (forward with statistics, backward
     kernels); otherwise the forward runs without statistics.
     ``causal_offset``: query row i attends key j only if j <= i + offset,
-    added in the kernel by index; a causal call under autograd raises
-    ``ValueError`` (no causal backward yet)."""
+    added by index in the forward and in both backward kernels."""
     _check(q, k, v)
     if _records_grad(q, k, v):
-        _no_causal_backward(causal_offset)
-        return FusedAttention.apply(q, k, v, pad_mask)
+        return FusedAttention.apply(q, k, v, pad_mask, causal_offset)
     return _forward(q, k, v, pad_bias(pad_mask, q.shape[0], k.shape[1], q.device),
                     False, causal_offset)[0]
 
@@ -440,10 +453,8 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal_offset: Optional[int] = None) -> torch.Tensor:
     """The plain versions of the forward and of the backward on any device,
     differentiable the same way: what a parity run puts in the kernels'
-    place. Counts no launch and no plain call; a causal call under autograd
-    raises, as :func:`fused_attention`'s does."""
+    place. Counts no launch and no plain call."""
     _check(q, k, v)
     if _records_grad(q, k, v):
-        _no_causal_backward(causal_offset)
-        return FusedAttention.apply(q, k, v, pad_mask, True)
+        return FusedAttention.apply(q, k, v, pad_mask, causal_offset, True)
     return attention_reference(q, k, v, pad_mask, causal_offset)

@@ -34,9 +34,9 @@ _c_int, _c_ptr, _c_i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "attention_fwd": [_c_int, _c_int] + [_c_ptr] * 7 + [_c_int] * 6
                      + [_c_i64] * 9 + [_c_ptr],
-    "attention_bwd_dq": [_c_int, _c_int] + [_c_ptr] * 9 + [_c_int] * 4
+    "attention_bwd_dq": [_c_int, _c_int] + [_c_ptr] * 9 + [_c_int] * 6
                         + [_c_i64] * 12 + [_c_ptr],
-    "attention_bwd_dkv": [_c_int, _c_int] + [_c_ptr] * 10 + [_c_int] * 4
+    "attention_bwd_dkv": [_c_int, _c_int] + [_c_ptr] * 10 + [_c_int] * 6
                          + [_c_i64] * 12 + [_c_ptr],
     "dequant_matmul": [_c_int, _c_int, _c_int] + [_c_ptr] * 4 + [_c_int] * 3
                       + [_c_ptr],

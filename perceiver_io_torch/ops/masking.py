@@ -1,6 +1,7 @@
-"""BERT-style MLM text masking and the causal attention mask (the port's
-copy of ``perceiver_io_tpu/ops/masking.py``: ``IGNORE_LABEL``,
-``causal_mask``, ``apply_text_masking``, ``TextMasking``).
+"""BERT-style MLM text masking, the causal attention mask and the
+Perceiver-AR next-token labels (the port's copy of
+``perceiver_io_tpu/ops/masking.py``: ``IGNORE_LABEL``, ``causal_mask``,
+``shift_ar_labels``, ``apply_text_masking``, ``TextMasking``).
 
 The same corruption scheme, nested draws included:
 
@@ -38,6 +39,24 @@ def causal_mask(num_queries: int, num_keys: int, offset: int = 0,
     rows = torch.arange(num_queries, device=device)[:, None]
     cols = torch.arange(num_keys, device=device)[None, :]
     return cols > rows + offset
+
+
+def shift_ar_labels(token_ids: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                    latent_offset: int = 0) -> torch.Tensor:
+    """Next-token labels for the causal AR window: the query at absolute
+    position ``latent_offset + i`` predicts ``token_ids[:, latent_offset + i
+    + 1]``. Returns (B, L - latent_offset) int64 labels with
+    :data:`IGNORE_LABEL` at the final position (it has no successor) and
+    wherever the target token is padding, so ``cross_entropy_with_ignore``
+    applies unchanged. The successors come from a roll, as the JAX
+    function's: the wrapped-around element lands on the ignored last slot."""
+    n = token_ids.shape[1] - latent_offset
+    labels = torch.roll(token_ids, -1, dims=1)[:, latent_offset:].long()
+    invalid = torch.arange(n, device=token_ids.device)[None, :] == n - 1
+    if pad_mask is not None:
+        pad = pad_mask.to(device=token_ids.device, dtype=torch.bool)
+        invalid = invalid | torch.roll(pad, -1, dims=1)[:, latent_offset:]
+    return labels.masked_fill(invalid, IGNORE_LABEL)
 
 
 def apply_text_masking(

@@ -1,5 +1,6 @@
-"""MLM step builders (the counterpart of ``perceiver_io_tpu/training/steps.py``:
-``mlm_gather_capacity``, ``make_mlm_steps``).
+"""MLM and Perceiver-AR step builders (the counterpart of
+``perceiver_io_tpu/training/steps.py``: ``mlm_gather_capacity``,
+``make_mlm_steps``, ``make_ar_steps``).
 
 Batches are dicts with ``token_ids`` (B, L) int and ``pad_mask`` (B, L)
 bool, as numpy arrays or tensors; the steps move them to the model's device.
@@ -12,6 +13,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from perceiver_io_torch.ops.masking import shift_ar_labels
 from perceiver_io_torch.training.losses import (
     cross_entropy_with_ignore,
     fused_linear_cross_entropy_with_ignore,
@@ -36,6 +38,19 @@ def _batch_to(batch, device) -> Tuple[torch.Tensor, torch.Tensor]:
         ids, pad = torch.from_numpy(ids), torch.from_numpy(pad)
     return (ids.to(device, non_blocking=True),
             pad.to(device, dtype=torch.bool, non_blocking=True))
+
+
+def _update(state: TrainState, schedule, compute_loss) -> Tuple[TrainState, Metrics]:
+    """One optimizer step on the loss ``compute_loss()`` returns; metrics
+    ``loss`` (a device scalar, fetched by the caller when it logs) and,
+    given ``schedule``, ``lr``. The gradients stay on the parameters until
+    the next step."""
+    metrics = {} if schedule is None else {"lr": schedule(state.step)}
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = compute_loss()
+    loss.backward()
+    state.apply_gradients()
+    return state, {"loss": loss.detach(), **metrics}
 
 
 def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
@@ -79,12 +94,7 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
         return fused_linear_cross_entropy_with_ignore(out, kernel, bias, labels)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
-        metrics = {} if schedule is None else {"lr": schedule(state.step)}
-        state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch, state.step_generator(device))
-        loss.backward()
-        state.apply_gradients()
-        return state, {"loss": loss.detach(), **metrics}
+        return _update(state, schedule, lambda: loss_fn(batch, state.step_generator(device)))
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator: torch.Generator) -> Metrics:
@@ -94,5 +104,41 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
     def predict_fn(model_, token_ids, pad_mask, positions=None):
         logits, _ = model_(token_ids, pad_mask, masking=False, positions=positions)
         return logits
+
+    return train_step, eval_step, predict_fn
+
+
+def make_ar_steps(model, schedule: Optional[Callable[[int], float]] = None,
+                  latent_offset: Optional[int] = None):
+    """(train_step, eval_step, predict_fn) for a ``PerceiverARLM``, with the
+    signatures of :func:`make_mlm_steps`.
+
+    Next-token CE over the causal latent window: the dense forward's logits
+    row i predicts the token at absolute position ``o + i + 1``
+    (:func:`~perceiver_io_torch.ops.masking.shift_ar_labels`: the final
+    position and pad targets carry ``IGNORE_LABEL``), through the unfused
+    ``cross_entropy_with_ignore``; ``o`` is ``latent_offset``, or with None
+    the model's default window (``L - logits.shape[1]``). There is no masking
+    RNG: causality is structural. ``eval_step`` takes the Trainer's
+    generator slot and ignores it, as the JAX step ignores its key."""
+    device = next(model.parameters()).device
+
+    def loss_fn(batch):
+        ids, pad = _batch_to(batch, device)
+        logits = model(ids, pad, latent_offset=latent_offset)
+        o = ids.shape[1] - logits.shape[1] if latent_offset is None else latent_offset
+        return cross_entropy_with_ignore(logits, shift_ar_labels(ids, pad, o))
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+        return _update(state, schedule, lambda: loss_fn(batch))
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None
+                  ) -> Metrics:
+        return {"loss": loss_fn(batch)}
+
+    @torch.no_grad()
+    def predict_fn(model_, token_ids, pad_mask):
+        return model_(token_ids, pad_mask, latent_offset=latent_offset)
 
     return train_step, eval_step, predict_fn

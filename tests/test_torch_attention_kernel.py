@@ -11,7 +11,9 @@ The causal offset (the Perceiver-AR path's forward): the plain version
 against the Pallas forward with ``causal_offset`` (interpret mode) at
 offsets 0 and > 0, a one-row decode step, S not a multiple of 8, and rows
 whose visible keys are all padding (they average the keys masked exactly
-once), f32 at 1e-5; a causal call under autograd raises.
+once), f32 at 1e-5; a causal call under autograd gives ``jax.grad``'s
+gradients (tests/test_torch_ar_training.py holds the causal backward in
+full).
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there."""
@@ -265,15 +267,31 @@ def test_causal_mask_matches_jax():
 
 
 def test_causal_call_under_autograd_raises():
-    """The causal offset is a forward feature: no backward kernel takes it
-    yet, and a causal call under autograd raises rather than run the
-    non-causal backward."""
+    """A causal call under autograd, which raised before the backward
+    kernels took the causal offset: ``fused_attention`` and
+    ``plain_attention`` give the gradients of ``jax.grad`` through the
+    Pallas ``fused_attention`` with the same offset (interpret mode), 1e-5,
+    ``fused_attention`` counting one causal dq and dk/dv call; under no_grad
+    the call runs the forward alone."""
     q, k, v, pad, off = _causal_inputs("window_cross")
-    leaves = [x.requires_grad_(True) for x in _torch(q, k, v)]
+    w = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+
+    def jloss(jq, jk, jv):
+        out = jax_fused_attention(jq, jk, jv, jnp.asarray(pad), interpret=True,
+                                  causal_offset=off)
+        return jnp.sum(out * jnp.asarray(w))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tpad = torch.from_numpy(pad)
     for fn in (ak.fused_attention, ak.plain_attention):
-        with pytest.raises(ValueError, match="causal backward not ported"):
-            fn(*leaves, tpad, causal_offset=off)
+        leaves = [x.requires_grad_(True) for x in _torch(q, k, v)]
+        before = (ak.dq_causal_counter.plain_calls, ak.dkv_causal_counter.plain_calls)
+        (fn(*leaves, tpad, causal_offset=off) * torch.from_numpy(w)).sum().backward()
+        calls = int(fn is ak.fused_attention)
+        assert (ak.dq_causal_counter.plain_calls, ak.dkv_causal_counter.plain_calls) == (
+            before[0] + calls, before[1] + calls)
+        for leaf, ref in zip(leaves, jgrads):
+            np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
     with torch.no_grad():
         before = (ak.counter.plain_calls, ak.causal_counter.plain_calls)
         out = ak.fused_attention(*leaves, tpad, causal_offset=off)

@@ -24,9 +24,13 @@ at small, ragged, wide, head-split and tail-padded shapes; autograd through
 ``packed_latent_attention``; the tiny train step with ``attn_impl='packed'``),
 the forward's causal offset in both designs (the Perceiver-AR shapes: a
 latent-window cross, square self-attention, a one-row step against 511
-keys, rows whose visible keys are all padding; its statistics too; a causal
-call under autograd raises), the tiny AR model's incremental steps against
-its dense forward and against the plain versions on the card,
+keys, rows whose visible keys are all padding; its statistics too), the
+two backward kernels with the causal offset in both designs at the same
+shapes (dq of rows that see only padding exactly 0, dk and dv of padded key
+tiles exactly 0; autograd through ``fused_attention`` against the plain
+versions; the tiny AR train step against the plain versions), the tiny AR
+model's incremental steps against its dense forward and against the plain
+versions on the card,
 and the bf16 wgmma designs of the forward, of the two backward kernels,
 of the three packed kernels and of the dequant matmul at ragged and tiny
 shapes (T, S, M down to 1, the
@@ -851,6 +855,7 @@ CAUSAL_SHAPES = {
     "window_511": (2, 256, 511, 2, 255, 0),
     "step_511": (3, 1, 511, 2, 510, 0),
     "visible_all_padding": (3, 64, 200, 2, 8, 80),
+    "left_padded_self": (3, 130, 130, 2, 0, 70),
 }
 
 
@@ -886,12 +891,111 @@ def test_causal_attention_matches_plain(card, dtype, d, shape):
         assert (m[-1, :, : head - off] == ak.MASK_VALUE).all()
 
 
+def _causal_counters():
+    return (ak.dq_causal_counter, ak.dkv_causal_counter, ak.dq_wgmma_counter,
+            ak.dkv_wgmma_counter)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("shape", sorted(CAUSAL_SHAPES))
+def test_causal_attention_backward_matches_plain(card, dtype, d, shape):
+    """The dq and dk/dv kernels with the causal offset (both designs)
+    against the plain backward with the same offset, from the plain
+    forward's residuals. Example 0's keys are padded from S/3 on (whole key
+    tiles of padding, which the bf16 design skips: every row sees key 0, so
+    dk and dv there are exactly 0); in ``visible_all_padding`` the last
+    example's rows 0..71 see only padding (their dq exactly 0, and a
+    warpgroup of its padded keys runs the full path, as row 0 is dead).
+    Each call is one causal launch a kernel, and in bf16 one wgmma launch."""
+    b, t, s, h, off, head = CAUSAL_SHAPES[shape]
+    g = torch.Generator().manual_seed(t * 1000 + s + d + 11)
+    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(card, dtype) for n in (t, s, s, t))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    pad[:, 0] = False
+    pad[0, s // 3:] = True
+    if head:
+        pad[-1] = False
+        pad[-1, :head] = True
+    pad = pad.to(card)
+    out, m, l = ak.attention_reference_with_stats(q, k, v, pad, off)
+    before = [c.launches for c in _causal_counters()]
+    got = ak.attention_bwd(q, k, v, pad, out, m, l, go, causal_offset=off)
+    wgmma = int(dtype == torch.bfloat16)
+    assert [c.launches - n for c, n in zip(_causal_counters(), before)] == [1, 1, wgmma, wgmma]
+    ref = ak.attention_bwd_reference(q, k, v, pad, out, m, l, go, off)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == dtype and x.is_contiguous()
+        _close(x, r, dtype, BWD_ATOL)
+    dq, dk, dv = got
+    assert not dk[0, s // 3:].any() and not dv[0, s // 3:].any()
+    if head:
+        dead = min(t, head - off)  # the rows whose visible keys are all padding
+        assert not dq[-1, :dead].any() and (dead == t or dq[-1, dead:].abs().max() > 0)
+        assert dv[-1, :head].abs().max() > 0  # the dead rows' uniform share
+
+
 def test_causal_attention_under_autograd_raises_on_the_card(card):
-    q, k, v = (torch.randn(1, 8, 2, 16, device=card, requires_grad=True) for _ in range(3))
-    before = ak.counter.launches
-    with pytest.raises(ValueError, match="causal backward not ported"):
-        ak.fused_attention(q, k, v, causal_offset=0)
-    assert ak.counter.launches == before
+    """A causal call under autograd, which raised before the backward
+    kernels took the causal offset: ``fused_attention`` launches one causal
+    forward, dq and dk/dv (bf16: all wgmma) and gives the gradients of
+    ``plain_attention``, which launches nothing, f32 and bf16."""
+    counters = (ak.causal_counter, *_causal_counters())
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(5)
+        q, k, v, go = (torch.randn(2, n, 2, 64, generator=g).to(card, dtype)
+                       for n in (70, 131, 131, 70))
+        pad = (torch.rand(2, 131, generator=g) < 0.3).to(card)
+        grads = []
+        for fn in (ak.fused_attention, ak.plain_attention):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            before = [c.launches for c in counters]
+            fn(*leaves, pad, causal_offset=61).backward(go)
+            kernel = int(fn is ak.fused_attention)
+            wgmma = kernel * int(dtype == torch.bfloat16)
+            assert [c.launches - n for c, n in zip(counters, before)] == [kernel] * 3 + [wgmma] * 2
+            grads.append([x.grad for x in leaves])
+        for got, ref in zip(*grads):
+            _close(got, ref, dtype, BWD_ATOL)
+
+
+def test_ar_train_step_on_the_card_matches_plain(card):
+    """One f32 train step of the tiny AR model on the card, with the kernels
+    and with the plain versions in their place: the same loss and gradients;
+    5 causal forward, 5 causal dq and 5 causal dk/dv launches (2 cross + 2
+    self + 1 decode), none in the plain run."""
+    from perceiver_io_torch.models.presets import tiny_ar
+    from perceiver_io_torch.ops.attention import MultiHeadAttention
+    from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
+    from perceiver_io_torch.training.steps import make_ar_steps
+    from perceiver_io_torch.training.train_state import TrainState
+
+    rng = np.random.default_rng(0)
+    pad = np.zeros((4, 64), bool)
+    pad[1, 40:] = True
+    batch = {"token_ids": rng.integers(3, 503, (4, 64)).astype(np.int32), "pad_mask": pad}
+    counters = (ak.causal_counter, ak.dq_causal_counter, ak.dkv_causal_counter)
+    runs = []
+    for plain in (False, True):
+        model = tiny_ar(device=card, seed=1)
+        if plain:
+            for module in model.modules():
+                if isinstance(module, MultiHeadAttention):
+                    module.attention = ak.plain_attention
+        optimizer, schedule = make_optimizer(OptimizerConfig(), model.parameters())
+        state = TrainState.create(model, optimizer, schedule, seed=3)
+        train_step, _, _ = make_ar_steps(model, schedule)
+        before = [c.launches for c in counters]
+        _, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [0 if plain else 5] * 3
+        runs.append((float(metrics["loss"]),
+                     {n: p.grad.detach().clone() for n, p in model.named_parameters()}))
+    (loss, grads), (ref_loss, ref_grads) = runs
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, ref in ref_grads.items():
+        if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
+            assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -19,8 +19,9 @@ wrapper runs its plain version with the causal offset.
 - the kernel calls a prefill and a step make at the flagship depth: 22
   attention calls each (causal in the prefill, pad-masked in the step) and
   131 dequant matmuls each on the int8 path.
-- what raises: ``'packed'`` with a causal offset, a causal call under
-  autograd. The CLI prints one JSON line per prompt.
+- what raises: ``'packed'`` with a causal offset. The dense forward under
+  autograd gives the JAX model's gradients. The CLI prints one JSON line per
+  prompt.
 """
 
 import functools
@@ -270,9 +271,37 @@ def test_packed_attention_refuses_the_causal_offset():
 
 
 def test_causal_forward_under_autograd_raises():
-    model = presets.tiny_ar(device="cpu")
-    with pytest.raises(ValueError, match="causal backward not ported"):
-        model(torch.tensor([[5, 6, 7, 8]]))
+    """The dense forward under autograd, which raised before the attention
+    backward took the causal offset: the gradients of a weighted sum of the
+    logits against ``jax.grad`` of the JAX model's (``attn_impl='xla'``),
+    every leaf within 1e-4 of its peak (``k_proj.bias``, zero by symmetry,
+    against the other gradients' scale)."""
+    jmodel, params, port = _pair("tiny_ar")
+    rng = np.random.default_rng(12)
+    ids = rng.integers(3, VOCAB, (2, 24)).astype(np.int32)
+    pad = np.zeros((2, 24), bool)
+    pad[1, 18:] = True
+    w = rng.normal(size=(2, 16, VOCAB)).astype(np.float32)
+
+    def jloss(p):
+        return jnp.sum(jmodel.apply({"params": p}, ids, pad) * w)
+
+    jflat = {k: np.asarray(v) for k, v in flatten_tree(jax.grad(jloss)(params)).items()}
+    port.requires_grad_(True)
+    port.zero_grad(set_to_none=True)
+    try:
+        (port(torch.from_numpy(ids), torch.from_numpy(pad)) * torch.from_numpy(w)).sum().backward()
+        grads = {n: p.grad.clone() for n, p in port.named_parameters()}
+    finally:
+        port.zero_grad(set_to_none=True)
+        port.requires_grad_(False)
+    peak_all = max(float(np.abs(g).max()) for g in jflat.values())
+    for name, got in grads.items():
+        ref = jflat[name.replace(".", "/")]
+        if name.endswith("k_proj.bias"):
+            assert max(float(got.abs().max()), np.abs(ref).max()) < 1e-5 * peak_all, name
+            continue
+        assert float(np.abs(got.numpy() - ref).max()) <= 1e-4 * np.abs(ref).max(), name
 
 
 # -- the CLI ------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 - Every ``extern "C"`` entry point of ``perceiver_io_torch/csrc/*.cu`` has a
   ``ctypes`` signature in ``build._SIGNATURES`` with the same number and
   kinds of arguments (pointer, ``int``, ``int64_t``): a mismatch would pass
-  a cut pointer or a shifted argument at the first launch; the attention
-  forward's causal flag and offset stand where its wrapper passes them.
+  a cut pointer or a shifted argument at the first launch; the causal flag
+  and offset of the attention forward and of both backward entry points
+  stand where their wrappers pass them.
 - The admission rule of the kernels with two designs: which dtype, head
   dim and strides reach the bf16 ``wgmma`` design, which the f32 scalar one,
   and which raise ``ValueError`` (``attention_kernel.forward_design`` and
@@ -236,6 +237,19 @@ def test_attention_forward_prototype_takes_the_causal_offset():
         ["dtype", "head_dim", "q", "k", "v", "bias", "out", "m_out", "l_out", "batch",
          "t_len", "s_len", "heads", "causal", "causal_offset"]
         + [f"s{t}{d}" for t in "qkv" for d in ("b", "t" if t == "q" else "s", "h")]
+        + ["stream"])
+
+
+@pytest.mark.parametrize("name,outputs", [("attention_bwd_dq", ["dq"]),
+                                          ("attention_bwd_dkv", ["dk", "dv"])])
+def test_attention_backward_prototypes_take_the_causal_offset(name, outputs):
+    """The two backward entry points take the causal flag and offset right
+    after ``heads``, as the forward's does, in the order
+    ``attention_kernel._bwd_args`` passes them."""
+    assert _prototype_args(name) == (
+        ["dtype", "head_dim", "q", "k", "v", "g", "bias", "m", "l", "delta"] + outputs
+        + ["batch", "t_len", "s_len", "heads", "causal", "causal_offset"]
+        + [f"s{t}{d}" for t in "qkvg" for d in ("b", "t" if t in "qg" else "s", "h")]
         + ["stream"])
 
 
