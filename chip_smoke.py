@@ -206,9 +206,52 @@ Phases (any failure exits nonzero):
     within 1e-3 of each leaf's peak; then three bf16 steps: losses within
     2e-2 relative;
 23. ``perceiver_io_torch.cli.train_ar --preset flagship_tpu --synthetic
-    --max_steps 5`` in-process: ``metrics.jsonl`` rows with finite losses,
-    every #1-#3 launch causal and wgmma, the vocab head at the tokenizer's
-    size.
+    --max_steps 5 --attn_impl pallas`` in-process: ``metrics.jsonl`` rows
+    with finite losses, every #1-#3 launch causal and wgmma, the vocab head
+    at the tokenizer's size;
+24. the einsum attention (``attn_impl='xla'``, ``ops.attention.
+    dot_product_attention``) against kernels #1-#3 in f32 (TF32 off, which
+    the phase asserts): output, dq, dk, dv within 1e-4 of each peak at the
+    flagship encoder cross (~30% of keys padded) and the AR training cross
+    (offset 256), every row with a live key; then the H100 sweep that sets
+    ``auto_attention_impl``'s constants: bf16 device ms (torch.profiler,
+    every kernel of the call) of the einsum path and of #1-#3, forward and
+    forward + backward (forward only for a decode step), at
+    ``tools/attn_shapes_bench.py``'s shapes and decode family, the port's
+    training shapes and the rule's floors (SWEEP_SHAPES); a head depth the
+    kernel refuses is marked refused and must not route to it; the table
+    and the thresholds in force are printed;
+25. ``train_mlm --preset flagship_tpu --synthetic`` with the JAX CLI's
+    defaults (``xla`` by the preset) and ``--dropout 0.1 --optimizer AdamW
+    --accumulate_steps 2 --one_cycle_lr --one_cycle_pct_start 0.3``, 12
+    steps at batch 64 x 512: the JAX trainer's rows, the loss falling, no
+    #1-#3 launch (22 einsum calls a step and an eval batch), the peak
+    memory; then three fresh CLI runs in turns (A B C C B A): A these
+    flags, B ``--attn_impl pallas --dropout 0``, C ``--dropout 0``, each
+    with its tokens/s over a 10-step window, device ms a step and idle
+    share over a profiled 4-step one;
+26. ``train_mlm --preset reference --synthetic`` with its defaults
+    (``auto``, ``--fused_head auto``), 5 steps with validation every 2,
+    with ``--remat --optimizer RAdam`` and then ``--attn_impl pallas
+    --dropout 0.1``: every train step and eval batch checked for its
+    launches (#6-#8 one each a step; #1-#3 as the rule routes the preset's
+    shapes, 22 at batch 64, #1 21 more under remat for the encoder's
+    recompute; under dropout no #1-#3 in training and 22 #1 an eval batch);
+    then each of the eight ``--optimizer`` names for 2 steps (SGD with
+    ``--momentum 0.9``, Adamax with ``--no_reuse_kv``, Adagrad with
+    ``--accumulate_steps 2``), checked alike;
+27. ``train_ar --preset flagship_tpu --synthetic --dropout 0.1`` with the
+    JAX CLI's default ``auto`` (every causal call on the einsum path), its
+    trainer fitted on phase 21's packed reviews for 12 steps: the loss
+    falling, no #1-#3 launch, 22 einsum calls a step and an eval batch;
+    the windows' tokens/s, device ms a step and idle share;
+28. three f32 ``flagship_tpu_mlm`` steps through ``'xla'`` and through
+    ``'pallas'``, no dropout: losses within 1e-4 relative; then dropout 0.1
+    with ``remat`` and without, the same keys: losses and the first step's
+    gradients within 1e-5 of each leaf's peak (remat recomputes the
+    encoder's 21 calls: 43 einsum calls a step); last, the stacked q/k/v
+    product against three projections on one bf16 ``flagship_tpu_mlm``
+    model, device ms a step in turns (stacked, three, three, stacked).
 
 Each path's launch counters are set to 0 just before its checked
 ``Trainer.fit`` (or its serving pass, or its generation) and read just
@@ -217,7 +260,7 @@ script fails if any kernel was never launched. Its ``attention_fwd_causal``
 entry is #1's causal reading (phase 17's bf16 W=512 cross), with the causal
 launches of phases 18, 19 and 21; ``attention_bwd_dq_causal`` and
 ``attention_bwd_dkv_causal`` are phase 20's bf16 AR training cross, with
-phase 21's launches. A failure prints one line on stdout naming the phase
+phase 21's launches. Phase 26's launches count with the paths'. A failure prints one line on stdout naming the phase
 (``chip_smoke: failed in phase ...``) before the nonzero exit; a machine
 without a CUDA card, or a directory without the package, fails so too.
 
@@ -832,9 +875,11 @@ def profile_pass(torch, run, mode: str) -> None:
             device.append((ms, event.count, event.key[:70]))
     device.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in device)
-    log(phase="profile", mode=mode, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_idle_share=(1 - busy_ms / wall_ms) if device else None,
+    reading = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                   device_idle_share=(1 - busy_ms / wall_ms) if device else None)
+    log(phase="profile", mode=mode, **reading,
         top=[dict(kernel=k, ms=ms, calls=c) for ms, c, k in device[:20]])
+    return reading
 
 
 def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
@@ -862,13 +907,15 @@ def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
 
 
 def train_setup(torch, port, dtype, plain: bool = False, seed: int = 2,
-                preset: str = "flagship_tpu_mlm", fused_head=False, attn_impl: str = "pallas"):
-    """The preset's MLM (weights from seed 0) with Adam at 1e-3 and its train
-    state (masking from ``seed``), its steps at capacity 160 with
+                preset: str = "flagship_tpu_mlm", fused_head=False, attn_impl: str = "pallas",
+                **model_options):
+    """The preset's MLM (weights from seed 0, ``model_options`` such as
+    ``dropout`` and ``remat`` passed to it) with Adam at 1e-3 and its train
+    state (masking and dropout from ``seed``), its steps at capacity 160 with
     ``fused_head`` and ``attn_impl``; with ``plain`` the plain attention and
     CE versions stand in the kernels' place."""
     model = port["presets"].PRESETS[preset](dtype=dtype, device="cuda", seed=0,
-                                            attn_impl=attn_impl)
+                                            attn_impl=attn_impl, **model_options)
     if plain:
         for module in model.modules():
             if isinstance(module, port["MultiHeadAttention"]):
@@ -2113,9 +2160,10 @@ def ar_train_parity_phase(torch, port, train) -> None:
 
 
 def ar_train_cli_phase(torch, port, root: str, vocab: int) -> None:
-    """Phase 23: ``train_ar --preset flagship_tpu --synthetic --max_steps 5``
-    in-process: finite losses in ``metrics.jsonl``, every #1-#3 launch causal
-    and wgmma, no plain version, the vocab head at the tokenizer's size."""
+    """Phase 23: ``train_ar --preset flagship_tpu --synthetic --max_steps 5
+    --attn_impl pallas`` in-process: finite losses in ``metrics.jsonl``,
+    every #1-#3 launch causal and wgmma, no plain version, the vocab head at
+    the tokenizer's size."""
     ak, common = port["ak"], port["train_ar"].common
     counters = ar_counters(port)
     for c in counters:
@@ -2131,7 +2179,8 @@ def ar_train_cli_phase(torch, port, root: str, vocab: int) -> None:
     try:
         run_dir = port["train_ar"].main([
             "--preset", "flagship_tpu", "--synthetic", "--max_steps", str(CLI_STEPS),
-            "--log_every_n_steps", "1", "--root", root, "--logdir", f"{root}/cli_ar"])
+            "--attn_impl", "pallas", "--log_every_n_steps", "1", "--root", root,
+            "--logdir", f"{root}/cli_ar"])
     finally:
         common.build_ar = build_ar
     torch.cuda.synchronize()
@@ -2153,6 +2202,494 @@ def ar_train_cli_phase(torch, port, root: str, vocab: int) -> None:
         launches=launches, train_losses=[r["train_loss"] for r in train],
         tokens_per_s=train[-1]["tokens_per_sec"],
         val_loss=[r["val_loss"] for r in rows if "val_loss" in r], wall_s=time.perf_counter() - t0)
+
+
+# phase 24: tools/attn_shapes_bench.py's shapes, (name, (B, T, S, H, D),
+# causal offset or None); the decode family's step rows are forward only
+SWEEP_SHAPES = (("mlm-cross", (8, 256, 512, 4, 16), None),
+                ("mlm-self", (8, 256, 256, 4, 16), None),
+                ("in-cross", (2, 512, 50176, 1, 1024), None),
+                ("in-8h", (2, 512, 50176, 8, 128), None),
+                ("flow-cross", (1, 2048, 182528, 1, 512), None),
+                ("flow-self", (2, 2048, 2048, 8, 64), None),
+                ("flow-dec-cross", (2, 182528, 2048, 1, 512), None),
+                ("in-self-b16", (16, 512, 512, 8, 128), None),
+                ("mlm-32k", (2, 256, 32768, 4, 16), None),
+                ("mlm-131k", (1, 256, 131072, 4, 16), None),
+                # the port's own training shapes: the C=64 (reference) and
+                # C=512 (flagship) encoder cross and self at batch 64
+                ("c64-cross-b64", (64, 256, 512, 4, 16), None),
+                ("c64-self-b64", (64, 256, 256, 4, 16), None),
+                ("c512-cross-b64", (64, 256, 512, 4, 128), None),
+                ("c512-self-b64", (64, 256, 256, 4, 128), None),
+                # the reference preset (64 latents, C=64) at batch 64: encoder
+                # cross, self, the decoder gathered at capacity 160
+                ("ref-cross-b64", (64, 64, 512, 4, 16), None),
+                ("ref-self-b64", (64, 64, 64, 4, 16), None),
+                ("ref-dec-b64", (64, 160, 64, 4, 16), None),
+                # where the rule's floors sit: a serving decoder, few blocks,
+                # small areas, D=8
+                ("serve-dec-c512", (64, 8, 256, 4, 128), None),
+                ("mlm-cross-b2", (2, 256, 512, 4, 16), None),
+                ("mlm-cross-b1", (1, 256, 512, 4, 16), None),
+                ("tiny-self-b8", (8, 64, 64, 4, 16), None),
+                ("d8-self", (8, 256, 256, 4, 8), None),
+                ("ar-prefill-cross", (8, 256, 512, 4, 128), 256),
+                ("ar-prefill-self", (8, 256, 256, 4, 128), 0),
+                ("ar-prefill-32k", (1, 256, 32768, 4, 128), 32512),
+                ("ar-step-cross", (8, 1, 512, 4, 128), 511),
+                ("ar-step-cross-32k", (1, 1, 32768, 4, 128), 32767),
+                ("ar-step-latent", (8, 1, 256, 4, 128), 255))
+
+
+def einsum_vs_kernels_f32(torch, ak, pat) -> list:
+    """Phase 24, first part: the einsum path (``'xla'``) against kernels #1-#3
+    in f32 (TF32 off), forward and the three gradients under one cotangent,
+    at the flagship encoder cross (~30% of keys padded at random, no example
+    all padding) and the AR training cross (offset 256, keys padded from a
+    random length past 256): every row has a live key, where the two paths
+    compute one function (a row with none differs by design, ROADMAP Queue 3
+    trap 1). Within 1e-4 of each reference's peak."""
+    from perceiver_io_torch.ops.masking import causal_mask
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("allow_tf32 is on: the f32 einsum needs full f32 products")
+    rows = []
+    for name, (b, t, s, h, d), off in (("enc_cross", (64, 256, 512, 4, 128), None),
+                                       ("ar_cross", (64, 256, 512, 4, 128), 256)):
+        gen = torch.Generator().manual_seed(b + t + s + d + 24)
+        if off is None:
+            pad = torch.rand(b, s, generator=gen) < 0.3
+            pad[:, 0] = False
+        else:
+            pad = torch.arange(s)[None, :] >= torch.randint(off + 1, s + 1, (b, 1),
+                                                            generator=gen)
+        pad = pad.cuda()
+        q, g = (torch.randn(b, t, h, d, generator=gen).cuda() for _ in range(2))
+        k, v = (torch.randn(b, s, h, d, generator=gen).cuda() for _ in range(2))
+        outs = []
+        for fn in (ak.fused_attention, None):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            if fn is None:
+                cmask = None if off is None else causal_mask(t, s, off, "cuda")
+                out = pat.dot_product_attention(*leaves, pad, cmask)
+            else:
+                out = fn(*leaves, pad, causal_offset=off)
+            out.backward(g)
+            outs.append([out.detach()] + [x.grad for x in leaves])
+        errs = [check(f"xla vs kernels {name} {part}", e, kern, "float32")
+                for part, kern, e in zip(("out", "dq", "dk", "dv"), *outs)]
+        row = dict(phase="xla_vs_kernels_f32", shape=name, dims=[b, t, s, h, d],
+                   causal_offset=off, max_abs_err=dict(zip(("out", "dq", "dk", "dv"), errs)))
+        log(**row)
+        rows.append(row)
+    return rows
+
+
+def auto_sweep_phase(torch, ak, pat) -> list:
+    """Phase 24, the sweep: bf16 device ms (torch.profiler, every kernel of
+    the call) of the einsum path and of kernels #1-#3 (the forward with its
+    statistics, the delta reduction, dq and dk/dv), forward alone and
+    forward + backward, at SWEEP_SHAPES; causal rows take the causal offset
+    (the einsum its causal mask). A head depth the kernel refuses is marked
+    refused; a shape that does not fit in the card's memory is skipped,
+    saying so. Prints the table and the thresholds in force, and asserts
+    that the rule routes no refused shape to the kernel."""
+    from perceiver_io_torch.ops.masking import causal_mask
+
+    rows = []
+    for name, (b, t, s, h, d), off in SWEEP_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(b + t + s + h + d)
+        row = dict(phase="auto_sweep", shape=name, dims=[b, t, s, h, d], causal_offset=off,
+                   route=("xla (causal)" if off is not None
+                          else pat.auto_attention_impl(b, t, s, h, d)))
+        refused = d not in ak.SUPPORTED_HEAD_DIMS
+        if refused and row["route"] == "pallas":
+            raise AssertionError(f"auto routes {name} (D={d}) to a kernel that refuses it")
+        backward = t > 1  # a decode step (T = 1) serves: forward only
+        try:
+            q = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+            g = torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+            leaves = [x.requires_grad_(True) for x in (q, k, v)]
+            cmask = None if off is None else causal_mask(t, s, off, "cuda")
+
+            def xla():
+                return pat.dot_product_attention(*leaves, None, cmask)
+
+            def kern():
+                return ak.fused_attention(*leaves, None, causal_offset=off)
+
+            for impl, fn in (("xla", xla), ("pallas", None if refused else kern)):
+                if fn is None:
+                    row[f"{impl}_fwd_ms"] = row[f"{impl}_ms"] = "refused"
+                    continue
+                with torch.no_grad():
+                    row[f"{impl}_fwd_ms"] = device_ms(torch, fn, iters=10)
+                row[f"{impl}_ms"] = (device_ms(torch, lambda: torch.autograd.grad(
+                    fn(), leaves, g), iters=10) if backward else None)
+                torch.cuda.empty_cache()
+        except torch.cuda.OutOfMemoryError:
+            row["skipped"] = "does not fit in the card's memory"
+            gc.collect()
+            torch.cuda.empty_cache()
+        key = "pallas_ms" if backward else "pallas_fwd_ms"
+        if isinstance(row.get(key), float) and isinstance(row.get(key.replace("pallas", "xla")),
+                                                           float):
+            row["faster"] = ("pallas" if row[key] < row[key.replace("pallas", "xla")]
+                             else "xla")
+        log(**row)
+        rows.append(row)
+    log(phase="auto_thresholds", card=card_line(), min_kv=pat.AUTO_PALLAS_MIN_KV,
+        min_logits=pat.AUTO_PALLAS_MIN_LOGITS,
+        area_min_head_dim=pat.AUTO_PALLAS_AREA_MIN_HEAD_DIM,
+        head_dims=list(ak.SUPPORTED_HEAD_DIMS))
+    return rows
+
+
+# phases 25-27: the CLIs with the JAX CLI's defaults
+XLA_CLI_STEPS, CLI_PROFILE_STEPS, CLI_WARM_STEPS = 12, 4, 2
+ATTN_COUNTERS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
+
+
+def cli_windows(torch, port, trainer, loader, logdir: str, label: str) -> dict:
+    """``trainer``'s steps driven as its CLI drives them, on ``loader``:
+    CLI_WARM_STEPS steps, a WINDOW_STEPS window (its tokens/s: all tokens
+    over the window's host time) and a profiled CLI_PROFILE_STEPS window
+    (device busy ms a step, the idle share)."""
+    state = trainer.state
+
+    def fit(n: int, name: str) -> float:
+        nonlocal state
+        run = port["Trainer"](trainer.train_step, trainer.eval_step, state,
+                              port["TrainerConfig"](max_steps=state.step + n,
+                                                    log_every_n_steps=n,
+                                                    logdir=f"{logdir}/{name}"),
+                              tokens_per_example=SEQ_LEN)
+        state = run.fit(loader)
+        with open(f"{run.run_dir}/metrics.jsonl") as f:
+            row = [json.loads(line) for line in f][-1]
+        if not math.isfinite(row["train_loss"]):
+            raise AssertionError(f"{label} {name}: loss {row['train_loss']}")
+        return row["tokens_per_sec"]
+
+    fit(CLI_WARM_STEPS, "warm")
+    rate = fit(WINDOW_STEPS, "window")
+    prof = profile_pass(torch, lambda: fit(CLI_PROFILE_STEPS, "profiled"), label)
+    trainer.state = state
+    return dict(tokens_per_s=rate, device_ms_per_step=prof["device_busy_ms"] / CLI_PROFILE_STEPS,
+                idle_share=prof["device_idle_share"])
+
+
+def read_rows(run_dir: str) -> list:
+    with open(f"{run_dir}/metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def check_train_rows(rows: list, steps: int, label: str) -> list:
+    """The rows of the JAX trainer: each step's ``train_loss``, ``lr``,
+    ``step_s`` and ``tokens_per_sec``, finite, and ``val_loss`` rows; the
+    train losses, which must fall (the mean of the last three below the
+    first)."""
+    train = [r for r in rows if "train_loss" in r]
+    val = [r for r in rows if "val_loss" in r]
+    keys_ok = all({"train_loss", "lr", "step_s", "tokens_per_sec"} <= set(r) for r in train)
+    losses = [r["train_loss"] for r in train]
+    if [r["step"] for r in train] != list(range(1, steps + 1)) or not keys_ok or not val \
+            or not all(math.isfinite(x) for x in losses + [r["val_loss"] for r in val]) \
+            or not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"{label}: rows {rows}")
+    return losses
+
+
+def mlm_flagship_cli_phase(torch, port, root: str) -> dict:
+    """Phase 25: ``train_mlm --preset flagship_tpu --synthetic`` with the JAX
+    CLI's defaults (``--attn_impl xla`` by the preset) and ``--dropout 0.1
+    --optimizer AdamW --accumulate_steps 2 --one_cycle_lr
+    --one_cycle_pct_start 0.3``, batch 64 x 512, XLA_CLI_STEPS steps,
+    in-process: the rows of the JAX trainer, the loss falling, no launch of
+    #1-#3 (every call on the einsum path: 22 a train step and 22 an eval
+    batch), the peak memory. Then tokens/s, device ms a step and the idle
+    share of three arms, each a fresh run of the CLI, in turns (A B C C B
+    A): A these flags, B ``--attn_impl pallas --dropout 0``, C ``--dropout
+    0`` alone (the einsum path without dropout)."""
+    pat, counters = port["pat"], path_counters(port)
+    base = ["--preset", "flagship_tpu", "--synthetic", "--optimizer", "AdamW",
+            "--accumulate_steps", "2", "--one_cycle_lr", "--one_cycle_pct_start", "0.3",
+            "--log_every_n_steps", "1", "--root", root]
+    arms = {"xla_dropout": ["--dropout", "0.1"], "pallas": ["--attn_impl", "pallas"],
+            "xla": []}
+    for c in counters:
+        c.reset()
+    pat.xla_counter.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, data = port["train_mlm"].prepare(
+        base + arms["xla_dropout"] + ["--max_steps", str(XLA_CLI_STEPS),
+                                      "--logdir", f"{root}/cli_xla"])
+    if {m.attn_impl for m in trainer.state.model.modules()
+            if isinstance(m, port["MultiHeadAttention"])} != {"xla"}:
+        raise AssertionError("--preset flagship_tpu did not resolve to attn_impl 'xla'")
+    trainer.fit(data.train_dataloader(), data.val_dataloader())
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = read_rows(trainer.run_dir)
+    losses = check_train_rows(rows, XLA_CLI_STEPS, "train_mlm --preset flagship_tpu")
+    n_eval = sum("val_loss" in r for r in rows) * len(data.val_dataloader())
+    launches = {name: c.launches for name, c in zip(KERNEL_NAMES, counters)}
+    if any(launches[n] for n in ATTN_COUNTERS) or any(c.plain_calls for c in counters) \
+            or pat.xla_counter.calls != ATTN_PER_FORWARD * (XLA_CLI_STEPS + n_eval):
+        raise AssertionError(f"train_mlm --preset flagship_tpu: launches {launches}, einsum "
+                             f"calls {pat.xla_counter.calls} over {XLA_CLI_STEPS} steps and "
+                             f"{n_eval} eval batches")
+    log(phase="cli_flagship_xla", steps=XLA_CLI_STEPS, losses=losses,
+        val_loss=[r["val_loss"] for r in rows if "val_loss" in r],
+        lr=[r["lr"] for r in rows if "lr" in r], einsum_calls=pat.xla_counter.calls,
+        launches=launches, peak_memory_gib=peak_gib, wall_s=wall_s,
+        checked_fit_tokens_per_s=[r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r])
+    del trainer
+    turns = {arm: [] for arm in arms}
+    for arm in ("xla_dropout", "pallas", "xla", "xla", "pallas", "xla_dropout"):
+        trainer, data = port["train_mlm"].prepare(
+            base + arms[arm] + ["--max_steps", "1000", "--logdir", f"{root}/turns_{arm}"])
+        turns[arm].append(cli_windows(torch, port, trainer, data.train_dataloader(),
+                                      f"{root}/turns_{arm}", f"cli_flagship_{arm}"))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(phase="cli_flagship_turns", card=card_line(), arms=arms, turns=turns)
+    return launches
+
+
+def mlm_routes(b: int, latents: int, seq: int, capacity: int, c: int, heads: int,
+               layers: int, per_block: int, pat) -> dict:
+    """How many of one MLM forward's attention calls the H100 ``auto`` rule
+    sends to kernel #1: in the encoder (cross and self) and the decoder."""
+    d = c // heads
+    kernel = lambda t, s: pat.auto_attention_impl(b, t, s, heads, d) == "pallas"  # noqa: E731
+    encoder = layers * (kernel(latents, seq) + per_block * kernel(latents, latents))
+    return dict(encoder=encoder, decoder=int(kernel(capacity, latents)))
+
+
+def reference_cli_phase(torch, port, root: str) -> dict:
+    """Phase 26: ``train_mlm --preset reference --synthetic`` with its
+    defaults (``--attn_impl auto``, ``--fused_head auto``: the CE kernels on
+    the card), CLI_STEPS steps and validation every 2, in-process, twice:
+    with ``--remat --optimizer RAdam``, then with ``--attn_impl pallas
+    --dropout 0.1``. Every train step and eval batch is checked for its
+    launches: #6-#8 one each a step (#6 one an eval batch); #1-#3 as the
+    rule routes the preset's shapes at the batch's size, #1 once more for
+    each kernel call in the encoder under remat (its recompute); under
+    dropout no #1-#3 in a train step and #1 22 times an eval batch. Then
+    each of the eight ``--optimizer`` names for 2 steps (SGD with
+    ``--momentum 0.9``, Adamax with ``--no_reuse_kv``, Adagrad with
+    ``--accumulate_steps 2``), checked the same way."""
+    pat, counters = port["pat"], path_counters(port)
+    names = KERNEL_NAMES
+    launches = dict.fromkeys(names, 0)
+    readings = {}
+    runs = [("remat_radam", ["--remat", "--optimizer", "RAdam"], CLI_STEPS),
+            ("pallas_dropout", ["--attn_impl", "pallas", "--dropout", "0.1"], CLI_STEPS)]
+    options = {"SGD": ["--momentum", "0.9"], "Adamax": ["--no_reuse_kv"],
+               "Adagrad": ["--accumulate_steps", "2"]}
+    runs += [(opt, ["--optimizer", opt] + options.get(opt, []), 2)
+             for opt in port["SUPPORTED_OPTIMIZERS"]]
+    for name, extra, steps in runs:
+        for c in counters:
+            c.reset()
+        trainer, data = port["train_mlm"].prepare(
+            ["--preset", "reference", "--synthetic", "--max_steps", str(steps),
+             "--eval_every_n_steps", "2", "--log_every_n_steps", "1", "--root", root,
+             "--logdir", f"{root}/cli_ref_{name}"] + extra)
+        train_step, eval_step = trainer.train_step, trainer.eval_step
+        remat = "--remat" in extra
+        dropout = "--dropout" in extra
+
+        def expect(batch, training: bool) -> dict:
+            b = len(batch["token_ids"])
+            if "--attn_impl" in extra:
+                routes = dict(encoder=ATTN_PER_FORWARD - 1, decoder=1)
+            else:
+                routes = mlm_routes(b, 64, SEQ_LEN, CAPACITY, 64, 4, 3, 6, pat)
+            fwd = routes["encoder"] + routes["decoder"]
+            bwd = fwd if training else 0
+            if training and dropout:
+                fwd = bwd = 0
+            if training and remat:
+                fwd += routes["encoder"]
+            ce = (1, 1, 1) if training else (1, 0, 0)
+            return dict(zip(names, [fwd, bwd, bwd, *ce, 0, 0, 0, fwd, bwd, bwd, 0, 0, 0,
+                                    ce[1], ce[2], ce[0], 0, 0]))
+
+        def checked(step, training: bool):
+            def run(state, batch, *rest):
+                before = [c.launches for c in counters]
+                out = step(state, batch, *rest)
+                got = dict(zip(names, (c.launches - n for c, n in zip(counters, before))))
+                want = expect(batch, training)
+                if got != want or any(c.plain_calls for c in counters):
+                    raise AssertionError(f"train_mlm --preset reference {extra}: "
+                                         f"{'train step' if training else 'eval batch'} "
+                                         f"launches {got} != {want}")
+                return out
+            return run
+
+        trainer.train_step, trainer.eval_step = checked(train_step, True), checked(eval_step,
+                                                                                   False)
+        t0 = time.perf_counter()
+        trainer.fit(data.train_dataloader(), data.val_dataloader())
+        torch.cuda.synchronize()
+        rows = read_rows(trainer.run_dir)
+        train = [r for r in rows if "train_loss" in r]
+        val_steps = sorted(set(range(2, steps + 1, 2)) | {steps})
+        if [r["step"] for r in rows if "val_loss" in r] != val_steps \
+                or [r["step"] for r in train] != list(range(1, steps + 1)) \
+                or not all(math.isfinite(r["train_loss"]) for r in train):
+            raise AssertionError(f"train_mlm --preset reference {extra}: rows {rows}")
+        got = {n: c.launches for n, c in zip(names, counters)}
+        readings[name] = dict(launches=got, per_step=expect(next(iter(
+            data.train_dataloader())), True), train_losses=[r["train_loss"] for r in train],
+            tokens_per_s=train[-1]["tokens_per_sec"], wall_s=time.perf_counter() - t0)
+        for n in names:
+            launches[n] += got[n]
+        del trainer
+    log(phase="cli_reference_defaults", **readings)
+    return launches
+
+
+def ar_cli_defaults_phase(torch, port, root: str, ar_train, ar_val) -> None:
+    """Phase 27: ``train_ar --preset flagship_tpu --synthetic --dropout 0.1``
+    at ``flagship_ar`` width with the JAX CLI's defaults (``auto``: every
+    causal call on the einsum path), the CLI's trainer fitted on phase 21's
+    packed reviews for XLA_CLI_STEPS steps: the loss finite and falling, no
+    launch of #1-#3, 22 einsum calls a train step and an eval batch; its
+    tokens/s, and the windows' device ms a step and idle share."""
+    pat, counters = port["pat"], ar_counters(port)
+    for c in counters:
+        c.reset()
+    pat.xla_counter.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, _ = port["train_ar"].prepare(
+        ["--preset", "flagship_tpu", "--synthetic", "--dropout", "0.1",
+         "--max_steps", str(XLA_CLI_STEPS), "--log_every_n_steps", "1", "--root", root,
+         "--logdir", f"{root}/cli_ar_defaults"])
+    t0 = time.perf_counter()
+    trainer.fit(ar_train, ar_val)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    rows = read_rows(trainer.run_dir)
+    losses = check_train_rows(rows, XLA_CLI_STEPS, "train_ar --preset flagship_tpu")
+    n_eval = sum("val_loss" in r for r in rows) * len(ar_val)
+    launches = dict(zip(AR_NAMES, (c.launches for c in counters)))
+    einsum_calls = pat.xla_counter.calls
+    if any(launches.values()) or any(c.plain_calls for c in counters) \
+            or einsum_calls != ATTN_PER_FORWARD * (XLA_CLI_STEPS + n_eval):
+        raise AssertionError(f"train_ar --preset flagship_tpu: launches {launches}, einsum "
+                             f"calls {einsum_calls}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    windows = cli_windows(torch, port, trainer, ar_train, f"{root}/cli_ar_windows",
+                          "cli_ar_defaults")
+    log(phase="cli_ar_defaults", steps=XLA_CLI_STEPS, losses=losses,
+        val_loss=[r["val_loss"] for r in rows if "val_loss" in r], einsum_calls=einsum_calls,
+        peak_memory_gib=peak_gib, wall_s=wall_s, **windows)
+    del trainer
+
+
+def xla_parity_phase(torch, port, data) -> None:
+    """Phase 28: three f32 ``flagship_tpu_mlm`` train steps through
+    ``'xla'`` and through ``'pallas'`` (kernels #1-#3), same weights, batches
+    and masking, no dropout: losses within 1e-4 relative at every step (the
+    training batches give every row a live key, where the two compute one
+    function). Then ``remat`` against none, dropout 0.1 on, same keys: the
+    losses and the first step's gradients within 1e-5 of each leaf's peak
+    (``k_proj.bias``, zero in exact arithmetic, under 1e-5 of the largest
+    gradient on both sides)."""
+    pat, counters = port["pat"], path_counters(port)
+    batches = [b for _, b in zip(range(3), data.train_dataloader())]
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("allow_tf32 is on: the f32 einsum needs full f32 products")
+
+    def run(impl: str, **options):
+        model, state, (train_step, _, _) = train_setup(torch, port, torch.float32, False, 2,
+                                                       "flagship_tpu_mlm", False, impl,
+                                                       **options)
+        before = [c.launches for c in counters] + [pat.xla_counter.calls]
+        losses, grads = [], None
+        for batch in batches:
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            if grads is None:
+                grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        after = [c.launches for c in counters] + [pat.xla_counter.calls]
+        del model, state
+        return losses, grads, [a - b for a, b in zip(after, before)]
+
+    xla, pallas = run("xla"), run("pallas")
+    if xla[2][:3] != [0, 0, 0] or xla[2][-1] != 3 * ATTN_PER_FORWARD \
+            or pallas[2][:3] != [3 * ATTN_PER_FORWARD] * 3 or pallas[2][-1] != 0:
+        raise AssertionError(f"xla / pallas parity: launches {xla[2]} / {pallas[2]}")
+    impl_rel = max(abs(a - b) / abs(b) for a, b in zip(xla[0], pallas[0]))
+    plain, remat = run("pallas", dropout=0.1), run("pallas", dropout=0.1, remat=True)
+    remat_rel = max(abs(a - b) / abs(b) for a, b in zip(remat[0], plain[0]))
+    peak_all = max(float(g.abs().max()) for g in plain[1].values())
+    worst, worst_name, symmetric = 0.0, None, 0.0
+    for name, ref in plain[1].items():
+        got = remat[1][name]
+        if name.endswith("k_proj.bias"):
+            symmetric = max(symmetric, float(got.abs().max()) / peak_all,
+                            float(ref.abs().max()) / peak_all)
+            continue
+        peak = float(ref.abs().max())
+        err = float((got - ref).abs().max()) / (peak or 1.0)
+        if err > worst:
+            worst, worst_name = err, name
+    # remat recomputes the encoder's 21 calls, each on the einsum path (dropout)
+    log(phase="xla_parity", dtype="float32", xla_losses=xla[0], pallas_losses=pallas[0],
+        loss_max_rel_diff=impl_rel, remat_losses=remat[0], no_remat_losses=plain[0],
+        remat_loss_max_rel_diff=remat_rel, remat_grad_max_err_over_leaf_peak=worst,
+        worst_leaf=worst_name, k_proj_bias_over_global_peak=symmetric,
+        einsum_calls_no_remat=plain[2][-1], einsum_calls_remat=remat[2][-1])
+    if not (impl_rel <= 1e-4 and remat_rel <= 1e-5 and worst <= 1e-5 and symmetric < 1e-5
+            and plain[2][-1] == 3 * ATTN_PER_FORWARD
+            and remat[2][-1] == 3 * (2 * ATTN_PER_FORWARD - 1)):
+        raise AssertionError(f"f32 parity: xla/pallas losses {impl_rel}, remat losses "
+                             f"{remat_rel}, grads {worst} ({worst_name}), k_proj.bias "
+                             f"{symmetric}, einsum calls {plain[2][-1]} / {remat[2][-1]}")
+
+
+def qkv_turns_phase(torch, port) -> None:
+    """Phase 28, last: the self-attention's stacked q/k/v product against
+    three projections on one bf16 ``flagship_tpu_mlm`` model and state
+    (``'pallas'``), device ms a step (torch.profiler over PROFILE_STEPS
+    steps of bench.py's batch) in turns: stacked, three, three, stacked;
+    the launches of #1-#3 alike in both."""
+    model, state, (train_step, _, _) = train_setup(torch, port, torch.bfloat16)
+    batch = bench_batch(torch)
+    attention = [m for m in model.modules() if isinstance(m, port["MultiHeadAttention"])]
+    readings = {"stacked": [], "three": []}
+    for arm in ("stacked", "three", "three", "stacked"):
+        for m in attention:
+            if arm == "three":
+                m._project_qkv = lambda x, m=m: (m.q_proj(x),) + m.project_kv(x)
+            else:
+                m.__dict__.pop("_project_qkv", None)
+        state, _ = train_step(state, batch)  # warm-up
+
+        def steps():
+            nonlocal state
+            for _ in range(PROFILE_STEPS):
+                state, metrics = train_step(state, batch)
+            if not math.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"qkv {arm}: loss {metrics['loss']}")
+
+        prof = profile_pass(torch, steps, f"train_flagship_tpu_mlm_qkv_{arm}")
+        readings[arm].append(prof["device_busy_ms"] / PROFILE_STEPS)
+    log(phase="qkv_turns", card=card_line(), device_ms_per_step=readings)
+    del model, state
 
 
 def check_kernel_entry(k: dict) -> None:
@@ -2188,6 +2725,7 @@ def main() -> int:
     from perceiver_io_torch.inference.engine import MLMServer
     from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig
     from perceiver_io_torch.models import presets
+    from perceiver_io_torch.ops import attention as pat
     from perceiver_io_torch.ops import attention_kernel as ak
     from perceiver_io_torch.ops import build
     from perceiver_io_torch.ops import ce_kernel as ck
@@ -2196,7 +2734,11 @@ def main() -> int:
     from perceiver_io_torch.ops.attention import Linear, MultiHeadAttention
     from perceiver_io_torch.quant.int8 import QKernel, pack_int4, quantize_array
     from perceiver_io_torch.training.losses import softmax_ce_integer
-    from perceiver_io_torch.training.optim import OptimizerConfig, make_optimizer
+    from perceiver_io_torch.training.optim import (
+        SUPPORTED_OPTIMIZERS,
+        OptimizerConfig,
+        make_optimizer,
+    )
     from perceiver_io_torch.training.steps import make_ar_steps, make_mlm_steps
     from perceiver_io_torch.training.train_state import TrainState
     from perceiver_io_torch.training.trainer import Trainer, TrainerConfig
@@ -2227,6 +2769,9 @@ def main() -> int:
     ar_rows = ar_attention_phase(torch, ak)
     enter("20: causal attention backward kernels")
     ar_bwd_rows = ar_attention_bwd_phase(torch, ak)
+    enter("24: einsum attention and the auto sweep")
+    einsum_vs_kernels_f32(torch, ak, pat)
+    auto_sweep_phase(torch, ak, pat)
 
     enter("6: serving")
     trained = WordPieceTokenizer()
@@ -2242,7 +2787,8 @@ def main() -> int:
                 OptimizerConfig=OptimizerConfig, TrainState=TrainState,
                 make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig,
                 train_mlm=train_mlm, ARGenerator=ARGenerator, SamplingConfig=SamplingConfig,
-                serve=serve, make_ar_steps=make_ar_steps, train_ar=train_ar)
+                serve=serve, make_ar_steps=make_ar_steps, train_ar=train_ar, pat=pat,
+                SUPPORTED_OPTIMIZERS=SUPPORTED_OPTIMIZERS)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
@@ -2289,6 +2835,15 @@ def main() -> int:
         ar_train_parity_phase(torch, port, ar_train)
         enter("23: AR training CLI")
         ar_train_cli_phase(torch, port, root, data.tokenizer.get_vocab_size())
+        enter("25: MLM CLI, flagship_tpu with the JAX defaults")
+        mlm_flagship_cli_phase(torch, port, root)
+        enter("26: MLM CLI, reference with the JAX defaults")
+        path_launches.append(reference_cli_phase(torch, port, root))
+        enter("27: AR CLI with the JAX defaults")
+        ar_cli_defaults_phase(torch, port, root, ar_train, ar_val)
+        enter("28: einsum, remat and dropout parity")
+        xla_parity_phase(torch, port, data)
+        qkv_turns_phase(torch, port)
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
     for name in AR_NAMES:

@@ -29,7 +29,8 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--num_encoder_layers", type=int, default=3)
     g.add_argument("--num_self_attention_layers_per_block", type=int, default=6)
     g.add_argument("--dropout", type=float, default=0.0,
-                   help="only 0 is ported (ROADMAP Queue 1 item 2)")
+                   help="dropout rate of every layer (attention probabilities and "
+                        "residual branches) in training; evaluation runs without it")
     g.add_argument("--pad_vocab_multiple", type=int, default=None,
                    help="round the vocab projection width up to this multiple (padded "
                         "logits pinned to -1e30)")
@@ -37,12 +38,20 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 
 def add_optimizer_args(parser: argparse.ArgumentParser) -> None:
     g = parser.add_argument_group("optimizer")
-    g.add_argument("--optimizer", choices=SUPPORTED_OPTIMIZERS, default="Adam")
+    g.add_argument("--optimizer", choices=SUPPORTED_OPTIMIZERS, default="Adam",
+                   help="torch.optim name, with torch's update rule (weight decay coupled "
+                        "L2 for all but AdamW)")
     g.add_argument("--learning_rate", type=float, default=1e-3)
     g.add_argument("--weight_decay", type=float, default=0.0)
+    g.add_argument("--momentum", type=float, default=0.0,
+                   help="SGD momentum (ignored by the other optimizers)")
     g.add_argument("--one_cycle_lr", action="store_true")
+    g.add_argument("--one_cycle_pct_start", type=float, default=0.1)
     g.add_argument("--grad_clip_norm", type=float, default=None,
                    help="clip the global gradient norm to this value before each update")
+    g.add_argument("--accumulate_steps", type=int, default=1,
+                   help="average gradients over N micro-batches per optimizer update "
+                        "(effective batch = N * batch_size)")
 
 
 def add_trainer_args(parser: argparse.ArgumentParser) -> None:
@@ -63,10 +72,18 @@ def add_compute_args(parser: argparse.ArgumentParser) -> None:
                    help="run on the CPU (the kernels' plain versions); the default "
                         "is the CUDA card")
     g.add_argument("--attn_impl", choices=ATTN_IMPLS + NOT_PORTED_ATTN_IMPLS,
-                   default="pallas",
-                   help="attention kernels: pallas = the fused attention kernels on "
-                        "head-split views, packed = the packed-heads kernels; auto, xla "
-                        "and pallas_sp are not ported (ROADMAP Queue 1)")
+                   default=None,
+                   help="attention: pallas = the fused attention kernels on head-split "
+                        "views, packed = the packed-heads kernels, xla = the einsum path, "
+                        "auto = per call (ops.attention.auto_attention_impl); calls with "
+                        "active dropout take the einsum path; pallas_sp is not ported "
+                        "(ROADMAP Queue 1 item 8). Default: the preset's")
+    g.add_argument("--remat", action="store_true",
+                   help="recompute each encoder layer's forward in the backward (memory "
+                        "for compute; the MLM encoder)")
+    g.add_argument("--no_reuse_kv", action="store_true",
+                   help="project the shared layer_n's cross-attention k/v again at each "
+                        "application instead of reusing them (the MLM encoder)")
 
 
 def add_imdb_args(parser: argparse.ArgumentParser) -> None:
@@ -80,18 +97,11 @@ def add_imdb_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--synthetic_size", type=int, default=2048)
 
 
-def check_dropout(args) -> None:
-    if args.dropout:
-        raise SystemExit(
-            f"--dropout {args.dropout}: dropout is not ported yet (ROADMAP Queue 1 "
-            f"item 2); the JAX package's default, 0, is what the port trains with")
-
-
 def check_attn_impl(args) -> None:
     if args.attn_impl in NOT_PORTED_ATTN_IMPLS:
         raise SystemExit(
-            f"--attn_impl {args.attn_impl}: not ported yet (ROADMAP Queue 1); "
-            f"the port trains with {' or '.join(ATTN_IMPLS)}")
+            f"--attn_impl {args.attn_impl}: not ported yet (ROADMAP Queue 1 item 8, the "
+            f"distribution slice); the port trains with {', '.join(ATTN_IMPLS)}")
 
 
 def trainer_config(args, experiment: str) -> TrainerConfig:
@@ -105,7 +115,9 @@ def optimizer_from_args(args, params):
     return make_optimizer(OptimizerConfig(
         optimizer=args.optimizer, learning_rate=args.learning_rate,
         weight_decay=args.weight_decay, one_cycle_lr=args.one_cycle_lr,
-        max_steps=args.max_steps, grad_clip_norm=args.grad_clip_norm), params)
+        one_cycle_pct_start=args.one_cycle_pct_start, max_steps=args.max_steps,
+        momentum=args.momentum, grad_clip_norm=args.grad_clip_norm,
+        accumulate_steps=args.accumulate_steps), params)
 
 
 def build_mlm(args, vocab_size: int, max_seq_len: int, device):
@@ -115,15 +127,18 @@ def build_mlm(args, vocab_size: int, max_seq_len: int, device):
         num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
         num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
         dtype=DTYPES[args.dtype], device=device, seed=args.seed,
-        pad_classes_to=args.pad_vocab_multiple, attn_impl=args.attn_impl)
+        pad_classes_to=args.pad_vocab_multiple, attn_impl=args.attn_impl,
+        dropout=args.dropout, remat=args.remat, reuse_kv=not args.no_reuse_kv)
 
 
 def build_ar(args, vocab_size: int, max_seq_len: int, device):
     """The Perceiver-AR causal LM at the parsed widths, weights drawn from
-    ``--seed`` (the counterpart of the JAX CLI's ``build_ar``)."""
+    ``--seed`` (the counterpart of the JAX CLI's ``build_ar``, which takes
+    neither ``--remat`` nor ``--no_reuse_kv``: the AR model has neither)."""
     return presets.flagship_ar(
         vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=args.num_latents,
         num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
         num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
         dtype=DTYPES[args.dtype], device=device, seed=args.seed,
-        attn_impl=args.attn_impl, pad_classes_to=args.pad_vocab_multiple)
+        attn_impl=args.attn_impl, pad_classes_to=args.pad_vocab_multiple,
+        dropout=args.dropout)

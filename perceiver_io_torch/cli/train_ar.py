@@ -11,14 +11,16 @@ next-token prediction over a causal latent window covering the last
 leave unset: ``reference`` is 64 latents × 64 channels (head depth 16),
 ``flagship_tpu`` the ``flagship_ar`` widths, 256 latents × 512 channels
 (head depth 128). The vocab head has a row for each piece the tokenizer
-learned, as the JAX CLI builds it. ``--attn_impl`` defaults to ``pallas``:
-every causal call goes through the attention kernels' causal offset (the
-forward and both backward kernels). The JAX presets' ``auto`` sends causal
-calls to its einsum path, which the port does not have yet (ROADMAP Queue 1);
-``packed`` takes no causal offset and raises ``ValueError``. Runs on the
-CUDA card; ``--cpu`` runs the kernels' plain versions. Writes
-``metrics.jsonl`` under ``<logdir>/ar/version_n``. The JAX CLI's sample
-hook (``--sample_prefix_len``, ``--sample_new_tokens``) is not ported.
+learned, as the JAX CLI builds it. ``--attn_impl`` defaults to the presets'
+``auto``, as the JAX CLI's, which sends every causal call to the einsum path;
+``pallas`` takes every causal call through the attention kernels' causal
+offset (the forward and both backward kernels); ``packed`` takes no causal
+offset and raises ``ValueError``. ``--dropout`` and the optimizer flags are
+the MLM CLI's; ``--remat`` and ``--no_reuse_kv`` are accepted and, as in the
+JAX CLI, do not touch the AR model. Runs on the CUDA card; ``--cpu`` runs the
+kernels' plain versions. Writes ``metrics.jsonl`` under
+``<logdir>/ar/version_n``. The JAX CLI's sample hook
+(``--sample_prefix_len``, ``--sample_new_tokens``) is not ported.
 """
 
 from __future__ import annotations
@@ -33,14 +35,15 @@ from perceiver_io_torch.training.steps import make_ar_steps
 from perceiver_io_torch.training.train_state import TrainState
 from perceiver_io_torch.training.trainer import Trainer
 
+# the JAX CLI's presets (perceiver_io_tpu/cli/train_ar.py)
 PRESET_DEFAULTS = {
-    "reference": {"num_latents": 64, "num_latent_channels": 64},
-    "flagship_tpu": {"num_latents": 256, "num_latent_channels": 512},
+    "reference": {"num_latents": 64, "num_latent_channels": 64, "attn_impl": "auto"},
+    "flagship_tpu": {"num_latents": 256, "num_latent_channels": 512, "attn_impl": "auto"},
 }
 
 
 def apply_preset(args: argparse.Namespace) -> argparse.Namespace:
-    """Fill any still-None width arg from the chosen preset."""
+    """Fill any still-None width or attention arg from the chosen preset."""
     for key, value in PRESET_DEFAULTS[args.preset].items():
         if getattr(args, key) is None:
             setattr(args, key, value)
@@ -60,9 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def prepare(argv: Optional[Sequence[str]] = None):
+    """The run ``main`` fits, built from ``argv`` and not yet started:
+    ``(trainer, data)``, the data module set up."""
     args = apply_preset(build_parser().parse_args(argv))
-    common.check_dropout(args)
     common.check_attn_impl(args)
     device = resolve_device("cpu" if args.cpu else None)
 
@@ -79,6 +83,11 @@ def main(argv: Optional[Sequence[str]] = None):
     train_step, eval_step, _ = make_ar_steps(model, schedule)
     trainer = Trainer(train_step, eval_step, state, common.trainer_config(args, "ar"),
                       tokens_per_example=args.max_seq_len)
+    return trainer, data
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    trainer, data = prepare(argv)
     trainer.fit(data.train_dataloader(), data.val_dataloader())
     return trainer.run_dir
 

@@ -16,8 +16,13 @@ plain-PyTorch head, ``off`` the unfused head, and ``auto`` (the default)
 resolves to ``pallas`` on the CUDA card at C <= 128 and to ``off`` otherwise,
 as the JAX package's rule does with its accelerator (so ``reference`` trains
 through the CE kernels, ``flagship_tpu`` unfused). ``--attn_impl`` picks the
-attention kernels: ``pallas`` (the default) or ``packed``. Runs on the CUDA
-card; ``--cpu`` runs the kernels' plain versions. Writes ``metrics.jsonl`` under
+attention, by default the preset's, as the JAX CLI's presets pick it:
+``reference`` ``auto`` (the H100 rule, ``ops.attention.auto_attention_impl``),
+``flagship_tpu`` ``xla`` (the einsum path); ``pallas`` and ``packed`` are the
+kernels. ``--dropout``, ``--remat``, ``--no_reuse_kv``, the eight
+``--optimizer`` names with ``--momentum``, ``--one_cycle_pct_start`` and
+``--accumulate_steps`` are the JAX CLI's flags. Runs on the CUDA card;
+``--cpu`` runs the kernels' plain versions. Writes ``metrics.jsonl`` under
 ``<logdir>/mlm/version_n``.
 """
 
@@ -35,14 +40,16 @@ from perceiver_io_torch.training.steps import make_mlm_steps, mlm_gather_capacit
 from perceiver_io_torch.training.train_state import TrainState
 from perceiver_io_torch.training.trainer import Trainer
 
+# the JAX CLI's presets (perceiver_io_tpu/cli/train_mlm.py): one command
+# line means one function in both packages
 PRESET_DEFAULTS = {
-    "reference": {"num_latents": 64, "num_latent_channels": 64},
-    "flagship_tpu": {"num_latents": 256, "num_latent_channels": 512},
+    "reference": {"num_latents": 64, "num_latent_channels": 64, "attn_impl": "auto"},
+    "flagship_tpu": {"num_latents": 256, "num_latent_channels": 512, "attn_impl": "xla"},
 }
 
 
 def apply_preset(args: argparse.Namespace) -> argparse.Namespace:
-    """Fill any still-None width arg from the chosen preset."""
+    """Fill any still-None width or attention arg from the chosen preset."""
     for key, value in PRESET_DEFAULTS[args.preset].items():
         if getattr(args, key) is None:
             setattr(args, key, value)
@@ -78,9 +85,10 @@ def resolve_fused_head(choice: str, device, num_latent_channels: int) -> str:
     return "pallas" if on_card and num_latent_channels <= 128 else "off"
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def prepare(argv: Optional[Sequence[str]] = None):
+    """The run ``main`` fits, built from ``argv`` and not yet started:
+    ``(trainer, data)``, the data module set up."""
     args = apply_preset(build_parser().parse_args(argv))
-    common.check_dropout(args)
     common.check_attn_impl(args)
     device = resolve_device("cpu" if args.cpu else None)
     fused = resolve_fused_head(args.fused_head, device, args.num_latent_channels)
@@ -103,6 +111,11 @@ def main(argv: Optional[Sequence[str]] = None):
         fused_head={"pallas": "pallas", "xla": True, "off": False}[fused])
     trainer = Trainer(train_step, eval_step, state, common.trainer_config(args, "mlm"),
                       tokens_per_example=args.max_seq_len)
+    return trainer, data
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    trainer, data = prepare(argv)
     trainer.fit(data.train_dataloader(), data.val_dataloader())
     return trainer.run_dir
 

@@ -11,12 +11,21 @@ Perceiver-AR language model (the counterparts of
   ``positions``; queries never interact, so a subset is exactly those rows.
 - the MLM's training forward masks its input (``masking=True``) and, with
   ``loss_gather_capacity``, decodes only the masked positions.
-- ``attn_impl`` (``'pallas'`` or ``'packed'``, see ``ops/attention.py``)
-  picks the attention kernels of every layer below; the weights do not
-  depend on it.
+- ``attn_impl`` (``'auto'``, ``'xla'``, ``'pallas'`` or ``'packed'``, see
+  ``ops/attention.py``) picks the attention of every layer below; the
+  weights do not depend on it.
+- ``dropout`` is the rate of every layer's dropout (attention
+  probabilities and residual branches); a forward drops only with
+  ``deterministic=False``, from the masks its ``dropout_key`` gives
+  (``ops/dropout.py``): the encoder folds in each layer application's
+  index, the MLM 0 for the encoder and 1 for the decoder.
+- ``remat`` recomputes each encoder layer application's forward in the
+  backward (``torch.utils.checkpoint``, the JAX ``nn.remat``), trading
+  compute for activation memory; the recompute is handed the same dropout
+  key, so it draws the same masks.
 - :class:`PerceiverARLM` is causal: its dense forward, ``prefill`` and
-  incremental ``step`` run every attention through the kernel's causal
-  offset or a key padding mask over its cache rings (``'pallas'`` only).
+  incremental ``step`` run every attention under the causal offset or a
+  key padding mask over its cache rings.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from perceiver_io_torch.models.adapters import TextInputAdapter
 from perceiver_io_torch.ops.attention import (
@@ -35,6 +45,7 @@ from perceiver_io_torch.ops.attention import (
     Linear,
     SelfAttentionBlock,
 )
+from perceiver_io_torch.ops.dropout import fold_in
 from perceiver_io_torch.ops.masking import IGNORE_LABEL, TextMasking
 
 
@@ -45,35 +56,50 @@ class PerceiverLayer(nn.Module):
     def __init__(self, num_latent_channels: int, num_input_channels: int,
                  num_cross_attention_heads: int, num_self_attention_heads: int,
                  num_self_attention_layers_per_block: int, dtype=torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", dropout: float = 0.0):
         super().__init__()
         self.cross_attention_layer = CrossAttentionLayer(
             num_latent_channels, num_input_channels, num_cross_attention_heads, dtype,
-            attn_impl)
+            attn_impl, dropout)
         self.self_attention_block = SelfAttentionBlock(
             num_self_attention_layers_per_block, num_latent_channels,
-            num_self_attention_heads, dtype, attn_impl)
+            num_self_attention_heads, dtype, attn_impl, dropout)
 
-    def forward(self, x_latent, x_input, pad_mask=None, kv=None):
+    def forward(self, x_latent, x_input, pad_mask=None, kv=None, deterministic=True,
+                dropout_key=None):
         """Returns ``(x_latent, kv)``: the cross-attention's (k, v) of
-        ``x_input`` (computed here when ``kv`` is None, else passed through)."""
-        x_latent, kv = self.cross_attention_layer(x_latent, x_input, pad_mask, kv)
-        return self.self_attention_block(x_latent)[0], kv
+        ``x_input`` (computed here when ``kv`` is None, else passed through).
+        The cross-attention draws its dropout from ``fold_in(dropout_key,
+        0)``, the block from ``fold_in(dropout_key, 1)``."""
+        x_latent, kv = self.cross_attention_layer(
+            x_latent, x_input, pad_mask, kv, deterministic=deterministic,
+            dropout_key=fold_in(dropout_key, 0))
+        return self.self_attention_block(x_latent, deterministic=deterministic,
+                                         dropout_key=fold_in(dropout_key, 1))[0], kv
 
 
 class PerceiverEncoder(nn.Module):
-    """Generic Perceiver IO encoder over an injected input adapter."""
+    """Generic Perceiver IO encoder over an injected input adapter.
+
+    ``remat``: each layer application's forward is recomputed in the
+    backward. ``reuse_kv`` (the default): the shared ``layer_n``'s
+    cross-attention (k, v) of the unchanging input are computed once and
+    passed to its later applications (exact: the same tensors); False
+    projects them again at each application (the JAX ``--no_reuse_kv``)."""
 
     def __init__(self, input_adapter: nn.Module, latent_shape: Tuple[int, int],
                  num_layers: int, num_cross_attention_heads: int = 4,
                  num_self_attention_heads: int = 4,
                  num_self_attention_layers_per_block: int = 2,
-                 dtype=torch.float32, attn_impl: str = "pallas"):
+                 dtype=torch.float32, attn_impl: str = "pallas", dropout: float = 0.0,
+                 remat: bool = False, reuse_kv: bool = True):
         super().__init__()
         self.input_adapter = input_adapter
         self.latent_shape = tuple(latent_shape)
         self.num_layers = num_layers
         self.dtype = dtype
+        self.remat = remat
+        self.reuse_kv = reuse_kv
         self.latent = nn.Parameter(torch.empty(self.latent_shape))
         layer = dict(
             num_latent_channels=latent_shape[1],
@@ -83,19 +109,34 @@ class PerceiverEncoder(nn.Module):
             num_self_attention_layers_per_block=num_self_attention_layers_per_block,
             dtype=dtype,
             attn_impl=attn_impl,
+            dropout=dropout,
         )
         self.layer_1 = PerceiverLayer(**layer)
         if num_layers > 1:
             self.layer_n = PerceiverLayer(**layer)
 
-    def forward(self, x, pad_mask=None):
+    def _apply_layer(self, layer, x_latent, x, pad_mask, kv, deterministic, key):
+        if self.remat and torch.is_grad_enabled():
+            # the global generators hold no dropout state (ops/dropout.py):
+            # nothing to stash, and the recompute sees the same key
+            return checkpoint(layer, x_latent, x, pad_mask, kv, deterministic, key,
+                              use_reentrant=False, preserve_rng_state=False)
+        return layer(x_latent, x, pad_mask, kv, deterministic, key)
+
+    def forward(self, x, pad_mask=None, deterministic=True, dropout_key=None):
+        """Layer application a draws its dropout from ``fold_in(dropout_key,
+        a)`` (layer_1 is application 0)."""
         x = self.input_adapter(x)
         b = x.shape[0]
         x_latent = self.latent.to(self.dtype).expand(b, *self.latent_shape)
-        x_latent, _ = self.layer_1(x_latent, x, pad_mask)
+        x_latent, _ = self._apply_layer(self.layer_1, x_latent, x, pad_mask, None,
+                                        deterministic, fold_in(dropout_key, 0))
         kv = None
-        for _ in range(self.num_layers - 1):
-            x_latent, kv = self.layer_n(x_latent, x, pad_mask, kv)
+        for a in range(1, self.num_layers):
+            x_latent, kv_out = self._apply_layer(self.layer_n, x_latent, x, pad_mask, kv,
+                                                 deterministic, fold_in(dropout_key, a))
+            if self.reuse_kv:
+                kv = kv_out
         return x_latent
 
 
@@ -105,7 +146,7 @@ class PerceiverDecoder(nn.Module):
 
     def __init__(self, output_adapter: nn.Module, latent_shape: Tuple[int, int],
                  num_cross_attention_heads: int = 4, dtype=torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", dropout: float = 0.0):
         super().__init__()
         self.output_adapter = output_adapter
         self.latent_shape = tuple(latent_shape)
@@ -113,10 +154,12 @@ class PerceiverDecoder(nn.Module):
         output_shape = output_adapter.output_shape
         self.output = nn.Parameter(torch.empty(tuple(output_shape)))
         self.cross_attention_layer = CrossAttentionLayer(
-            output_shape[-1], latent_shape[1], num_cross_attention_heads, dtype, attn_impl)
+            output_shape[-1], latent_shape[1], num_cross_attention_heads, dtype, attn_impl,
+            dropout)
 
     def forward(self, x, positions: Optional[torch.Tensor] = None,
-                return_features: bool = False):
+                return_features: bool = False, deterministic: bool = True,
+                dropout_key: Optional[int] = None):
         """``positions``: optional (B, K) int — decode only these rows of
         the output-query array. ``return_features`` skips the output adapter
         and returns the (B, K, C) decoder stream, for a caller that fuses the
@@ -130,7 +173,8 @@ class PerceiverDecoder(nn.Module):
             x_output = F.embedding(positions.long(), self.output).to(self.dtype)
         else:
             x_output = self.output.to(self.dtype).expand(b, *self.output.shape)
-        x_output, _ = self.cross_attention_layer(x_output, x)
+        x_output, _ = self.cross_attention_layer(x_output, x, deterministic=deterministic,
+                                                 dropout_key=dropout_key)
         if return_features:
             return x_output
         return self.output_adapter(x_output)
@@ -150,9 +194,13 @@ class PerceiverMLM(nn.Module):
                 masking: bool = False, positions: Optional[torch.Tensor] = None,
                 loss_gather_capacity: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                return_features: bool = False):
+                return_features: bool = False, deterministic: bool = True,
+                dropout_key: Optional[int] = None):
         """``(logits, labels)``; with ``return_features`` the decoder's
         (B, K, C) features in the logits' place (the fused head's input).
+        ``deterministic=False`` drops out by the masks of ``dropout_key``
+        (the encoder's from ``fold_in(dropout_key, 0)``, the decoder's from
+        ``fold_in(dropout_key, 1)``).
 
         Serving (``masking=False``): (B, L, vocab) logits, or (B, K, vocab)
         at the (B, K) ``positions``; labels None.
@@ -176,8 +224,11 @@ class PerceiverMLM(nn.Module):
             x_masked, labels = self.masking(generator, x_input, pad_mask)
         else:
             x_masked, labels = x_input, None
-        x_latent = self.encoder(x_masked, pad_mask)
-        decode = (functools.partial(self.decoder, return_features=True) if return_features
+        x_latent = self.encoder(x_masked, pad_mask, deterministic, fold_in(dropout_key, 0))
+        decode_kwargs = {"return_features": True} if return_features else {}
+        if not deterministic:
+            decode_kwargs.update(deterministic=False, dropout_key=fold_in(dropout_key, 1))
+        decode = (functools.partial(self.decoder, **decode_kwargs) if decode_kwargs
                   else self.decoder)
         if positions is not None:
             return decode(x_latent, positions), None
@@ -224,26 +275,34 @@ class PerceiverARLayer(nn.Module):
     def __init__(self, num_latent_channels: int, num_input_channels: int,
                  num_cross_attention_heads: int, num_self_attention_heads: int,
                  num_self_attention_layers_per_block: int, dtype=torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", dropout: float = 0.0):
         super().__init__()
         self.cross_attention_layer = CrossAttentionLayer(
             num_latent_channels, num_input_channels, num_cross_attention_heads, dtype,
-            attn_impl)
+            attn_impl, dropout)
         self.self_attention_block = SelfAttentionBlock(
             num_self_attention_layers_per_block, num_latent_channels,
-            num_self_attention_heads, dtype, attn_impl)
+            num_self_attention_heads, dtype, attn_impl, dropout)
 
     def forward(self, x_latent, x_input, pad_mask=None, kv=None, causal_offset=None,
-                kv_only=False, latent_cache=None, latent_index=None, latent_pad=None):
+                kv_only=False, latent_cache=None, latent_index=None, latent_pad=None,
+                deterministic=True, dropout_key=None, return_cache=False):
+        """``return_cache``: the self-attention (k, v) are projected on
+        their own, contiguous, as a prefill keeps them (the JAX layer's
+        ``return_cache``); the dense training forward takes q, k and v from
+        one stacked product."""
         if kv_only:
             return self.cross_attention_layer(x_latent, x_input, kv_only=True)
-        x_latent, kv_out = self.cross_attention_layer(x_latent, x_input, pad_mask, kv,
-                                                      causal_offset)
+        x_latent, kv_out = self.cross_attention_layer(
+            x_latent, x_input, pad_mask, kv, causal_offset, deterministic=deterministic,
+            dropout_key=fold_in(dropout_key, 0))
         block = self.self_attention_block
         if latent_cache is not None:
             return block(x_latent, cache=latent_cache, cache_index=latent_index,
                          cache_pad=latent_pad)
-        x_latent, self_kvs = block(x_latent, causal_offset=0)
+        x_latent, self_kvs = block(x_latent, causal_offset=0, deterministic=deterministic,
+                                   dropout_key=fold_in(dropout_key, 1),
+                                   return_kv=return_cache)
         return x_latent, kv_out, self_kvs
 
 
@@ -282,7 +341,7 @@ class PerceiverARLM(nn.Module):
                  num_latents: int, num_layers: int, num_cross_attention_heads: int = 4,
                  num_self_attention_heads: int = 4,
                  num_self_attention_layers_per_block: int = 2, dtype=torch.float32,
-                 attn_impl: str = "pallas"):
+                 attn_impl: str = "pallas", dropout: float = 0.0):
         super().__init__()
         self.input_adapter = input_adapter
         self.output_adapter = output_adapter
@@ -296,14 +355,14 @@ class PerceiverARLM(nn.Module):
             num_cross_attention_heads=num_cross_attention_heads,
             num_self_attention_heads=num_self_attention_heads,
             num_self_attention_layers_per_block=num_self_attention_layers_per_block,
-            dtype=dtype, attn_impl=attn_impl)
+            dtype=dtype, attn_impl=attn_impl, dropout=dropout)
         self.layer_1 = PerceiverARLayer(**layer)
         if num_layers > 1:
             self.layer_n = PerceiverARLayer(**layer)
         output_shape = tuple(output_adapter.output_shape)
         self.output = nn.Parameter(torch.empty(output_shape))
         self.cross_attention_layer = CrossAttentionLayer(
-            output_shape[-1], c, num_cross_attention_heads, dtype, attn_impl)
+            output_shape[-1], c, num_cross_attention_heads, dtype, attn_impl, dropout)
         # later[s, j]: latent ring slot j lies after slot s (not written yet),
         # so a step's latent pad mask is a view, made on no device
         slots = torch.arange(num_latents)
@@ -322,35 +381,46 @@ class PerceiverARLM(nn.Module):
         return [("layer_1", self.layer_1)] + [("layer_n", self.layer_n)] * (
             self.num_layers - 1)
 
-    def _encode_window(self, h, pad_mask, o: int):
+    def _encode_window(self, h, pad_mask, o: int, return_cache: bool = False,
+                       deterministic: bool = True, dropout_key: Optional[int] = None):
         """The dense trunk: embedded input → causal latent window, with the
         cross (k, v) per weight set and the self-attention (k, v) per
-        application (the prefill's rings)."""
+        application (the prefill's rings with ``return_cache``). Application
+        a draws its dropout from ``fold_in(dropout_key, a)``."""
         x = h[:, o:] + self.latent.to(self.dtype)
         cross, caches = {}, []
-        for name, layer in self._applications():
-            x, cross[name], self_kvs = layer(x, h, pad_mask, cross.get(name),
-                                             causal_offset=o)
+        for a, (name, layer) in enumerate(self._applications()):
+            x, cross[name], self_kvs = layer(
+                x, h, pad_mask, cross.get(name), causal_offset=o,
+                deterministic=deterministic, dropout_key=fold_in(dropout_key, a),
+                return_cache=return_cache)
             caches.append(self_kvs)
         return x, cross, caches
 
-    def _decode_window(self, x, o: int, n: int):
+    def _decode_window(self, x, o: int, n: int, deterministic: bool = True,
+                       dropout_key: Optional[int] = None):
         """Diagonally-causal decode of the window: ``(logits, final (k, v))``."""
         queries = self.output[o: o + n].to(self.dtype).expand(
             x.shape[0], n, self.output.shape[-1])
-        out, final_kv = self.cross_attention_layer(queries, x, causal_offset=0)
+        out, final_kv = self.cross_attention_layer(queries, x, causal_offset=0,
+                                                   deterministic=deterministic,
+                                                   dropout_key=dropout_key)
         return self.output_adapter(out), final_kv
 
     def forward(self, token_ids: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
-                latent_offset: Optional[int] = None) -> torch.Tensor:
+                latent_offset: Optional[int] = None, deterministic: bool = True,
+                dropout_key: Optional[int] = None) -> torch.Tensor:
         """Dense causal forward, the incremental path's oracle: (B, L) token
         ids → (B, L - offset, vocab) logits, row i predicting token
-        offset + i + 1."""
+        offset + i + 1. ``deterministic=False`` drops out by the masks of
+        ``dropout_key`` (encoder application a from ``fold_in(dropout_key,
+        a)``, the decode from ``fold_in(dropout_key, num_layers)``)."""
         h = self.input_adapter(token_ids)
         l = h.shape[1]
         o = self._offset(l, latent_offset)
-        x, _, _ = self._encode_window(h, pad_mask, o)
-        return self._decode_window(x, o, l - o)[0]
+        x, _, _ = self._encode_window(h, pad_mask, o, False, deterministic, dropout_key)
+        return self._decode_window(x, o, l - o, deterministic,
+                                   fold_in(dropout_key, self.num_layers))[0]
 
     def prefill(self, token_ids: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 length: Optional[int] = None, latent_offset: Optional[int] = None):
@@ -374,7 +444,7 @@ class PerceiverARLM(nn.Module):
         o = self._offset(l, latent_offset)
         if length is None:
             length = l
-        x, cross, latent = self._encode_window(h, pad_mask, o)
+        x, cross, latent = self._encode_window(h, pad_mask, o, return_cache=True)
         logits, final_kv = self._decode_window(x, o, l - o)
         invalid = torch.arange(l, device=token_ids.device)[None, :] >= length
         if pad_mask is not None:

@@ -1,7 +1,8 @@
 """BERT-style MLM text masking, the causal attention mask and the
 Perceiver-AR next-token labels (the port's copy of
 ``perceiver_io_tpu/ops/masking.py``: ``IGNORE_LABEL``, ``causal_mask``,
-``shift_ar_labels``, ``apply_text_masking``, ``TextMasking``).
+``combine_attention_masks``, ``shift_ar_labels``, ``apply_text_masking``,
+``TextMasking``).
 
 The same corruption scheme, nested draws included:
 
@@ -39,6 +40,28 @@ def causal_mask(num_queries: int, num_keys: int, offset: int = 0,
     rows = torch.arange(num_queries, device=device)[:, None]
     cols = torch.arange(num_keys, device=device)[None, :]
     return cols > rows + offset
+
+
+def combine_attention_masks(pad_mask: Optional[torch.Tensor],
+                            attn_mask: Optional[torch.Tensor],
+                            num_queries: Optional[int] = None) -> Optional[torch.Tensor]:
+    """The effective True = masked-out mask the attention paths apply: the
+    (B, S) ``pad_mask`` OR'd with a (T, S) or (B, T, S) structural
+    ``attn_mask``, as (B, T, S) (a 2-D ``attn_mask`` alone gives (1, T, S),
+    a pad mask alone (B, 1, S), or (B, T, S) given ``num_queries``); None
+    when neither masks anything."""
+    if pad_mask is None and attn_mask is None:
+        return None
+    if attn_mask is not None and attn_mask.ndim == 2:
+        attn_mask = attn_mask[None]
+    if pad_mask is None:
+        return attn_mask
+    pad = pad_mask.to(torch.bool)[:, None, :]
+    if num_queries is not None:
+        pad = pad.expand(pad_mask.shape[0], num_queries, pad_mask.shape[-1])
+    if attn_mask is None:
+        return pad
+    return pad | attn_mask
 
 
 def shift_ar_labels(token_ids: torch.Tensor, pad_mask: Optional[torch.Tensor],

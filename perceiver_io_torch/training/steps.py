@@ -58,12 +58,14 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
     """(train_step, eval_step, predict_fn) for a ``PerceiverMLM``.
 
     - ``train_step(state, batch) -> (state, metrics)``: masking drawn from
-      the state's (seed, step) generator, CE over the selected positions,
-      backward, one optimizer update; metrics ``loss`` (a device scalar,
-      fetched by the caller when it logs) and, given ``schedule``, ``lr``.
-      The gradients stay on the parameters until the next step.
+      the state's (seed, step) generator, dropout (``deterministic=False``)
+      from its (seed, step) dropout key, CE over the selected positions,
+      backward, one optimizer update (with ``accumulate_steps``, one
+      micro-step of it); metrics ``loss`` (a device scalar, fetched by the
+      caller when it logs) and, given ``schedule``, ``lr``. The gradients
+      stay on the parameters until the next step.
     - ``eval_step(state, batch, generator) -> metrics``: the same loss on a
-      masking drawn from ``generator``, without gradients.
+      masking drawn from ``generator``, without dropout or gradients.
     - ``predict_fn(model, token_ids, pad_mask, positions=None)``: the
       ``masking=False`` forward's logits.
 
@@ -79,11 +81,12 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
         raise ValueError(f"fused_head must be False, True or 'pallas', got {fused_head!r}")
     device = next(model.parameters()).device
 
-    def loss_fn(batch, generator):
+    def loss_fn(batch, generator, dropout_key=None):
         ids, pad = _batch_to(batch, device)
         out, labels = model(ids, pad, masking=True, generator=generator,
                             loss_gather_capacity=loss_gather_capacity,
-                            return_features=bool(fused_head))
+                            return_features=bool(fused_head),
+                            deterministic=dropout_key is None, dropout_key=dropout_key)
         if not fused_head:
             return cross_entropy_with_ignore(out, labels)
         adapter = model.decoder.output_adapter
@@ -94,7 +97,8 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
         return fused_linear_cross_entropy_with_ignore(out, kernel, bias, labels)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
-        return _update(state, schedule, lambda: loss_fn(batch, state.step_generator(device)))
+        return _update(state, schedule, lambda: loss_fn(
+            batch, state.step_generator(device), state.step_dropout_key()))
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator: torch.Generator) -> Metrics:
@@ -119,18 +123,21 @@ def make_ar_steps(model, schedule: Optional[Callable[[int], float]] = None,
     position and pad targets carry ``IGNORE_LABEL``), through the unfused
     ``cross_entropy_with_ignore``; ``o`` is ``latent_offset``, or with None
     the model's default window (``L - logits.shape[1]``). There is no masking
-    RNG: causality is structural. ``eval_step`` takes the Trainer's
-    generator slot and ignores it, as the JAX step ignores its key."""
+    RNG: causality is structural; dropout is the only random stream, on in
+    training from the state's (seed, step) dropout key and off in
+    evaluation. ``eval_step`` takes the Trainer's generator slot and ignores
+    it, as the JAX step ignores its key."""
     device = next(model.parameters()).device
 
-    def loss_fn(batch):
+    def loss_fn(batch, dropout_key=None):
         ids, pad = _batch_to(batch, device)
-        logits = model(ids, pad, latent_offset=latent_offset)
+        logits = model(ids, pad, latent_offset=latent_offset,
+                       deterministic=dropout_key is None, dropout_key=dropout_key)
         o = ids.shape[1] - logits.shape[1] if latent_offset is None else latent_offset
         return cross_entropy_with_ignore(logits, shift_ar_labels(ids, pad, o))
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
-        return _update(state, schedule, lambda: loss_fn(batch))
+        return _update(state, schedule, lambda: loss_fn(batch, state.step_dropout_key()))
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None

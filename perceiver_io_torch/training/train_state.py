@@ -42,7 +42,14 @@ class TrainState:
         self.step += 1
 
     def step_generator(self, device) -> torch.Generator:
-        """The step's random stream, deterministic in (seed, step) — the
+        """The step's masking stream, deterministic in (seed, step) — the
         counterpart of ``step_rngs`` folding the step into the key."""
         seed = np.random.SeedSequence([self.seed, self.step]).generate_state(1)[0]
         return torch.Generator(device=device).manual_seed(int(seed))
+
+    def step_dropout_key(self) -> int:
+        """The step's dropout key (``ops/dropout.py``), deterministic in
+        (seed, step) and apart from the masking stream — the ``'dropout'``
+        key of ``step_rngs("masking", "dropout")``."""
+        words = np.random.SeedSequence([self.seed, self.step, 1]).generate_state(2, np.uint64)
+        return int(words[0])

@@ -31,6 +31,9 @@ tiles exactly 0; autograd through ``fused_attention`` against the plain
 versions; the tiny AR train step against the plain versions), the tiny AR
 model's incremental steps against its dense forward and against the plain
 versions on the card,
+the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
+``'auto'`` routing by the rule's block floor, dropout from CUDA generators
+and remat's recompute drawing the same masks,
 and the bf16 wgmma designs of the forward, of the two backward kernels,
 of the three packed kernels and of the dequant matmul at ragged and tiny
 shapes (T, S, M down to 1, the
@@ -1036,3 +1039,88 @@ def test_ar_generation_on_the_card(card, dtype):
                 module.attention = ak.attention_reference
         plain, _ = model.prefill(prefix, pad, length=10)
     _close(logits, plain, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal_offset", [None, 61])
+def test_einsum_attention_matches_kernels_on_the_card(card, dtype, causal_offset):
+    """The einsum path (``attn_impl='xla'``) against kernels #1-#3 under
+    autograd, every row with a live key (key 0 is never padding): output and
+    the three gradients within the tolerance of the dtype (the einsum path
+    stores bf16 logits, the kernels keep f32 ones); no kernel launch on the
+    einsum side."""
+    from perceiver_io_torch.ops import attention as pat
+    from perceiver_io_torch.ops.masking import causal_mask
+
+    g = torch.Generator().manual_seed(7)
+    b, t, s, h, d = 3, 70, 131, 2, 64
+    q, gout = (torch.randn(b, t, h, d, generator=g).to(card, dtype) for _ in range(2))
+    k, v = (torch.randn(b, s, h, d, generator=g).to(card, dtype) for _ in range(2))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    pad[:, 0] = False
+    pad = pad.to(card)
+    outs = []
+    for einsum in (False, True):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = (ak.counter.launches, ak.dq_counter.launches, pat.xla_counter.calls)
+        if einsum:
+            cmask = None if causal_offset is None else causal_mask(t, s, causal_offset, card)
+            out = pat.dot_product_attention(*leaves, pad, cmask)
+        else:
+            out = ak.fused_attention(*leaves, pad, causal_offset=causal_offset)
+        out.backward(gout)
+        torch.cuda.synchronize()
+        after = (ak.counter.launches, ak.dq_counter.launches, pat.xla_counter.calls)
+        assert [a - b_ for a, b_ in zip(after, before)] == ([0, 0, 1] if einsum else [1, 1, 0])
+        outs.append([out.detach()] + [x.grad for x in leaves])
+    for kern, ein in zip(*outs):
+        _close(ein, kern, dtype)
+
+
+def test_auto_routes_by_the_rule_on_the_card(card):
+    """``MultiHeadAttention`` under ``'auto'`` on the card: a call of 32
+    kernel blocks launches #1 (the rule's floor), a call of 8 takes the
+    einsum path, and both give the ``'xla'`` module's output."""
+    from perceiver_io_torch.ops import attention as pat
+
+    for b, want in ((8, 1), (2, 0)):
+        x = torch.randn(b, 64, 64, generator=torch.Generator().manual_seed(b)).to(card)
+        outs = {}
+        for impl in ("auto", "xla"):
+            module = pat.MultiHeadAttention(64, 64, 4, attn_impl=impl)
+            for lin in (module.q_proj, module.k_proj, module.v_proj, module.out_proj):
+                lin.reset_parameters(torch.Generator().manual_seed(3))
+            module.to(card)
+            before = ak.counter.launches
+            with torch.inference_mode():
+                outs[impl] = module(x, x)[0]
+            assert ak.counter.launches - before == (want if impl == "auto" else 0)
+        _close(outs["auto"], outs["xla"], torch.float32)
+
+
+def test_dropout_and_remat_on_the_card(card):
+    """The tiny MLM with dropout on the card: the masks come from explicit
+    CUDA generators seeded by the key, so one key gives one loss twice, and
+    remat (the encoder recomputed in the backward) gives the loss and
+    gradients of the run without it."""
+    from perceiver_io_torch.models.presets import tiny_mlm
+    from perceiver_io_torch.training.losses import cross_entropy_with_ignore
+
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(3, 503, (4, 64))).to(card)
+    pad = torch.zeros(4, 64, dtype=torch.bool, device=card)
+    runs = []
+    for remat, key in ((False, 11), (False, 11), (True, 11), (False, 12)):
+        model = tiny_mlm(device=card, dropout=0.1, remat=remat, num_layers=3)
+        out, labels = model(ids, pad, masking=True,
+                            generator=torch.Generator(device=card).manual_seed(2),
+                            loss_gather_capacity=32, deterministic=False, dropout_key=key)
+        loss = cross_entropy_with_ignore(out, labels)
+        loss.backward()
+        runs.append((float(loss), {n: p.grad.clone() for n, p in model.named_parameters()}))
+    assert runs[0][0] == runs[1][0] != runs[3][0]
+    assert abs(runs[2][0] - runs[0][0]) <= 1e-6 * abs(runs[0][0])
+    for name, ref in runs[0][1].items():
+        if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
+            assert float((runs[2][1][name] - ref).abs().max()) <= 1e-6 * float(
+                ref.abs().max()), name

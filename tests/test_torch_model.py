@@ -11,7 +11,8 @@ The JAX side runs both its kernels: ``attn_impl='pallas'`` and
 ``attn_impl='packed'`` on both sides (the packed-heads kernels #4 and #5)
 the fused forward and ``decode(encode(x))`` agree at 2e-5 too, the port's
 packed and pallas models agree with each other at 2e-5, ``decoder_attn_impl``
-routes only the decoder, and the JAX names the port does not run raise."""
+routes only the decoder; ``'auto'`` and ``'xla'`` give the JAX model's
+``'xla'`` logits at 2e-5, and ``'pallas_sp'`` and unknown names raise."""
 
 import jax
 import jax.numpy as jnp
@@ -205,7 +206,24 @@ def test_decoder_attn_impl_routes_only_the_decoder(batch):
 
 
 @pytest.mark.parametrize("impl", ["auto", "xla", "pallas_sp", "einsum"])
-def test_unported_attn_impls_raise(impl):
+def test_unported_attn_impls_raise(twins, batch, impl):
+    """``'pallas_sp'`` (the distribution slice's) and unknown names raise;
+    ``'auto'`` and ``'xla'`` are ported: the model under each gives the JAX
+    model's ``'xla'`` logits within 2e-5 (at the tiny shapes ``'auto'``
+    resolves every call to the einsum path, as the JAX rule off the TPU)."""
+    if impl in ("auto", "xla"):
+        _, params, _ = twins
+        ids, pad, positions = batch
+        jmodel = jax_tiny_mlm(attn_impl="xla")
+        model = from_jax_params(tiny_mlm(device="cpu", attn_impl=impl),
+                                jax.tree.map(np.asarray, params)).eval()
+        full, _ = _port(model, ids, pad)
+        np.testing.assert_allclose(full.numpy(), _jax(jmodel, params, ids, pad),
+                                   atol=2e-5, rtol=2e-5)
+        split, _ = _port(model, ids, pad, positions=torch.from_numpy(positions))
+        np.testing.assert_allclose(split.numpy(), _jax(jmodel, params, ids, pad, positions),
+                                   atol=2e-5, rtol=2e-5)
+        return
     match = "unknown attn_impl" if impl == "einsum" else "not ported"
     with pytest.raises(ValueError, match=match):
         tiny_mlm(device="cpu", attn_impl=impl)

@@ -3,11 +3,14 @@ module gives the JAX package's batches (same tokenizer ids, same seeded
 shuffle), the trainer writes ``metrics.jsonl``, and the CLI trains a tiny
 model with ``--cpu`` (each ``--fused_head``, a padded vocab head), resolves
 ``--fused_head auto`` by device and width, needs a card without ``--cpu``,
-and raises on what the port does not have yet (``--dropout``, the
-``--attn_impl`` names other than ``pallas`` and ``packed``); ``--attn_impl
-packed`` trains through the packed-heads attention. Against the JAX CLI on
-the same flags: the vocab head has the tokenizer's size, and validation
-runs at the same steps (per epoch, or every N steps plus the tail)."""
+trains with ``--dropout``, ``--remat`` and every ``--attn_impl`` the port
+has (``auto``, ``xla``, ``pallas``, ``packed``) and refuses ``pallas_sp``.
+Against the JAX CLI on the same flags: the vocab head has the tokenizer's
+size, validation runs at the same steps (per epoch, or every N steps plus
+the tail), the presets pick the same attention, and from the JAX run's
+initial weights, with a masking both packages draw alike, ``--optimizer
+SGD --momentum 0.9 --accumulate_steps 2`` (and the other new flags) give
+the JAX CLI's validation losses at f32."""
 
 import json
 
@@ -15,13 +18,20 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from perceiver_io_tpu.cli import common as jax_common
 from perceiver_io_tpu.cli import train_mlm as jax_train_mlm
 from perceiver_io_tpu.data.imdb import IMDBDataModule as JaxIMDBDataModule
+from perceiver_io_tpu.training import TrainState as JaxTrainState
 from perceiver_io_tpu.training import read_metrics
 from perceiver_io_torch.cli import common
 from perceiver_io_torch.cli import train_mlm
 from perceiver_io_torch.data.imdb import IMDBDataModule
+from perceiver_io_torch.interop import from_jax_params
+from perceiver_io_torch.models import presets
+from perceiver_io_torch.ops import attention as pat
 from perceiver_io_torch.ops import attention_kernel as ak
 from perceiver_io_torch.ops import ce_kernel as ck
 from perceiver_io_torch.ops import packed_attention_kernel as pk
@@ -67,10 +77,18 @@ def test_cli_trains_on_the_cpu_and_writes_metrics(tmp_path):
 
 
 def test_cli_needs_a_card_and_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """``--dropout 0.1`` trains (its training calls on the einsum path, the
+    validation's not: evaluation runs without dropout); ``pallas_sp`` exits
+    naming its ROADMAP item; without ``--cpu`` the CLI needs a card."""
     args = TINY + ["--max_steps", "1", "--root", str(tmp_path),
                    "--logdir", str(tmp_path / "logs")]
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1"):
-        train_mlm.main(args + ["--cpu", "--dropout", "0.1"])
+    pat.xla_counter.reset()
+    run_dir = train_mlm.main(args + ["--cpu", "--dropout", "0.1", "--attn_impl", "pallas"])
+    rows = [json.loads(line) for line in open(f"{run_dir}/metrics.jsonl")]
+    assert np.isfinite([r.get("train_loss", r.get("val_loss")) for r in rows]).all()
+    assert pat.xla_counter.calls == 5  # one training forward: 2 cross + 2 self + 1 decoder
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 8"):
+        train_mlm.main(args + ["--cpu", "--attn_impl", "pallas_sp"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_mlm.main(args)
@@ -133,9 +151,21 @@ def test_cli_trains_with_packed_attention(tmp_path):
 
 @pytest.mark.parametrize("impl", ["auto", "xla", "pallas_sp"])
 def test_cli_refuses_unported_attn_impls(tmp_path, impl):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        train_mlm.main(TINY + ["--cpu", "--attn_impl", impl, "--max_steps", "1",
-                               "--root", str(tmp_path), "--logdir", str(tmp_path / "logs")])
+    """``auto`` and ``xla`` train (one step and its validation, every call
+    of these tiny shapes on the einsum path); ``pallas_sp`` is not ported
+    and exits."""
+    args = TINY + ["--cpu", "--attn_impl", impl, "--max_steps", "1", "--root", str(tmp_path),
+                   "--logdir", str(tmp_path / "logs")]
+    if impl == "pallas_sp":
+        with pytest.raises(SystemExit, match="not ported yet"):
+            train_mlm.main(args)
+        return
+    for c in (pat.xla_counter, ak.counter, ak.dq_counter):
+        c.reset()
+    run_dir = train_mlm.main(args)
+    rows = [json.loads(line) for line in open(f"{run_dir}/metrics.jsonl")]
+    assert np.isfinite([r.get("train_loss", r.get("val_loss")) for r in rows]).all()
+    assert pat.xla_counter.calls > 5 and ak.counter.plain_calls == ak.dq_counter.plain_calls == 0
 
 
 # flags both CLIs take: 64 synthetic texts in batches of 32 are two steps an
@@ -183,3 +213,87 @@ def test_cli_vocab_and_validation_steps_match_jax(tmp_path, monkeypatch, flags, 
     port_val = [json.loads(line)["step"] for line in open(f"{port_dir}/metrics.jsonl")
                 if "val_loss" in line]
     assert port_val == jax_val == val_steps
+
+
+def test_presets_pick_the_jax_cli_attention():
+    """One command line, one function: each preset's ``--attn_impl`` is the
+    JAX CLI's, and an explicit flag overrides it."""
+    for preset in ("reference", "flagship_tpu"):
+        argv = ["--preset", preset, "--max_steps", "1"]
+        ours = train_mlm.apply_preset(train_mlm.build_parser().parse_args(argv))
+        theirs = jax_train_mlm.apply_preset(jax_train_mlm.build_parser().parse_args(argv))
+        assert ours.attn_impl == theirs.attn_impl == {"reference": "auto",
+                                                      "flagship_tpu": "xla"}[preset]
+        for flag in ("dropout", "optimizer", "momentum", "one_cycle_pct_start",
+                     "accumulate_steps", "remat", "no_reuse_kv"):
+            assert getattr(ours, flag) == getattr(theirs, flag), flag
+    args = train_mlm.apply_preset(train_mlm.build_parser().parse_args(
+        ["--preset", "flagship_tpu", "--max_steps", "1", "--attn_impl", "pallas"]))
+    assert args.attn_impl == "pallas"
+
+
+class _JaxRuleMasking:
+    """Masks every non-pad position p with p % 5 == 2 (label: its token):
+    a masking both packages draw alike, so their losses can be compared."""
+
+    def __init__(self, **_):
+        pass
+
+    def __call__(self, key, x, pad):
+        sel = (jnp.arange(x.shape[1])[None, :] % 5 == 2) & ~pad
+        return jnp.where(sel, 2, x), jnp.where(sel, x, -100)
+
+
+class _RuleMasking:
+    """The port's twin of :class:`_JaxRuleMasking`."""
+
+    def __init__(self, *_, **__):
+        pass
+
+    def __call__(self, generator, x, pad):
+        sel = (torch.arange(x.shape[1])[None, :] % 5 == 2) & ~pad
+        return torch.where(sel, 2, x), torch.where(sel, x.long(), -100)
+
+
+def _carry_jax_init(monkeypatch, jax_cli_module, port_common, builder: str) -> None:
+    """The port's CLI starts from the weights the JAX CLI's run drew."""
+    seen, create = {}, JaxTrainState.create
+
+    def spy(cls, params, tx, rng):
+        seen["params"] = jax.tree.map(np.array, params)  # the trainer donates its buffers
+        return create(params, tx, rng)
+
+    monkeypatch.setattr(JaxTrainState, "create", classmethod(spy))
+    build = getattr(port_common, builder)
+
+    def carried(*args, **kwargs):
+        return from_jax_params(build(*args, **kwargs), seen["params"])
+
+    monkeypatch.setattr(port_common, builder, carried)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--optimizer", "SGD", "--momentum", "0.9", "--accumulate_steps", "2",
+     "--learning_rate", "0.05"],
+    ["--optimizer", "RAdam", "--one_cycle_lr", "--one_cycle_pct_start", "0.3", "--remat",
+     "--no_reuse_kv", "--weight_decay", "0.01", "--learning_rate", "0.03"]])
+def test_cli_val_losses_match_jax(tmp_path, monkeypatch, flags):
+    """Both CLIs on the same flags (the reference preset's ``auto``
+    attention, f32) from the JAX run's initial weights, with the rule
+    masking on both sides: validation at steps 2 and 4 gives the JAX CLI's
+    losses within 1e-4 relative."""
+    monkeypatch.setattr(jax_common, "TextMasking", _JaxRuleMasking)
+    monkeypatch.setattr(presets, "TextMasking", _RuleMasking)
+    _carry_jax_init(monkeypatch, jax_train_mlm, common, "build_mlm")
+    run = BOTH + flags + ["--max_steps", "4", "--eval_every_n_steps", "2"]
+    jax_dir = jax_train_mlm.main(run + ["--root", str(tmp_path / "jax"),
+                                        "--logdir", str(tmp_path / "jax_logs")])
+    port_dir = train_mlm.main(run + ["--cpu", "--root", str(tmp_path / "port"),
+                                     "--logdir", str(tmp_path / "port_logs")])
+    jax_val = [(r["step"], r["val_loss"]) for r in read_metrics(jax_dir) if "val_loss" in r]
+    port_val = [(r["step"], r["val_loss"]) for r in
+                map(json.loads, open(f"{port_dir}/metrics.jsonl")) if "val_loss" in r]
+    assert [s for s, _ in port_val] == [s for s, _ in jax_val] == [2, 4]
+    np.testing.assert_allclose([v for _, v in port_val], [v for _, v in jax_val], rtol=1e-4)
+    # the weights moved: the second validation is not the first
+    assert abs(port_val[1][1] - port_val[0][1]) > 1e-3

@@ -319,9 +319,30 @@ def test_one_cycle_schedule_matches_jax():
 
 
 def test_unported_optimizer_options_raise():
+    """SGD is ported: with momentum 0.9 and coupled weight decay its three
+    updates from identical gradients move the weights as the JAX package's
+    optax chain does; an unknown optimizer name and an unknown
+    ``fused_head`` still raise."""
+    rng = np.random.default_rng(5)
+    p0 = rng.normal(size=(6, 5)).astype(np.float32)
+    config = dict(optimizer="SGD", learning_rate=1e-2, weight_decay=0.01, momentum=0.9)
+    tx, _ = joptim.make_optimizer(joptim.OptimizerConfig(**config))
+    jp, opt_state = jnp.asarray(p0), tx.init(jnp.asarray(p0))
+    w = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    model = torch.nn.Module()
+    model.w = w
+    state = TrainState.create(model, *optim.make_optimizer(optim.OptimizerConfig(**config),
+                                                           [w]), seed=0)
+    for _ in range(3):
+        g = rng.normal(size=(6, 5)).astype(np.float32)
+        updates, opt_state = tx.update(jnp.asarray(g), opt_state, jp)
+        jp = optax.apply_updates(jp, updates)
+        w.grad = torch.from_numpy(g.copy())
+        state.apply_gradients()
+    np.testing.assert_allclose(w.detach().numpy(), np.asarray(jp), rtol=1e-6, atol=1e-7)
     params = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(ValueError, match="not ported"):
-        optim.make_optimizer(optim.OptimizerConfig(optimizer="SGD"), params)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optim.make_optimizer(optim.OptimizerConfig(optimizer="LBFGS"), params)
     with pytest.raises(ValueError, match="fused_head must be False, True or 'pallas'"):
         make_mlm_steps(tiny_mlm(device="cpu"), fused_head="xla")
 
