@@ -251,7 +251,50 @@ Phases (any failure exits nonzero):
     gradients within 1e-5 of each leaf's peak (remat recomputes the
     encoder's 21 calls: 43 einsum calls a step); last, the stacked q/k/v
     product against three projections on one bf16 ``flagship_tpu_mlm``
-    model, device ms a step in turns (stacked, three, three, stacked).
+    model, device ms a step in turns (stacked, three, three, stacked);
+29. preemption and resume: ``train_mlm --preset flagship_tpu --attn_impl
+    pallas --synthetic`` (bf16), 24 steps, validation every 8, rows every 4,
+    two checkpoints kept, in-process (run A); the same command in a
+    subprocess (run B) gets SIGTERM once its step-8 row exists and must exit
+    0 with a ``last/`` checkpoint; ``--resume`` takes B to step 24. Every
+    train row of B equals A's at its step, bit for bit (or within 1e-5
+    relative, the ops PyTorch calls nondeterministic named); every step of A
+    and of the resumed B launches 22/22/22 #1-#3, all wgmma; A's best
+    checkpoint holds its lowest ``val_loss`` and its params hash to the
+    recorded digest and equal A's weights at that validation; a
+    ``prefer_latest`` restore takes the newest step, and with that step
+    truncated falls back to the other with a warning; the checkpoint's bytes
+    and the seconds of a save (synchronous; async: the call's return and the
+    write) and of a restore;
+30. serving from that checkpoint: ``cli.serve --checkpoint --tokenizer
+    --dtype bfloat16`` (buckets 128/256/512) on phase 6's texts, then with
+    ``--quantize int8``: 22 #1 launches a fused forward, 131 #9 under int8,
+    all wgmma; every top-1 fill equals that of an ``MLMServer`` built in
+    memory from A's weights at the best step, in the same mode;
+31. ``train_ar --preset flagship_tpu --synthetic --attn_impl pallas
+    --bucket_widths 128 256 512 --sample_prefix_len 16 --sample_new_tokens
+    12 --max_steps 16 --eval_every_n_steps 8``: 22 causal #1, dq and dk/dv
+    launches a step at every width (the batches and launches of each width
+    printed), every ``train_loss`` above 0, ``continuation`` rows at steps 8
+    and 16 whose hook launched the causal #1, and ``cli.serve --task
+    generate --checkpoint`` (the best step) continuing the hook's prefix
+    with the hook's tokens; the corpus's reviews all fit 128 tokens, so the
+    same run again with ``--bucket_widths 64 128 512`` must batch at two
+    widths or more, with the same checks of each step and row;
+32. recovery at ``train_mlm --preset reference`` (#1-#3 under ``auto``,
+    #6-#8): with ``--skip_nonfinite_steps --rollback_after_bad_steps 2`` a
+    gradient hook writes NaN on two train-step calls in a row: the first
+    leaves the params and the optimizer's moments as they were, the second
+    rolls back to the step-2 checkpoint, ``events`` rows say so and every
+    later loss is finite; with ``--dispatch_error_retries 1`` one injected
+    ``ConnectionResetError`` gives a clean run's losses.
+
+Phases 23 and 27 run ``train_ar`` with ``--sample_prefix_len 0`` (their
+checks count the training path's launches; phase 31 drives the hook);
+phase 25 counts the MLM predict hook's forward at each validation. The
+timed windows of phases 8, 10, 14, 21 and 25-27 run on a trainer with no
+TensorBoard writer and no end-of-fit checkpoint, closed after its window
+(``window_trainer``), and phases 8, 10 and 25-27 train without TensorBoard.
 
 Each path's launch counters are set to 0 just before its checked
 ``Trainer.fit`` (or its serving pass, or its generation) and read just
@@ -855,6 +898,20 @@ def bf16_plain_agreement(ak, qm, port, server, tokenizer, texts, top1) -> float:
     return agreement
 
 
+def window_trainer(port, train_step, eval_step, state, steps: int, logdir: str):
+    """A Trainer for a timed window of ``steps`` more steps from ``state``,
+    its rows logged every ``steps``: no TensorBoard writer and no end-of-fit
+    checkpoint, so the window measures the steps (phases 29-32 measure the
+    saves). Use it in ``with``, which closes its checkpoint thread."""
+    trainer = port["Trainer"](
+        train_step, eval_step, state,
+        port["TrainerConfig"](max_steps=state.step + steps, log_every_n_steps=steps,
+                              logdir=logdir, use_tensorboard=False),
+        tokens_per_example=SEQ_LEN)
+    trainer.checkpoints.save = lambda *args, **kwargs: False
+    return trainer
+
+
 def profile_pass(torch, run, mode: str) -> None:
     """Where one pass spends the card's time: device time by kernel
     (torch.profiler) against the host wall clock of the pass."""
@@ -1005,7 +1062,7 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
 
     trainer = port["Trainer"](checked_step, eval_step, state,
                               port["TrainerConfig"](max_steps=TRAIN_STEPS, log_every_n_steps=10,
-                                                    logdir=logdir),
+                                                    logdir=logdir, use_tensorboard=False),
                               tokens_per_example=SEQ_LEN)
     val_loader = data.val_dataloader()
     torch.cuda.synchronize()
@@ -1053,12 +1110,8 @@ def training_phase(torch, port, data, logdir, preset: str = "flagship_tpu_mlm",
         tokens/s: all the window's tokens over its host time."""
         nonlocal state
         before = [c.launches for c in counters]
-        fit = port["Trainer"](step, eval_step, state,
-                              port["TrainerConfig"](max_steps=state.step + n_steps,
-                                                    log_every_n_steps=n_steps,
-                                                    logdir=f"{logdir}/{name}"),
-                              tokens_per_example=SEQ_LEN)
-        state = fit.fit(data.train_dataloader())
+        with window_trainer(port, step, eval_step, state, n_steps, f"{logdir}/{name}") as fit:
+            state = fit.fit(data.train_dataloader())
         got = [c.launches - b for c, b in zip(counters, before)]
         if got != [n * n_steps for n in per] or any(c.plain_calls for c in counters):
             raise AssertionError(f"{label} {name}: launches {got} over {n_steps} steps")
@@ -2042,7 +2095,8 @@ def ar_training_phase(torch, port, train, val, logdir):
         return state, metrics
 
     config = port["TrainerConfig"](max_steps=TRAIN_STEPS, log_every_n_steps=10,
-                                   eval_every_n_steps=TRAIN_STEPS, logdir=logdir)
+                                   eval_every_n_steps=TRAIN_STEPS, logdir=logdir,
+                                   use_tensorboard=False)
     trainer = port["Trainer"](checked_step, eval_step, state, config, tokens_per_example=SEQ_LEN)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2072,12 +2126,9 @@ def ar_training_phase(torch, port, train, val, logdir):
         logged tokens/s."""
         nonlocal state
         before = [c.launches for c in counters]
-        fit = port["Trainer"](train_step, eval_step, state,
-                              port["TrainerConfig"](max_steps=state.step + n_steps,
-                                                    log_every_n_steps=n_steps,
-                                                    logdir=f"{logdir}/{name}"),
-                              tokens_per_example=SEQ_LEN)
-        state = fit.fit(train)
+        with window_trainer(port, train_step, eval_step, state, n_steps,
+                            f"{logdir}/{name}") as fit:
+            state = fit.fit(train)
         got = [c.launches - b for c, b in zip(counters, before)]
         if got != [n * n_steps for n in per_step] or any(c.plain_calls for c in counters):
             raise AssertionError(f"AR {name}: launches {got} over {n_steps} steps")
@@ -2180,7 +2231,7 @@ def ar_train_cli_phase(torch, port, root: str, vocab: int) -> None:
         run_dir = port["train_ar"].main([
             "--preset", "flagship_tpu", "--synthetic", "--max_steps", str(CLI_STEPS),
             "--attn_impl", "pallas", "--log_every_n_steps", "1", "--root", root,
-            "--logdir", f"{root}/cli_ar"])
+            "--sample_prefix_len", "0", "--logdir", f"{root}/cli_ar"])
     finally:
         common.build_ar = build_ar
     torch.cuda.synchronize()
@@ -2362,12 +2413,9 @@ def cli_windows(torch, port, trainer, loader, logdir: str, label: str) -> dict:
 
     def fit(n: int, name: str) -> float:
         nonlocal state
-        run = port["Trainer"](trainer.train_step, trainer.eval_step, state,
-                              port["TrainerConfig"](max_steps=state.step + n,
-                                                    log_every_n_steps=n,
-                                                    logdir=f"{logdir}/{name}"),
-                              tokens_per_example=SEQ_LEN)
-        state = run.fit(loader)
+        with window_trainer(port, trainer.train_step, trainer.eval_step, state, n,
+                            f"{logdir}/{name}") as run:
+            state = run.fit(loader)
         with open(f"{run.run_dir}/metrics.jsonl") as f:
             row = [json.loads(line) for line in f][-1]
         if not math.isfinite(row["train_loss"]):
@@ -2417,7 +2465,7 @@ def mlm_flagship_cli_phase(torch, port, root: str) -> dict:
     pat, counters = port["pat"], path_counters(port)
     base = ["--preset", "flagship_tpu", "--synthetic", "--optimizer", "AdamW",
             "--accumulate_steps", "2", "--one_cycle_lr", "--one_cycle_pct_start", "0.3",
-            "--log_every_n_steps", "1", "--root", root]
+            "--log_every_n_steps", "1", "--no_tensorboard", "--root", root]
     arms = {"xla_dropout": ["--dropout", "0.1"], "pallas": ["--attn_impl", "pallas"],
             "xla": []}
     for c in counters:
@@ -2438,10 +2486,12 @@ def mlm_flagship_cli_phase(torch, port, root: str) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rows = read_rows(trainer.run_dir)
     losses = check_train_rows(rows, XLA_CLI_STEPS, "train_mlm --preset flagship_tpu")
-    n_eval = sum("val_loss" in r for r in rows) * len(data.val_dataloader())
+    n_val = sum("val_loss" in r for r in rows)
+    n_eval = n_val * len(data.val_dataloader())
     launches = {name: c.launches for name, c in zip(KERNEL_NAMES, counters)}
+    # each validation also runs the predict hook: one forward
     if any(launches[n] for n in ATTN_COUNTERS) or any(c.plain_calls for c in counters) \
-            or pat.xla_counter.calls != ATTN_PER_FORWARD * (XLA_CLI_STEPS + n_eval):
+            or pat.xla_counter.calls != ATTN_PER_FORWARD * (XLA_CLI_STEPS + n_eval + n_val):
         raise AssertionError(f"train_mlm --preset flagship_tpu: launches {launches}, einsum "
                              f"calls {pat.xla_counter.calls} over {XLA_CLI_STEPS} steps and "
                              f"{n_eval} eval batches")
@@ -2502,8 +2552,8 @@ def reference_cli_phase(torch, port, root: str) -> dict:
             c.reset()
         trainer, data = port["train_mlm"].prepare(
             ["--preset", "reference", "--synthetic", "--max_steps", str(steps),
-             "--eval_every_n_steps", "2", "--log_every_n_steps", "1", "--root", root,
-             "--logdir", f"{root}/cli_ref_{name}"] + extra)
+             "--eval_every_n_steps", "2", "--log_every_n_steps", "1", "--no_tensorboard",
+             "--root", root, "--logdir", f"{root}/cli_ref_{name}"] + extra)
         train_step, eval_step = trainer.train_step, trainer.eval_step
         remat = "--remat" in extra
         dropout = "--dropout" in extra
@@ -2575,8 +2625,8 @@ def ar_cli_defaults_phase(torch, port, root: str, ar_train, ar_val) -> None:
     torch.cuda.reset_peak_memory_stats()
     trainer, _ = port["train_ar"].prepare(
         ["--preset", "flagship_tpu", "--synthetic", "--dropout", "0.1",
-         "--max_steps", str(XLA_CLI_STEPS), "--log_every_n_steps", "1", "--root", root,
-         "--logdir", f"{root}/cli_ar_defaults"])
+         "--max_steps", str(XLA_CLI_STEPS), "--log_every_n_steps", "1", "--no_tensorboard",
+         "--root", root, "--sample_prefix_len", "0", "--logdir", f"{root}/cli_ar_defaults"])
     t0 = time.perf_counter()
     trainer.fit(ar_train, ar_val)
     torch.cuda.synchronize()
@@ -2692,6 +2742,520 @@ def qkv_turns_phase(torch, port) -> None:
     del model, state
 
 
+# phases 29-32: the training system (checkpoints, resume, preemption,
+# serving from a checkpoint, width buckets with the sample hook, recovery)
+P29_STEPS, P29_EVAL, P29_LOG = 24, 8, 4
+P29_ARGS = ["--preset", "flagship_tpu", "--attn_impl", "pallas", "--synthetic",
+            "--max_steps", str(P29_STEPS), "--eval_every_n_steps", str(P29_EVAL),
+            "--log_every_n_steps", str(P29_LOG), "--max_to_keep", "2", "--no_tensorboard"]
+P29_SIGTERM_ROW = 8          # B gets SIGTERM once its row of this step exists
+P29_WAIT_S = 400             # the longest B may take to reach it, and to stop
+RESUME_REL_TOL = 1e-5        # the bar where bit equality is out of reach
+P31_ARGS = ["--preset", "flagship_tpu", "--synthetic", "--attn_impl", "pallas",
+            "--bucket_widths", "128", "256", "512", "--sample_prefix_len", "16",
+            "--sample_new_tokens", "12", "--max_steps", "16", "--eval_every_n_steps", "8",
+            "--log_every_n_steps", "1", "--no_tensorboard"]
+# bucket widths that split this corpus's lengths (all within 128 tokens): its
+# first 16 batches, seed 0, come out 10 at 128 and 6 at 64 on the CPU
+P31_SPLIT_WIDTHS = ["64", "128", "512"]
+P32_STEPS, P32_POISONED, P32_FLAKY = 8, (4, 5), 3  # train_step calls, 1-based
+FLAGSHIP_TOKENIZER = "imdb-synthetic-tokenizer-10003.json"
+
+
+def checked_steps(trainer, counters, want, label: str, record=None) -> None:
+    """Wrap ``trainer.train_step``: each step must launch ``want(batch)``
+    kernels (``counters`` order) and no plain version; ``record`` collects
+    (width, launches) a step."""
+    inner = trainer.train_step
+
+    def run(state, batch, **kwargs):
+        before = [c.launches for c in counters]
+        out = inner(state, batch, **kwargs)
+        got = [c.launches - b for c, b in zip(counters, before)]
+        if got != want(batch) or any(c.plain_calls for c in counters):
+            raise AssertionError(f"{label} train step {state.step}: launches {got} != "
+                                 f"{want(batch)}, or a plain version ran")
+        if record is not None:
+            record.append((int(batch["token_ids"].shape[1]), got))
+        return out
+
+    trainer.train_step = run
+
+
+def train_rows(rows: list) -> dict:
+    """{step: (train_loss, lr)} of the train rows."""
+    return {r["step"]: (r["train_loss"], r["lr"]) for r in rows if "train_loss" in r}
+
+
+def rows_agree(got: dict, want: dict, label: str) -> dict:
+    """Every row of ``got`` against ``want``'s at its step: bit equality, or
+    within RESUME_REL_TOL relative (the reading says which)."""
+    missing = sorted(set(got) - set(want))
+    if missing or not got:
+        raise AssertionError(f"{label}: rows {sorted(got)} not all in {sorted(want)}")
+    rel = max(abs(got[s][0] - want[s][0]) / max(abs(want[s][0]), 1e-30) for s in got)
+    bitwise = all(got[s] == want[s] for s in got)
+    if not bitwise and (rel > RESUME_REL_TOL or any(got[s][1] != want[s][1] for s in got)):
+        raise AssertionError(f"{label}: train rows differ by {rel} relative: {got} vs {want}")
+    return dict(compared_steps=sorted(got), bitwise=bitwise, max_rel_diff=rel)
+
+
+def nondeterministic_ops(torch, step, state, batch) -> list:
+    """The ops of one train step that PyTorch reports as nondeterministic
+    (``use_deterministic_algorithms(warn_only=True)``): what keeps two runs
+    from agreeing bit for bit. The step runs (``state`` advances)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message)[:160] for w in caught
+                   if "determinis" in str(w.message).lower()})
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def preemption_phase(torch, port, root: str):
+    """Phase 29: ``train_mlm --preset flagship_tpu --attn_impl pallas
+    --synthetic`` (bf16), P29_STEPS steps, validation every P29_EVAL, rows
+    every P29_LOG, two checkpoints kept. Run A uninterrupted in-process; run
+    B the same command in a subprocess, sent SIGTERM once its step-8 row
+    exists: it must exit 0 with a ``last/`` checkpoint; then ``--resume`` of
+    B's run directory, in-process, to the end. Every train row of B (before
+    and after the resume) equals A's at its step, bit for bit (or within
+    RESUME_REL_TOL, the ops PyTorch calls nondeterministic named); every
+    step of A and of the resumed B launches 22/22/22 #1-#3 (all wgmma); A's
+    best checkpoint holds its lowest ``val_loss``; its params hash to the
+    digest recorded at the save; a restore (``prefer_latest``) takes the
+    newest step, and with that step truncated falls back to the one before
+    it with a warning. The checkpoint's size and the seconds of a save
+    (synchronous, and the async call's return) and of a restore. Returns
+    (launches, run A's trainer, A's weights at each validation)."""
+    t_phase = time.perf_counter()
+    train_mlm, ckpt = port["train_mlm"], port["checkpoint"]
+    counters, names = path_counters(port), KERNEL_NAMES
+    per_step = per_step_launches(False, "pallas")
+    launches = dict.fromkeys(names, 0)
+    snapshots = {}
+
+    def run(argv, snapshot: bool = False):
+        trainer, data = train_mlm.prepare(P29_ARGS + ["--root", root] + argv)
+        for c in counters:
+            c.reset()
+        checked_steps(trainer, counters, lambda batch: per_step, "phase 29")
+        if snapshot:
+            hook = trainer.predict_hook
+
+            def snap(state, logger, step):  # the weights at each validation, on the host
+                snapshots[step] = {k: v.to("cpu", copy=True)
+                                   for k, v in port["param_tree"](state.model).items()}
+                hook(state, logger, step)
+
+            trainer.predict_hook = snap
+        t0 = time.perf_counter()
+        with trainer:
+            train_mlm.common.run_fit(trainer, data.train_dataloader(), data.val_dataloader())
+        torch.cuda.synchronize()
+        for n, c in zip(names, counters):
+            launches[n] += c.launches
+        return trainer, data, time.perf_counter() - t0
+
+    a, data, a_s = run(["--logdir", f"{root}/p29_A"], snapshot=True)
+    a_rows = read_rows(a.run_dir)
+    want = train_rows(a_rows)
+    if sorted(want) != list(range(P29_LOG, P29_STEPS + 1, P29_LOG)):
+        raise AssertionError(f"phase 29 A: rows {a_rows}")
+
+    b_logdir = f"{root}/p29_B"
+    b_dir = f"{b_logdir}/mlm/version_0"
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory for B's process
+    t0 = time.perf_counter()
+    with open(f"{root}/p29_B.log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "perceiver_io_torch.cli.train_mlm", *P29_ARGS, "--root",
+             root, "--logdir", b_logdir], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while not any(r.get("step") == P29_SIGTERM_ROW for r in
+                          (read_rows(b_dir) if os.path.exists(f"{b_dir}/metrics.jsonl")
+                           else [])):
+                if proc.poll() is not None or time.perf_counter() - t0 > P29_WAIT_S:
+                    raise AssertionError(f"phase 29 B: no step-{P29_SIGTERM_ROW} row "
+                                         f"(exit {proc.poll()})")
+                time.sleep(0.05)
+            proc.send_signal(15)  # SIGTERM
+            rc = proc.wait(timeout=P29_WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    b_first_s = time.perf_counter() - t0
+    last = f"{b_dir}/checkpoints/last"
+    saved_last = sorted(int(s) for s in os.listdir(last) if s.isdigit()) \
+        if os.path.isdir(last) else []
+    if rc != 0 or len(saved_last) != 1:
+        with open(f"{root}/p29_B.log") as f:
+            tail = f.read()[-2000:]
+        raise AssertionError(f"phase 29 B: exit {rc}, last/ {saved_last}: {tail}")
+    b_before = train_rows(read_rows(b_dir))
+    b, _, b_resume_s = run(["--logdir", b_logdir, "--resume", b_dir])
+    if os.path.abspath(b.run_dir) != os.path.abspath(b_dir):
+        raise AssertionError(f"phase 29: the resume logged into {b.run_dir}, not {b_dir}")
+    b_all = train_rows(read_rows(b_dir))
+    resumed = {s: v for s, v in b_all.items() if s > saved_last[0]}
+    if max(b_all) != P29_STEPS or not resumed:
+        raise AssertionError(f"phase 29: the resumed B's rows {sorted(b_all)}")
+    agree = rows_agree(b_all, want, "phase 29: B against A")
+    ops = None
+    if not agree["bitwise"]:
+        batch = next(iter(data.train_dataloader()))
+        ops = nondeterministic_ops(torch, b.train_step, b.state, batch)
+
+    a_ckpt = f"{a.run_dir}/checkpoints"
+    val = {r["step"]: r["val_loss"] for r in a_rows if "val_loss" in r}
+    best = ckpt.resolve_checkpoint_step(a_ckpt)
+    kept = sorted(int(s) for s in os.listdir(a_ckpt) if s.isdigit())
+    by_loss = sorted(val, key=lambda s: (val[s], -s))
+    if best != by_loss[0] or kept != sorted(by_loss[:2]):
+        raise AssertionError(f"phase 29: best {best}, kept {kept}, val rows {val}")
+    with open(f"{a_ckpt}/digests.json") as f:
+        digests = json.load(f)
+    params, _ = ckpt.restore_raw_params(a_ckpt, best)
+    if port["tree_digest"](params) != digests[str(best)]:
+        raise AssertionError(f"phase 29: step {best}'s params do not hash to its digest")
+    if any(not torch.equal(params[k], v) for k, v in snapshots[best].items()):
+        raise AssertionError(f"phase 29: step {best}'s saved params are not its weights")
+    import warnings
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ckpt.restore_train_state(a_ckpt, b.state, prefer_latest=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if b.state.step != kept[-1] or caught:
+        raise AssertionError(f"phase 29: restored step {b.state.step} of {kept}, warnings "
+                             f"{[str(w.message) for w in caught]}")
+    trunc = f"{root}/p29_truncated"
+    import shutil
+
+    shutil.copytree(a_ckpt, trunc)
+    for name in os.listdir(f"{trunc}/{kept[-1]}"):
+        open(f"{trunc}/{kept[-1]}/{name}", "wb").close()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ckpt.restore_train_state(trunc, b.state, prefer_latest=True)
+    fell_back = [str(w.message)[:120] for w in caught if "failed to restore" in str(w.message)]
+    if b.state.step != kept[0] or not fell_back:
+        raise AssertionError(f"phase 29: a truncated step {kept[-1]} gave step "
+                             f"{b.state.step}, warnings {fell_back}")
+    shutil.rmtree(trunc)
+
+    sizes = {s: dir_bytes(f"{a_ckpt}/{s}") for s in kept}
+    timings = {}
+    for mode in ("sync", "async"):
+        mngr = ckpt.CheckpointManager(f"{root}/p29_save_{mode}", async_save=mode == "async")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mngr.save(a.state.step, a.state, {"val_loss": 0.0})
+        returned = time.perf_counter() - t0
+        mngr.wait()
+        timings[mode] = dict(call_s=returned, saved_s=time.perf_counter() - t0)
+        mngr.close()
+        shutil.rmtree(f"{root}/p29_save_{mode}")
+    log(phase="preemption_resume", card=card_line(), steps=P29_STEPS, a_fit_s=a_s,
+        b_until_sigterm_exit_s=b_first_s, b_resume_fit_s=b_resume_s,
+        sigterm_last_step=saved_last[0], b_rows_before_sigterm=sorted(b_before),
+        resumed_rows=sorted(resumed), **agree, nondeterministic_ops=ops,
+        val_loss=val, best_step=best, kept_steps=kept, checkpoint_bytes=sizes,
+        save=timings, restore_s=restore_s, truncated_fallback=fell_back[0],
+        launches=launches, launches_per_step=dict(zip(names, per_step)),
+        phase_s=time.perf_counter() - t_phase)
+    return launches, a, snapshots, best
+
+
+def checkpoint_serving_phase(torch, port, root: str, a, snapshots, best, texts) -> dict:
+    """Phase 30: ``cli.serve --checkpoint <A>/checkpoints --tokenizer T
+    --dtype bfloat16`` (width buckets 128/256/512, max_batch 64) on phase 6's
+    texts, then with ``--quantize int8``: #1 launches 22 a fused forward, #9
+    131 under int8 (all wgmma, no plain version), and each mask's top-1 fill
+    equals that of an ``MLMServer`` built in memory from A's weights at the
+    best step (the host copy taken at that validation), in the same mode."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    ak, qm, serve = port["ak"], port["qm"], port["serve"]
+    tokenizer_file = f"{root}/{FLAGSHIP_TOKENIZER}"
+    tokenizer = port["load_tokenizer"](tokenizer_file)
+    counters = (ak.counter, qm.counter, ak.wgmma_counter, qm.wgmma_counter)
+    out = dict(attention_fwd=0, attention_fwd_wgmma=0, attention_fwd_causal=0,
+               dequant_matmul=0, dequant_matmul_wgmma=0)
+    servers, base = [], port["MLMServer"]
+
+    class Recording(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            servers.append(self)
+
+    readings = {}
+    for quantize in ("none", "int8"):
+        for c in counters:
+            c.reset()
+        serve.MLMServer = Recording
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                results = serve.main(["--checkpoint", f"{a.run_dir}/checkpoints", "--tokenizer",
+                                      tokenizer_file, "--dtype", "bfloat16", "--bucket_widths",
+                                      "128", "256", "512", "--max_batch", "64", "--quantize",
+                                      quantize, "--texts", *texts])
+        finally:
+            serve.MLMServer = base
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        n_fwd = servers[-1].engine.dispatches
+        quantized = quantize == "int8"
+        expect = (ATTN_PER_FORWARD * n_fwd, DEQUANT_PER_FORWARD * n_fwd if quantized else 0)
+        got = (ak.counter.launches, qm.counter.launches)
+        if got != expect or ak.counter.plain_calls or qm.counter.plain_calls:
+            raise AssertionError(f"phase 30 {quantize}: launches {got} != {expect} over "
+                                 f"{n_fwd} forwards, or a plain version ran")
+        check_wgmma_share(ak, qm, f"phase 30 {quantize}")
+        out["attention_fwd"] += ak.counter.launches
+        out["attention_fwd_wgmma"] += ak.wgmma_counter.launches
+        out["dequant_matmul"] += qm.counter.launches
+        out["dequant_matmul_wgmma"] += qm.wgmma_counter.launches
+        memory = base(a.state.model, snapshots[best], tokenizer, SEQ_LEN,
+                      bucket_widths=[128, 256, 512], max_batch=64, compute_dtype="bfloat16",
+                      quantize=None if quantize == "none" else quantize, device="cuda")
+        want = [f[0] for r in memory.fill_masks(texts, k=5) for f in r]
+        top1 = [f[0] for r in results for f in r["fills"]]
+        if top1 != want or len(top1) != sum(t.split().count("[MASK]") for t in texts):
+            raise AssertionError(f"phase 30 {quantize}: {sum(x != y for x, y in zip(top1, want))}"
+                                 f" of {len(want)} top-1 fills differ from the in-memory server")
+        readings[quantize] = dict(masks=len(top1), forwards=n_fwd, serve_s=serve_s,
+                                  attention_launches=got[0], dequant_launches=got[1])
+        del memory
+    log(phase="checkpoint_serving", card=card_line(), best_step=best, **readings,
+        phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def bucketed_fit(torch, port, argv: list, label: str) -> dict:
+    """``train_ar.prepare(argv)`` fitted in-process: every step must launch 22
+    causal #1, 22 causal dq and 22 causal dk/dv (all wgmma) at whatever width
+    its batch has; every ``train_loss`` row above 0; ``continuation`` rows at
+    steps 8 and 16, the hook launching the causal #1. Returns the trainer,
+    the data, the rows, the batches and launches of each width, the hook's
+    launches and the fit's seconds."""
+    ak, train_ar = port["ak"], port["train_ar"]
+    counters, names = ar_counters(port), AR_NAMES
+    per_step = [AR_PER_STEP.get(name, 0) for name in names]
+    trainer, data = train_ar.prepare(argv)
+    steps = []
+    checked_steps(trainer, counters, lambda batch: per_step, label, steps)
+    hook, hook_launches = trainer.predict_hook, {}
+
+    def counted(state, logger, step):
+        before = (ak.counter.launches, ak.causal_counter.launches, ak.wgmma_counter.launches)
+        hook(state, logger, step)
+        hook_launches[step] = dict(zip(("attention_fwd", "causal", "wgmma"), (
+            c.launches - b for c, b in zip((ak.counter, ak.causal_counter, ak.wgmma_counter),
+                                           before))))
+
+    trainer.predict_hook = counted
+    t0 = time.perf_counter()
+    with trainer:
+        train_ar.common.run_fit(trainer, data.train_dataloader(), data.val_dataloader())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rows = read_rows(trainer.run_dir)
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    texts = {r["step"]: r["text"] for r in rows if r.get("tag") == "continuation"}
+    if len(losses) != 16 or not all(x > 0 and math.isfinite(x) for x in losses) \
+            or sorted(texts) != [8, 16] or not all(h["causal"] > 0 and h["wgmma"] ==
+                                                   h["attention_fwd"]
+                                                   for h in hook_launches.values()):
+        raise AssertionError(f"{label}: losses {losses}, hook rows {texts}, hook launches "
+                             f"{hook_launches}")
+    by_width = {}
+    for width, got in steps:
+        w = by_width.setdefault(width, dict(batches=0, **dict.fromkeys(ATTN_COUNTERS, 0)))
+        w["batches"] += 1
+        for n in ATTN_COUNTERS:
+            w[n] += got[names.index(n)]
+    return dict(trainer=trainer, data=data, rows=rows, losses=losses, texts=texts,
+                by_width=by_width, hook_launches=hook_launches, fit_s=fit_s)
+
+
+def bucketed_ar_phase(torch, port, root: str) -> dict:
+    """Phase 31: ``train_ar --preset flagship_tpu --synthetic --attn_impl
+    pallas --bucket_widths 128 256 512 --sample_prefix_len 16
+    --sample_new_tokens 12 --max_steps 16 --eval_every_n_steps 8``
+    in-process (:func:`bucketed_fit`; phase 23, unbucketed, logs a loss of
+    exactly 0), then ``cli.serve --task generate --checkpoint`` (the best
+    step) continues the hook's prefix with the hook's greedy tokens at that
+    step. This corpus's reviews all fit 128 tokens, so a second fit with
+    ``--bucket_widths`` P31_SPLIT_WIDTHS must batch at two widths or more,
+    each step still launching 22/22/22 causal kernels."""
+    import contextlib
+    import io
+
+    t_phase = time.perf_counter()
+    serve = port["serve"]
+    counters, names = ar_counters(port), AR_NAMES
+    for c in counters:
+        c.reset()
+    run = bucketed_fit(torch, port, P31_ARGS + ["--root", root, "--logdir", f"{root}/p31"],
+                       "phase 31")
+    split_args = ["--bucket_widths", *P31_SPLIT_WIDTHS, "--root", root, "--logdir",
+                  f"{root}/p31_split"]
+    split = bucketed_fit(torch, port, P31_ARGS + split_args, "phase 31 split")
+    launches = {n: c.launches for n, c in zip(names, counters)}
+    if len(split["by_width"]) < 2:
+        raise AssertionError(f"phase 31 split: every batch had one width: {split['by_width']}")
+    trainer, data, texts = run["trainer"], run["data"], run["texts"]
+    ckpt = f"{trainer.run_dir}/checkpoints"
+    best = port["checkpoint"].resolve_checkpoint_step(ckpt)
+    ids = next(iter(data.val_dataloader()))["token_ids"][0]
+    prefix = [int(t) for t in ids[:16] if int(t) != 0]
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        served = serve.main(["--task", "generate", "--checkpoint", ckpt, "--max_new_tokens",
+                             "12", "--generate_chunk", "8", "--texts",
+                             " ".join(map(str, prefix))])
+    words = " ".join(data.tokenizer.id_to_token(t) for t in served[0]["continuation_ids"])
+    if texts[best] != f"prefix({len(prefix)} toks) → {words}":
+        raise AssertionError(f"phase 31: serving step {best} gave {words!r}, the hook "
+                             f"{texts[best]!r}")
+    log(phase="bucketed_ar", card=card_line(), steps=len(run["losses"]), losses=run["losses"],
+        val_loss=[r["val_loss"] for r in run["rows"] if "val_loss" in r],
+        by_width=run["by_width"], hook_launches=run["hook_launches"], continuation=texts,
+        best_step=best, served_tokens=served[0]["continuation_ids"], fit_s=run["fit_s"],
+        split_widths=[int(w) for w in P31_SPLIT_WIDTHS], split_losses=split["losses"],
+        split_val_loss=[r["val_loss"] for r in split["rows"] if "val_loss" in r],
+        split_by_width=split["by_width"], split_hook_launches=split["hook_launches"],
+        split_fit_s=split["fit_s"], launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def snapshot_state(state) -> tuple:
+    """Copies of the params and the optimizer's state tensors (on the card)."""
+    opt = state.optimizer.state_dict()["state"]
+    return ({n: p.detach().clone() for n, p in state.model.named_parameters()},
+            {i: {k: v.clone() for k, v in s.items() if hasattr(v, "clone")}
+             for i, s in opt.items()})
+
+
+def same_state(torch, a, b) -> bool:
+    return all(torch.equal(a[0][n], b[0][n]) for n in a[0]) and a[1].keys() == b[1].keys() \
+        and all(torch.equal(a[1][i][k], b[1][i][k]) for i in a[1] for k in a[1][i])
+
+
+def recovery_phase(torch, port, root: str) -> dict:
+    """Phase 32: ``train_mlm --preset reference --synthetic`` (#1-#3 under
+    ``auto``, #6-#8 by ``--fused_head auto``), P32_STEPS steps with
+    validation every 2, in-process. With ``--skip_nonfinite_steps
+    --rollback_after_bad_steps 2``, a gradient hook writing NaN on train-step
+    calls P32_POISONED: the first leaves the params and the optimizer's
+    moments as they were, the second rolls back to the step-2 checkpoint,
+    ``events`` rows say so, and every later loss is finite. With
+    ``--dispatch_error_retries 1``, one ``ConnectionResetError`` before call
+    P32_FLAKY: the train losses of a clean run (bit for bit, or within
+    RESUME_REL_TOL with the nondeterministic ops named)."""
+    t_phase = time.perf_counter()
+    train_mlm = port["train_mlm"]
+    counters, names = path_counters(port), KERNEL_NAMES
+    for c in counters:
+        c.reset()
+    base = ["--preset", "reference", "--synthetic", "--max_steps", str(P32_STEPS),
+            "--eval_every_n_steps", "2", "--log_every_n_steps", "1", "--no_tensorboard",
+            "--predict_samples", "--root", root]
+    trainer, data = train_mlm.prepare(base + ["--skip_nonfinite_steps",
+                                              "--rollback_after_bad_steps", "2",
+                                              "--logdir", f"{root}/p32_skip"])
+    inner, snaps = trainer.train_step, []
+    param = next(trainer.state.model.parameters())
+
+    def poisoned(state, batch, **kwargs):
+        snaps.append(snapshot_state(state))
+        handle = None
+        if len(snaps) in P32_POISONED:
+            handle = param.register_hook(lambda g: torch.full_like(g, float("nan")))
+        try:
+            return inner(state, batch, **kwargs)
+        finally:
+            if handle is not None:
+                handle.remove()
+
+    trainer.train_step = poisoned
+    with trainer:
+        train_mlm.common.run_fit(trainer, data.train_dataloader(), data.val_dataloader())
+    torch.cuda.synchronize()
+    first, second = P32_POISONED
+    rows = read_rows(trainer.run_dir)
+    events = [r["text"] for r in rows if r.get("tag") == "events"]
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    kept = same_state(torch, snaps[first - 1], snaps[first])
+    rolled = same_state(torch, snaps[second], snaps[2]) \
+        and not same_state(torch, snaps[second], snaps[second - 1])
+    if not (kept and rolled) or trainer.bad_steps != 2 or trainer.rollbacks != 1 \
+            or trainer.state.step != P32_STEPS or len(events) != 3 \
+            or "rolled back to checkpoint step 2" not in events[-1] \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 32: pre-step state kept {kept}, rolled back {rolled}, "
+                             f"events {events}, losses {losses}")
+    skip_launches = {n: c.launches for n, c in zip(names, counters)}
+    if any(c.plain_calls for c in counters) or not all(
+            skip_launches[n] for n in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
+                                       "linear_ce_fwd", "linear_ce_bwd_dx", "linear_ce_bwd_dw")):
+        raise AssertionError(f"phase 32: launches {skip_launches}")
+    del snaps
+
+    def losses_of(extra: list, flaky: bool) -> tuple:
+        trainer, data = train_mlm.prepare(base + extra)
+        if flaky:
+            inner, calls = trainer.train_step, [0]
+
+            def step(state, batch, **kwargs):
+                calls[0] += 1
+                if calls[0] == P32_FLAKY:
+                    raise ConnectionResetError("connection reset by peer (injected)")
+                return inner(state, batch, **kwargs)
+
+            trainer.train_step = step
+        with trainer:
+            train_mlm.common.run_fit(trainer, data.train_dataloader(), data.val_dataloader())
+        torch.cuda.synchronize()
+        return trainer, data, read_rows(trainer.run_dir)
+
+    clean, data, clean_rows = losses_of(["--logdir", f"{root}/p32_clean"], False)
+    retried, _, retry_rows = losses_of(["--dispatch_error_retries", "1",
+                                        "--logdir", f"{root}/p32_retry"], True)
+    agree = rows_agree(train_rows(retry_rows), train_rows(clean_rows), "phase 32 retry")
+    retry_events = [r["text"] for r in retry_rows if r.get("tag") == "events"]
+    if retried.step_retries != 1 or len(retry_events) != 1:
+        raise AssertionError(f"phase 32: retries {retried.step_retries}, events {retry_events}")
+    ops = None
+    if not agree["bitwise"]:
+        ops = nondeterministic_ops(torch, clean.train_step, clean.state,
+                                   next(iter(data.train_dataloader())))
+    launches = {n: c.launches for n, c in zip(names, counters)}
+    log(phase="recovery", card=card_line(), steps=P32_STEPS, poisoned_calls=P32_POISONED,
+        events=events + retry_events, losses=losses, retry=agree, nondeterministic_ops=ops,
+        launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def check_kernel_entry(k: dict) -> None:
     """One entry of the ``kernels`` line carries every key of its contract,
     each of its type: times, errors and bounds are numbers, ``library_ms``
@@ -2739,9 +3303,13 @@ def main() -> int:
         OptimizerConfig,
         make_optimizer,
     )
+    from perceiver_io_torch.data.tokenizer import load_tokenizer
+    from perceiver_io_torch.interop import param_tree
+    from perceiver_io_torch.training import checkpoint
     from perceiver_io_torch.training.steps import make_ar_steps, make_mlm_steps
     from perceiver_io_torch.training.train_state import TrainState
     from perceiver_io_torch.training.trainer import Trainer, TrainerConfig
+    from perceiver_io_torch.utils.treepath import tree_digest
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2788,7 +3356,8 @@ def main() -> int:
                 make_mlm_steps=make_mlm_steps, Trainer=Trainer, TrainerConfig=TrainerConfig,
                 train_mlm=train_mlm, ARGenerator=ARGenerator, SamplingConfig=SamplingConfig,
                 serve=serve, make_ar_steps=make_ar_steps, train_ar=train_ar, pat=pat,
-                SUPPORTED_OPTIMIZERS=SUPPORTED_OPTIMIZERS)
+                SUPPORTED_OPTIMIZERS=SUPPORTED_OPTIMIZERS, checkpoint=checkpoint,
+                param_tree=param_tree, tree_digest=tree_digest, load_tokenizer=load_tokenizer)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
@@ -2844,6 +3413,19 @@ def main() -> int:
         enter("28: einsum, remat and dropout parity")
         xla_parity_phase(torch, port, data)
         qkv_turns_phase(torch, port)
+        enter("29: preemption and resume")
+        p29_launches, run_a, snapshots, best = preemption_phase(torch, port, root)
+        path_launches.append(p29_launches)
+        enter("30: serving from a checkpoint")
+        ar_launches.append(checkpoint_serving_phase(torch, port, root, run_a, snapshots, best,
+                                                    texts))
+        del run_a, snapshots
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("31: bucketed AR training with the sample hook")
+        path_launches.append(bucketed_ar_phase(torch, port, root))
+        enter("32: recovery")
+        path_launches.append(recovery_phase(torch, port, root))
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
     for name in AR_NAMES:

@@ -1,5 +1,8 @@
 """Argument groups and builders shared by the port's training entry points
-(the port's subset of ``perceiver_io_tpu/cli/common.py``)."""
+(the port's single-process subset of ``perceiver_io_tpu/cli/common.py``),
+with the resume plumbing: :func:`parse_with_resume` takes a resumed run's
+hparams as the flags' defaults, :func:`resume_state` restores its newest
+checkpoint, and :func:`run_fit` drives the trainer."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from perceiver_io_torch.training.optim import (
     OptimizerConfig,
     make_optimizer,
 )
+from perceiver_io_torch.training.checkpoint import load_hparams, restore_train_state
 from perceiver_io_torch.training.trainer import TrainerConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -56,11 +60,36 @@ def add_optimizer_args(parser: argparse.ArgumentParser) -> None:
 
 def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     g = parser.add_argument_group("trainer")
-    g.add_argument("--max_steps", type=int, required=True)
+    g.add_argument("--max_epochs", type=int, default=None)
+    g.add_argument("--max_steps", type=int, default=None)
     g.add_argument("--log_every_n_steps", type=int, default=50)
     g.add_argument("--eval_every_n_steps", type=int, default=None,
                    help="validate every N steps (default: once per epoch)")
     g.add_argument("--logdir", default="logs")
+    g.add_argument("--experiment", default="default",
+                   help="runs go to <logdir>/<experiment>/version_n")
+    g.add_argument("--max_to_keep", type=int, default=1,
+                   help="checkpoints kept, best by val_loss")
+    g.add_argument("--no_tensorboard", action="store_true")
+    g.add_argument("--resume", default=None, metavar="RUN_DIR",
+                   help="continue a previous run in place: restore its newest checkpoint "
+                        "(the preemption last/ slot if it is newer), take the flags not "
+                        "given here from its hparams, and keep logging into RUN_DIR")
+    g.add_argument("--skip_nonfinite_steps", action="store_true",
+                   help="read each step's loss on the host and skip a step whose loss or "
+                        "gradients are not finite (the pre-step state kept); after "
+                        "--rollback_after_bad_steps in a row, roll back to the newest "
+                        "checkpoint. One host sync a step")
+    g.add_argument("--rollback_after_bad_steps", type=int, default=3,
+                   help="with --skip_nonfinite_steps: bad steps in a row before a rollback "
+                        "(0 = skip only)")
+    g.add_argument("--dispatch_error_retries", type=int, default=0,
+                   help="retry a train step that fails with a transient error (a dropped "
+                        "connection; never a CUDA error, an OOM or divergence) before its "
+                        "update up to N times. 0 disables")
+    g.add_argument("--fit_attempts", type=int, default=1,
+                   help="total fit attempts: after a transient failure the trainer resumes "
+                        "from the newest checkpoint (1 = no supervisor)")
 
 
 def add_compute_args(parser: argparse.ArgumentParser) -> None:
@@ -95,6 +124,27 @@ def add_imdb_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--synthetic", action="store_true",
                    help="the offline synthetic review corpus instead of aclImdb")
     g.add_argument("--synthetic_size", type=int, default=2048)
+    g.add_argument("--bucket_widths", type=int, nargs="+", default=None,
+                   help="pad each batch to the smallest of these sequence widths that holds "
+                        "it (max_seq_len is always the last); combine with "
+                        "--length_sort_window")
+    g.add_argument("--length_sort_window", type=int, default=8,
+                   help="with --bucket_widths: sort examples by length within windows of "
+                        "this many batches (their order re-shuffled; 0 = off)")
+
+
+def data_module(args):
+    """The IMDB data module of the parsed flags, set up."""
+    from perceiver_io_torch.data.imdb import IMDBDataModule
+
+    data = IMDBDataModule(root=args.root, max_seq_len=args.max_seq_len,
+                          vocab_size=args.vocab_size, batch_size=args.batch_size,
+                          synthetic=args.synthetic, synthetic_size=args.synthetic_size,
+                          seed=args.seed, bucket_widths=args.bucket_widths,
+                          length_sort_window=args.length_sort_window)
+    data.prepare_data()
+    data.setup()
+    return data
 
 
 def check_attn_impl(args) -> None:
@@ -104,11 +154,71 @@ def check_attn_impl(args) -> None:
             f"distribution slice); the port trains with {', '.join(ATTN_IMPLS)}")
 
 
-def trainer_config(args, experiment: str) -> TrainerConfig:
+def trainer_config(args) -> TrainerConfig:
     """Logs go to ``<logdir>/<experiment>/version_n``."""
-    return TrainerConfig(max_steps=args.max_steps, log_every_n_steps=args.log_every_n_steps,
-                         eval_every_n_steps=args.eval_every_n_steps,
-                         logdir=os.path.join(args.logdir, experiment))
+    return TrainerConfig(
+        max_epochs=args.max_epochs, max_steps=args.max_steps,
+        log_every_n_steps=args.log_every_n_steps, eval_every_n_steps=args.eval_every_n_steps,
+        logdir=args.logdir, experiment=args.experiment, max_to_keep=args.max_to_keep,
+        use_tensorboard=not args.no_tensorboard,
+        skip_nonfinite_steps=args.skip_nonfinite_steps,
+        rollback_after_bad_steps=args.rollback_after_bad_steps,
+        dispatch_error_retries=args.dispatch_error_retries, fit_attempts=args.fit_attempts)
+
+
+def run_fit(trainer, train_loader, val_loader=None):
+    """``trainer.fit``, under the ``fit_with_recovery`` supervisor when the
+    config asks for more than one attempt."""
+    if trainer.config.fit_attempts > 1:
+        return trainer.fit_with_recovery(train_loader, val_loader)
+    return trainer.fit(train_loader, val_loader)
+
+
+# flags that describe where this invocation runs, not the recipe: a resume
+# never takes them from the resumed run's hparams
+_ENV_FLAGS = {"resume", "cpu"}
+
+
+def parse_with_resume(parser: argparse.ArgumentParser, argv):
+    """Parse ``argv``; with ``--resume RUN_DIR``, parse again with the
+    resumed run's hparams as the parser's defaults, so every flag of the
+    original run comes back (the model's shapes, the optimizer's structure)
+    while the flags given on this command line win. ``--resume`` itself (and
+    ``--cpu``) never comes from the hparams."""
+    args = parser.parse_args(argv)
+    if not getattr(args, "resume", None):
+        return args
+    try:
+        hparams = load_hparams(os.path.join(args.resume, "checkpoints"))
+    except (FileNotFoundError, NotADirectoryError):
+        raise SystemExit(_nothing_to_resume(args.resume)) from None
+    known = vars(args)
+    parser.set_defaults(**{k: v for k, v in hparams.items()
+                           if k in known and k not in _ENV_FLAGS})
+    args = parser.parse_args(argv)
+    args.resume = os.path.abspath(known["resume"])
+    return args
+
+
+def _nothing_to_resume(path: str) -> str:
+    return (f"--resume {path}: no usable checkpoint under {path}/checkpoints: the run was "
+            f"probably stopped before its first checkpoint (start fresh without --resume), "
+            f"or the path is not a run directory (the version_N dir holding checkpoints/)")
+
+
+def resume_state(args, state):
+    """After the fresh train state is built: with ``--resume``, restore the
+    newest checkpoint of the run into it (the ``last/`` slot when it is the
+    newest). Returns ``(state, run_dir)``: the resumed directory, or None
+    for a fresh run."""
+    if not getattr(args, "resume", None):
+        return state, None
+    try:
+        restore_train_state(os.path.join(args.resume, "checkpoints"), state,
+                            prefer_latest=True)
+    except (FileNotFoundError, NotADirectoryError):
+        raise SystemExit(_nothing_to_resume(args.resume)) from None
+    return state, args.resume
 
 
 def optimizer_from_args(args, params):

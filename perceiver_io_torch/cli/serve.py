@@ -6,7 +6,9 @@
     python -m perceiver_io_torch.cli.serve --task generate --preset flagship_ar \\
         --init_seed 0 --dtype bfloat16 --tokenizer tokenizer.json --texts "a movie"
 
-Weights come from ``--params_npz`` (a flax param tree flattened to
+Weights come from ``--checkpoint`` (a train CLI's ``<run dir>/checkpoints``:
+the model rebuilt from its hparams, the best step by val_loss or
+``--step``), from ``--params_npz`` (a flax param tree flattened to
 ``/``-joined paths) or are drawn from ``--init_seed``. Fill-mask: each text
 holding the ``[MASK]`` literal prints as one JSON line ``{"text", "fills"}``.
 Generation: each prompt prints as one JSON line ``{"text",
@@ -27,7 +29,12 @@ import torch
 
 from perceiver_io_torch.data.tokenizer import load_tokenizer
 from perceiver_io_torch.inference.engine import MLMServer
-from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig
+from perceiver_io_torch.inference.generate import (
+    ARGenerator,
+    SamplingConfig,
+    load_ar_checkpoint,
+)
+from perceiver_io_torch.inference.mlm import load_mlm_checkpoint
 from perceiver_io_torch.interop import load_params_npz
 from perceiver_io_torch.models.presets import AR_PRESETS, PRESETS
 
@@ -43,8 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="model configuration (default: flagship_tpu_mlm for "
                              "--task mlm, flagship_ar for --task generate)")
     weights = parser.add_mutually_exclusive_group(required=True)
+    weights.add_argument("--checkpoint", metavar="DIR",
+                         help="a train run's checkpoints/ dir (the model from its hparams)")
     weights.add_argument("--params_npz", help="param tree flattened to '/'-joined paths")
     weights.add_argument("--init_seed", type=int, help="draw random weights from this seed")
+    parser.add_argument("--step", type=int, default=None,
+                        help="with --checkpoint: the step to serve (default: best by "
+                             "val_loss)")
     parser.add_argument("--tokenizer", default=None,
                         help="tokenizer json (needed by --task mlm; without it "
                              "--task generate reads and prints token ids)")
@@ -57,8 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="micro-batch cap (power-of-two buckets below it)")
     parser.add_argument("--bucket_widths", type=int, nargs="+", default=None,
                         help="sequence-width serving buckets")
-    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                        help="serving compute dtype")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
+                        help="serving compute dtype: bfloat16 casts the weights once; "
+                             "default float32, or with --checkpoint the dtype the run "
+                             "trained in, over its f32 weights as they were saved")
     parser.add_argument("--quantize", choices=("none", "int8", "int4"), default="none",
                         help="weight-only quantization of the matmul kernels")
     parser.add_argument("--group_size", type=int, default=None,
@@ -83,22 +97,32 @@ def _texts(args) -> list:
     return [t for t in texts if t]
 
 
-def main(argv: Optional[Sequence[str]] = None):
-    args = build_parser().parse_args(argv)
+def _model_and_params(args, tokenizer, dtype, device):
+    """The model and its flat params tree (None: the model's own weights)."""
+    if args.checkpoint is not None:
+        load = load_ar_checkpoint if args.task == "generate" else load_mlm_checkpoint
+        model, params, _ = load(args.checkpoint, tokenizer, step=args.step,
+                                dtype=args.dtype, device=device)
+        return model, params
     preset = args.preset or DEFAULT_PRESETS[args.task]
     if (preset in AR_PRESETS) != (args.task == "generate"):
         raise SystemExit(f"preset {preset!r} does not serve --task {args.task}")
+    model = PRESETS[preset](
+        dtype=dtype, device=device,
+        **({} if args.init_seed is None else {"seed": args.init_seed}))
+    return model, None if args.params_npz is None else load_params_npz(args.params_npz)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = build_parser().parse_args(argv)
     if args.task == "mlm" and args.tokenizer is None:
         raise SystemExit("--task mlm needs --tokenizer")
     if not (args.stdin or args.texts):
         raise SystemExit("nothing to serve: pass --stdin or --texts")
     device = "cpu" if args.cpu else None
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32  # the presets
     tokenizer = None if args.tokenizer is None else load_tokenizer(args.tokenizer)
-    model = PRESETS[preset](
-        dtype=dtype, device=device,
-        **({} if args.init_seed is None else {"seed": args.init_seed}))
-    params = None if args.params_npz is None else load_params_npz(args.params_npz)
+    model, params = _model_and_params(args, tokenizer, dtype, device)
     mode = dict(compute_dtype="bfloat16" if args.dtype == "bfloat16" else None,
                 quantize=None if args.quantize == "none" else args.quantize,
                 group_size=args.group_size, device=device)

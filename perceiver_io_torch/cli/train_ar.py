@@ -17,10 +17,17 @@ learned, as the JAX CLI builds it. ``--attn_impl`` defaults to the presets'
 offset (the forward and both backward kernels); ``packed`` takes no causal
 offset and raises ``ValueError``. ``--dropout`` and the optimizer flags are
 the MLM CLI's; ``--remat`` and ``--no_reuse_kv`` are accepted and, as in the
-JAX CLI, do not touch the AR model. Runs on the CUDA card; ``--cpu`` runs the
-kernels' plain versions. Writes ``metrics.jsonl`` under
-``<logdir>/ar/version_n``. The JAX CLI's sample hook
-(``--sample_prefix_len``, ``--sample_new_tokens``) is not ported.
+JAX CLI, do not touch the AR model. After each validation the sample hook
+continues the first ``--sample_prefix_len`` tokens of the first validation
+row by ``--sample_new_tokens`` greedy tokens through ``ARGenerator`` and logs
+them as a ``continuation`` text row. ``--bucket_widths`` pads each batch to
+its bucket, so a short review's latent window covers its text (at
+``--max_seq_len 512`` without buckets the synthetic reviews leave the window
+all padding). Runs on the CUDA card; ``--cpu`` runs the kernels' plain
+versions. Writes ``metrics.jsonl`` and ``checkpoints/`` under
+``<logdir>/<experiment>/version_n`` (experiment ``ar``); ``--resume <that
+dir>`` continues the run, and ``cli.serve --task generate --checkpoint <that
+dir>/checkpoints`` serves it.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+import numpy as np
+
 from perceiver_io_torch.cli import common
-from perceiver_io_torch.data.imdb import IMDBDataModule
 from perceiver_io_torch.device import resolve_device
+from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig
 from perceiver_io_torch.training.steps import make_ar_steps
 from perceiver_io_torch.training.train_state import TrainState
 from perceiver_io_torch.training.trainer import Trainer
@@ -60,35 +69,65 @@ def build_parser() -> argparse.ArgumentParser:
     g = parser.add_argument_group("task (AR generation)")
     g.add_argument("--preset", choices=sorted(PRESET_DEFAULTS), default="reference",
                    help="model-width preset; explicit width flags override")
+    g.add_argument("--sample_prefix_len", type=int, default=16,
+                   help="after each validation, continue this many tokens of the first "
+                        "validation row (0 disables the hook)")
+    g.add_argument("--sample_new_tokens", type=int, default=12)
+    parser.set_defaults(experiment="ar")
     return parser
+
+
+def make_sample_hook(collator, prefix_len: int, new_tokens: int, example_ids: np.ndarray):
+    """The sample hook: greedy-continue the first ``prefix_len`` tokens of
+    ``example_ids`` (pad id 0 dropped) by ``new_tokens`` through
+    ``ARGenerator`` over the state's model, logged as a ``continuation``
+    text row."""
+    if prefix_len <= 0 or new_tokens <= 0:
+        return None
+    prefix = [int(t) for t in example_ids[:prefix_len] if int(t) != 0]
+    if len(prefix) < 2:
+        return None
+    tokenizer = collator.tokenizer
+
+    def hook(state, logger, step):
+        gen = ARGenerator(state.model, None, max_seq_len=collator.max_seq_len,
+                          chunk=min(8, new_tokens),
+                          device=next(state.model.parameters()).device)
+        tokens, _ = gen.generate(prefix, new_tokens, SamplingConfig())
+        text = " ".join(tokenizer.id_to_token(int(t)) for t in tokens)
+        logger.log_text("continuation", step, f"prefix({len(prefix)} toks) → {text}")
+
+    return hook
 
 
 def prepare(argv: Optional[Sequence[str]] = None):
     """The run ``main`` fits, built from ``argv`` and not yet started:
-    ``(trainer, data)``, the data module set up."""
-    args = apply_preset(build_parser().parse_args(argv))
+    ``(trainer, data)``, the data module set up and, with ``--resume``, the
+    train state restored."""
+    args = apply_preset(common.parse_with_resume(build_parser(), argv))
     common.check_attn_impl(args)
     device = resolve_device("cpu" if args.cpu else None)
-
-    data = IMDBDataModule(root=args.root, max_seq_len=args.max_seq_len,
-                          vocab_size=args.vocab_size, batch_size=args.batch_size,
-                          synthetic=args.synthetic, synthetic_size=args.synthetic_size,
-                          seed=args.seed)
-    data.prepare_data()
-    data.setup()
+    data = common.data_module(args)
 
     model = common.build_ar(args, data.tokenizer.get_vocab_size(), args.max_seq_len, device)
     optimizer, schedule = common.optimizer_from_args(args, model.parameters())
     state = TrainState.create(model, optimizer, schedule, seed=args.seed + 2)
+    state, resume_dir = common.resume_state(args, state)
     train_step, eval_step, _ = make_ar_steps(model, schedule)
-    trainer = Trainer(train_step, eval_step, state, common.trainer_config(args, "ar"),
-                      tokens_per_example=args.max_seq_len)
+    example = next(iter(data.val_dataloader()))
+    trainer = Trainer(train_step, eval_step, state, common.trainer_config(args),
+                      tokens_per_example=args.max_seq_len, hparams=vars(args),
+                      predict_hook=make_sample_hook(data.collator, args.sample_prefix_len,
+                                                    args.sample_new_tokens,
+                                                    np.asarray(example["token_ids"][0])),
+                      run_dir=resume_dir)
     return trainer, data
 
 
 def main(argv: Optional[Sequence[str]] = None):
     trainer, data = prepare(argv)
-    trainer.fit(data.train_dataloader(), data.val_dataloader())
+    with trainer:
+        common.run_fit(trainer, data.train_dataloader(), data.val_dataloader())
     return trainer.run_dir
 
 

@@ -4,10 +4,13 @@
   labelled word soup, the same texts from the same seed;
 - ``load_split``: the ``<root>/IMDB/aclImdb/{split}/{neg,pos}/*.txt`` tree,
   read where it exists (there is no download);
-- ``Collator``: pad/truncate to ``max_seq_len``; ids, pad mask, label;
+- ``Collator``: pad/truncate to ``max_seq_len``, or to the smallest of
+  ``bucket_widths`` holding the batch; ids, pad mask, label;
 - ``IMDBDataModule``: trains and caches the WordPiece tokenizer under
   ``root`` on first use and serves the train / validation loaders, with a
-  ``synthetic`` mode. Width buckets and multi-host sharding are not ported.
+  ``synthetic`` mode and width buckets (``bucket_widths``, with
+  ``length_sort_window`` for the train loader). Multi-host sharding is not
+  part of the port.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from perceiver_io_torch.data.pipeline import DataLoader
+from perceiver_io_torch.data.pipeline import DataLoader, resolve_bucket_width
 from perceiver_io_torch.data.tokenizer import (
     PAD_TOKEN,
     WordPieceTokenizer,
@@ -100,20 +103,43 @@ class IMDBDataset:
 
 class Collator:
     """Pad/truncate to ``max_seq_len``: ``{'label', 'token_ids', 'pad_mask'}``
-    numpy arrays, ``pad_mask = token_ids == pad_id``."""
+    numpy arrays, ``pad_mask = token_ids == pad_id``.
 
-    def __init__(self, tokenizer: WordPieceTokenizer, max_seq_len: int):
+    ``bucket_widths``: each batch is padded to the smallest of these widths
+    that holds its longest (truncated) sequence instead of to
+    ``max_seq_len``, which is always the last bucket."""
+
+    def __init__(self, tokenizer: WordPieceTokenizer, max_seq_len: int,
+                 bucket_widths: Optional[Sequence[int]] = None):
         self.tokenizer = tokenizer
         self.max_seq_len = max_seq_len
         self.pad_id = tokenizer.token_to_id(PAD_TOKEN)
+        self.bucket_widths: Optional[List[int]] = None
+        if bucket_widths:
+            widths = sorted({int(w) for w in bucket_widths})
+            if widths[0] <= 0 or widths[-1] > max_seq_len:
+                raise ValueError(f"bucket_widths must lie in [1, max_seq_len={max_seq_len}], "
+                                 f"got {widths}")
+            if widths[-1] != max_seq_len:
+                widths.append(max_seq_len)
+            self.bucket_widths = widths
         tokenizer.enable_truncation(max_seq_len)
 
-    def collate(self, batch: Sequence[Tuple[int, str]]) -> Dict[str, np.ndarray]:
+    def collate(self, batch: Sequence[Tuple[int, str]],
+                width: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """``width``: the bucket width the loader decided for the batch; None
+        decides it here from the encoded lengths (``max_seq_len`` without
+        buckets)."""
         labels = np.asarray([y for y, _ in batch], dtype=np.int32)
         encoded = self.tokenizer.encode_batch([x for _, x in batch])
-        ids = np.full((len(batch), self.max_seq_len), self.pad_id, dtype=np.int32)
+        if width is None:
+            width = self.max_seq_len
+            if self.bucket_widths is not None:
+                longest = max((len(e) for e in encoded), default=1)
+                width = resolve_bucket_width(longest, self.bucket_widths)
+        ids = np.full((len(batch), width), self.pad_id, dtype=np.int32)
         for i, e in enumerate(encoded):
-            ids[i, : min(len(e), self.max_seq_len)] = e[: self.max_seq_len]
+            ids[i, : min(len(e), width)] = e[:width]
         return {"label": labels, "token_ids": ids, "pad_mask": ids == self.pad_id}
 
 
@@ -121,11 +147,16 @@ class IMDBDataModule:
     """``prepare_data`` / ``setup`` / loaders, as the JAX package's module:
     the same tokenizer file name under ``root``, the same synthetic splits
     (``synthetic_size`` train texts from ``seed``, an eighth of that, at
-    least 64, for validation from ``seed + 1``)."""
+    least 64, for validation from ``seed + 1``). With ``bucket_widths`` the
+    train loader sorts by token length within windows of
+    ``length_sort_window`` batches and both loaders collate each batch at its
+    bucket width, decided from the split's token lengths."""
 
     def __init__(self, root: str = ".cache", max_seq_len: int = 512,
                  vocab_size: int = 10003, batch_size: int = 64, synthetic: bool = False,
-                 synthetic_size: int = 2048, seed: int = 0):
+                 synthetic_size: int = 2048, seed: int = 0,
+                 bucket_widths: Optional[Sequence[int]] = None,
+                 length_sort_window: int = 8):
         self.root = root
         self.max_seq_len = max_seq_len
         self.vocab_size = vocab_size
@@ -133,6 +164,10 @@ class IMDBDataModule:
         self.synthetic = synthetic
         self.synthetic_size = synthetic_size
         self.seed = seed
+        self.bucket_widths = bucket_widths
+        self.length_sort_window = length_sort_window
+        self._train_token_lengths: Optional[np.ndarray] = None
+        self._valid_token_lengths: Optional[np.ndarray] = None
         suffix = "synthetic-" if synthetic else ""
         self.tokenizer_path = os.path.join(root, f"imdb-{suffix}tokenizer-{vocab_size}.json")
         self.tokenizer: Optional[WordPieceTokenizer] = None
@@ -160,14 +195,38 @@ class IMDBDataModule:
 
     def setup(self) -> None:
         self.tokenizer = load_tokenizer(self.tokenizer_path)
-        self.collator = Collator(self.tokenizer, self.max_seq_len)
+        self.collator = Collator(self.tokenizer, self.max_seq_len,
+                                 bucket_widths=self.bucket_widths)
         self.ds_train = IMDBDataset(*self._train_texts())
         self.ds_valid = IMDBDataset(*self._valid_texts())
+        if self.bucket_widths:
+            # the token lengths of the train split: the sort key and the
+            # loader's width oracle
+            self._train_token_lengths = np.asarray(
+                [len(e) for e in self.tokenizer.encode_batch(self.ds_train.texts)],
+                dtype=np.int64)
+
+    def _valid_lengths(self) -> np.ndarray:
+        """The validation split's token lengths, computed on first use."""
+        if self._valid_token_lengths is None:
+            self._valid_token_lengths = np.asarray(
+                [len(e) for e in self.tokenizer.encode_batch(self.ds_valid.texts)],
+                dtype=np.int64)
+        return self._valid_token_lengths
 
     def train_dataloader(self) -> DataLoader:
+        buckets = {}
+        if self.bucket_widths:
+            buckets = dict(sort_key=self._train_token_lengths,
+                           sort_window=self.length_sort_window,
+                           group_widths=self.collator.bucket_widths)
         return DataLoader(self.ds_train, self.batch_size, self.collator.collate,
-                          shuffle=True, seed=self.seed)
+                          shuffle=True, seed=self.seed, **buckets)
 
     def val_dataloader(self) -> DataLoader:
+        buckets = {}
+        if self.bucket_widths:
+            buckets = dict(sort_key=self._valid_lengths(),
+                           group_widths=self.collator.bucket_widths)
         return DataLoader(self.ds_valid, self.batch_size, self.collator.collate,
-                          shuffle=False, drop_last=False)
+                          shuffle=False, drop_last=False, **buckets)

@@ -25,8 +25,9 @@ engine around that pair:
   continuation re-prefills from the extended prefix at the next width of
   the fixed episode grid (:attr:`ARGenerator.widths`).
 
-The JAX engine's metrics (``obs``), fault injection, ``GenerateSessionStore``
-and ``load_ar_checkpoint`` are not ported (ROADMAP).
+:func:`load_ar_checkpoint` rebuilds a trained model from its checkpoint.
+The JAX engine's metrics (``obs``), fault injection and
+``GenerateSessionStore`` are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -255,3 +256,22 @@ class ARGenerator:
             session = self.start([0] * max(1, w - self.capacity + 1), seed=sampling.seed)
             self.decode_chunk(session, sampling, n_steps=1)
         return len(self.widths)
+
+
+def load_ar_checkpoint(checkpoint_dir: str, tokenizer=None, step: Optional[int] = None,
+                       dtype: Optional[str] = None, device=None):
+    """Rebuild a ``PerceiverARLM`` from the hparams embedded in a
+    ``cli/train_ar.py`` checkpoint and restore its best (or chosen) step:
+    ``(model, params, max_seq_len)``, as ``inference.mlm.load_mlm_checkpoint``
+    does for the MLM."""
+    from perceiver_io_torch.cli import common
+    from perceiver_io_torch.inference.mlm import checkpoint_args, checkpoint_vocab
+    from perceiver_io_torch.training.checkpoint import restore_params
+
+    args, hparams = checkpoint_args(checkpoint_dir, dtype)
+    max_seq_len = hparams["max_seq_len"]
+    vocab = checkpoint_vocab(checkpoint_dir, tokenizer, step,
+                             "input_adapter/text_embedding/embedding")
+    model = common.build_ar(args, vocab, max_seq_len, device)
+    params = restore_params(checkpoint_dir, param_tree(model), step=step)
+    return model, params, max_seq_len

@@ -1,10 +1,12 @@
 """Fill-mask inference (the port's ``perceiver_io_tpu/inference/mlm.py``):
 tokenize texts holding the ``[MASK]`` literal, decode only the mask
-positions, and return the top-k tokens per mask."""
+positions, and return the top-k tokens per mask; rebuild a trained MLM
+from its checkpoint (:func:`load_mlm_checkpoint`)."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from types import SimpleNamespace
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,6 +51,58 @@ def top_k_tokens(tokenizer: WordPieceTokenizer, logits: np.ndarray,
     """Per row of (K, vocab) ``logits``, the ``k`` highest-scoring tokens."""
     return [[tokenizer.id_to_token(int(t)) for t in np.argsort(-row)[:k]]
             for row in np.asarray(logits, np.float32)]
+
+
+# flags a checkpoint may lack, and the defaults it is rebuilt with: float32
+# is the parity path (the train CLI's default compute dtype is bf16)
+CHECKPOINT_DEFAULTS = {"dtype": "float32", "attn_impl": "auto", "remat": False, "dropout": 0.0,
+                       "seed": 0, "pad_vocab_multiple": None, "no_reuse_kv": False}
+
+
+def checkpoint_args(checkpoint_dir: str,
+                    dtype: Optional[str]) -> Tuple[SimpleNamespace, Dict[str, Any]]:
+    """The train CLI's flags recorded in a checkpoint's ``hparams.json``
+    over :data:`CHECKPOINT_DEFAULTS`, with ``dtype`` overriding the compute
+    dtype; and the hparams."""
+    from perceiver_io_torch.training.checkpoint import load_hparams
+
+    hparams = load_hparams(checkpoint_dir)
+    args = SimpleNamespace(**{**CHECKPOINT_DEFAULTS, **hparams})
+    if dtype is not None:
+        args.dtype = dtype
+    return args, hparams
+
+
+def checkpoint_vocab(checkpoint_dir: str, tokenizer, step: Optional[int],
+                     embedding_path: str) -> int:
+    """The vocab size to rebuild a checkpoint's model at: the tokenizer's,
+    or without one the saved embedding's rows."""
+    if tokenizer is not None:
+        return tokenizer.get_vocab_size()
+    from perceiver_io_torch.training.checkpoint import restore_raw_params
+
+    return int(restore_raw_params(checkpoint_dir, step)[0][embedding_path].shape[0])
+
+
+def load_mlm_checkpoint(checkpoint_dir: str, tokenizer=None, step: Optional[int] = None,
+                        dtype: Optional[str] = None, device=None):
+    """Rebuild a ``PerceiverMLM`` from the hparams embedded in a
+    ``cli/train_mlm.py`` checkpoint and restore its best (or chosen) step:
+    ``(model, params, max_seq_len)``, ``params`` the flat f32 tree
+    ``MLMServer`` takes. ``dtype`` overrides the compute dtype (float32
+    unless the checkpoint or the caller says otherwise); the vocab is the
+    tokenizer's, or without one the checkpoint's."""
+    from perceiver_io_torch.cli import common
+    from perceiver_io_torch.interop import param_tree
+    from perceiver_io_torch.training.checkpoint import restore_params
+
+    args, hparams = checkpoint_args(checkpoint_dir, dtype)
+    max_seq_len = hparams["max_seq_len"]
+    vocab = checkpoint_vocab(checkpoint_dir, tokenizer, step,
+                             "encoder/input_adapter/text_embedding/embedding")
+    model = common.build_mlm(args, vocab, max_seq_len, device)
+    params = restore_params(checkpoint_dir, param_tree(model), step=step)
+    return model, params, max_seq_len
 
 
 class MLMPredictor:

@@ -1,5 +1,6 @@
-"""Training: losses, optimizer, train state, step builders, trainer."""
+"""Training: losses, optimizer, train state, step builders, trainer,
+checkpoints and metrics logging."""
 
-from perceiver_io_torch.training.steps import make_ar_steps, make_mlm_steps
+from perceiver_io_torch.training.steps import make_ar_steps, make_guarded_step, make_mlm_steps
 
-__all__ = ["make_ar_steps", "make_mlm_steps"]
+__all__ = ["make_ar_steps", "make_guarded_step", "make_mlm_steps"]

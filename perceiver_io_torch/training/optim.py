@@ -122,7 +122,7 @@ class NAdam(torch.optim.Optimizer):
                 state = self.state[p]
                 if not state:
                     state["step"] = 0
-                    state["mu_product"] = np.float32(1.0)
+                    state["mu_product"] = 1.0  # an f32 value, kept as a Python float
                     state["exp_avg"] = torch.zeros_like(p)
                     state["exp_avg_sq"] = torch.zeros_like(p)
                 state["step"] += 1
@@ -131,8 +131,8 @@ class NAdam(torch.optim.Optimizer):
                     t * np.float32(psi)))
                 mu_next = np.float32(b1) * (np.float32(1) - np.float32(0.5) * np.float32(
                     0.96) ** ((t + np.float32(1)) * np.float32(psi)))
-                mu_product = state["mu_product"] * mu_t
-                state["mu_product"] = mu_product
+                mu_product = np.float32(state["mu_product"]) * mu_t
+                state["mu_product"] = float(mu_product)  # exact: state_dict round-trips it
                 m, v = state["exp_avg"], state["exp_avg_sq"]
                 m.mul_(b1).add_(g, alpha=1 - b1)
                 v.mul_(b2).addcmul_(g, g, value=1 - b2)
@@ -195,7 +195,9 @@ class MultiSteps:
     mean (``acc += (g − acc) / (n + 1)``); on the k-th call it sets the mean
     as the gradients, runs the inner optimizer's step (its state advances
     only then) and starts a new mean. ``param_groups`` are the inner
-    optimizer's, so the lr set on them reaches it."""
+    optimizer's, so the lr set on them reaches it. :meth:`state_dict` holds
+    the inner optimizer's with the running mean and its count, so a save
+    inside an accumulation window resumes exactly."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, k: int):
         self.optimizer = optimizer
@@ -210,6 +212,20 @@ class MultiSteps:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.optimizer.state_dict(), "mini_step": self.mini_step,
+                "acc": list(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: dict) -> None:
+        if len(state_dict["acc"]) != len(self.acc):
+            raise ValueError(f"MultiSteps state holds {len(state_dict['acc'])} running "
+                             f"means for {len(self.acc)} parameters")
+        self.optimizer.load_state_dict(state_dict["optimizer"])
+        for acc, saved in zip(self.acc, state_dict["acc"]):
+            acc.copy_(saved)
+        self.mini_step = int(state_dict["mini_step"])
 
     @torch.no_grad()
     def step(self) -> None:

@@ -1,6 +1,6 @@
 """MLM and Perceiver-AR step builders (the counterpart of
 ``perceiver_io_tpu/training/steps.py``: ``mlm_gather_capacity``,
-``make_mlm_steps``, ``make_ar_steps``).
+``make_mlm_steps``, ``make_ar_steps``, ``make_guarded_step``).
 
 Batches are dicts with ``token_ids`` (B, L) int and ``pad_mask`` (B, L)
 bool, as numpy arrays or tensors; the steps move them to the model's device.
@@ -40,17 +40,46 @@ def _batch_to(batch, device) -> Tuple[torch.Tensor, torch.Tensor]:
             pad.to(device, dtype=torch.bool, non_blocking=True))
 
 
-def _update(state: TrainState, schedule, compute_loss) -> Tuple[TrainState, Metrics]:
+def _update(state: TrainState, schedule, compute_loss,
+            guard: bool = False) -> Tuple[TrainState, Metrics]:
     """One optimizer step on the loss ``compute_loss()`` returns; metrics
     ``loss`` (a device scalar, fetched by the caller when it logs) and,
     given ``schedule``, ``lr``. The gradients stay on the parameters until
-    the next step."""
+    the next step.
+
+    ``guard``: between the backward and the update, read on the host
+    whether the loss and the gradients are finite (one sync a step); if
+    not, skip the update, so the parameters, the optimizer's state (the
+    ``MultiSteps`` accumulator included) and ``state.step`` stay as they
+    were before the step. The metrics then gain ``bad_step`` (0 or 1)."""
     metrics = {} if schedule is None else {"lr": schedule(state.step)}
     state.optimizer.zero_grad(set_to_none=True)
     loss = compute_loss()
     loss.backward()
+    metrics = {"loss": loss.detach(), **metrics}
+    if guard:
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        finite = torch.isfinite(loss.detach().float())
+        if grads:
+            finite &= torch.isfinite(torch.stack(torch._foreach_norm(grads)).float().sum())
+        metrics["bad_step"] = int(not bool(finite))
+        if metrics["bad_step"]:
+            return state, metrics
     state.apply_gradients()
-    return state, {"loss": loss.detach(), **metrics}
+    return state, metrics
+
+
+def make_guarded_step(train_step: Callable) -> Callable:
+    """``train_step`` with the non-finite guard of :func:`_update` on: a step
+    whose loss or gradients are not finite leaves the state as it was, and
+    the metrics carry ``bad_step`` (the JAX package's ``make_guarded_step``;
+    the port updates in place, so the guard sits inside the step, before
+    the update, instead of selecting between two states after it)."""
+
+    def guarded(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+        return train_step(state, batch, guard=True)
+
+    return guarded
 
 
 def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
@@ -63,7 +92,8 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
       backward, one optimizer update (with ``accumulate_steps``, one
       micro-step of it); metrics ``loss`` (a device scalar, fetched by the
       caller when it logs) and, given ``schedule``, ``lr``. The gradients
-      stay on the parameters until the next step.
+      stay on the parameters until the next step. ``guard=True`` skips a
+      non-finite step (:func:`make_guarded_step`).
     - ``eval_step(state, batch, generator) -> metrics``: the same loss on a
       masking drawn from ``generator``, without dropout or gradients.
     - ``predict_fn(model, token_ids, pad_mask, positions=None)``: the
@@ -96,9 +126,10 @@ def make_mlm_steps(model, schedule: Optional[Callable[[int], float]] = None,
                                                            linear_ce=adapter.linear_ce)
         return fused_linear_cross_entropy_with_ignore(out, kernel, bias, labels)
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
+    def train_step(state: TrainState, batch, guard: bool = False
+                   ) -> Tuple[TrainState, Metrics]:
         return _update(state, schedule, lambda: loss_fn(
-            batch, state.step_generator(device), state.step_dropout_key()))
+            batch, state.step_generator(device), state.step_dropout_key()), guard)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator: torch.Generator) -> Metrics:
@@ -136,8 +167,10 @@ def make_ar_steps(model, schedule: Optional[Callable[[int], float]] = None,
         o = ids.shape[1] - logits.shape[1] if latent_offset is None else latent_offset
         return cross_entropy_with_ignore(logits, shift_ar_labels(ids, pad, o))
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, Metrics]:
-        return _update(state, schedule, lambda: loss_fn(batch, state.step_dropout_key()))
+    def train_step(state: TrainState, batch, guard: bool = False
+                   ) -> Tuple[TrainState, Metrics]:
+        return _update(state, schedule, lambda: loss_fn(batch, state.step_dropout_key()),
+                       guard)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None

@@ -86,11 +86,12 @@ def test_cli_trains_through_the_causal_kernels(tmp_path):
     """``--attn_impl pallas``: every attention call of the run goes through
     the kernels' causal path (their plain versions on the CPU), 5 causal
     backward calls a step (2 cross, 2 self and the decode at this depth),
-    and none through the einsum path."""
+    and none through the einsum path (the sample hook, whose decode steps
+    attend with the pad mask alone, is off)."""
     for c in (ak.counter, ak.causal_counter, ak.dq_counter, ak.dq_causal_counter,
               pat.xla_counter):
         c.reset()
-    run_dir = train_ar.main(BOTH + ["--cpu", "--attn_impl", "pallas",
+    run_dir = train_ar.main(BOTH + ["--cpu", "--attn_impl", "pallas", "--sample_prefix_len", "0",
                                     "--root", str(tmp_path), "--logdir", str(tmp_path / "logs")])
     rows = [json.loads(line) for line in open(f"{run_dir}/metrics.jsonl")]
     assert np.isfinite([r["train_loss"] for r in rows if "train_loss" in r]).all()
@@ -118,7 +119,8 @@ def test_cli_presets_and_refusals(tmp_path):
         c.reset()
     run_dir = train_ar.main(tiny + ["--dropout", "0.1", "--attn_impl", "pallas"])
     rows = [json.loads(line) for line in open(f"{run_dir}/metrics.jsonl")]
-    assert np.isfinite([r.get("train_loss", r.get("val_loss")) for r in rows]).all()
+    assert np.isfinite([r.get("train_loss", r.get("val_loss")) for r in rows
+                        if "tag" not in r]).all()  # text rows: the sample hook
     # one training forward on the einsum path (2 cross + 2 self + the
     # decode), validation's forwards on the causal kernel, no kernel backward
     assert pat.xla_counter.calls == 5 and ak.dq_causal_counter.plain_calls == 0

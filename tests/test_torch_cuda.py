@@ -859,6 +859,8 @@ CAUSAL_SHAPES = {
     "step_511": (3, 1, 511, 2, 510, 0),
     "visible_all_padding": (3, 64, 200, 2, 8, 80),
     "left_padded_self": (3, 130, 130, 2, 0, 70),
+    # a bucketed batch narrower than the latents: the window is the batch
+    "bucket_128_window": (4, 128, 128, 2, 0, 0),
 }
 
 
@@ -892,6 +894,29 @@ def test_causal_attention_matches_plain(card, dtype, d, shape):
     torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
     if head:
         assert (m[-1, :, : head - off] == ak.MASK_VALUE).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [128, 256])
+def test_bucket_width_cross_matches_plain(card, dtype, s):
+    """The encoder cross at the bucket widths 128 and 256 (256 latents, D=128,
+    ~30% of keys padded): the forward, its statistics and the backward
+    kernels against the plain versions."""
+    b, t, h, d = 4, 256, 2, 128
+    g = torch.Generator().manual_seed(s + 7)
+    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(card, dtype) for n in (t, s, s, t))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    pad[:, 0] = False
+    pad = pad.to(card)
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad)
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(m, ref_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
+    got = ak.attention_bwd(q, k, v, pad, ref_out, ref_m, ref_l, go)
+    ref = ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m, ref_l, go)
+    for x, r in zip(got, ref):
+        _close(x, r, dtype, BWD_ATOL)
 
 
 def _causal_counters():
