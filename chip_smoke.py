@@ -15,7 +15,9 @@ Phases (any failure exits nonzero):
    padded, and at the D=16 ``flagship_mlm`` cross shape, in f32 (the scalar
    design) and bf16 (the wgmma design; each row logs its ``design``, and a
    bf16 call must advance the wgmma counter), with the host time of one
-   call; first, the host time of the C entry points alone, f32 against
+   call; then at every call phases 33 and 34 give the kernels
+   (``CLASSIFIER_SHAPES``), without the library's device time and the host
+   time; first, the host time of the C entry points alone, f32 against
    bf16 (whose design encodes TMA tensor maps at each launch: three for
    the forward, one for the dequant matmul);
 3. the attention backward at the training shapes (the encoder cross with
@@ -27,7 +29,7 @@ Phases (any failure exits nonzero):
    the forward's statistics (m, l) and the dq and dk/dv kernels against
    their plain versions, dq and dk of the fully masked example exactly
    zero; CUDA-event and profiler device times of each kernel and of SDPA's
-   backward;
+   backward; then at ``CLASSIFIER_SHAPES``, without SDPA's device time;
 4. the dequant-matmul kernel against its plain version (int8 per-channel,
    int4 group 128; bf16 and f32) at the self-attention projection
    (M=16384, K=N=512) and the vocab head (M=512, K=512, N=10003), and at
@@ -287,7 +289,27 @@ Phases (any failure exits nonzero):
     leaves the params and the optimizer's moments as they were, the second
     rolls back to the step-2 checkpoint, ``events`` rows say so and every
     later loss is finite; with ``--dispatch_error_retries 1`` one injected
-    ``ConnectionResetError`` gives a clean run's losses.
+    ``ConnectionResetError`` gives a clean run's losses;
+33. MNIST image classification: ``train_img_clf --synthetic`` at the
+    reference width (bf16, batch 128, 32 latents × 128 channels, 4 heads of
+    depth 32, 3 × (cross over 784 pixels of 131 channels + 3 self), ``auto``),
+    30 steps with validation every 15, in-process: every train step and eval
+    batch launches what the ``auto`` rule routes (12 #1, dq and dk/dv a step,
+    all wgmma: every encoder call; the one-query decoder on the einsum path),
+    the loss falls, the last ``val_acc`` is above chance (0.1); then the
+    images/s window and the profiled window (device ms a step, idle share);
+    three f32 steps with the kernels and with the plain versions in their
+    place (phase 9's bars);
+34. sequence classification and transfer over phase 29's root (its
+    tokenizer) and checkpoint (``flagship_tpu_mlm``, the classifier built at
+    its width from its hparams), batch 128, each step and eval batch checked
+    against the rule's routes: (a) ``--mlm_checkpoint --freeze_encoder``
+    (dropout 0.1): 21 #1 a step and no #2/#3, the encoder bit-equal to the
+    checkpoint's best step after the fit; (b) ``--mlm_checkpoint --dropout
+    0``: #1-#3 at every call, the one-query decoder included (B·H·S =
+    131072); (c) ``--clf_checkpoint`` of (b)'s run, 4 more steps from its
+    best step; (d) the CLI's defaults from scratch: training on the einsum
+    path, validation on #1.
 
 Phases 23 and 27 run ``train_ar`` with ``--sample_prefix_len 0`` (their
 checks count the training path's launches; phase 31 drives the hook);
@@ -303,9 +325,12 @@ script fails if any kernel was never launched. Its ``attention_fwd_causal``
 entry is #1's causal reading (phase 17's bf16 W=512 cross), with the causal
 launches of phases 18, 19 and 21; ``attention_bwd_dq_causal`` and
 ``attention_bwd_dkv_causal`` are phase 20's bf16 AR training cross, with
-phase 21's launches. Phase 26's launches count with the paths'. A failure prints one line on stdout naming the phase
-(``chip_smoke: failed in phase ...``) before the nonzero exit; a machine
-without a CUDA card, or a directory without the package, fails so too.
+phase 21's launches. Phase 26's launches count with the paths'. A failure
+prints one line on stdout naming the phase (``chip_smoke: failed in phase
+...``) before the nonzero exit; a machine without a CUDA card, or a
+directory without the package, fails so too. The ``done`` row gives each
+phase's wall seconds (``phase_s``) and each kernel row of phases 2 and 3
+its own (``row_s``).
 
 The script re-executes itself with ``PYTHONHASHSEED=0``: the WordPiece
 trainer's merge order follows string hashing, so the pin makes every run
@@ -392,11 +417,15 @@ AR_BWD_SHAPES = (("ar_cross", (64, 256, 512, 4, 128), 256),
                  ("ar_cross_511", (64, 256, 511, 4, 128), 255))
 AR_LEFT_PADDED = 4  # examples whose first rows see only padding (phase 20)
 phase_name = "start"  # the phase running now, named in a failure's stdout line
+phase_seconds = {}  # each phase's wall seconds, from its enter() to the next
+phase_start = time.perf_counter()
 
 
 def enter(name: str) -> None:
-    global phase_name
-    phase_name = name
+    global phase_name, phase_start
+    now = time.perf_counter()
+    phase_seconds[phase_name] = phase_seconds.get(phase_name, 0.0) + now - phase_start
+    phase_name, phase_start = name, now
 
 
 def log(**fields) -> None:
@@ -528,26 +557,56 @@ def entry_host_us(torch, build, calls: int = 200) -> None:
     log(phase="entry_host_us", calls=calls, **readings)
 
 
+def key_padding(torch, gen, padding, b: int, s: int):
+    """The (B, S) key mask of a kernel row on the card: None, ``"random"``
+    (~30% of keys) or ``"tail"`` (each example's tail from a random length,
+    as the encoder's token rows are); a padded one masks every key of its
+    last example."""
+    if padding is None:
+        return None
+    if padding == "random":
+        pad = torch.rand(b, s, generator=gen) < 0.3
+    else:
+        pad = torch.arange(s)[None, :] >= torch.randint(1, s + 1, (b, 1), generator=gen)
+    pad[-1] = True
+    return pad.cuda()
+
+
+# #1-#3 at the classifiers' calls (phases 33-34), name, (B, T, S, H, D),
+# padding: the MNIST encoder's cross over 784 unpadded pixels and its
+# self-attention at D=32, the reference-width text classifier's cross over
+# tail-padded tokens and self-attention at D=16 (phase 34 d), the flagship
+# transfer encoder at its batch of 128 and its one-query decoder (a, b, c).
+# They are checked rows: the kernel's CUDA-event and device times beside
+# the plain version's and the library's CUDA-event times; the rows of the
+# earlier slices also read the library's device time and the host's cost.
+CLASSIFIER_SHAPES = (("img_cross", (128, 32, 784, 4, 32), None),
+                     ("img_self", (128, 32, 32, 4, 32), None),
+                     ("text_clf_cross", (128, 64, 512, 4, 16), "tail"),
+                     ("text_clf_self", (128, 64, 64, 4, 16), None),
+                     ("clf_enc_cross", (128, 256, 512, 4, 128), "tail"),
+                     ("clf_self", (128, 256, 256, 4, 128), None),
+                     ("clf_dec_t1", (128, 1, 256, 4, 128), None))
+
+
 def attention_phase(torch, ak):
     import torch.nn.functional as F
 
-    shapes = [  # name, (B, T, S, H, D), padded keys
-        ("enc_cross", (64, 256, 512, 4, 128), True),
-        ("self", (64, 256, 256, 4, 128), False),
-        ("dec_cross", (64, 8, 256, 4, 128), False),
-        ("dec_cross_train", (64, CAPACITY, 256, 4, 128), True),
-        ("ragged", (64, 250, 509, 4, 128), True),
-        ("enc_cross_d16", (64, 256, 512, 4, 16), True),
+    shapes = [  # name, (B, T, S, H, D), padding
+        ("enc_cross", (64, 256, 512, 4, 128), "random"),
+        ("self", (64, 256, 256, 4, 128), None),
+        ("dec_cross", (64, 8, 256, 4, 128), None),
+        ("dec_cross_train", (64, CAPACITY, 256, 4, 128), "random"),
+        ("ragged", (64, 250, 509, 4, 128), "random"),
+        ("enc_cross_d16", (64, 256, 512, 4, 16), "random"),
     ]
+    checked = {name for name, _, _ in CLASSIFIER_SHAPES}
     rows = []
-    for name, (b, t, s, h, d), padded in shapes:
+    for name, (b, t, s, h, d), padding in shapes + list(CLASSIFIER_SHAPES):
         g = torch.Generator().manual_seed(b + t + s + d)
-        pad = None
-        if padded:
-            pad = torch.rand(b, s, generator=g) < 0.3
-            pad[-1] = True  # one example with every key masked out
-            pad = pad.cuda()
+        pad = key_padding(torch, g, padding, b, s)
         for dtype in (torch.float32, torch.bfloat16):
+            t_row = time.perf_counter()
             dt = str(dtype).split(".")[1]
             q = torch.randn(b, t, h, d, generator=g).to("cuda", dtype)
             k = torch.randn(b, s, h, d, generator=g).to("cuda", dtype)
@@ -566,18 +625,21 @@ def attention_phase(torch, ak):
             valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
             nbytes = item * (2 * b * t * h * d + 2 * b * s * h * d) + 4 * b * s
             bound, by = bound_ms(nbytes, 4 * h * t * d * valid, dt)
+            library = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
+                                                             attn_mask=mask)
             row = dict(kernel="attention_fwd", shape=name, dims=[b, t, s, h, d], dtype=dt,
-                       design=design, max_abs_err=err, launches_per_forward=ATTN_PER_FORWARD,
+                       design=design, padding=padding, max_abs_err=err,
+                       launches_per_forward=ATTN_PER_FORWARD,
                        kernel_ms=time_ms(lambda: ak.fused_attention(q, k, v, pad)),
                        plain_ms=time_ms(lambda: ak.attention_reference(q, k, v, pad)),
-                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, attn_mask=mask)),
-                       bound_ms=bound, bound_by=by,
+                       library_ms=time_ms(library), bound_ms=bound, bound_by=by,
                        device_ms=device_ms(torch, lambda: ak.fused_attention(q, k, v, pad),
-                                           "attention_fwd"),
-                       library_device_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, attn_mask=mask)),
-                       host_us_per_call=host_us(torch, lambda: ak.fused_attention(q, k, v, pad)))
+                                           "attention_fwd"))
+            if name not in checked:
+                row.update(library_device_ms=device_ms(torch, library),
+                           host_us_per_call=host_us(torch, lambda: ak.fused_attention(
+                               q, k, v, pad)))
+            row["row_s"] = time.perf_counter() - t_row
             log(**row)
             rows.append(row)
     return rows
@@ -595,17 +657,17 @@ def check_stats(name: str, got, ref) -> float:
     return rel
 
 
-def library_bwd_ms(torch, q, k, v, g, mask):
+def library_bwd_ms(torch, q, k, v, g, mask, device: bool = True):
     """SDPA's backward alone with the same additive mask: ``autograd.grad``
-    over one retained forward graph; its CUDA-event time and its device time
-    (every kernel of the call)."""
+    over one retained forward graph; its CUDA-event time and, with
+    ``device``, its device time (every kernel of the call; else None)."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     gt = g.transpose(1, 2)
     fn = lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)  # noqa: E731
-    return time_ms(fn, 30), device_ms(torch, fn)
+    return time_ms(fn, 30), device_ms(torch, fn) if device else None
 
 
 def skipped_tiles(pad, s: int):
@@ -629,10 +691,12 @@ def attention_bwd_phase(torch, ak):
     """The forward's (m, l) and the two backward kernels against their plain
     versions at the training shapes; times of the dq kernel, the dk/dv
     kernel, the whole backward (delta included), the plain backward and
-    SDPA's backward, CUDA events and profiler device times; the share of key
-    tiles the bf16 design skips. ``ragged`` pads each example's tail from a
-    random length (as the encoder's token rows are), the others pad ~30% of
-    keys at random; each padded shape masks every key of its last example."""
+    SDPA's backward, CUDA events and profiler device times (SDPA's device
+    time not at ``CLASSIFIER_SHAPES``); the share of key tiles the bf16
+    design skips. ``ragged`` and the classifiers' token crosses pad each
+    example's tail from a random length (as the encoder's token rows are),
+    the others pad ~30% of keys at random; each padded shape masks every key
+    of its last example."""
     shapes = [  # name, (B, T, S, H, D), padding: None, "random" or "tail"
         ("enc_cross", (64, 256, 512, 4, 128), "random"),
         ("self", (64, 256, 256, 4, 128), None),
@@ -640,19 +704,14 @@ def attention_bwd_phase(torch, ak):
         ("enc_cross_d16", (64, 256, 512, 4, 16), "random"),
         ("ragged", (64, 250, 509, 4, 128), "tail"),
     ]
+    checked = {name for name, _, _ in CLASSIFIER_SHAPES}
     rows = []
-    for name, (b, t, s, h, d), padding in shapes:
+    for name, (b, t, s, h, d), padding in shapes + list(CLASSIFIER_SHAPES):
         gen = torch.Generator().manual_seed(b + t + s + d + 1)
-        pad = None
-        if padding == "random":
-            pad = torch.rand(b, s, generator=gen) < 0.3
-        elif padding == "tail":
-            pad = torch.arange(s)[None, :] >= torch.randint(1, s + 1, (b, 1), generator=gen)
-        if pad is not None:
-            pad[-1] = True  # one example with every key masked out
-            pad = pad.cuda()
+        pad = key_padding(torch, gen, padding, b, s)
         dq_skip, dkv_skip = skipped_tiles(pad, s)
         for dtype in (torch.float32, torch.bfloat16):
+            t_row = time.perf_counter()
             dt = str(dtype).split(".")[1]
             q, g = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
             k, v = (torch.randn(b, s, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
@@ -689,7 +748,8 @@ def attention_bwd_phase(torch, ak):
             plain = time_ms(lambda: ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m,
                                                                ref_l, g))
             library, library_device = library_bwd_ms(torch, q, k, v, g,
-                                                     bias[:, None, None, :].to(dtype))
+                                                     bias[:, None, None, :].to(dtype),
+                                                     device=name not in checked)
             run_dq = lambda: ak.launch_bwd_dq(q, k, v, bias, ref_m, ref_l, delta, g)  # noqa: E731
             run_dkv = lambda: ak.launch_bwd_dkv(q, k, v, bias, ref_m, ref_l, delta,  # noqa: E731
                                                 g)
@@ -707,7 +767,8 @@ def attention_bwd_phase(torch, ak):
                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
                        dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                        dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
-                       fwd_stats_ms=time_ms(lambda: ak.attention_fwd_with_stats(q, k, v, pad)))
+                       fwd_stats_ms=time_ms(lambda: ak.attention_fwd_with_stats(q, k, v, pad)),
+                       row_s=time.perf_counter() - t_row)
             log(**row)
             rows.append(row)
             del q, k, v, g, out, m, l, ref_out, ref_m, ref_l, grads, refs
@@ -2404,11 +2465,13 @@ XLA_CLI_STEPS, CLI_PROFILE_STEPS, CLI_WARM_STEPS = 12, 4, 2
 ATTN_COUNTERS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
 
 
-def cli_windows(torch, port, trainer, loader, logdir: str, label: str) -> dict:
+def cli_windows(torch, port, trainer, loader, logdir: str, label: str,
+                per: str = "tokens") -> dict:
     """``trainer``'s steps driven as its CLI drives them, on ``loader``:
-    CLI_WARM_STEPS steps, a WINDOW_STEPS window (its tokens/s: all tokens
-    over the window's host time) and a profiled CLI_PROFILE_STEPS window
-    (device busy ms a step, the idle share)."""
+    CLI_WARM_STEPS steps, a WINDOW_STEPS window (its rate ``per`` second,
+    tokens or examples: all of them over the window's host time) and a
+    profiled CLI_PROFILE_STEPS window (device busy ms a step, the idle
+    share)."""
     state = trainer.state
 
     def fit(n: int, name: str) -> float:
@@ -2420,14 +2483,34 @@ def cli_windows(torch, port, trainer, loader, logdir: str, label: str) -> dict:
             row = [json.loads(line) for line in f][-1]
         if not math.isfinite(row["train_loss"]):
             raise AssertionError(f"{label} {name}: loss {row['train_loss']}")
-        return row["tokens_per_sec"]
+        return row[f"{per}_per_sec"]
 
     fit(CLI_WARM_STEPS, "warm")
     rate = fit(WINDOW_STEPS, "window")
     prof = profile_pass(torch, lambda: fit(CLI_PROFILE_STEPS, "profiled"), label)
     trainer.state = state
-    return dict(tokens_per_s=rate, device_ms_per_step=prof["device_busy_ms"] / CLI_PROFILE_STEPS,
-                idle_share=prof["device_idle_share"])
+    return {f"{per}_per_s": rate,
+            "device_ms_per_step": prof["device_busy_ms"] / CLI_PROFILE_STEPS,
+            "idle_share": prof["device_idle_share"]}
+
+
+def check_launches(trainer, counters, want, label: str) -> None:
+    """Wrap the trainer's train and eval steps: each must launch ``want(batch,
+    training)`` (a KERNEL_NAMES dict) and no plain version."""
+    def wrap(step, training: bool):
+        def run(state, batch, *rest, **kwargs):
+            before = [c.launches for c in counters]
+            out = step(state, batch, *rest, **kwargs)
+            got = dict(zip(KERNEL_NAMES, (c.launches - n for c, n in zip(counters, before))))
+            if got != want(batch, training) or any(c.plain_calls for c in counters):
+                raise AssertionError(f"{label} {'train step' if training else 'eval batch'}: "
+                                     f"launches {got} != {want(batch, training)}, or a plain "
+                                     f"version ran")
+            return out
+        return run
+
+    trainer.train_step = wrap(trainer.train_step, True)
+    trainer.eval_step = wrap(trainer.eval_step, False)
 
 
 def read_rows(run_dir: str) -> list:
@@ -2554,7 +2637,6 @@ def reference_cli_phase(torch, port, root: str) -> dict:
             ["--preset", "reference", "--synthetic", "--max_steps", str(steps),
              "--eval_every_n_steps", "2", "--log_every_n_steps", "1", "--no_tensorboard",
              "--root", root, "--logdir", f"{root}/cli_ref_{name}"] + extra)
-        train_step, eval_step = trainer.train_step, trainer.eval_step
         remat = "--remat" in extra
         dropout = "--dropout" in extra
 
@@ -2574,21 +2656,7 @@ def reference_cli_phase(torch, port, root: str) -> dict:
             return dict(zip(names, [fwd, bwd, bwd, *ce, 0, 0, 0, fwd, bwd, bwd, 0, 0, 0,
                                     ce[1], ce[2], ce[0], 0, 0]))
 
-        def checked(step, training: bool):
-            def run(state, batch, *rest):
-                before = [c.launches for c in counters]
-                out = step(state, batch, *rest)
-                got = dict(zip(names, (c.launches - n for c, n in zip(counters, before))))
-                want = expect(batch, training)
-                if got != want or any(c.plain_calls for c in counters):
-                    raise AssertionError(f"train_mlm --preset reference {extra}: "
-                                         f"{'train step' if training else 'eval batch'} "
-                                         f"launches {got} != {want}")
-                return out
-            return run
-
-        trainer.train_step, trainer.eval_step = checked(train_step, True), checked(eval_step,
-                                                                                   False)
+        check_launches(trainer, counters, expect, f"train_mlm --preset reference {extra}")
         t0 = time.perf_counter()
         trainer.fit(data.train_dataloader(), data.val_dataloader())
         torch.cuda.synchronize()
@@ -3256,6 +3324,268 @@ def recovery_phase(torch, port, root: str) -> dict:
     return launches
 
 
+# phases 33-34: the classifiers (MNIST image classification; sequence
+# classification with transfer from phase 29's MLM checkpoint)
+P33_STEPS, P33_EVAL = 30, 15
+P33_ARGS = ["--synthetic", "--max_steps", str(P33_STEPS), "--eval_every_n_steps",
+            str(P33_EVAL), "--log_every_n_steps", "1", "--no_tensorboard"]
+P33_IMAGE, P33_CLASSES, CHANCE = (28, 28, 1), 10, 0.1
+P34_STEPS, P34_MORE = 8, 4
+P34_ARGS = ["--synthetic", "--eval_every_n_steps", "4", "--log_every_n_steps", "1",
+            "--no_tensorboard"]
+
+
+def classifier_routes(pat, b: int, latents: int, inputs: int, c: int, heads: int,
+                      layers: int, per_block: int) -> dict:
+    """How many of a classifier forward's attention calls the H100 ``auto``
+    rule sends to kernel #1 at batch ``b``: the encoder's (``layers`` ×
+    (cross over ``inputs`` keys + ``per_block`` self)) and the one-query
+    decoder's."""
+    d = c // heads
+    kernel = lambda t, s: pat.auto_attention_impl(b, t, s, heads, d) == "pallas"  # noqa: E731
+    return dict(encoder=layers * (kernel(latents, inputs) + per_block * kernel(latents, latents)),
+                decoder=int(kernel(1, latents)))
+
+
+def classifier_launches(routes: dict, training: bool, dropout: bool, frozen: bool) -> dict:
+    """#1-#3 launches (and their wgmma ones, bf16) of one train step or eval
+    batch, in KERNEL_NAMES order: active dropout sends a trained call to the
+    einsum path; a frozen encoder runs forward only and without dropout."""
+    enc, dec = routes["encoder"], routes["decoder"]
+    if not training:
+        fwd, bwd = enc + dec, 0
+    else:
+        fwd = (enc if frozen or not dropout else 0) + (0 if dropout else dec)
+        bwd = (0 if frozen or dropout else enc) + (0 if dropout else dec)
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    counts.update(attention_fwd=fwd, attention_bwd_dq=bwd, attention_bwd_dkv=bwd,
+                  attention_fwd_wgmma=fwd, attention_bwd_dq_wgmma=bwd,
+                  attention_bwd_dkv_wgmma=bwd)
+    return counts
+
+
+def image_parity(torch, port, batches) -> dict:
+    """Three f32 steps of the reference-width image classifier (weights from
+    seed 0, Adam 1e-3) with the kernels, then with the plain versions in
+    their place, on the same batches: losses within 1e-4 relative, the first
+    step's gradients within 1e-3 of each leaf's peak (phase 9's bars)."""
+    import argparse
+
+    common, MHA, ak = port["train_img_clf"].common, port["MultiHeadAttention"], port["ak"]
+    args = port["train_img_clf"].build_parser().parse_args(["--dtype", "float32"])
+    counters = path_counters(port)
+    runs = []
+    for plain in (False, True):
+        model = common.build_image_classifier(args, P33_IMAGE, P33_CLASSES, "cuda")
+        if plain:
+            for module in model.modules():
+                if isinstance(module, MHA):
+                    module.attention = ak.plain_attention
+        optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](),
+                                                     model.parameters())
+        state = port["TrainState"].create(model, optimizer, schedule, seed=2)
+        step, _ = port["make_classifier_steps"](model, schedule, "image")
+        before = [c.launches for c in counters]
+        losses, grads = [], None
+        for batch in batches:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            if grads is None:
+                grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        got = sum(c.launches - b for c, b in zip(counters, before))
+        if (got == 0) != plain:
+            raise AssertionError(f"phase 33 f32 parity: plain={plain} launched {got} kernels")
+        runs.append((losses, grads))
+        del model, state
+    (k_losses, k_grads), (p_losses, p_grads) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    peak_all = max(float(g.abs().max()) for g in p_grads.values())
+    worst, worst_name, symmetric = 0.0, None, 0.0
+    for name, ref in p_grads.items():
+        if name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise on both sides
+            symmetric = max(symmetric, float(k_grads[name].abs().max()) / peak_all,
+                            float(ref.abs().max()) / peak_all)
+            continue
+        err = float((k_grads[name] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    reading = dict(kernel_losses=k_losses, plain_losses=p_losses, loss_max_rel_diff=loss_rel,
+                   grad_max_err_over_leaf_peak=worst, worst_leaf=worst_name,
+                   k_proj_bias_over_global_peak=symmetric)
+    if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5):
+        raise AssertionError(f"phase 33 f32 parity: {reading}")
+    return reading
+
+
+def image_classification_phase(torch, port, root: str) -> dict:
+    """Phase 33: ``train_img_clf --synthetic`` at the reference MNIST width
+    (bf16, batch 128, 32 latents × 128 channels, 4 heads of depth 32, 3 ×
+    (cross over 784 pixels of 131 channels + 3 self), ``auto``), P33_STEPS
+    steps with validation every P33_EVAL, in-process: every train step and
+    eval batch launches what the ``auto`` rule routes (12/12/12 #1-#3 a step,
+    all wgmma; the one-query decoder on the einsum path), the loss falls and
+    the last ``val_acc`` is above chance; then the images/s window and the
+    profiled window; three f32 steps, kernels against plain versions."""
+    t_phase = time.perf_counter()
+    pat, train_img_clf = port["pat"], port["train_img_clf"]
+    counters = path_counters(port)
+    for c in counters:
+        c.reset()
+    trainer, data = train_img_clf.prepare(P33_ARGS + ["--root", root,
+                                                      "--logdir", f"{root}/p33"])
+    args = train_img_clf.build_parser().parse_args([])
+    heads = args.num_cross_attention_heads
+
+    def routes(b: int) -> dict:
+        return classifier_routes(pat, b, args.num_latents, P33_IMAGE[0] * P33_IMAGE[1],
+                                 args.num_latent_channels, heads, args.num_encoder_layers,
+                                 args.num_self_attention_layers_per_block)
+
+    check_launches(trainer, counters, lambda batch, training: classifier_launches(
+        routes(len(batch["label"])), training, False, False), "phase 33")
+    t0 = time.perf_counter()
+    with trainer:
+        trainer.fit(data.train_dataloader(), data.val_dataloader())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in zip(KERNEL_NAMES, counters)}
+    rows = read_rows(trainer.run_dir)
+    train = [r for r in rows if "train_loss" in r]
+    val = [r for r in rows if "val_loss" in r]
+    losses = [r["train_loss"] for r in train]
+    per_step = classifier_launches(routes(args.batch_size), True, False, False)
+    # at the reference width the rule sends every encoder call to the kernels
+    # (12 a step) and the one-query decoder (B·H·S = 16384) to the einsum path
+    encoder_calls = args.num_encoder_layers * (1 + args.num_self_attention_layers_per_block)
+    if [r["step"] for r in train] != list(range(1, P33_STEPS + 1)) \
+            or [r["step"] for r in val] != list(range(P33_EVAL, P33_STEPS + 1, P33_EVAL)) \
+            or not all(math.isfinite(x) for x in losses) \
+            or not sum(losses[-5:]) / 5 < losses[0] or not val[-1]["val_acc"] > CHANCE \
+            or not per_step["attention_fwd"] == per_step["attention_bwd_dq"] == encoder_calls:
+        raise AssertionError(f"phase 33: rows {rows}, per step {per_step}")
+    windows = cli_windows(torch, port, trainer, data.train_dataloader(), f"{root}/p33_windows",
+                          "img_clf", per="examples")
+    batches = [b for _, b in zip(range(3), data.train_dataloader())]
+    parity = image_parity(torch, port, batches)
+    log(phase="image_classification", card=card_line(), steps=P33_STEPS, losses=losses,
+        train_acc=[r["train_acc"] for r in train], val=[(r["step"], r["val_loss"], r["val_acc"])
+                                                        for r in val],
+        routes=routes(args.batch_size), launches_per_step={k: v for k, v in per_step.items()
+                                                           if v},
+        launches=launches, fit_s=fit_s, checked_fit_images_per_s=[r["examples_per_sec"]
+                                                                  for r in train],
+        **windows, f32_parity=parity, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def sequence_classification_phase(torch, port, root: str, mlm_ckpt: str) -> dict:
+    """Phase 34: ``train_seq_clf --synthetic`` in-process over phase 29's
+    root (its tokenizer file) and checkpoint, at its width (the classifier
+    built from the checkpoint's hparams: 256 latents × 512 channels, 4 heads
+    of depth 128, 3 × (cross + 6 self), 512 tokens), batch 128, bf16, every
+    train step and eval batch checked against the ``auto`` rule's routes:
+
+    (a) ``--mlm_checkpoint --freeze_encoder`` (dropout 0.1 by the CLI's
+        default): the encoder runs #1 forward only (21 a step, no #2/#3),
+        the dropped-out decoder on the einsum path; after the fit the encoder
+        equals the checkpoint's best step bit for bit;
+    (b) ``--mlm_checkpoint --dropout 0``: #1-#3 at every call, the one-query
+        decoder included (B·H·T·S = 131072: the rule's floor);
+    (c) ``--clf_checkpoint`` of (b)'s run, ``--dropout 0``: it starts at
+        (b)'s best step with its weights, and takes P34_MORE more steps;
+    (d) the CLI's defaults from scratch (64 latents × 64 channels): training
+        on the einsum path (dropout 0.1), validation on #1."""
+    t_phase = time.perf_counter()
+    pat, ak, seq, ckpt = port["pat"], port["ak"], port["train_seq_clf"], port["checkpoint"]
+    counters = path_counters(port)
+    for c in counters:
+        c.reset()
+    hp = ckpt.load_hparams(mlm_ckpt)
+    readings = {}
+
+    def fit(name: str, extra: list, dropout: bool, frozen: bool, widths: dict) -> tuple:
+        trainer, data = seq.prepare(P34_ARGS + ["--root", root, "--logdir",
+                                                f"{root}/p34_{name}"] + extra)
+        if os.path.abspath(data.tokenizer_path) != os.path.abspath(
+                f"{root}/{FLAGSHIP_TOKENIZER}"):
+            raise AssertionError(f"phase 34 {name}: tokenizer {data.tokenizer_path}")
+
+        def want(batch, training):
+            b = len(batch["label"])
+            routes = classifier_routes(pat, b, widths["num_latents"], widths["max_seq_len"],
+                                       widths["num_latent_channels"], widths["heads"],
+                                       widths["num_encoder_layers"],
+                                       widths["num_self_attention_layers_per_block"])
+            return classifier_launches(routes, training, dropout, frozen)
+
+        check_launches(trainer, counters, want, f"phase 34 {name}")
+        start_step = trainer.state.step
+        t0 = time.perf_counter()
+        with trainer:
+            trainer.fit(data.train_dataloader(), data.val_dataloader())
+        torch.cuda.synchronize()
+        rows = read_rows(trainer.run_dir)
+        train = [r for r in rows if "train_loss" in r]
+        val = [r for r in rows if "val_loss" in r]
+        if not train or not val or not all(math.isfinite(r["train_loss"]) for r in train) \
+                or not all(0.0 <= r["val_acc"] <= 1.0 for r in val):
+            raise AssertionError(f"phase 34 {name}: rows {rows}")
+        b = trainer.state.model.encoder.latent.shape
+        readings[name] = dict(
+            start_step=start_step, steps=[r["step"] for r in train],
+            losses=[r["train_loss"] for r in train],
+            val=[(r["step"], r["val_loss"], r["val_acc"]) for r in val],
+            launches_per_step={k: v for k, v in want(
+                {"label": [0] * 128}, True).items() if v},
+            launches_per_eval_batch={k: v for k, v in want(
+                {"label": [0] * 128}, False).items() if v},
+            tokens_per_s=train[-1]["tokens_per_sec"], latent_shape=list(b),
+            fit_s=time.perf_counter() - t0)
+        return trainer, rows
+
+    keys = ("num_latents", "num_latent_channels", "num_encoder_layers",
+            "num_self_attention_layers_per_block", "max_seq_len")
+    flagship = dict({k: hp[k] for k in keys}, heads=hp.get("num_cross_attention_heads", 4))
+    steps = ["--max_steps", str(P34_STEPS)]
+    a, _ = fit("a_frozen", steps + ["--mlm_checkpoint", mlm_ckpt, "--freeze_encoder"], True,
+               True, flagship)
+    best = ckpt.resolve_checkpoint_step(mlm_ckpt)
+    saved, _ = ckpt.restore_raw_params(mlm_ckpt, best)
+    enc = {k: v for k, v in port["param_tree"](a.state.model).items() if k.startswith("encoder/")}
+    if sorted(enc) != sorted(k for k in saved if k.startswith("encoder/")) \
+            or not all(torch.equal(v.cpu(), saved[k]) for k, v in enc.items()):
+        raise AssertionError(f"phase 34 a: the frozen encoder is not step {best}'s")
+    readings["a_frozen"]["encoder_bit_equal_to_step"] = best
+    del a, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, _ = fit("b_unfrozen", steps + ["--mlm_checkpoint", mlm_ckpt, "--dropout", "0"], False,
+               False, flagship)
+    b_ckpt = f"{b.run_dir}/checkpoints"
+    b_best = ckpt.resolve_checkpoint_step(b_ckpt)
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    c, _ = fit("c_resumed", ["--clf_checkpoint", b_ckpt, "--dropout", "0", "--max_steps",
+                             str(b_best + P34_MORE)], False, False, flagship)
+    if readings["c_resumed"]["start_step"] != b_best \
+            or readings["c_resumed"]["steps"] != list(range(b_best + 1, b_best + P34_MORE + 1)):
+        raise AssertionError(f"phase 34 c: {readings['c_resumed']} from (b)'s step {b_best}")
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    defaults = seq.build_parser().parse_args([])
+    scratch = dict({k: getattr(defaults, k) for k in keys},
+                   heads=defaults.num_cross_attention_heads)
+    fit("d_defaults", steps, True, False, scratch)
+    launches = {n: c.launches for n, c in zip(KERNEL_NAMES, counters)}
+    if not launches["attention_bwd_dq"] or not launches["attention_fwd"]:
+        raise AssertionError(f"phase 34: launches {launches}")
+    log(phase="sequence_classification", card=card_line(), mlm_checkpoint_step=best,
+        runs=readings, launches=launches, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def check_kernel_entry(k: dict) -> None:
     """One entry of the ``kernels`` line carries every key of its contract,
     each of its type: times, errors and bounds are numbers, ``library_ms``
@@ -3283,7 +3613,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: failed in phase device: no CUDA device", flush=True)
         return 1
-    from perceiver_io_torch.cli import serve, train_ar, train_mlm
+    from perceiver_io_torch.cli import serve, train_ar, train_img_clf, train_mlm, train_seq_clf
     from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
     from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
     from perceiver_io_torch.inference.engine import MLMServer
@@ -3306,7 +3636,11 @@ def main() -> int:
     from perceiver_io_torch.data.tokenizer import load_tokenizer
     from perceiver_io_torch.interop import param_tree
     from perceiver_io_torch.training import checkpoint
-    from perceiver_io_torch.training.steps import make_ar_steps, make_mlm_steps
+    from perceiver_io_torch.training.steps import (
+        make_ar_steps,
+        make_classifier_steps,
+        make_mlm_steps,
+    )
     from perceiver_io_torch.training.train_state import TrainState
     from perceiver_io_torch.training.trainer import Trainer, TrainerConfig
     from perceiver_io_torch.utils.treepath import tree_digest
@@ -3357,7 +3691,9 @@ def main() -> int:
                 train_mlm=train_mlm, ARGenerator=ARGenerator, SamplingConfig=SamplingConfig,
                 serve=serve, make_ar_steps=make_ar_steps, train_ar=train_ar, pat=pat,
                 SUPPORTED_OPTIMIZERS=SUPPORTED_OPTIMIZERS, checkpoint=checkpoint,
-                param_tree=param_tree, tree_digest=tree_digest, load_tokenizer=load_tokenizer)
+                param_tree=param_tree, tree_digest=tree_digest, load_tokenizer=load_tokenizer,
+                train_img_clf=train_img_clf, train_seq_clf=train_seq_clf,
+                make_classifier_steps=make_classifier_steps)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
@@ -3419,6 +3755,7 @@ def main() -> int:
         enter("30: serving from a checkpoint")
         ar_launches.append(checkpoint_serving_phase(torch, port, root, run_a, snapshots, best,
                                                     texts))
+        p29_checkpoints = f"{run_a.run_dir}/checkpoints"
         del run_a, snapshots
         gc.collect()
         torch.cuda.empty_cache()
@@ -3426,6 +3763,15 @@ def main() -> int:
         path_launches.append(bucketed_ar_phase(torch, port, root))
         enter("32: recovery")
         path_launches.append(recovery_phase(torch, port, root))
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("33: MNIST image classification")
+        path_launches.append(image_classification_phase(torch, port, root))
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("34: sequence classification and transfer")
+        path_launches.append(sequence_classification_phase(torch, port, root, p29_checkpoints))
+    enter("16: packed serving")
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
     for name in AR_NAMES:
@@ -3542,7 +3888,8 @@ def main() -> int:
         raise AssertionError(f"kernels the main paths never launched: {missing}")
     for k in kernels:
         check_kernel_entry(k)
-    log(phase="done", total_s=time.perf_counter() - t_start)
+    enter("done")
+    log(phase="done", total_s=time.perf_counter() - t_start, phase_s=phase_seconds)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,21 @@ import os
 
 import torch
 
+from perceiver_io_torch.device import resolve_device
 from perceiver_io_torch.models import presets
+from perceiver_io_torch.models.adapters import (
+    ClassificationOutputAdapter,
+    ImageInputAdapter,
+    TextInputAdapter,
+    TextOutputAdapter,
+)
+from perceiver_io_torch.models.perceiver import (
+    PerceiverDecoder,
+    PerceiverEncoder,
+    PerceiverIO,
+    PerceiverMLM,
+    init_params,
+)
 from perceiver_io_torch.ops.attention import ATTN_IMPLS, NOT_PORTED_ATTN_IMPLS
 from perceiver_io_torch.training.optim import (
     SUPPORTED_OPTIMIZERS,
@@ -32,6 +46,8 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                    help="default: the task's preset")
     g.add_argument("--num_encoder_layers", type=int, default=3)
     g.add_argument("--num_self_attention_layers_per_block", type=int, default=6)
+    g.add_argument("--num_cross_attention_heads", type=int, default=4)
+    g.add_argument("--num_self_attention_heads", type=int, default=4)
     g.add_argument("--dropout", type=float, default=0.0,
                    help="dropout rate of every layer (attention probabilities and "
                         "residual branches) in training; evaluation runs without it")
@@ -133,6 +149,19 @@ def add_imdb_args(parser: argparse.ArgumentParser) -> None:
                         "this many batches (their order re-shuffled; 0 = off)")
 
 
+def add_mnist_args(parser: argparse.ArgumentParser) -> None:
+    g = parser.add_argument_group("data (MNIST)")
+    g.add_argument("--dataset", choices=("mnist",), default="mnist")
+    g.add_argument("--root", default=".cache",
+                   help="holds the MNIST idx files (<root>/MNIST/raw or <root>, raw or .gz)")
+    g.add_argument("--batch_size", type=int, default=128)
+    g.add_argument("--random_crop", type=int, default=None,
+                   help="train on random crops of this size (validation: the centre crop)")
+    g.add_argument("--synthetic", action="store_true",
+                   help="the offline synthetic digits instead of the MNIST files")
+    g.add_argument("--synthetic_size", type=int, default=4096)
+
+
 def data_module(args):
     """The IMDB data module of the parsed flags, set up."""
     from perceiver_io_torch.data.imdb import IMDBDataModule
@@ -179,12 +208,13 @@ def run_fit(trainer, train_loader, val_loader=None):
 _ENV_FLAGS = {"resume", "cpu"}
 
 
-def parse_with_resume(parser: argparse.ArgumentParser, argv):
+def parse_with_resume(parser: argparse.ArgumentParser, argv, not_inherited=()):
     """Parse ``argv``; with ``--resume RUN_DIR``, parse again with the
     resumed run's hparams as the parser's defaults, so every flag of the
     original run comes back (the model's shapes, the optimizer's structure)
-    while the flags given on this command line win. ``--resume`` itself (and
-    ``--cpu``) never comes from the hparams."""
+    while the flags given on this command line win. ``--resume`` itself,
+    ``--cpu`` and the flags named in ``not_inherited`` never come from the
+    hparams."""
     args = parser.parse_args(argv)
     if not getattr(args, "resume", None):
         return args
@@ -194,7 +224,8 @@ def parse_with_resume(parser: argparse.ArgumentParser, argv):
         raise SystemExit(_nothing_to_resume(args.resume)) from None
     known = vars(args)
     parser.set_defaults(**{k: v for k, v in hparams.items()
-                           if k in known and k not in _ENV_FLAGS})
+                           if k in known and k not in _ENV_FLAGS
+                           and k not in not_inherited})
     args = parser.parse_args(argv)
     args.resume = os.path.abspath(known["resume"])
     return args
@@ -230,15 +261,86 @@ def optimizer_from_args(args, params):
         accumulate_steps=args.accumulate_steps), params)
 
 
-def build_mlm(args, vocab_size: int, max_seq_len: int, device):
-    """The MLM at the parsed widths, weights drawn from ``--seed``."""
-    return presets.flagship_mlm(
-        vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=args.num_latents,
-        num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
+def _init(model, args, device):
+    """``model`` with its weights drawn from ``--seed`` on the CPU (the same
+    weights on every device), moved to ``device`` (None: the CUDA card)."""
+    init_params(model, torch.Generator().manual_seed(args.seed))
+    return model.to(resolve_device(device))
+
+
+def _encoder(args, input_adapter) -> PerceiverEncoder:
+    return PerceiverEncoder(
+        input_adapter=input_adapter,
+        latent_shape=(args.num_latents, args.num_latent_channels),
+        num_layers=args.num_encoder_layers,
+        num_cross_attention_heads=args.num_cross_attention_heads,
+        num_self_attention_heads=args.num_self_attention_heads,
         num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
-        dtype=DTYPES[args.dtype], device=device, seed=args.seed,
-        pad_classes_to=args.pad_vocab_multiple, attn_impl=args.attn_impl,
-        dropout=args.dropout, remat=args.remat, reuse_kv=not args.no_reuse_kv)
+        dtype=DTYPES[args.dtype], attn_impl=args.attn_impl, dropout=args.dropout,
+        remat=args.remat, reuse_kv=not args.no_reuse_kv)
+
+
+def _decoder(args, output_adapter) -> PerceiverDecoder:
+    return PerceiverDecoder(
+        output_adapter=output_adapter,
+        latent_shape=(args.num_latents, args.num_latent_channels),
+        num_cross_attention_heads=args.num_cross_attention_heads, dtype=DTYPES[args.dtype],
+        attn_impl=args.attn_impl, dropout=args.dropout)
+
+
+def build_text_encoder(args, vocab_size: int, max_seq_len: int) -> PerceiverEncoder:
+    """Text input adapter + encoder at the parsed widths (the embedding width
+    is the latent channel count), its weights not drawn yet: the MLM's and
+    the sequence classifier's encoder, one parameter tree."""
+    return _encoder(args, TextInputAdapter(vocab_size, max_seq_len, args.num_latent_channels,
+                                           DTYPES[args.dtype]))
+
+
+def build_mlm(args, vocab_size: int, max_seq_len: int, device) -> PerceiverMLM:
+    """The MLM at the parsed widths, weights drawn from ``--seed``."""
+    return _init(presets.mlm_model(
+        build_text_encoder(args, vocab_size, max_seq_len),
+        _decoder(args, TextOutputAdapter(
+            vocab_size, max_seq_len, num_output_channels=args.num_latent_channels,
+            dtype=DTYPES[args.dtype], pad_classes_to=args.pad_vocab_multiple))), args, device)
+
+
+def _classes(args, num_classes: int) -> ClassificationOutputAdapter:
+    return ClassificationOutputAdapter(num_classes=num_classes,
+                                       num_output_channels=args.num_latent_channels,
+                                       dtype=DTYPES[args.dtype],
+                                       pad_classes_to=args.pad_vocab_multiple)
+
+
+def build_text_classifier(args, vocab_size: int, max_seq_len: int, device,
+                          num_classes: int = 2) -> PerceiverIO:
+    """The sequence classifier: the MLM's encoder and a one-query class
+    decoder, weights drawn from ``--seed``."""
+    return _init(PerceiverIO(build_text_encoder(args, vocab_size, max_seq_len),
+                             _decoder(args, _classes(args, num_classes))), args, device)
+
+
+def build_image_classifier(args, image_shape, num_classes: int, device,
+                           num_frequency_bands: int = 32) -> PerceiverIO:
+    """The image classifier: pixels and their Fourier encodings into the
+    encoder, a one-query class decoder, weights drawn from ``--seed``."""
+    adapter = ImageInputAdapter(tuple(image_shape), num_frequency_bands, DTYPES[args.dtype])
+    return _init(PerceiverIO(_encoder(args, adapter),
+                             _decoder(args, _classes(args, num_classes))), args, device)
+
+
+# the flags that shape a model: a checkpoint's hparams override them, so a
+# restored encoder fits what it was trained as
+MODEL_HPARAM_KEYS = ("num_latents", "num_latent_channels", "num_encoder_layers",
+                     "num_self_attention_layers_per_block", "num_cross_attention_heads",
+                     "num_self_attention_heads", "vocab_size", "max_seq_len")
+
+
+def override_model_args(args, hparams: dict) -> None:
+    """Set the model-shaping flags from a checkpoint's hparams."""
+    for key in MODEL_HPARAM_KEYS:
+        if key in hparams:
+            setattr(args, key, hparams[key])
 
 
 def build_ar(args, vocab_size: int, max_seq_len: int, device):
@@ -249,6 +351,8 @@ def build_ar(args, vocab_size: int, max_seq_len: int, device):
         vocab_size=vocab_size, max_seq_len=max_seq_len, num_latents=args.num_latents,
         num_channels=args.num_latent_channels, num_layers=args.num_encoder_layers,
         num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
+        num_cross_attention_heads=args.num_cross_attention_heads,
+        num_self_attention_heads=args.num_self_attention_heads,
         dtype=DTYPES[args.dtype], device=device, seed=args.seed,
         attn_impl=args.attn_impl, pad_classes_to=args.pad_vocab_multiple,
         dropout=args.dropout)

@@ -56,7 +56,8 @@ def top_k_tokens(tokenizer: WordPieceTokenizer, logits: np.ndarray,
 # flags a checkpoint may lack, and the defaults it is rebuilt with: float32
 # is the parity path (the train CLI's default compute dtype is bf16)
 CHECKPOINT_DEFAULTS = {"dtype": "float32", "attn_impl": "auto", "remat": False, "dropout": 0.0,
-                       "seed": 0, "pad_vocab_multiple": None, "no_reuse_kv": False}
+                       "seed": 0, "pad_vocab_multiple": None, "no_reuse_kv": False,
+                       "num_cross_attention_heads": 4, "num_self_attention_heads": 4}
 
 
 def checkpoint_args(checkpoint_dir: str,

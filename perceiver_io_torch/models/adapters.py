@@ -1,5 +1,5 @@
-"""Text input/output adapters (the counterparts of
-``perceiver_io_tpu/models/adapters.py``).
+"""Input and output adapters (the counterparts of
+``perceiver_io_tpu/models/adapters.py``): text in, image in, classes out.
 
 - input adapters map task input to ``(B, M, C_in)`` and expose
   ``num_input_channels``;
@@ -18,6 +18,11 @@ from torch import nn
 
 from perceiver_io_torch.ops.attention import Linear
 from perceiver_io_torch.ops.ce_kernel import linear_ce_integer
+from perceiver_io_torch.ops.fourier import (
+    fourier_position_encodings,
+    num_position_encoding_channels,
+    spatial_positions,
+)
 
 
 class TextEmbedding(nn.Module):
@@ -74,6 +79,49 @@ class TextInputAdapter(nn.Module):
         if positions is not None:
             return emb + F.embedding(positions.long(), self.pos_encoding).to(self.dtype)
         return emb + self.pos_encoding[:l].to(self.dtype)
+
+
+class ImageInputAdapter(nn.Module):
+    """Flatten a channels-last image to (B, H·W, C) and concatenate the
+    pixels' Fourier position encodings (``ops/fourier.py``), both in the
+    compute dtype. The encodings are a constant of ``image_shape``: made
+    once, in numpy f32 as the JAX adapter makes them, and held as a buffer
+    in the compute dtype (it moves with the module; it is not a
+    parameter)."""
+
+    def __init__(self, image_shape: Tuple[int, ...] = (28, 28, 1),
+                 num_frequency_bands: int = 32, dtype=torch.float32):
+        super().__init__()
+        self.image_shape = tuple(image_shape)
+        self.num_frequency_bands = num_frequency_bands
+        self.dtype = dtype
+        enc = fourier_position_encodings(spatial_positions(self.spatial_shape),
+                                         num_frequency_bands)
+        self.register_buffer("position_encoding",
+                             torch.from_numpy(enc.reshape(-1, enc.shape[-1])).to(dtype),
+                             persistent=False)
+
+    @property
+    def spatial_shape(self) -> Tuple[int, ...]:
+        return self.image_shape[:-1]
+
+    @property
+    def num_image_channels(self) -> int:
+        return self.image_shape[-1]
+
+    @property
+    def num_input_channels(self) -> int:
+        return self.num_image_channels + num_position_encoding_channels(
+            len(self.spatial_shape), self.num_frequency_bands)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, *d = x.shape
+        if tuple(d) != self.image_shape:
+            raise ValueError(f"Input image shape {tuple(d)} different from required shape "
+                             f"{self.image_shape}")
+        x = x.reshape(b, -1, self.num_image_channels).to(self.dtype)
+        enc = self.position_encoding.expand(b, *self.position_encoding.shape)
+        return torch.cat([x, enc], dim=-1)
 
 
 class ClassificationOutputAdapter(nn.Module):

@@ -1,6 +1,6 @@
-"""The Perceiver IO core: encoder, decoder, the MLM model and the
-Perceiver-AR language model (the counterparts of
-``perceiver_io_tpu/models/perceiver.py``).
+"""The Perceiver IO core: encoder, decoder, the encoder-decoder
+``PerceiverIO`` (the classifiers), the MLM model and the Perceiver-AR
+language model (the counterparts of ``perceiver_io_tpu/models/perceiver.py``).
 
 - encoder layer 1 has its own weights; layers 2..num_layers share ONE
   weight set (``layer_n``) applied recurrently, and its cross-attention K/V
@@ -178,6 +178,35 @@ class PerceiverDecoder(nn.Module):
         if return_features:
             return x_output
         return self.output_adapter(x_output)
+
+
+class PerceiverIO(nn.Module):
+    """encoder → decoder: the classifiers (a text or image input adapter, a
+    ``ClassificationOutputAdapter``)."""
+
+    def __init__(self, encoder: PerceiverEncoder, decoder: PerceiverDecoder):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True, dropout_key: Optional[int] = None) -> torch.Tensor:
+        """``deterministic=False`` drops out by the masks of ``dropout_key``:
+        the encoder's from ``fold_in(dropout_key, 0)``, the decoder's from
+        ``fold_in(dropout_key, 1)``."""
+        return self.decode(self.encode(x, pad_mask, deterministic, dropout_key),
+                           deterministic, dropout_key)
+
+    def encode(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+               deterministic: bool = True, dropout_key: Optional[int] = None) -> torch.Tensor:
+        """Encoder half: inputs → (B, N, C) latents."""
+        return self.encoder(x, pad_mask, deterministic, fold_in(dropout_key, 0))
+
+    def decode(self, x_latent: torch.Tensor, deterministic: bool = True,
+               dropout_key: Optional[int] = None) -> torch.Tensor:
+        """Decoder half over latents: the (B, classes) logits."""
+        return self.decoder(x_latent, deterministic=deterministic,
+                            dropout_key=fold_in(dropout_key, 1))
 
 
 class PerceiverMLM(nn.Module):

@@ -45,7 +45,7 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
     once (``PerceiverEncoder``)."""
     device = resolve_device(device)
     latent_shape = (num_latents, num_channels)
-    model = PerceiverMLM(
+    model = mlm_model(
         encoder=PerceiverEncoder(
             input_adapter=TextInputAdapter(vocab_size, max_seq_len, num_channels, dtype),
             latent_shape=latent_shape, num_layers=num_layers,
@@ -57,12 +57,19 @@ def flagship_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
                 vocab_size, max_seq_len, num_output_channels=num_channels,
                 dtype=dtype, pad_classes_to=pad_classes_to),
             latent_shape=latent_shape, dtype=dtype,
-            attn_impl=decoder_attn_impl or attn_impl, dropout=dropout),
-        masking=TextMasking(vocab_size, unk_token_id=1, mask_token_id=2,
-                            num_special_tokens=3),
-    )
+            attn_impl=decoder_attn_impl or attn_impl, dropout=dropout))
     init_params(model, torch.Generator().manual_seed(seed))
     return model.to(device)
+
+
+def mlm_model(encoder: PerceiverEncoder, decoder: PerceiverDecoder) -> PerceiverMLM:
+    """The MLM over a text encoder and decoder (weights not drawn): masking
+    with [UNK] 1, [MASK] 2 and 3 special tokens, as the tokenizer lays them
+    out, over the encoder's vocab."""
+    vocab_size = encoder.input_adapter.text_embedding.embedding.shape[0]
+    return PerceiverMLM(encoder=encoder, decoder=decoder,
+                        masking=TextMasking(vocab_size, unk_token_id=1, mask_token_id=2,
+                                            num_special_tokens=3))
 
 
 def flagship_tpu_mlm(vocab_size: int = 10003, max_seq_len: int = 512,
@@ -99,7 +106,9 @@ def flagship_ar(vocab_size: int = 10003, max_seq_len: int = 512, num_latents: in
                 num_channels: int = 512, num_layers: int = 3,
                 num_self_attention_layers_per_block: int = 6, dtype=torch.bfloat16,
                 device=None, seed: int = 0, attn_impl: str = "pallas",
-                pad_classes_to: Optional[int] = None, dropout: float = 0.0) -> PerceiverARLM:
+                pad_classes_to: Optional[int] = None, dropout: float = 0.0,
+                num_cross_attention_heads: int = 4,
+                num_self_attention_heads: int = 4) -> PerceiverARLM:
     """The generative (Perceiver-AR causal decode) task at the flagship
     widths: the encoder recipe of ``flagship_tpu_mlm`` (3 layers × (cross
     + 6-layer self block), C=512 / 4 heads of depth 128, bf16 compute),
@@ -115,7 +124,8 @@ def flagship_ar(vocab_size: int = 10003, max_seq_len: int = 512, num_latents: in
     as the JAX one has none."""
     return _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
                      num_self_attention_layers_per_block, dtype, device, seed, attn_impl,
-                     pad_classes_to, dropout)
+                     pad_classes_to, dropout, num_cross_attention_heads,
+                     num_self_attention_heads)
 
 
 def tiny_ar(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16,
@@ -131,7 +141,8 @@ def tiny_ar(vocab_size: int = 503, max_seq_len: int = 64, num_latents: int = 16,
 
 def _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
               num_self_attention_layers_per_block, dtype, device, seed, attn_impl,
-              pad_classes_to=None, dropout=0.0) -> PerceiverARLM:
+              pad_classes_to=None, dropout=0.0, num_cross_attention_heads=4,
+              num_self_attention_heads=4) -> PerceiverARLM:
     device = resolve_device(device)
     model = PerceiverARLM(
         input_adapter=TextInputAdapter(vocab_size, max_seq_len, num_channels, dtype),
@@ -139,6 +150,8 @@ def _build_ar(vocab_size, max_seq_len, num_latents, num_channels, num_layers,
                                          num_output_channels=num_channels, dtype=dtype,
                                          pad_classes_to=pad_classes_to),
         num_latents=num_latents, num_layers=num_layers,
+        num_cross_attention_heads=num_cross_attention_heads,
+        num_self_attention_heads=num_self_attention_heads,
         num_self_attention_layers_per_block=num_self_attention_layers_per_block,
         dtype=dtype, attn_impl=attn_impl, dropout=dropout)
     init_params(model, torch.Generator().manual_seed(seed))

@@ -1,6 +1,11 @@
 """Training: losses, optimizer, train state, step builders, trainer,
 checkpoints and metrics logging."""
 
-from perceiver_io_torch.training.steps import make_ar_steps, make_guarded_step, make_mlm_steps
+from perceiver_io_torch.training.steps import (
+    make_ar_steps,
+    make_classifier_steps,
+    make_guarded_step,
+    make_mlm_steps,
+)
 
-__all__ = ["make_ar_steps", "make_guarded_step", "make_mlm_steps"]
+__all__ = ["make_ar_steps", "make_classifier_steps", "make_guarded_step", "make_mlm_steps"]

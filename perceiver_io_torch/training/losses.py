@@ -1,7 +1,7 @@
-"""Losses of the MLM step (the counterparts of
+"""Losses of the MLM and classifier steps (the counterparts of
 ``perceiver_io_tpu/training/losses.py``: ``softmax_ce_integer``,
-``cross_entropy_with_ignore``, ``fused_linear_ce_integer``,
-``fused_linear_cross_entropy_with_ignore``,
+``cross_entropy_with_ignore``, ``classification_loss_and_accuracy``,
+``fused_linear_ce_integer``, ``fused_linear_cross_entropy_with_ignore``,
 ``pallas_linear_cross_entropy_with_ignore``).
 
 ``softmax_ce_integer`` keeps the memory shape of the JAX package's custom
@@ -17,7 +17,7 @@ through plain PyTorch over vocab chunks (the JAX ``fused_head=True``).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -72,6 +72,16 @@ def cross_entropy_with_ignore(logits: torch.Tensor, labels: torch.Tensor,
 # the chunked head pads the vocab with this bias: exp of it against any live
 # logit is exactly 0, and it is finite in every dtype (no inf arithmetic)
 _CHUNK_PAD_BIAS = -1e9
+
+
+def classification_loss_and_accuracy(logits: torch.Tensor, labels: torch.Tensor
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean CE, top-1 accuracy) of (B, C) logits against (B,) int labels,
+    both f32 scalars; argmax ties go to the first class, as ``jnp.argmax``'s."""
+    labels = labels.long()
+    loss = softmax_ce_integer(logits, labels).mean()
+    acc = (logits.argmax(dim=-1) == labels).float().mean()
+    return loss, acc
 
 
 def _pad_vocab(kernel: torch.Tensor, bias: torch.Tensor, chunk: int):

@@ -20,6 +20,12 @@ The eight names of the JAX package, each with its torch-exact update:
   OneCycle with torch's phase boundaries and ``one_cycle_pct_start``.
 - ``grad_clip_norm`` clips the global gradient norm before each update
   (``optax.clip_by_global_norm``).
+- :func:`freeze_subtrees` (``optax.multi_transform`` with
+  ``set_to_zero`` on the frozen subtrees, the JAX ``freeze_subtrees``):
+  the frozen parameters leave the optimizer, so the global norm of
+  ``grad_clip_norm``, the weight decay and the moments cover the trainable
+  ones only, as the JAX inner chain runs on the trainable subtree only, and
+  the frozen ones stay bit for bit as they were loaded.
 - ``accumulate_steps`` k (:class:`MultiSteps`, ``optax.MultiSteps``):
   each call averages the gradients into a running mean, and every k-th
   call updates the weights with it and starts a new mean; the others leave
@@ -77,6 +83,15 @@ class OptimizerConfig:
     momentum: float = 0.0  # SGD only
     grad_clip_norm: Optional[float] = None
     accumulate_steps: int = 1
+
+
+def freeze_subtrees(model: torch.nn.Module, frozen_keys: Sequence[str]) -> list:
+    """The parameters of ``model`` outside its top-level submodules named in
+    ``frozen_keys``, in ``model.parameters()`` order: what the optimizer is
+    built over. ``TrainState.create`` then freezes every parameter the
+    optimizer leaves out."""
+    frozen = set(frozen_keys)
+    return [p for name, p in model.named_parameters() if name.split(".")[0] not in frozen]
 
 
 def clip_by_global_norm(params: Sequence[torch.Tensor], max_norm: float) -> None:

@@ -1,9 +1,14 @@
-"""MLM and Perceiver-AR step builders (the counterpart of
+"""MLM, Perceiver-AR and classifier step builders (the counterpart of
 ``perceiver_io_tpu/training/steps.py``: ``mlm_gather_capacity``,
-``make_mlm_steps``, ``make_ar_steps``, ``make_guarded_step``).
+``make_mlm_steps``, ``make_ar_steps``, ``make_classifier_steps``,
+``make_guarded_step``).
 
-Batches are dicts with ``token_ids`` (B, L) int and ``pad_mask`` (B, L)
-bool, as numpy arrays or tensors; the steps move them to the model's device.
+Batches are dicts of numpy arrays or tensors, which the steps move to the
+model's device:
+
+- text: ``token_ids`` (B, L) int and ``pad_mask`` (B, L) bool (and, for a
+  classifier, ``label`` (B,) int);
+- image: ``image`` (B, *image_shape) float and ``label`` (B,) int.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from perceiver_io_torch.ops.masking import shift_ar_labels
 from perceiver_io_torch.training.losses import (
+    classification_loss_and_accuracy,
     cross_entropy_with_ignore,
     fused_linear_cross_entropy_with_ignore,
     pallas_linear_cross_entropy_with_ignore,
@@ -31,21 +37,24 @@ def mlm_gather_capacity(seq_len: int, mask_p: float = 0.15) -> int:
     return min(seq_len, max(cap, 32))
 
 
+def _to(x, device, dtype=None) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return x.to(device, dtype=dtype, non_blocking=True)
+
+
 def _batch_to(batch, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(token_ids, pad_mask) of a batch on ``device``."""
-    ids, pad = batch["token_ids"], batch["pad_mask"]
-    if isinstance(ids, np.ndarray):
-        ids, pad = torch.from_numpy(ids), torch.from_numpy(pad)
-    return (ids.to(device, non_blocking=True),
-            pad.to(device, dtype=torch.bool, non_blocking=True))
+    """(token_ids, pad_mask) of a text batch on ``device``."""
+    return _to(batch["token_ids"], device), _to(batch["pad_mask"], device, torch.bool)
 
 
 def _update(state: TrainState, schedule, compute_loss,
             guard: bool = False) -> Tuple[TrainState, Metrics]:
-    """One optimizer step on the loss ``compute_loss()`` returns; metrics
-    ``loss`` (a device scalar, fetched by the caller when it logs) and,
-    given ``schedule``, ``lr``. The gradients stay on the parameters until
-    the next step.
+    """One optimizer step on the loss ``compute_loss()`` returns (or on the
+    first of its ``(loss, metrics)``, whose metrics join the step's);
+    metrics ``loss`` (a device scalar, fetched by the caller when it logs)
+    and, given ``schedule``, ``lr``. The gradients stay on the parameters
+    until the next step.
 
     ``guard``: between the backward and the update, read on the host
     whether the loss and the gradients are finite (one sync a step); if
@@ -54,9 +63,11 @@ def _update(state: TrainState, schedule, compute_loss,
     were before the step. The metrics then gain ``bad_step`` (0 or 1)."""
     metrics = {} if schedule is None else {"lr": schedule(state.step)}
     state.optimizer.zero_grad(set_to_none=True)
-    loss = compute_loss()
+    loss, extra = compute_loss(), {}
+    if isinstance(loss, tuple):
+        loss, extra = loss
     loss.backward()
-    metrics = {"loss": loss.detach(), **metrics}
+    metrics = {"loss": loss.detach(), **extra, **metrics}
     if guard:
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         finite = torch.isfinite(loss.detach().float())
@@ -182,3 +193,59 @@ def make_ar_steps(model, schedule: Optional[Callable[[int], float]] = None,
         return model_(token_ids, pad_mask, latent_offset=latent_offset)
 
     return train_step, eval_step, predict_fn
+
+
+def make_classifier_steps(model, schedule: Optional[Callable[[int], float]] = None,
+                          input_kind: str = "image", frozen_encoder: bool = False):
+    """(train_step, eval_step) for a ``PerceiverIO`` classifier, with the
+    signatures of :func:`make_mlm_steps`: the mean CE and the top-1 accuracy
+    of the logits against ``batch['label']``, metrics ``loss``, ``acc`` and,
+    given ``schedule``, ``lr`` in training; dropout from the state's (seed,
+    step) key in training, none in evaluation.
+
+    ``input_kind``: ``'image'`` (``batch['image']``, no pad mask) or
+    ``'text'`` (``token_ids`` under ``pad_mask``). ``frozen_encoder=True``
+    runs the encoder deterministically and records no graph through it (no
+    gradient, no attention statistics): the encoder must be out of the
+    optimizer first (``TrainState.create`` over the parameters of
+    ``training.optim.freeze_subtrees``), so its weights take no update.
+    The JAX step computes the frozen encoder's gradients and throws them
+    away; the function is the same."""
+    if input_kind not in ("image", "text"):
+        raise ValueError(f"input_kind must be 'image' or 'text', got {input_kind!r}")
+    if frozen_encoder and any(p.requires_grad for p in model.encoder.parameters()):
+        raise ValueError("frozen_encoder=True needs the encoder out of the optimizer first "
+                         "(TrainState.create over training.optim.freeze_subtrees(model, "
+                         "['encoder']))")
+    device = next(model.parameters()).device
+
+    def inputs(batch):
+        if input_kind == "image":
+            return _to(batch["image"], device), None
+        return _batch_to(batch, device)
+
+    def loss_fn(batch, dropout_key=None):
+        x, pad = inputs(batch)
+        deterministic = dropout_key is None
+        if frozen_encoder:
+            with torch.no_grad():
+                latents = model.encode(x, pad)
+            logits = model.decode(latents, deterministic=deterministic,
+                                  dropout_key=dropout_key)
+        else:
+            logits = model(x, pad, deterministic=deterministic, dropout_key=dropout_key)
+        loss, acc = classification_loss_and_accuracy(logits, _to(batch["label"], device))
+        return loss, {"acc": acc.detach()}
+
+    def train_step(state: TrainState, batch, guard: bool = False
+                   ) -> Tuple[TrainState, Metrics]:
+        return _update(state, schedule, lambda: loss_fn(batch, state.step_dropout_key()),
+                       guard)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None
+                  ) -> Metrics:
+        loss, metrics = loss_fn(batch)
+        return {"loss": loss, **metrics}
+
+    return train_step, eval_step

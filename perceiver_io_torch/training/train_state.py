@@ -27,8 +27,13 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer,
                schedule: Callable[[int], float], seed: int) -> "TrainState":
-        """Every parameter of ``model`` trains (a carried tree loads frozen)."""
-        model.requires_grad_(True)
+        """The parameters ``optimizer`` updates train; every other parameter
+        of ``model`` is frozen (``requires_grad`` False: a carried tree loads
+        frozen, and ``optim.freeze_subtrees`` leaves a subtree out of the
+        optimizer)."""
+        trainable = {id(p) for group in optimizer.param_groups for p in group["params"]}
+        for p in model.parameters():
+            p.requires_grad_(id(p) in trainable)
         return cls(model=model, optimizer=optimizer, schedule=schedule, seed=seed)
 
     def lr(self) -> float:

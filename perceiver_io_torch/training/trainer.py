@@ -4,8 +4,8 @@
 ``Trainer.fit`` runs ``train_step`` over the train loader, epoch after epoch,
 until ``max_steps`` or ``max_epochs``; every ``log_every_n_steps`` (and at
 ``max_steps``) it writes one row to ``<logdir>/<experiment>/version_n/
-metrics.jsonl`` with the train loss, the lr, the mean step seconds of the
-window and tokens per second. It validates as the JAX ``Trainer.fit`` does:
+metrics.jsonl`` with the train loss (and a classifier's ``train_acc``), the
+lr, the mean step seconds of the window, examples and tokens per second. It validates as the JAX ``Trainer.fit`` does:
 every ``eval_every_n_steps`` steps and once more at the end if the last
 interval is partial; with ``eval_every_n_steps`` unset, at the end of every
 epoch and at ``max_steps`` if that falls inside an epoch; never twice at one
@@ -93,6 +93,12 @@ class TrainerConfig:
         return self.skip_nonfinite_steps or self.dispatch_error_retries > 0
 
 
+def batch_size(batch) -> int:
+    """The example count of a dict batch: its ``label`` column's length, or
+    its first column's (a text, image or MLM batch alike)."""
+    return len(batch["label"] if "label" in batch else next(iter(batch.values())))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -141,7 +147,7 @@ class Trainer:
         totals: Dict[str, float] = {}
         weight = 0
         for batch in val_loader:
-            n = len(batch["token_ids"])
+            n = batch_size(batch)
             for k, v in self.eval_step(self.state, batch, self._eval_generator).items():
                 totals[k] = totals.get(k, 0.0) + float(v) * n
             weight += n
@@ -338,13 +344,14 @@ class Trainer:
                     step += 1
                     steps_this_epoch += 1
                     window_steps += 1
-                    window_examples += len(batch["token_ids"])
+                    window_examples += batch_size(batch)
                     if step % cfg.log_every_n_steps == 0 or step == cfg.max_steps:
                         _sync(self.device)
                         elapsed = time.perf_counter() - window_start
-                        row = {("train_loss" if k == "loss" else k): float(v)
+                        row = {(f"train_{k}" if k in ("loss", "acc") else k): float(v)
                                for k, v in metrics.items()}
                         row["step_s"] = elapsed / window_steps
+                        row["examples_per_sec"] = window_examples / elapsed
                         if self.tokens_per_example:
                             row["tokens_per_sec"] = (window_examples * self.tokens_per_example
                                                      / elapsed)

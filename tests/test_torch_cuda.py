@@ -31,6 +31,9 @@ tiles exactly 0; autograd through ``fused_attention`` against the plain
 versions; the tiny AR train step against the plain versions), the tiny AR
 model's incremental steps against its dense forward and against the plain
 versions on the card,
+the classifiers' calls of #1-#3 (one query row in the decoders, 784
+unpadded keys at D=32 in the MNIST cross, f32 and bf16) and a classifier
+train step with the encoder frozen (#1 only in it) and not,
 the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
 ``'auto'`` routing by the rule's block floor, dropout from CUDA generators
 and remat's recompute drawing the same masks,
@@ -1149,3 +1152,105 @@ def test_dropout_and_remat_on_the_card(card):
         if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
             assert float((runs[2][1][name] - ref).abs().max()) <= 1e-6 * float(
                 ref.abs().max()), name
+
+
+# the classification slice's calls of #1-#3: (B, T, S, H, D), padding
+CLASSIFIER_SHAPES = {
+    "img_cross": ((128, 32, 784, 4, 32), None),        # MNIST pixels: 784 keys, no pad
+    "img_self": ((128, 32, 32, 4, 32), None),
+    "text_cross": ((128, 64, 512, 4, 16), "tail"),     # the reference-width text cross
+    "decoder_t1_d16": ((128, 1, 64, 4, 16), None),     # one class query
+    "decoder_t1_d128": ((128, 1, 256, 4, 128), None),  # the flagship-width transfer decoder
+    "decoder_t1_d128_tail": ((128, 1, 256, 4, 128), "tail"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(CLASSIFIER_SHAPES))
+def test_classifier_shapes_match_plain(card, dtype, shape):
+    """#1 (with and without statistics) and #2/#3 under autograd at the
+    classifiers' shapes (one query row in the decoders, 784 unpadded keys in
+    the image cross), against the plain versions: one launch of each kernel
+    (in bf16 each a wgmma launch); ``tail`` pads each example's keys from a
+    random length on, the last example all but one key."""
+    (b, t, s, h, d), padding = CLASSIFIER_SHAPES[shape]
+    g = torch.Generator().manual_seed(b + t + s + d)
+    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(card, dtype) for n in (t, s, s, t))
+    pad = None
+    if padding == "tail":
+        pad = torch.arange(s)[None, :] >= torch.randint(1, s + 1, (b, 1), generator=g)
+        pad[-1, 1:] = True
+        pad = pad.to(card)
+    counters = (ak.counter, ak.dq_counter, ak.dkv_counter)
+    wgmma = (ak.wgmma_counter, ak.dq_wgmma_counter, ak.dkv_wgmma_counter)
+    before = [c.launches for c in counters + wgmma]
+    _close(ak.fused_attention(q, k, v, pad), ak.attention_reference(q, k, v, pad), dtype)
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad)
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(m, ref_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
+    grads = []
+    for fn in (ak.fused_attention, ak.plain_attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*leaves, pad).backward(go)
+        grads.append([x.grad for x in leaves])
+    for x, r in zip(*grads):
+        assert x.shape == r.shape and x.dtype == dtype
+        _close(x, r, dtype, BWD_ATOL)
+    launched = [c.launches - n for c, n in zip(counters + wgmma, before)]
+    bf16 = dtype == torch.bfloat16
+    assert launched == [3, 1, 1] + ([3, 1, 1] if bf16 else [0, 0, 0])
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_classifier_step_on_the_card_matches_plain(card, frozen):
+    """One f32 train step of a small image classifier (2 layers × (cross +
+    1 self), C=32, 14×14 images) on the card, with the kernels and with the
+    plain versions in their place: the same loss and gradients; 5 #1, 5 #2
+    and 5 #3 launches, or with the encoder frozen 5 #1 and 1 #2/#3 (the
+    decoder's: the encoder records no graph)."""
+    import argparse
+
+    from perceiver_io_torch.cli import common
+    from perceiver_io_torch.ops.attention import MultiHeadAttention
+    from perceiver_io_torch.training.optim import OptimizerConfig, freeze_subtrees, make_optimizer
+    from perceiver_io_torch.training.steps import make_classifier_steps
+    from perceiver_io_torch.training.train_state import TrainState
+
+    args = argparse.Namespace(dtype="float32", num_latents=32, num_latent_channels=32,
+                              num_encoder_layers=2, num_self_attention_layers_per_block=1,
+                              num_cross_attention_heads=4, num_self_attention_heads=4,
+                              dropout=0.0, attn_impl="pallas", remat=False, no_reuse_kv=False,
+                              pad_vocab_multiple=None, seed=1)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.uniform(-1, 1, (8, 14, 14, 1)).astype(np.float32),
+             "label": rng.integers(0, 10, 8).astype(np.int32)}
+    counters = (ak.counter, ak.dq_counter, ak.dkv_counter)
+    runs = []
+    for plain in (False, True):
+        model = common.build_image_classifier(args, (14, 14, 1), 10, card,
+                                              num_frequency_bands=4)
+        if plain:
+            for module in model.modules():
+                if isinstance(module, MultiHeadAttention):
+                    module.attention = ak.plain_attention
+        params = freeze_subtrees(model, ["encoder"]) if frozen else model.parameters()
+        optimizer, schedule = make_optimizer(OptimizerConfig(), params)
+        state = TrainState.create(model, optimizer, schedule, seed=3)
+        train_step, _ = make_classifier_steps(model, schedule, "image", frozen_encoder=frozen)
+        before = [c.launches for c in counters]
+        _, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        want = [0, 0, 0] if plain else ([5, 1, 1] if frozen else [5, 5, 5])
+        assert [c.launches - b for c, b in zip(counters, before)] == want
+        runs.append((float(metrics["loss"]), {n: p.grad.detach().clone()
+                                              for n, p in model.named_parameters()
+                                              if p.grad is not None}))
+    (loss, grads), (ref_loss, ref_grads) = runs
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    assert sorted(grads) == sorted(ref_grads)
+    assert any(n.startswith("encoder.") for n in grads) != frozen
+    for name, ref in ref_grads.items():
+        if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
+            assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
