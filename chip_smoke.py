@@ -220,9 +220,10 @@ Phases (any failure exits nonzero):
     every kernel of the call) of the einsum path and of #1-#3, forward and
     forward + backward (forward only for a decode step), at
     ``tools/attn_shapes_bench.py``'s shapes and decode family, the port's
-    training shapes and the rule's floors (SWEEP_SHAPES); a head depth the
-    kernel refuses is marked refused and must not route to it; the table
-    and the thresholds in force are printed;
+    training shapes, the rule's floors and the deep heads (the flow crosses
+    at batch 1, 2 and 8, a D=256 cross and self: SWEEP_SHAPES); a head depth
+    the kernel refuses is marked refused and must not route to it; the
+    table and the thresholds in force are printed;
 25. ``train_mlm --preset flagship_tpu --synthetic`` with the JAX CLI's
     defaults (``xla`` by the preset) and ``--dropout 0.1 --optimizer AdamW
     --accumulate_steps 2 --one_cycle_lr --one_cycle_pct_start 0.3``, 12
@@ -310,6 +311,36 @@ Phases (any failure exits nonzero):
     131072); (c) ``--clf_checkpoint`` of (b)'s run, 4 more steps from its
     best step; (d) the CLI's defaults from scratch: training on the einsum
     path, validation on #1.
+35. #1-#3 at head depths 256 and 512 (the deep designs,
+    ``csrc/attention_deep.cu``) against their plain versions, f32 and bf16,
+    at ``DEEP_SHAPES`` (the flow crosses (B, 2048, 182528, 1, 512) and
+    (B, 182528, 2048, 1, 512), a D=256 cross and a D=256 self): at B=2
+    with ~30% of keys padded and the second example fully masked (dq and dk
+    exactly 0 there), and at B=1 with the causal offset 8 and the first 12
+    keys padded (rows 0-3 see only padding: their dq exactly 0); out, m, l,
+    dq, dk, dv; each call one launch on the deep counters. Times at the
+    comparison batch (kernel device ms, the plain versions', SDPA's or,
+    where SDPA does not take the shape, the einsum path's, labelled) and,
+    in bf16 without padding, at B=8, each beside its bound; then the bf16
+    backward with one key at every head dim (``one_key_sweep``: where ds is
+    0 in exact arithmetic, how far the kernels' and the plain versions' dq
+    and dk lie from 0, and how much of it is the sum g.v);
+36. optical flow at the Perceiver IO paper's width: ``train_flow
+    --synthetic --synthetic_size 48 --learning_rate 1e-4`` with the CLI's
+    defaults (368 × 496 × 3 frame pairs, 2048 × 512 latents, one cross head
+    of depth 512 and 24 self layers of 8 heads, batch 8, bf16, ``auto``),
+    P36_STEPS steps in-process: every step launches 26 #1 (with statistics), 26 #2 and 26
+    #3, all wgmma, 2 + 2 + 2 of them the D=512 design, and no plain
+    version; the eval batch 26 #1; losses finite, the end-point error
+    falling; then the frame-pairs/s window, the profiled window (device ms
+    a step, idle share) and ``torch.cuda.max_memory_allocated``; three f32
+    steps at batch 1 (``'pallas'``: every call on the kernels) against the
+    plain versions in their place, phase 9's bars; one bf16 batch-1 step on
+    each route, ``'auto'``, ``'pallas'`` and ``'xla'``: device ms and peak
+    memory; one bf16 step at batches 2, 4 and 8 on the einsum path: its
+    peak memory, or that it does not fit; six bf16 steps at batch 2 at the
+    CLI's Adam 1e-3 from one set of weights, on the kernels and on the
+    einsum path (``flow_lr_witness``).
 
 Phases 23 and 27 run ``train_ar`` with ``--sample_prefix_len 0`` (their
 checks count the training path's launches; phase 31 drives the hook);
@@ -2325,6 +2356,13 @@ SWEEP_SHAPES = (("mlm-cross", (8, 256, 512, 4, 16), None),
                 ("flow-cross", (1, 2048, 182528, 1, 512), None),
                 ("flow-self", (2, 2048, 2048, 8, 64), None),
                 ("flow-dec-cross", (2, 182528, 2048, 1, 512), None),
+                # train_flow's crosses at its batch of 8, and the decoder's
+                # at batch 1 (16 key tiles: the rule's key floor); D=256
+                ("flow-cross-b8", (8, 2048, 182528, 1, 512), None),
+                ("flow-dec-cross-b8", (8, 182528, 2048, 1, 512), None),
+                ("flow-dec-cross-b1", (1, 182528, 2048, 1, 512), None),
+                ("d256-cross", (2, 1024, 16384, 2, 256), None),
+                ("d256-self-b8", (8, 1024, 1024, 4, 256), None),
                 ("in-self-b16", (16, 512, 512, 8, 128), None),
                 ("mlm-32k", (2, 256, 32768, 4, 16), None),
                 ("mlm-131k", (1, 256, 131072, 4, 16), None),
@@ -2454,7 +2492,7 @@ def auto_sweep_phase(torch, ak, pat) -> list:
         log(**row)
         rows.append(row)
     log(phase="auto_thresholds", card=card_line(), min_kv=pat.AUTO_PALLAS_MIN_KV,
-        min_logits=pat.AUTO_PALLAS_MIN_LOGITS,
+        min_logits=pat.AUTO_PALLAS_MIN_LOGITS, deep_min_logits=pat.AUTO_DEEP_MIN_LOGITS,
         area_min_head_dim=pat.AUTO_PALLAS_AREA_MIN_HEAD_DIM,
         head_dims=list(ak.SUPPORTED_HEAD_DIMS))
     return rows
@@ -3586,6 +3624,479 @@ def sequence_classification_phase(torch, port, root: str, mlm_ckpt: str) -> dict
     return launches
 
 
+# phase 35: #1-#3 at the deep head dims, name, (T, S, H, D); compared at
+# B=2 (no causal offset) and B=1 (offset DEEP_CAUSAL_OFFSET), timed in bf16
+# at DEEP_TIME_BATCH too
+DEEP_SHAPES = (("flow-cross", (2048, 182528, 1, 512)),
+               ("flow-dec-cross", (182528, 2048, 1, 512)),
+               ("d256-cross", (1024, 16384, 2, 256)),
+               ("d256-self", (1024, 1024, 4, 256)))
+DEEP_CAUSAL_OFFSET, DEEP_HEAD_PADDED, DEEP_TIME_BATCH = 8, 12, 8
+
+
+def deep_library_ms(torch, pat, q, k, v, g, pad):
+    """(kind, forward ms, backward ms) of one library call computing the
+    same function: SDPA with the additive pad mask where it takes the shape,
+    else the einsum path (``'einsum'``); CUDA events. None where neither
+    fits in the card's memory."""
+    import torch.nn.functional as F
+
+    bias = None if pad is None else torch.zeros(pad.shape, device=q.device).masked_fill(
+        pad, -1e30)[:, None, None, :].to(q.dtype)
+    heads_first = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    calls = (("sdpa", lambda: F.scaled_dot_product_attention(*heads_first, attn_mask=bias),
+              heads_first, g.transpose(1, 2)),
+             ("einsum", lambda: pat.dot_product_attention(*leaves, pad, None), leaves, g))
+    for kind, fn, ins, cot in calls:
+        try:
+            fwd = time_ms(fn, 2)
+            out = fn()
+            bwd = time_ms(lambda: torch.autograd.grad(out, ins, cot, retain_graph=True), 2)
+            return kind, fwd, bwd
+        except (torch.cuda.OutOfMemoryError, RuntimeError):
+            gc.collect()
+            torch.cuda.empty_cache()
+    return None, None, None
+
+
+def deep_counts(ak) -> list:
+    return [c.launches for c in (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter)]
+
+
+def deep_attention_phase(torch, ak, pat) -> list:
+    """Phase 35: #1-#3's deep designs against their plain versions (see the
+    module docstring); the rows of the ``kernels`` line."""
+    rows = []
+    for name, (t, s, h, d) in DEEP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for off in (None, DEEP_CAUSAL_OFFSET):
+                t_row = time.perf_counter()
+                dt = str(dtype).split(".")[1]
+                b = 2 if off is None else 1
+                gen = torch.Generator().manual_seed(t + s + d + (off or 0))
+                pad = torch.rand(b, s, generator=gen) < 0.3
+                if off is None:
+                    pad[-1] = True  # a fully masked example
+                else:
+                    pad[:, :DEEP_HEAD_PADDED] = True  # rows 0-3 see only padding
+                pad = pad.cuda()
+                q, g = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype)
+                        for _ in range(2))
+                k, v = (torch.randn(b, s, h, d, generator=gen).to("cuda", dtype)
+                        for _ in range(2))
+                before = deep_counts(ak)
+                out, m, l = ak.attention_fwd_with_stats(q, k, v, pad, off)
+                ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad, off)
+                label = f"deep {name} {dt} offset {off}"
+                fwd_err = check(f"{label} out", out, ref_out, dt)
+                stat_err = max(check_stats(f"{label} m", m, ref_m),
+                               check_stats(f"{label} l", l, ref_l))
+                del out, m, l
+                grads = ak.attention_bwd(q, k, v, pad, ref_out, ref_m, ref_l, g, off)
+                if deep_counts(ak) != [n + 1 for n in before]:
+                    raise AssertionError(f"{label}: deep launches {deep_counts(ak)} from {before}")
+                refs = ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m, ref_l, g, off)
+                errs = [check(f"{label} {x}", got, ref, dt)
+                        for x, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
+                del refs
+                if off is None and (grads[0][-1].any() or grads[1][-1].any()):
+                    raise AssertionError(f"{label}: dq/dk of the fully masked example not 0")
+                if off is not None and grads[0][:, :DEEP_HEAD_PADDED - off].any():
+                    raise AssertionError(f"{label}: dq of rows that see only padding not 0")
+                row = dict(phase="deep_attention", shape=name, dims=[b, t, s, h, d], dtype=dt,
+                           causal_offset=off, design=ak.forward_design(q, k, v),
+                           max_abs_err=max([fwd_err] + errs), fwd_max_abs_err=fwd_err,
+                           dq_max_abs_err=errs[0], dkv_max_abs_err=max(errs[1:]),
+                           stats_max_rel_err=stat_err)
+                if off is None:
+                    row.update(deep_timing(torch, ak, pat, q, k, v, g, pad, ref_m, ref_l,
+                                           ref_out, dt, plain=True))
+                row["row_s"] = time.perf_counter() - t_row
+                log(**row)
+                rows.append(row)
+                del q, k, v, g, grads, ref_out, ref_m, ref_l
+                gc.collect()
+                torch.cuda.empty_cache()
+        # bf16 at DEEP_TIME_BATCH, no padding: the kernels' times at the CLI's batch
+        t_row = time.perf_counter()
+        b = DEEP_TIME_BATCH
+        gen = torch.Generator(device="cuda").manual_seed(t + s + d)
+        q, g = (torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        out, m, l = ak.attention_fwd_with_stats(q, k, v, None)
+        row = dict(phase="deep_attention", shape=name, dims=[b, t, s, h, d], dtype="bfloat16",
+                   causal_offset=None, design=ak.forward_design(q, k, v), timed_only=True,
+                   **deep_timing(torch, ak, pat, q, k, v, g, None, m, l, out, "bfloat16",
+                                 plain=False))
+        row["row_s"] = time.perf_counter() - t_row
+        log(**row)
+        rows.append(row)
+        del q, k, v, g, out, m, l
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def deep_timing(torch, ak, pat, q, k, v, g, pad, m, l, out, dt: str, plain: bool) -> dict:
+    """Times of the deep kernels on these inputs (device ms by torch.profiler
+    in bf16, CUDA events in f32, whose kernels run long), their bounds, the
+    library's (``deep_library_ms``) and, with ``plain``, the plain
+    versions' (forward with statistics; the whole backward)."""
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    bias = ak.pad_bias(pad, b, s, "cuda")
+    delta = ak.bwd_delta(g, out)
+    run = dict(fwd=lambda: ak.attention_fwd_with_stats(q, k, v, pad),
+               dq=lambda: ak.launch_bwd_dq(q, k, v, bias, m, l, delta, g),
+               dkv=lambda: ak.launch_bwd_dkv(q, k, v, bias, m, l, delta, g))
+    item = q.element_size()
+    valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
+    stats_bytes = 4 * 3 * b * h * t + 4 * b * s
+    bounds = dict(fwd=bound_ms(item * (2 * b * t * h * d + 2 * b * s * h * d) + 4 * b * s
+                               + 8 * b * h * t, 4 * h * t * d * valid, dt),
+                  dq=bound_ms(item * (3 * b * t * h * d + 2 * b * s * h * d) + stats_bytes,
+                              6 * h * t * d * valid, dt),
+                  dkv=bound_ms(item * (2 * b * t * h * d + 4 * b * s * h * d) + stats_bytes,
+                               8 * h * t * d * valid, dt))
+    row = {}
+    for part, fn in run.items():
+        row[f"{part}_ms"] = time_ms(fn, 2)
+        row[f"{part}_device_ms"] = (device_ms(torch, fn, iters=2, tries=2)
+                                    if dt == "bfloat16" else None)
+        row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = bounds[part]
+    if plain:
+        row["plain_fwd_ms"] = time_ms(lambda: ak.attention_reference_with_stats(q, k, v, pad),
+                                      2)
+        row["plain_bwd_ms"] = time_ms(lambda: ak.attention_bwd_reference(q, k, v, pad, out, m,
+                                                                         l, g), 2)
+    kind, fwd, bwd = deep_library_ms(torch, pat, q, k, v, g, pad)
+    row.update(library=kind, library_fwd_ms=fwd, library_bwd_ms=bwd)
+    return row
+
+
+ONE_KEY_SEEDS = 3
+
+
+def one_key_sweep(torch, ak) -> list:
+    """The bf16 backward where ds = p (g.v - delta) is 0 in exact arithmetic
+    (one key, so p = 1 and out = v), at every head dim from the same draw
+    (the first D columns of a D=512 one), ONE_KEY_SEEDS draws of (3, 250,
+    2, D) queries: how far the wgmma kernels' dq, dk and the plain
+    versions' lie from 0 (the card tests' ``BWD_ATOL`` cases) and where it
+    comes from. ds of a row is read back from dq by least squares over k's
+    D columns; since delta is the same f32 sum on both sides (``bwd_delta``,
+    against float64), the rest of the kernel's ds is its tensor-core sum
+    g.v against float64, beside the plain version's f32 einsum."""
+    rows = []
+    for d in ak.SUPPORTED_HEAD_DIMS:
+        worst = dict.fromkeys(("kernel_dq", "kernel_dk", "plain_dq", "plain_dk", "kernel_ds",
+                               "plain_ds", "delta_err", "kernel_dp_err", "plain_dp_err",
+                               "kernel_minus_plain"), 0.0)
+        for seed in range(ONE_KEY_SEEDS):
+            gen = torch.Generator().manual_seed(seed)
+            q, g = (torch.randn(3, 250, 2, 512, generator=gen)[..., :d] for _ in range(2))
+            k, v = (torch.randn(3, 1, 2, 512, generator=gen)[..., :d] for _ in range(2))
+            q, k, v, g = (x.to("cuda", torch.bfloat16).contiguous() for x in (q, k, v, g))
+            pad = torch.zeros(3, 1, dtype=torch.bool, device="cuda")
+            out, m, l = ak.attention_reference_with_stats(q, k, v, pad)
+            got = ak.attention_bwd(q, k, v, pad, out, m, l, g)
+            ref = ak.attention_bwd_reference(q, k, v, pad, out, m, l, g)
+            k64 = k.double()[:, 0]  # (B, H, D)
+            dp64 = (g.double() * v.double()).sum(-1)  # (B, T, H): one key
+            delta64 = (g.double() * out.double()).sum(-1)
+            delta32 = ak.bwd_delta(g, out).transpose(1, 2).double()
+            plain_dp = torch.einsum("bthd,bshd->bhts", g.float(), v.float())[..., 0]
+            plain_dp = plain_dp.transpose(1, 2).double()  # the plain version's f32 g.v
+            scale = d**-0.5
+            for side, (dq, dk, _) in (("kernel", got), ("plain", ref)):
+                ds = ((dq.double() * k64[:, None]).sum(-1)
+                      / (scale * (k64 * k64).sum(-1))[:, None])  # (B, T, H)
+                worst[f"{side}_dq"] = max(worst[f"{side}_dq"], float(dq.float().abs().max()))
+                worst[f"{side}_dk"] = max(worst[f"{side}_dk"], float(dk.float().abs().max()))
+                worst[f"{side}_ds"] = max(worst[f"{side}_ds"], float(ds.abs().max()))
+                if side == "kernel":  # ds = fl(dp) - delta32 and dp64 = delta64
+                    err = float((ds + delta32 - dp64).abs().max())
+                    worst["kernel_dp_err"] = max(worst["kernel_dp_err"], err)
+            worst["delta_err"] = max(worst["delta_err"], float((delta32 - delta64).abs().max()))
+            worst["plain_dp_err"] = max(worst["plain_dp_err"],
+                                        float((plain_dp - dp64).abs().max()))
+            worst["kernel_minus_plain"] = max(worst["kernel_minus_plain"], *(
+                float((x.float() - r.float()).abs().max()) for x, r in zip(got[:2], ref[:2])))
+        rows.append(dict(d=d, **worst))
+    log(phase="deep_attention_one_key", seeds=ONE_KEY_SEEDS, rows=rows)
+    return rows
+
+
+# phase 36: train_flow at the paper's width. Adam at the CLI's 1e-3 swings
+# the end-point error over the first steps (2.31, 5.28, 6.88, 5.86, 2.29,
+# 3.38: PERF.md §6), on the einsum path as on the kernels (flow_lr_witness),
+# so the checked fit takes 1e-4
+P36_STEPS, P36_PAIRS = 8, 48
+P36_ARGS = ["--synthetic", "--synthetic_size", str(P36_PAIRS), "--max_steps", str(P36_STEPS),
+            "--eval_every_n_steps", str(P36_STEPS), "--log_every_n_steps", "1",
+            "--learning_rate", "1e-4", "--no_tensorboard"]
+FLOW_ATTENTION = 26  # 1 encoder cross + 24 self + 1 decoder cross
+FLOW_DEEP = 2        # the two crosses, one head of depth 512
+
+
+def flow_launches(training: bool) -> dict:
+    """#1-#3 launches (and their wgmma ones) of one flow train step or eval
+    batch at the CLI's batch, in KERNEL_NAMES order: every call on the
+    kernels by the ``auto`` rule."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    bwd = FLOW_ATTENTION if training else 0
+    counts.update(attention_fwd=FLOW_ATTENTION, attention_fwd_wgmma=FLOW_ATTENTION,
+                  attention_bwd_dq=bwd, attention_bwd_dkv=bwd, attention_bwd_dq_wgmma=bwd,
+                  attention_bwd_dkv_wgmma=bwd)
+    return counts
+
+
+def check_deep_launches(trainer, ak, label: str) -> None:
+    """Wrap the trainer's steps: each train step launches FLOW_DEEP of each
+    deep kernel, each eval batch FLOW_DEEP forwards."""
+    def wrap(step, training: bool):
+        def run(state, batch, *rest, **kwargs):
+            before = deep_counts(ak)
+            out = step(state, batch, *rest, **kwargs)
+            got = [a - b for a, b in zip(deep_counts(ak), before)]
+            want = [FLOW_DEEP] + [FLOW_DEEP if training else 0] * 2
+            if got != want:
+                raise AssertionError(f"{label}: deep launches {got} != {want}")
+            return out
+        return run
+
+    trainer.train_step = wrap(trainer.train_step, True)
+    trainer.eval_step = wrap(trainer.eval_step, False)
+
+
+def flow_model(port, dtype: str, attn_impl: str):
+    """The flow model at the CLI's defaults, weights from seed 0."""
+    train_flow = port["train_flow"]
+    args = train_flow.build_parser().parse_args(["--dtype", dtype, "--attn_impl", attn_impl])
+    shape = (args.image_height, args.image_width, args.image_channels)
+    return train_flow.common.build_flow_model(args, shape, "cuda")
+
+
+def flow_parity(torch, port, batches) -> dict:
+    """Three f32 steps at batch 1 (weights from seed 0, Adam 1e-3) with the
+    kernels at every call (``'pallas'``), then with the plain versions in
+    their place, on the same batches: losses within 1e-4 relative, the first
+    step's gradients within 1e-3 of each leaf's peak (phase 9's bars)."""
+    ak, MHA = port["ak"], port["MultiHeadAttention"]
+    counters = path_counters(port)
+    runs = []
+    for plain in (False, True):
+        model = flow_model(port, "float32", "pallas")
+        if plain:
+            for module in model.modules():
+                if isinstance(module, MHA):
+                    module.attention = ak.plain_attention
+        optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](),
+                                                     model.parameters())
+        state = port["TrainState"].create(model, optimizer, schedule, seed=2)
+        step, _ = port["make_flow_steps"](model, schedule)
+        before = [c.launches for c in counters] + deep_counts(ak)
+        losses, grads = [], None
+        for batch in batches:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            if grads is None:
+                grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        got = [a - b for a, b in zip([c.launches for c in counters] + deep_counts(ak), before)]
+        if (sum(got) == 0) != plain or (not plain and got[-3:] != [3 * FLOW_DEEP] * 3):
+            raise AssertionError(f"phase 36 f32 parity: plain={plain} launched {got}")
+        runs.append((losses, grads))
+        del model, state, optimizer
+        gc.collect()
+        torch.cuda.empty_cache()
+    (k_losses, k_grads), (p_losses, p_grads) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    peak_all = max(float(x.abs().max()) for x in p_grads.values())
+    worst, worst_name, symmetric = 0.0, None, 0.0
+    for name, ref in p_grads.items():
+        if name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise on both sides
+            symmetric = max(symmetric, float(k_grads[name].abs().max()) / peak_all,
+                            float(ref.abs().max()) / peak_all)
+            continue
+        err = float((k_grads[name] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    reading = dict(kernel_losses=k_losses, plain_losses=p_losses, loss_max_rel_diff=loss_rel,
+                   grad_max_err_over_leaf_peak=worst, worst_leaf=worst_name,
+                   k_proj_bias_over_global_peak=symmetric)
+    if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5):
+        raise AssertionError(f"phase 36 f32 parity: {reading}")
+    return reading
+
+
+def flow_routes(torch, port, batch) -> dict:
+    """One bf16 step at batch 1 on each route, ``'auto'`` (at batch 1 the
+    crosses on the einsum path, the self-attention on the kernels),
+    ``'pallas'`` (every call on the kernels) and ``'xla'`` (a warm step,
+    then a profiled one): device busy ms, peak memory, and the #1 launches
+    of the measured step."""
+    ak = port["ak"]
+    model = flow_model(port, "bfloat16", "auto")
+    optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](), model.parameters())
+    state = port["TrainState"].create(model, optimizer, schedule, seed=2)
+    step, _ = port["make_flow_steps"](model, schedule)
+    reading = {}
+    for impl in ("auto", "pallas", "xla"):
+        use_attn_impl(model, port, impl)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        before = (ak.counter.launches, ak.deep_counter.launches)
+        prof = profile_pass(torch, lambda: step(state, batch), f"flow_b1_{impl}")
+        reading[impl] = dict(device_ms=prof["device_busy_ms"],
+                             idle_share=prof["device_idle_share"],
+                             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                             attention_fwd=ak.counter.launches - before[0],
+                             attention_fwd_deep=ak.deep_counter.launches - before[1])
+    del model, state, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reading
+
+
+EINSUM_BATCHES = (2, 4, 8)
+WITNESS_STEPS, WITNESS_BATCH = 6, 2
+
+
+def flow_einsum_steps(torch, port, batch) -> dict:
+    """One bf16 step at each of EINSUM_BATCHES (the first rows of the CLI's
+    batch) with every attention call on the einsum path (``'xla'``): its
+    peak memory and device ms, or that it does not fit in the card's memory
+    (where ``'auto'`` must send the deep crosses to the kernels,
+    ``ops.attention.AUTO_DEEP_MIN_LOGITS``); one model and optimizer for
+    all, so each peak holds the same weights and Adam state."""
+    model = flow_model(port, "bfloat16", "xla")
+    optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](), model.parameters())
+    state = port["TrainState"].create(model, optimizer, schedule, seed=2)
+    step, _ = port["make_flow_steps"](model, schedule)
+    readings = {}
+    for b in EINSUM_BATCHES:
+        rows = {k: v[:b] for k, v in batch.items()}
+        state.optimizer.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            prof = profile_pass(torch, lambda: step(state, rows), f"flow_b{b}_xla")
+            reading = dict(fits=True, device_ms=prof["device_busy_ms"],
+                           peak_memory_bytes=torch.cuda.max_memory_allocated())
+        except torch.cuda.OutOfMemoryError as exc:
+            reading = dict(fits=False, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                           error=str(exc).splitlines()[0][:200])
+        reading["cross_logits"] = b * 2048 * 182528  # B·H·T·S of each cross
+        readings[f"b{b}"] = reading
+    state.optimizer.zero_grad(set_to_none=True)
+    del model, state, optimizer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def flow_lr_witness(torch, port, batches) -> dict:
+    """bf16 steps at the CLI's Adam 1e-3 on ``batches`` (WITNESS_STEPS of
+    WITNESS_BATCH pairs) from the same weights (seed 0), once with every
+    call on the kernels (``'pallas'``: the crosses on the D=512 wgmma
+    design) and once on the einsum path (``'xla'``): whether the end-point
+    error's swing at 1e-3 comes with the kernels or with the optimizer."""
+    ak = port["ak"]
+    runs = {}
+    for impl in ("pallas", "xla"):
+        model = flow_model(port, "bfloat16", impl)
+        optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](),
+                                                     model.parameters())
+        state = port["TrainState"].create(model, optimizer, schedule, seed=2)
+        step, _ = port["make_flow_steps"](model, schedule)
+        before = ak.deep_counter.launches
+        losses = []
+        for batch in batches:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        deep = ak.deep_counter.launches - before
+        if not all(math.isfinite(x) for x in losses) \
+                or deep != (FLOW_DEEP * len(batches) if impl == "pallas" else 0):
+            raise AssertionError(f"phase 36 witness {impl}: losses {losses}, deep {deep}")
+        runs[impl] = losses
+        del model, state, optimizer, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(batch=WITNESS_BATCH, learning_rate=port["OptimizerConfig"]().learning_rate,
+                **runs, max_rel_diff=max(abs(a - b) / abs(b)
+                                         for a, b in zip(runs["pallas"], runs["xla"])))
+
+
+def flow_phase(torch, port, root: str) -> dict:
+    """Phase 36 (see the module docstring): ``train_flow`` at the CLI's
+    defaults; returns the checked fit's launches."""
+    t_phase = time.perf_counter()
+    ak, train_flow = port["ak"], port["train_flow"]
+    counters = path_counters(port)
+    for c in counters + (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter):
+        c.reset()
+    t0 = time.perf_counter()
+    trainer, data = train_flow.prepare(P36_ARGS + ["--root", root, "--logdir", f"{root}/p36"])
+    setup_s = time.perf_counter() - t0
+    check_launches(trainer, counters, lambda batch, training: flow_launches(training),
+                   "phase 36")
+    check_deep_launches(trainer, ak, "phase 36")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with trainer:
+        trainer.fit(data.train_dataloader(), data.val_dataloader())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in zip(KERNEL_NAMES, counters)}
+    deep = dict(zip(("attention_fwd_deep", "attention_bwd_dq_deep", "attention_bwd_dkv_deep"),
+                    deep_counts(ak)))
+    rows = read_rows(trainer.run_dir)
+    train = [r for r in rows if "train_loss" in r]
+    val = [r for r in rows if "val_loss" in r]
+    losses = [r["train_loss"] for r in train]
+    if [r["step"] for r in train] != list(range(1, P36_STEPS + 1)) \
+            or [r["step"] for r in val] != [P36_STEPS] \
+            or not all(math.isfinite(x) for x in losses + [val[0]["val_loss"]]) \
+            or not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"phase 36: rows {rows}")
+    # the checked steps' state and loader; the deep wrap stays on (windows
+    # take the trainer's steps)
+    torch.cuda.reset_peak_memory_stats()
+    windows = cli_windows(torch, port, trainer, data.train_dataloader(), f"{root}/p36_windows",
+                          "flow", per="examples")
+    window_peak = torch.cuda.max_memory_allocated()
+    batches = [b for _, b in zip(range(3), data.train_dataloader())]
+    batch1 = [{k: v[:1] for k, v in b.items()} for b in batches]
+    # WITNESS_STEPS batches of WITNESS_BATCH pairs, cut from those rows in order
+    witness_batches = [{k: v[i:i + WITNESS_BATCH] for k, v in b.items()}
+                       for b in batches for i in range(0, len(b["flow"]), WITNESS_BATCH)]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = flow_parity(torch, port, batch1)
+    routes = flow_routes(torch, port, batch1[0])
+    einsum = flow_einsum_steps(torch, port, batches[0])
+    witness = flow_lr_witness(torch, port, witness_batches[:WITNESS_STEPS])
+    log(phase="flow", card=card_line(), steps=P36_STEPS, losses=losses,
+        val=[(r["step"], r["val_loss"]) for r in val], launches=launches, deep_launches=deep,
+        launches_per_step={k: v for k, v in flow_launches(True).items() if v},
+        deep_per_step=FLOW_DEEP, setup_s=setup_s, fit_s=fit_s,
+        checked_fit_pairs_per_s=[r["examples_per_sec"] for r in train],
+        fit_peak_memory_bytes=fit_peak, window_peak_memory_bytes=window_peak,
+        **windows, f32_parity=parity, b1_routes=routes, einsum_steps=einsum,
+        lr_witness=witness,
+        phase_s=time.perf_counter() - t_phase)
+    launches.update(deep)
+    return launches
+
+
 def check_kernel_entry(k: dict) -> None:
     """One entry of the ``kernels`` line carries every key of its contract,
     each of its type: times, errors and bounds are numbers, ``library_ms``
@@ -3613,7 +4124,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: failed in phase device: no CUDA device", flush=True)
         return 1
-    from perceiver_io_torch.cli import serve, train_ar, train_img_clf, train_mlm, train_seq_clf
+    from perceiver_io_torch.cli import (
+        serve,
+        train_ar,
+        train_flow,
+        train_img_clf,
+        train_mlm,
+        train_seq_clf,
+    )
     from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
     from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
     from perceiver_io_torch.inference.engine import MLMServer
@@ -3639,6 +4157,7 @@ def main() -> int:
     from perceiver_io_torch.training.steps import (
         make_ar_steps,
         make_classifier_steps,
+        make_flow_steps,
         make_mlm_steps,
     )
     from perceiver_io_torch.training.train_state import TrainState
@@ -3674,6 +4193,9 @@ def main() -> int:
     enter("24: einsum attention and the auto sweep")
     einsum_vs_kernels_f32(torch, ak, pat)
     auto_sweep_phase(torch, ak, pat)
+    enter("35: deep-head attention kernels")
+    deep_rows = deep_attention_phase(torch, ak, pat)
+    one_key_sweep(torch, ak)
 
     enter("6: serving")
     trained = WordPieceTokenizer()
@@ -3693,7 +4215,8 @@ def main() -> int:
                 SUPPORTED_OPTIMIZERS=SUPPORTED_OPTIMIZERS, checkpoint=checkpoint,
                 param_tree=param_tree, tree_digest=tree_digest, load_tokenizer=load_tokenizer,
                 train_img_clf=train_img_clf, train_seq_clf=train_seq_clf,
-                make_classifier_steps=make_classifier_steps)
+                make_classifier_steps=make_classifier_steps, train_flow=train_flow,
+                make_flow_steps=make_flow_steps)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
@@ -3771,6 +4294,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         enter("34: sequence classification and transfer")
         path_launches.append(sequence_classification_phase(torch, port, root, p29_checkpoints))
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("36: optical flow at the paper's width")
+        flow_launches_run = flow_phase(torch, port, root)
+        path_launches.append(flow_launches_run)
     enter("16: packed serving")
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
@@ -3883,6 +4411,25 @@ def main() -> int:
             shape=row["shape"], dims=row["dims"], dtype=row["dtype"],
             design=row["design"],
             event_ms=row[f"{part}_ms"], ms_source="device" if device else "event"))
+    # the deep designs (D = 256, 512) at the flow encoder's cross, bf16, B=2
+    # with padding (phase 35); launches: phase 36's checked fit
+    deep_row = next(r for r in deep_rows if r["shape"] == "flow-cross"
+                    and r["dtype"] == "bfloat16" and r["causal_offset"] is None
+                    and not r.get("timed_only"))
+    deep_src = "perceiver_io_torch/csrc/attention_deep.cu"
+    for name, part, way, site in (("attention_fwd_deep", "fwd", "fwd", 272),
+                                  ("attention_bwd_dq_deep", "dq", "bwd", 402),
+                                  ("attention_bwd_dkv_deep", "dkv", "bwd", 424)):
+        device = deep_row[f"{part}_device_ms"] is not None
+        kernels.append(dict(
+            name=name, route="cuda", source=deep_src, replaces=tpu_attn.format(site),
+            launches=flow_launches_run[name], max_abs_err=deep_row[f"{part}_max_abs_err"],
+            ms=deep_row[f"{part}_device_ms" if device else f"{part}_ms"],
+            plain_ms=deep_row[f"plain_{way}_ms"], bound_ms=deep_row[f"{part}_bound_ms"],
+            bound_by=deep_row[f"{part}_bound_by"], library_ms=deep_row[f"library_{way}_ms"],
+            library=deep_row["library"], shape=deep_row["shape"], dims=deep_row["dims"],
+            dtype=deep_row["dtype"], design=deep_row["design"],
+            event_ms=deep_row[f"{part}_ms"], ms_source="device" if device else "event"))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: {missing}")

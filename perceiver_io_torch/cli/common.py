@@ -329,6 +329,23 @@ def build_image_classifier(args, image_shape, num_classes: int, device,
                              _decoder(args, _classes(args, num_classes))), args, device)
 
 
+def build_flow_model(args, image_shape, device) -> PerceiverIO:
+    """The optical-flow model (``models.flow``): frame-pair patches and their
+    Fourier encodings into the encoder, one decoder query per pixel, weights
+    drawn from ``--seed``."""
+    from perceiver_io_torch.models.flow import build_optical_flow_model
+
+    return _init(build_optical_flow_model(
+        image_shape=tuple(image_shape), latent_shape=(args.num_latents, args.num_latent_channels),
+        num_layers=args.num_encoder_layers,
+        num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
+        num_cross_attention_heads=args.num_cross_attention_heads,
+        num_self_attention_heads=args.num_self_attention_heads, patch_size=args.patch_size,
+        num_frequency_bands=args.num_frequency_bands, dropout=args.dropout,
+        dtype=DTYPES[args.dtype], attn_impl=args.attn_impl, remat=args.remat,
+        reuse_kv=not args.no_reuse_kv), args, device)
+
+
 # the flags that shape a model: a checkpoint's hparams override them, so a
 # restored encoder fits what it was trained as
 MODEL_HPARAM_KEYS = ("num_latents", "num_latent_channels", "num_encoder_layers",

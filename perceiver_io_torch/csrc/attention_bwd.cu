@@ -91,6 +91,7 @@
 //   Registers: at D=128 a dk/dv thread holds two 64x128 f32 accumulators
 //   (128 registers) beside S^T and dP^T (64), hence 64-row streamed tiles.
 
+#include "attention_deep.cuh"
 #include "attention_tiles.cuh"
 
 #include <math.h>
@@ -713,11 +714,25 @@ cudaError_t launch_dkv_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-// dtype 0 (float32) runs the scalar design, 1 (bfloat16) the wgmma design
+// the arguments as the deep designs (attention_deep.cu) take them
+attn_deep::BwdArgs deep_args(const Args& a) {
+  const Strides& s = a.st;
+  return attn_deep::BwdArgs{a.q, a.k, a.v, a.g, a.bias, a.m, a.l, a.delta, a.dq, a.dk, a.dv,
+                            a.batch, a.t_len, a.s_len, a.heads, a.causal, a.causal_offset,
+                            {s.qb, s.qt, s.qh, s.kb, s.ks, s.kh, s.vb, s.vs, s.vh, s.gb, s.gt,
+                             s.gh},
+                            a.stream};
+}
+
+// dtype 0 (float32) runs the scalar design, 1 (bfloat16) the wgmma design;
+// head dims 256 and 512 go to the deep designs
 template <bool kDq>
 int dispatch(int dtype, int head_dim, const Args& a) {
   if ((dtype != 0 && dtype != 1) || (a.causal != 0 && a.causal != 1))
     return cudaErrorInvalidValue;
+  if (attn_deep::takes(head_dim))
+    return kDq ? attn_deep::bwd_dq(dtype, head_dim, deep_args(a))
+               : attn_deep::bwd_dkv(dtype, head_dim, deep_args(a));
 #define PIT_LAUNCH(D)                                                      \
   (dtype == 0 ? (kDq ? launch_dq<D>(a) : launch_dkv<D>(a))                 \
               : (kDq ? launch_dq_wgmma<D>(a) : launch_dkv_wgmma<D>(a)))

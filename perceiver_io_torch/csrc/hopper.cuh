@@ -289,6 +289,56 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (m64 x n32, f32) {=, +=} A (m64 x k16) . B (k16 x n32), both read from shared
+// memory through K-major descriptors; accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (m64 x n16, f32) {=, +=} A (m64 x k16) . B (k16 x n16), both read from shared
+// memory through K-major descriptors; accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// the SS product of an m64 tile whose accumulator holds N floats a thread
+// (n = 2N columns: 16, 32 or 64), both operands K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  wgmma_ss_m64n16k16(d, desc_a, desc_b, accumulate);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  wgmma_ss_m64n32k16(d, desc_a, desc_b, accumulate);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  wgmma_ss_m64n64k16(d, desc_a, desc_b, accumulate);
+}
+
 // D (m64 x n16, f32) += A (m64 x k16, bf16 in registers) . B (k16 x n16) read from
 // shared memory through an MN-major descriptor (B transposed).
 __device__ __forceinline__ void wgmma_rs_m64n16k16_tb(float (&d)[8], const uint32_t (&a)[4],

@@ -29,6 +29,14 @@ causal call.
   kernels, bfloat16 the tensor-core kernels (``wgmma`` fed by TMA, key
   tiles that are all padding skipped); a bf16 input they cannot take
   raises ``ValueError``.
+- deep heads: at D = 256 and 512 (``DEEP_HEAD_DIMS``; the optical-flow
+  model's one-head crosses are D = 512) the same entry points run the
+  designs of ``csrc/attention_deep.cu``, both dtypes, with and without the
+  causal offset, whose tiles fit such a head: 64-column accumulator atoms
+  split between two warpgroups, 8 KB-row K/V or Q/G tiles, and at D = 512
+  the dk/dv kernel as two launches (dv, then dk) in one call. They skip no
+  padded tile. Their launches also count on ``deep_counter``,
+  ``dq_deep_counter`` and ``dkv_deep_counter``.
 - :class:`FusedAttention`: the ``torch.autograd.Function`` twin of the
   ``_fused_attention`` custom VJP. :func:`fused_attention` applies it when
   autograd records; serving calls launch the forward without statistics.
@@ -51,7 +59,10 @@ from perceiver_io_torch.ops.masking import causal_mask
 MASK_VALUE = -1e30
 # the mask value as the f32 bias holds it (the kernels' running-max floor)
 _MASK_F32 = float(torch.tensor(MASK_VALUE, dtype=torch.float32))
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 256, 512)
+# the head dims of the deep designs (csrc/attention_deep.cu, up to the TPU
+# kernel's LONG_KV_MAX_D = 512), reached through the same entry points
+DEEP_HEAD_DIMS = (256, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 counter = build.LaunchCounter()          # attention_fwd, either design
@@ -63,6 +74,9 @@ dq_wgmma_counter = build.LaunchCounter()   # attention_bwd_dq, the bf16 wgmma de
 dkv_wgmma_counter = build.LaunchCounter()  # attention_bwd_dkv, the bf16 wgmma design
 dq_causal_counter = build.LaunchCounter()   # attention_bwd_dq with the causal bias, either design
 dkv_causal_counter = build.LaunchCounter()  # attention_bwd_dkv with the causal bias, either design
+deep_counter = build.LaunchCounter()       # attention_fwd at a DEEP_HEAD_DIMS depth, either design
+dq_deep_counter = build.LaunchCounter()    # attention_bwd_dq at a DEEP_HEAD_DIMS depth
+dkv_deep_counter = build.LaunchCounter()   # attention_bwd_dkv at a DEEP_HEAD_DIMS depth
 
 
 def pad_bias(pad_mask: Optional[torch.Tensor], batch: int, keys: int,
@@ -293,6 +307,8 @@ def _launch_fwd(q, k, v, bias, stats: bool, causal_offset: Optional[int] = None)
         wgmma_counter.launches += 1
     if causal_offset is not None:
         causal_counter.launches += 1
+    if d in DEEP_HEAD_DIMS:
+        deep_counter.launches += 1
     return out, m, l
 
 
@@ -329,6 +345,8 @@ def launch_bwd_dq(q, k, v, bias, m, l, delta, g,
         dq_wgmma_counter.launches += 1
     if causal_offset is not None:
         dq_causal_counter.launches += 1
+    if d in DEEP_HEAD_DIMS:
+        dq_deep_counter.launches += 1
     return dq
 
 
@@ -345,6 +363,8 @@ def launch_bwd_dkv(q, k, v, bias, m, l, delta, g, causal_offset: Optional[int] =
         dkv_wgmma_counter.launches += 1
     if causal_offset is not None:
         dkv_causal_counter.launches += 1
+    if d in DEEP_HEAD_DIMS:
+        dkv_deep_counter.launches += 1
     return dk, dv
 
 

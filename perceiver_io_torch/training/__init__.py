@@ -4,8 +4,10 @@ checkpoints and metrics logging."""
 from perceiver_io_torch.training.steps import (
     make_ar_steps,
     make_classifier_steps,
+    make_flow_steps,
     make_guarded_step,
     make_mlm_steps,
 )
 
-__all__ = ["make_ar_steps", "make_classifier_steps", "make_guarded_step", "make_mlm_steps"]
+__all__ = ["make_ar_steps", "make_classifier_steps", "make_flow_steps", "make_guarded_step",
+           "make_mlm_steps"]

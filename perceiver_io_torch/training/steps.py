@@ -1,14 +1,15 @@
-"""MLM, Perceiver-AR and classifier step builders (the counterpart of
-``perceiver_io_tpu/training/steps.py``: ``mlm_gather_capacity``,
-``make_mlm_steps``, ``make_ar_steps``, ``make_classifier_steps``,
-``make_guarded_step``).
+"""MLM, Perceiver-AR, classifier and optical-flow step builders (the
+counterpart of ``perceiver_io_tpu/training/steps.py``:
+``mlm_gather_capacity``, ``make_mlm_steps``, ``make_ar_steps``,
+``make_classifier_steps``, ``make_flow_steps``, ``make_guarded_step``).
 
 Batches are dicts of numpy arrays or tensors, which the steps move to the
 model's device:
 
 - text: ``token_ids`` (B, L) int and ``pad_mask`` (B, L) bool (and, for a
   classifier, ``label`` (B,) int);
-- image: ``image`` (B, *image_shape) float and ``label`` (B,) int.
+- image: ``image`` (B, *image_shape) float and ``label`` (B,) int;
+- flow: ``frames`` (B, 2, H, W, C) float and ``flow`` (B, H, W, 2) float.
 """
 
 from __future__ import annotations
@@ -247,5 +248,34 @@ def make_classifier_steps(model, schedule: Optional[Callable[[int], float]] = No
                   ) -> Metrics:
         loss, metrics = loss_fn(batch)
         return {"loss": loss, **metrics}
+
+    return train_step, eval_step
+
+
+def make_flow_steps(model, schedule: Optional[Callable[[int], float]] = None):
+    """(train_step, eval_step) for an optical-flow ``PerceiverIO``
+    (``models.flow.build_optical_flow_model``), with the signatures of
+    :func:`make_classifier_steps`: the loss is the mean end-point error of
+    the predicted (B, H, W, 2) flow against ``batch['flow']``; metrics
+    ``loss`` and, given ``schedule``, ``lr`` in training; dropout from the
+    state's (seed, step) key in training, none in evaluation."""
+    from perceiver_io_torch.models.flow import end_point_error
+
+    device = next(model.parameters()).device
+
+    def loss_fn(batch, dropout_key=None):
+        pred = model(_to(batch["frames"], device), deterministic=dropout_key is None,
+                     dropout_key=dropout_key)
+        return end_point_error(pred, _to(batch["flow"], device))
+
+    def train_step(state: TrainState, batch, guard: bool = False
+                   ) -> Tuple[TrainState, Metrics]:
+        return _update(state, schedule, lambda: loss_fn(batch, state.step_dropout_key()),
+                       guard)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None
+                  ) -> Metrics:
+        return {"loss": loss_fn(batch)}
 
     return train_step, eval_step

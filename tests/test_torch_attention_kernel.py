@@ -15,6 +15,12 @@ once), f32 at 1e-5; a causal call under autograd gives ``jax.grad``'s
 gradients (tests/test_torch_ar_training.py holds the causal backward in
 full).
 
+The deep heads (D = 256 and 512, the optical-flow crosses' one head of
+depth 512): the plain forward, its statistics and the plain backward
+against the Pallas forward with_lse and the Pallas backward (interpret
+mode) with padding, a fully masked example and a causal offset whose first
+rows see only padding, f32 at 2e-5.
+
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there."""
 
@@ -299,3 +305,48 @@ def test_causal_call_under_autograd_raises():
     assert out.grad_fn is None
     assert (ak.counter.plain_calls, ak.causal_counter.plain_calls) == (before[0] + 2,
                                                                        before[1] + 1)
+
+
+# name: (b, t, s, h, d, mask, causal offset, t_blk, s_blk)
+DEEP_CASES = {
+    "d256_full_row": (2, 21, 70, 2, 256, "full_row", None, 21, 70),
+    "d512_full_row": (2, 9, 40, 1, 512, "full_row", None, 9, 8),
+    "d256_causal": (3, 12, 20, 1, 256, "head_padded", 8, 12, 20),
+    "d512_causal": (3, 12, 20, 1, 512, "head_padded", 8, 4, 20),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEEP_CASES))
+def test_deep_heads_plain_forward_and_backward_match_jax(name):
+    """At D = 256 and 512: out, m, l and (dq, dk, dv) of the plain versions
+    against the Pallas forward with_lse and backward (interpret mode, with
+    blocks smaller than T or S where they divide), each side from its own
+    residuals; a fully masked example gets dq = dk = 0 exactly, and causal
+    rows that see only padding average the keys masked exactly once."""
+    b, t, s, h, d, mask, off, t_blk, s_blk = DEEP_CASES[name]
+    q, k, v, pad = _inputs(t * s + d, b, t, s, h, d, "full_row" if mask == "full_row" else "pad")
+    if mask == "head_padded":  # rows 0..3 of the last example see only padding
+        pad[-1, :12] = True
+        pad[-1, 12:] = False
+    g = np.random.default_rng(d + t).normal(size=q.shape).astype(np.float32)
+    bias = jnp.where(jnp.asarray(pad), ak.MASK_VALUE, 0.0).astype(jnp.float32)
+    jq, jk, jv, jg = (_bhtd(x) for x in (q, k, v, g))
+    jout, jm, jl = _fused_attention_fwd_impl(jq, jk, jv, bias, t_blk, s_blk, True,
+                                             with_lse=True, causal_offset=off)
+    jgrads = _fused_attention_bwd_impl(jq, jk, jv, bias, jout, jm, jl, jg, t_blk, s_blk, True,
+                                       causal_offset=off)
+    tq, tk, tv, tpad, tg = _torch(q, k, v, pad, g)
+    out, m, l = ak.attention_fwd_with_stats(tq, tk, tv, tpad, causal_offset=off)
+    np.testing.assert_allclose(out.numpy(), np.asarray(_bhtd(jout)), **TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm)[..., 0], **TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl)[..., 0], **TOL)
+    grads = ak.attention_bwd(tq, tk, tv, tpad, out, m, l, tg, causal_offset=off)
+    for got, ref in zip(grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(_bhtd(ref)), **TOL)
+    if mask == "full_row":
+        assert not grads[0][-1].any() and not grads[1][-1].any()
+    else:
+        future = causal_mask(t, s, off).numpy()
+        for i in range(4):
+            once = pad[-1] ^ future[i]
+            np.testing.assert_allclose(out[-1, i].numpy(), v[-1][once].mean(axis=0), **TOL)

@@ -35,6 +35,8 @@ the classifiers' calls of #1-#3 (one query row in the decoders, 784
 unpadded keys at D=32 in the MNIST cross, f32 and bf16) and a classifier
 train step with the encoder frozen (#1 only in it) and not,
 the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
+the deep designs of #1-#3 (D = 256 and 512, f32 and bf16, with and
+without the causal offset) on their own counters,
 ``'auto'`` routing by the rule's block floor, dropout from CUDA generators
 and remat's recompute drawing the same masks,
 and the bf16 wgmma designs of the forward, of the two backward kernels,
@@ -143,6 +145,37 @@ def test_attention_backward_kernels_match_plain(card, dtype, d):
     assert got[2][-1].abs().max() > 0
 
 
+@pytest.mark.parametrize("causal", [None, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
+def test_deep_attention_kernels_match_plain(card, d, dtype, causal):
+    """The deep designs (D = 256, 512) of #1-#3, with and without the causal
+    offset: out, m and l, dq, dk and dv against the plain versions at a T
+    and S that are not multiples of their tiles; a fully masked example
+    (dq = dk = 0 exactly) or, with the offset, rows whose visible keys are
+    all padding; each call one launch of each kernel on its deep counter,
+    and in bf16 on its wgmma one."""
+    q, k, v, go, pad = _attention_inputs(card, dtype, d, t=130, s=200, h=1)
+    if causal is not None:  # the last example's first 12 keys padded, the rest not
+        pad[-1] = torch.arange(200, device=card) < 12
+    counters = (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter, ak.wgmma_counter,
+                ak.dq_wgmma_counter, ak.dkv_wgmma_counter)
+    before = [c.launches for c in counters]
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad, causal)
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad, causal)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(m, ref_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
+    got = ak.attention_bwd(q, k, v, pad, ref_out, ref_m, ref_l, go, causal)
+    ref = ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m, ref_l, go, causal)
+    for x, r in zip(got, ref):
+        _close(x, r, dtype)
+    wgmma = int(dtype == torch.bfloat16)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1] + [wgmma] * 3
+    if causal is None:
+        assert not got[0][-1].any() and not got[1][-1].any()
+
+
 def test_fused_attention_autograd_runs_the_kernels(card):
     q, k, v, go, pad = _attention_inputs(card, torch.float32, 32, t=64, s=256)
     grads = []
@@ -240,12 +273,19 @@ def _wgmma_bwd(q, k, v, pad, go):
     assert (ak.dq_wgmma_counter.launches, ak.dkv_wgmma_counter.launches) == (
         before[0] + 1, before[1] + 1)
     ref = ak.attention_bwd_reference(q, k, v, pad, out, m, l, go)
+    # BWD_ATOL: where ds = p (g.v - delta) cancels in exact arithmetic (one
+    # key: the softmax has no gradient), both sides hold only the f32
+    # rounding of g.v and delta, summed in another order. The kernels' part
+    # is their tensor-core sum g.v, whose distance from float64 grows as D
+    # (chip_smoke.py's one_key_sweep, one H100: 1.0e-5, 2.1e-5, 5.9e-5 at
+    # D = 128, 256, 512 against the plain f32 einsum's 3.8e-6, 6.4e-6,
+    # 7.4e-6; delta the same f32 sum on both sides); kernel minus plain
+    # came to 7.7e-6, 1.4e-5, 3.1e-5 there, 7-8e-6 per 128 of D, so the
+    # deep heads' bar is D/128 of BWD_ATOL
+    atol = BWD_ATOL * max(1.0, q.shape[-1] / 128)
     for x, r in zip(got, ref):
         assert x.shape == r.shape and x.dtype == torch.bfloat16 and x.is_contiguous()
-        # BWD_ATOL: where ds = p (g.v - delta) cancels in exact arithmetic
-        # (one key: the softmax has no gradient), both sides hold only the f32
-        # rounding of the unit-scale g.v and delta, summed in another order
-        _close(x, r, torch.bfloat16, BWD_ATOL)
+        _close(x, r, torch.bfloat16, atol)
     return got
 
 

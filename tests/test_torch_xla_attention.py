@@ -136,9 +136,9 @@ SWEEP_ROUTES = {
     (8, 256, 256, 4, 16): "pallas",        # mlm-self
     (2, 512, 50176, 1, 1024): "xla",       # in-cross: D refused
     (2, 512, 50176, 8, 128): "pallas",     # in-8h
-    (1, 2048, 182528, 1, 512): "xla",      # flow-cross: D refused
+    (1, 2048, 182528, 1, 512): "xla",      # flow-cross: 3.7e8 logits, einsum 12.3 vs 56.5
     (2, 2048, 2048, 8, 64): "pallas",      # flow-self
-    (2, 182528, 2048, 1, 512): "xla",      # flow-dec-cross: D refused
+    (2, 182528, 2048, 1, 512): "xla",      # flow-dec-cross: 7.5e8, einsum 21.9 vs 90.9
     (16, 512, 512, 8, 128): "pallas",      # in-self-b16
     (2, 256, 32768, 4, 16): "xla",         # mlm-32k: 16 blocks
     (1, 256, 131072, 4, 16): "xla",        # mlm-131k: 8 blocks
@@ -152,8 +152,16 @@ SWEEP_ROUTES = {
     (2, 256, 512, 4, 16): "xla",           # mlm-cross-b2: 16 blocks
     (8, 64, 64, 4, 16): "pallas",          # tiny-self-b8: 32 blocks
     (8, 256, 256, 4, 8): "pallas",         # d8-self
-    (2, 50176, 50176, 8, 256): "xla",      # D=256 and 512: refused at any size
-    (64, 4096, 4096, 8, 512): "xla",
+    (2, 50176, 50176, 8, 256): "pallas",   # D=256 and 512: the deep designs where the
+                                           # logits reach AUTO_DEEP_MIN_LOGITS
+    (64, 4096, 4096, 8, 512): "pallas",
+    (8, 2048, 182528, 1, 512): "pallas",   # train_flow's crosses at its batch of 8:
+    (8, 182528, 2048, 1, 512): "pallas",   # 3.0e9 logits, no room for the einsum path
+    (4, 2048, 182528, 1, 512): "xla",      # at batch 4, 1.5e9: its step fits at 63.3 GB
+    (4, 182528, 2048, 1, 512): "xla",
+    (1, 182528, 2048, 1, 512): "xla",
+    (2, 1024, 16384, 2, 256): "xla",       # d256-cross: einsum 2.07 vs 2.72
+    (8, 1024, 1024, 4, 256): "xla",        # d256-self-b8: kernel 0.85 vs 1.09 (misrouted)
     (3, 16, 64, 4, 8): "xla",              # the tiny presets: 12 blocks
     (8, 1, 32768, 4, 128): "pallas",       # 32 blocks of one row over a long stream
     (1, 1, 32768, 4, 128): "xla",          # 4 blocks
@@ -183,7 +191,12 @@ def test_auto_attention_impl_thresholds():
     assert pat.auto_attention_impl(1, t - rows, 2 * s, 1, dmin) == "xla"  # one block short
     assert pat.auto_attention_impl(1, t, kv, 1, 8) == "pallas"           # long KV, any D
     assert pat.auto_attention_impl(1, t, s, 1, dmin // 2) == "xla"       # D under the floor
-    for d in (256, 512, 1024, 24):
+    deep = pat.AUTO_DEEP_MIN_LOGITS        # the deep heads: the logits' floor alone
+    for d in (256, 512):
+        assert pat.auto_attention_impl(64, 4096, 65536, 8, d) == "pallas"
+        assert pat.auto_attention_impl(1, t, deep // t, 1, d) == "pallas"
+        assert pat.auto_attention_impl(1, t, deep // t - 1, 1, d) == "xla"  # long KV, too few
+    for d in (1024, 24):  # no kernel takes them
         assert pat.auto_attention_impl(64, 4096, 65536, 8, d) == "xla"
 
 
