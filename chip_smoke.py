@@ -318,10 +318,12 @@ Phases (any failure exits nonzero):
     with ~30% of keys padded and the second example fully masked (dq and dk
     exactly 0 there), and at B=1 with the causal offset 8 and the first 12
     keys padded (rows 0-3 see only padding: their dq exactly 0); out, m, l,
-    dq, dk, dv; each call one launch on the deep counters. Times at the
+    dq, dk, dv; each call one launch on the deep counters; every bf16
+    backward run twice, dq, dk and dv bit for bit the same. Times at the
     comparison batch (kernel device ms, the plain versions', SDPA's or,
-    where SDPA does not take the shape, the einsum path's, labelled) and,
-    in bf16 without padding, at B=8, each beside its bound; then the bf16
+    where SDPA does not take the shape, the einsum path's, labelled, and
+    the einsum path's beside it) and, in bf16 without padding, at B=8, each
+    beside its bound; then the bf16
     backward with one key at every head dim (``one_key_sweep``: where ds is
     0 in exact arithmetic, how far the kernels' and the plain versions' dq
     and dk lie from 0, and how much of it is the sum g.v);
@@ -3632,13 +3634,22 @@ DEEP_SHAPES = (("flow-cross", (2048, 182528, 1, 512)),
                ("d256-cross", (1024, 16384, 2, 256)),
                ("d256-self", (1024, 1024, 4, 256)))
 DEEP_CAUSAL_OFFSET, DEEP_HEAD_PADDED, DEEP_TIME_BATCH = 8, 12, 8
+# the bf16 designs of attention_deep.cu, as the kernels line names them
+_DEEP_BWD = ("wgmma, 256 threads: a loading warp refills a 2-stage TMA ring of 64-row "
+             "tiles through mbarriers; S and dP computed once, one a warpgroup; D=512 "
+             "split over a 2-block cluster that adds its halves by st.async")
+DEEP_DESIGNS = dict(fwd="wgmma: two warpgroups, 8 KB-row K/V tiles, one barrier a tile",
+                    dq=_DEEP_BWD, dkv=_DEEP_BWD)
 
 
-def deep_library_ms(torch, pat, q, k, v, g, pad):
-    """(kind, forward ms, backward ms) of one library call computing the
-    same function: SDPA with the additive pad mask where it takes the shape,
-    else the einsum path (``'einsum'``); CUDA events. None where neither
-    fits in the card's memory."""
+def deep_library_ms(torch, pat, q, k, v, g, pad) -> dict:
+    """The times of one library call computing the same function: SDPA
+    with the additive pad mask where it takes the shape, else the einsum
+    path (``library``: ``'sdpa'`` or ``'einsum'``; ``library_fwd_ms``,
+    ``library_bwd_ms``), and the einsum path's own (``einsum_fwd_ms``,
+    ``einsum_bwd_ms``: the yardstick ``AUTO_DEEP_MIN_LOGITS`` is drawn
+    from); CUDA events. None where a call does not fit in the card's
+    memory."""
     import torch.nn.functional as F
 
     bias = None if pad is None else torch.zeros(pad.shape, device=q.device).masked_fill(
@@ -3648,20 +3659,37 @@ def deep_library_ms(torch, pat, q, k, v, g, pad):
     calls = (("sdpa", lambda: F.scaled_dot_product_attention(*heads_first, attn_mask=bias),
               heads_first, g.transpose(1, 2)),
              ("einsum", lambda: pat.dot_product_attention(*leaves, pad, None), leaves, g))
+    times = {}
     for kind, fn, ins, cot in calls:
         try:
             fwd = time_ms(fn, 2)
             out = fn()
             bwd = time_ms(lambda: torch.autograd.grad(out, ins, cot, retain_graph=True), 2)
-            return kind, fwd, bwd
+            times[kind] = (fwd, bwd)
         except (torch.cuda.OutOfMemoryError, RuntimeError):
-            gc.collect()
-            torch.cuda.empty_cache()
-    return None, None, None
+            pass
+        out = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    kind = next((x for x in ("sdpa", "einsum") if x in times), None)
+    lib = times.get(kind, (None, None))
+    ein = times.get("einsum", (None, None))
+    return dict(library=kind, library_fwd_ms=lib[0], library_bwd_ms=lib[1],
+                einsum_fwd_ms=ein[0], einsum_bwd_ms=ein[1])
 
 
 def deep_counts(ak) -> list:
     return [c.launches for c in (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter)]
+
+
+def check_bwd_repeats(torch, ak, label: str, grads, *args) -> bool:
+    """A second ``ak.attention_bwd(*args)`` gives dq, dk and dv bit for bit
+    equal to ``grads``: the deep backward reduces in a fixed order, with no
+    atomics (phase 29's bit-for-bit resume rests on that)."""
+    for name, first, again in zip(("dq", "dk", "dv"), grads, ak.attention_bwd(*args)):
+        if not torch.equal(first, again):
+            raise AssertionError(f"{label}: a second backward's {name} differs from the first")
+    return True
 
 
 def deep_attention_phase(torch, ak, pat) -> list:
@@ -3696,6 +3724,9 @@ def deep_attention_phase(torch, ak, pat) -> list:
                 grads = ak.attention_bwd(q, k, v, pad, ref_out, ref_m, ref_l, g, off)
                 if deep_counts(ak) != [n + 1 for n in before]:
                     raise AssertionError(f"{label}: deep launches {deep_counts(ak)} from {before}")
+                repeats = (check_bwd_repeats(torch, ak, label, grads, q, k, v, pad, ref_out,
+                                             ref_m, ref_l, g, off)
+                           if dt == "bfloat16" else None)
                 refs = ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m, ref_l, g, off)
                 errs = [check(f"{label} {x}", got, ref, dt)
                         for x, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
@@ -3708,7 +3739,7 @@ def deep_attention_phase(torch, ak, pat) -> list:
                            causal_offset=off, design=ak.forward_design(q, k, v),
                            max_abs_err=max([fwd_err] + errs), fwd_max_abs_err=fwd_err,
                            dq_max_abs_err=errs[0], dkv_max_abs_err=max(errs[1:]),
-                           stats_max_rel_err=stat_err)
+                           stats_max_rel_err=stat_err, bwd_bit_identical=repeats)
                 if off is None:
                     row.update(deep_timing(torch, ak, pat, q, k, v, g, pad, ref_m, ref_l,
                                            ref_out, dt, plain=True))
@@ -3727,8 +3758,13 @@ def deep_attention_phase(torch, ak, pat) -> list:
         k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
                 for _ in range(2))
         out, m, l = ak.attention_fwd_with_stats(q, k, v, None)
+        grads = ak.attention_bwd(q, k, v, None, out, m, l, g)
+        repeats = check_bwd_repeats(torch, ak, f"deep {name} bfloat16 B={b}", grads, q, k, v,
+                                    None, out, m, l, g)
+        del grads
         row = dict(phase="deep_attention", shape=name, dims=[b, t, s, h, d], dtype="bfloat16",
                    causal_offset=None, design=ak.forward_design(q, k, v), timed_only=True,
+                   bwd_bit_identical=repeats,
                    **deep_timing(torch, ak, pat, q, k, v, g, None, m, l, out, "bfloat16",
                                  plain=False))
         row["row_s"] = time.perf_counter() - t_row
@@ -3772,8 +3808,7 @@ def deep_timing(torch, ak, pat, q, k, v, g, pad, m, l, out, dt: str, plain: bool
                                       2)
         row["plain_bwd_ms"] = time_ms(lambda: ak.attention_bwd_reference(q, k, v, pad, out, m,
                                                                          l, g), 2)
-    kind, fwd, bwd = deep_library_ms(torch, pat, q, k, v, g, pad)
-    row.update(library=kind, library_fwd_ms=fwd, library_bwd_ms=bwd)
+    row.update(deep_library_ms(torch, pat, q, k, v, g, pad))
     return row
 
 
@@ -4428,7 +4463,7 @@ def main() -> int:
             plain_ms=deep_row[f"plain_{way}_ms"], bound_ms=deep_row[f"{part}_bound_ms"],
             bound_by=deep_row[f"{part}_bound_by"], library_ms=deep_row[f"library_{way}_ms"],
             library=deep_row["library"], shape=deep_row["shape"], dims=deep_row["dims"],
-            dtype=deep_row["dtype"], design=deep_row["design"],
+            dtype=deep_row["dtype"], design=DEEP_DESIGNS[part],
             event_ms=deep_row[f"{part}_ms"], ms_source="device" if device else "event"))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

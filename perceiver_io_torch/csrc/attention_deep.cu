@@ -15,32 +15,36 @@
 // S=182,528 pixels, one head of D=512, or the transpose for the decoder) are
 // 4.B.T.S.D = 6.1 TFLOP forward against 3.2 GB of q/k/v/out: ~1,900
 // FLOP/byte, far above the bf16 ridge, so the tensor cores bound it (6.2 ms
-// at 989 TF/s); the backward's dq and dk/dv take 6 and 8 times
-// B.T.S.D.
+// at 989 TF/s); the backward's dq and dk/dv take 6 and 8 times B.T.S.D
+// (9.3 and 12.4 ms).
 //
-// Where the room runs out, and what each design does about it:
+// The forward and the f32 designs:
 // - registers: a 64-row f32 accumulator of D columns costs D/2 registers a
 //   thread of one warpgroup (256 at D=512, over the 255 a thread may hold).
-//   Every bf16 kernel here gives a warpgroup at most 256 accumulator columns
-//   (128 registers): the forward and dq split a block's rows between its
-//   two warpgroups at D=256 and its columns at D=512; dk/dv splits the
-//   columns, and at D=512 runs as two launches, one for dv and one for dk,
-//   each recomputing the probabilities.
-// - shared memory: a 128 x 128 K/V ring of the D <= 128 designs would be
-//   1 MB at D=512. Here a block's owned tile is 64 KB of q (and 64 KB of g,
-//   k or v where the kernel owns two) and the streamed tiles hold 8 KB of
-//   rows a stage: 64 or 32 keys in the forward, 32 or 16 rows in the
-//   backward, two stages, ~192 KB in all.
-// - the S product: where two warpgroups share 64 rows (D=512, and dk/dv at
-//   D=256), each computes the whole 64 x n logit tile from all D columns,
-//   redundantly, so the softmax statistics of both are bit for bit the same
-//   without an exchange. That costs tensor-core time (the forward does 1.5x
-//   the products it needs at D=512), not correctness.
+//   The bf16 forward gives a warpgroup at most 256 accumulator columns: it
+//   splits a block's rows between its two warpgroups at D=256 and its
+//   columns at D=512, where both compute the whole logit tile.
+// - shared memory: the forward's owned q tile is 64 KB and its K/V tiles 8
+//   KB of rows a stage (64 or 32 keys), two stages.
 // - float32 (exact scalar FMAs, as attention_fwd.cu / attention_bwd.cu): the
 //   forward keeps 64 rows and 4 threads a row with 64-key (D=256) or 16-key
 //   (D=512) tiles; the backward owns 32 rows with 8 threads a row and
 //   streams 32-row (D=256) or 16-row (D=512) tiles. All tiles are staged as
 //   f32 with row stride D+1.
+//
+// The bf16 backward (deep_bwd_kernel; the section below says how): one
+// kernel template for dq and for dk/dv, one launch each, no atomics. A
+// block owns 64 rows and 256 head columns; at D=512 a two-block cluster
+// splits the columns, and its blocks add their halves of each logit tile
+// through distributed shared memory. Its bound at the flow crosses is the
+// tensor cores (above); what holds it back is the work between the
+// products: the exchange of the logit tiles (at D=512 across the cluster),
+// p and ds, and the bf16 fragments, each tile in turn (two ring stages
+// leave no room to run the next tile's products meanwhile). No tile is
+// split across blocks: the grids fill the card at B=8 (512 blocks at the
+// flow crosses' 2048-row sides), and at B=1 the 2048-row sides leave half
+// of it idle.
+//
 // No key or query tile is skipped for padding (the D <= 128 bf16 backward
 // skips tiles that are all padding): the full path gives padded keys p = 0
 // exactly where a row has a valid key, and a fully masked row the uniform p
@@ -407,16 +411,15 @@ deep_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 //
 // Tiles are 64-column swizzle atoms (128-byte rows, the 128-byte swizzle),
-// D/64 of them side by side, each a TMA box of (64 columns, the tile's rows)
-// read through the 4-D (B, rows, H, D) maps of hopper::encode_head_map.
-// x = A.B^T of an owned and a streamed tile is an SS wgmma (both K-major),
-// 16 columns a step; acc += X.B an RS wgmma with X rounded to bf16 in
-// registers and the streamed tile as an MN-major B, one 64-column atom an
-// instruction. A warpgroup holds 4 accumulator atoms (256 columns, 128
-// registers), or 2 + 2 in the D=256 dk/dv kernel.
+// D/64 of them side by side (4 in a backward block), each a TMA box of (64
+// columns, the tile's rows) read through the 4-D (B, rows, H, D) maps of
+// hopper::encode_head_map. x = A.B^T of an owned and a streamed tile is an
+// SS wgmma (both K-major), 16 columns a step; acc += X.B an RS wgmma with X
+// rounded to bf16 in registers and the streamed tile as an MN-major B, one
+// 64-column atom an instruction.
 
 constexpr int kWgRows = 64;       // rows of one consumer warpgroup's accumulator
-constexpr int kStages = 2;        // ring depth of the streamed tiles
+constexpr int kStages = 2;        // ring depth of the streamed tiles (forward and backward)
 constexpr int kAtomCols = 64;     // columns of one swizzle atom / TMA box
 constexpr int kRowBytes = 128;
 constexpr uint32_t kLayout = hopper::kSwizzle128;
@@ -430,7 +433,6 @@ struct Deep {
   static constexpr int kRows = 2 * kWgRows / kSplit;  // rows the forward and dq own: 128 or 64
   static constexpr int kWgAtoms = kAtoms / kSplit;  // output atoms of a forward / dq warpgroup
   static constexpr int kKeys = 16384 / D;           // keys a forward K/V tile: 64 or 32
-  static constexpr int kStream = 8192 / D;          // rows a backward streamed tile: 32 or 16
 };
 
 // x = A . B^T over the head dim (started, not awaited): A the 64 rows of an
@@ -689,286 +691,457 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// dq. One block per (kRows query rows, head, batch), the warpgroups split as
-// the forward's; q and g staged once; kStream-key K/V tiles streamed; for
-// each, S = Q.K^T and dP = G.V^T (SS), ds in registers, dq += ds.K (RS).
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads, 1)
-deep_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                     const __grid_constant__ CUtensorMap g_map,
-                     const __grid_constant__ CUtensorMap k_map,
-                     const __grid_constant__ CUtensorMap v_map, const float* __restrict__ bias,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int t_len,
-                     int s_len, int heads, int causal_offset, float scale) {
-  using G = Deep<D>;
-  constexpr int kOwnAtom = G::kRows * kRowBytes;
-  constexpr int kOwnBytes = G::kAtoms * kOwnAtom;
-  constexpr int kStrAtom = G::kStream * kRowBytes;
-  constexpr int kStrBytes = G::kAtoms * kStrAtom;
-  constexpr int kX = G::kStream / 2;  // logit floats a thread
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = hopper::align_1024(smem_raw);
-  uint8_t* qs = smem;                                  // [atom][kRows rows]
-  uint8_t* gs = qs + kOwnBytes;
-  uint8_t* ks = gs + kOwnBytes;                        // [stage][atom][kStream rows]
-  uint8_t* vs = ks + kStages * kStrBytes;
-  uint64_t* ring_bar = reinterpret_cast<uint64_t*>(vs + kStages * kStrBytes);
-  uint64_t* own_bar = ring_bar + kStages;
+// ---------------------------------------------------------------------------
+// bfloat16 backward: dq (#2) and dk/dv (#3), one design for both
+// ---------------------------------------------------------------------------
+//
+// deep_bwd_kernel<D, kCausal, kDq> computes dq (kDq) or dk and dv. A block
+// owns 64 rows (queries for dq, keys for dk/dv) and 256 head columns: all
+// of them at D=256, one half at D=512, where the two blocks of a cluster
+// (blockIdx.x = 2 tile + rank) hold the two halves of the same rows.
+//
+// Tiles and stages. The owned pair (Q, G or K, V: 2 x 32 KB) is staged once;
+// 64-row tiles of the other side (K, V or Q, G: 64 KB a stage) stream
+// through a two-stage TMA ring, with the tile's vector beside them (dq: the
+// keys' bias; dk/dv: the queries' m, 1/l, delta). Warp 0 loads: a stage is
+// refilled, one tile ahead, as soon as both warpgroups have freed it
+// (mbarriers; its vector fetched into registers a tile before that), so
+// no thread waits on a block-wide barrier for a load.
+//
+// The logit tiles, once each. The first warpgroup computes the block's
+// share of S (dq: Q.K^T; dk/dv: S^T = K.Q^T), the second of dP (G.V^T;
+// dP^T = V.G^T): an m64n64 tile over the block's 256 columns, 16 SS steps
+// of m64n64k16, so no product is computed twice. The shares meet in two
+// 16 KB buffers, thread-major float4s:
+// - D=256: each warpgroup writes the half of its share the other reads.
+// - D=512: each warpgroup pushes its whole share into the peer block's
+//   buffer with st.async, whose bytes complete a transaction on the
+//   receiving barrier (no fence), then adds the peer's share to its own,
+//   keeping its half in registers and writing the other half back for the
+//   other warpgroup. Every sum is own + peer, so f32 addition gives both
+//   blocks the same bits. The peer's warps free the buffer for the next
+//   tile with one arrival each.
+// Then each warpgroup forms p and ds for its half of the tile's 64 streamed
+// rows (16 elements a thread, computed then selected, no branch), rounds
+// them to bf16 A fragments, and hands the other warpgroup the fragments it
+// needs (dq: ds; dk/dv: ds to the second, p to the first) through the half
+// of its buffer that only it had read. Its own k-steps are issued (RS,
+// m64n64k16 an atom) before the hand-over, the other's after: dq's 4
+// column atoms split 2 + 2 between the warpgroups; dv (first) and dk
+// (second) take 4 atoms each, 128 registers.
+//
+// Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512, without / with
+// kCausal): 256 threads, one block an SM; shared memory 230,984 bytes +
+// 1,088 of alignment slack; registers dq 144 / 141 and 164 / 168, dk/dv
+// 200 / 202 and 213 / 214, zero spill bytes (under the 255 of 256 threads;
+// a producer warpgroup with setmaxnreg left dk/dv about 200 and it
+// spilled). Nothing is reduced across blocks: each block writes its own
+// rows and columns.
 
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int rg = wg / G::kSplit;
-  const int cg = wg % G::kSplit;
-  const int t0 = blockIdx.x * G::kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_tiles = (s_len + G::kStream - 1) / G::kStream;
-  const float* bias_b = bias + int64_t(b) * s_len;
+constexpr int kBwdCols = 256;                       // head columns a block holds
+constexpr int kBwdAtoms = kBwdCols / kAtomCols;     // 4
+constexpr int kBwdRows = 64;                        // owned rows, and rows of a streamed tile
+constexpr int kBwdAtom = kBwdRows * kRowBytes;      // 8 KB: one atom of a 64-row tile
+constexpr int kBwdTile = kBwdAtoms * kBwdAtom;      // 32 KB: one operand's tile
+constexpr int kBwdThreads = 256;                    // two warpgroups
+constexpr int kXFloats = kBwdRows * kBwdRows;       // one 64 x 64 f32 share: 16 KB
+constexpr int kVecFloats = 3 * kBwdRows;            // a streamed tile's vectors
+// the owned pair, the ring's pairs, two exchange buffers, the vector ring
+// and nine barriers: 230,984 bytes
+constexpr size_t kBwdBytes = size_t(2 + 2 * kStages) * kBwdTile + 2 * sizeof(float) * kXFloats +
+                             kStages * sizeof(float) * kVecFloats + 9 * sizeof(uint64_t);
 
-  if (tid == 0) {
-    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&ring_bar[st], 1);
-    hopper::mbar_init(own_bar, 1);
-    hopper::fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    deep_load<D>(&q_map, &g_map, qs, gs, own_bar, G::kRows, t0, h, b);
-    for (int st = 0; st < kStages && st < n_tiles; ++st)
-      deep_load<D>(&k_map, &v_map, ks + st * kStrBytes, vs + st * kStrBytes, &ring_bar[st],
-                   G::kStream, st * G::kStream, h, b);
-  }
+// a backward block's shared memory and coordinates
+struct BwdBlock {
+  uint8_t* own;     // [operand][atom][64 rows]: Q, G (dq) or K, V (dk/dv)
+  uint8_t* ring;    // [stage][operand][atom][64 rows]: K, V (dq) or Q, G (dk/dv)
+  float* xbuf;      // [role][kXFloats]: the S and dP shares, thread-major float4s
+  float* vec;       // [stage][kVecFloats]
+  uint64_t* full;   // [stage] the loading warp's 32 lanes and the TMA bytes
+  uint64_t* empty;  // [stage] the 256 threads
+  uint64_t* own_bar;
+  uint64_t* sfull;  // [role] the peer's share of that role is in this block's buffer
+  uint64_t* sfree;  // the peer's buffers are free for this block's shares
+  const CUtensorMap* maps[4];  // own0, own1, str0, str1
+  int rank, own0, n_tiles, t_len, s_len, heads, h, b, causal_offset;
+  float scale;
+};
 
-  const int row0 = t0 + rg * kWgRows + warp * 16 + lane / 4;
-  const int col_in_chunk = 2 * (lane % 4);
-  const bool active = t0 + rg * kWgRows < t_len;
-  const int key_limit[2] = {row0 + causal_offset, row0 + 8 + causal_offset};
-  float m_r[2], inv_l[2], delta_r[2];
-  bool zero_ds[2];  // a row past T, or one whose keys are all masked
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = row0 + 8 * r;
-    const bool valid = t < t_len;
-    const int64_t stat = (int64_t(b) * heads + h) * t_len + t;
-    m_r[r] = valid ? m[stat] : 0.f;
-    inv_l[r] = valid ? 1.f / l[stat] : 0.f;
-    delta_r[r] = valid ? delta[stat] : 0.f;
-    zero_ds[r] = !valid || m_r[r] <= 0.5f * kMaskValue;
-  }
 
-  float acc[G::kWgAtoms][32];
-#pragma unroll
-  for (int a = 0; a < G::kWgAtoms; ++a)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+// a streamed tile's vector, as the lanes of the loading warp hold it: rows
+// lane and lane + 32 of the tile (dq: the keys' bias; dk/dv: the queries'
+// m, 1/l, delta), zeros past the end
+struct TileVec {
+  float v[3][2];
+};
 
-  if (active) hopper::mbar_wait(own_bar, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j % kStages;
-    if (active) {
-      hopper::mbar_wait(&ring_bar[stage], (j / kStages) & 1);
-      const uint8_t* k_tile = ks + stage * kStrBytes;
-      const uint8_t* v_tile = vs + stage * kStrBytes;
-      float s[kX], dp[kX];
-      hopper::wgmma_fence();
-      deep_product<D>(s, qs + rg * kWgRows * kRowBytes, kOwnAtom, k_tile, kStrAtom);
-      deep_product<D>(dp, gs + rg * kWgRows * kRowBytes, kOwnAtom, v_tile, kStrAtom);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(s);
-      hopper::fence_regs(dp);
-
-      const int s0 = j * G::kStream;
+template <bool kDq>
+__device__ __forceinline__ TileVec fetch_vec(const BwdBlock& c, int tile,
+                                             const float* __restrict__ bias,
+                                             const float* __restrict__ m,
+                                             const float* __restrict__ l,
+                                             const float* __restrict__ delta) {
+  const int lane = threadIdx.x % 32;
+  TileVec out;
 #pragma unroll
-      for (int c = 0; c < G::kStream / 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = s0 + 8 * c + col_in_chunk + e;
-          const bool valid = key < s_len;
-          const float bj = valid ? bias_b[key] : 0.f;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int i = 4 * c + 2 * r + e;
-            float x = s[i] * scale + bj;
-            if (kCausal && key > key_limit[r]) x += kMaskValue;
-            const float p = valid ? exp2f((x - m_r[r]) * kLog2e) * inv_l[r] : 0.f;
-            s[i] = zero_ds[r] ? 0.f : p * (dp[i] - delta_r[r]);
-          }
-        }
-      }
-      uint32_t ds_a[kX / 8][4];
-      deep_fragments(s, ds_a);
-      hopper::wgmma_fence();
-      deep_accumulate<G::kWgAtoms, G::kStream>(acc, ds_a, k_tile, kStrAtom, cg * G::kWgAtoms);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      deep_wait_acc(acc);
+  for (int k = 0; k < 2; ++k) {
+    const int r = tile * kBwdRows + lane + 32 * k;
+    const bool valid = r < (kDq ? c.s_len : c.t_len);
+    if constexpr (kDq) {
+      out.v[0][k] = valid ? bias[int64_t(c.b) * c.s_len + r] : 0.f;
+    } else {
+      const int64_t stat = (int64_t(c.b) * c.heads + c.h) * c.t_len + r;
+      out.v[0][k] = valid ? m[stat] : 0.f;
+      out.v[1][k] = valid ? l[stat] : 0.f;  // inverted in fill_stage, once it has landed
+      out.v[2][k] = valid ? delta[stat] : 0.f;
     }
-    __syncthreads();  // both warpgroups are done with this stage
-    if (tid == 0 && j + kStages < n_tiles)
-      deep_load<D>(&k_map, &v_map, ks + stage * kStrBytes, vs + stage * kStrBytes,
-                   &ring_bar[stage], G::kStream, (j + kStages) * G::kStream, h, b);
   }
-
-  if (active) deep_store<D>(acc, dq, row0, t_len, heads, h, b, cg * G::kWgAtoms, scale);
+  return out;
 }
 
-// dk/dv. One block per (64 keys, head, batch) in the transposed frame, as
-// attention_bwd.cu's: k and v staged once; kStream-query Q/G tiles and their
-// statistics (m, 1/l, delta) streamed; S^T = K.Q^T and dP^T = V.G^T (SS),
-// p^T and ds^T in registers, dv += p^T.G and dk += ds^T.Q (RS). Both
-// warpgroups take the block's 64 keys, each half of the columns. kMode 0
-// accumulates both (D=256: 2 atoms of each a warpgroup); at D=512 the two
-// accumulators would need 256 registers a thread, so kMode 1 (dv) and 2
-// (dk) are two launches, 4 atoms of one each.
-template <int D, bool kCausal, int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
-deep_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
-                      const __grid_constant__ CUtensorMap v_map,
-                      const __grid_constant__ CUtensorMap q_map,
-                      const __grid_constant__ CUtensorMap g_map, const float* __restrict__ bias,
-                      const float* __restrict__ m, const float* __restrict__ l,
-                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int t_len, int s_len, int heads,
-                      int causal_offset, float scale) {
-  using G = Deep<D>;
-  constexpr bool kDv = kMode != 2;
-  constexpr bool kDk = kMode != 1;
-  constexpr int kHeld = G::kAtoms / 2;  // columns of each accumulator a warpgroup holds
-  constexpr int kOwnAtom = kWgRows * kRowBytes;
-  constexpr int kOwnBytes = G::kAtoms * kOwnAtom;
-  constexpr int kStrAtom = G::kStream * kRowBytes;
-  constexpr int kStrBytes = G::kAtoms * kStrAtom;
-  constexpr int kX = G::kStream / 2;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = hopper::align_1024(smem_raw);
-  uint8_t* ks = smem;                                  // [atom][64 rows]
-  uint8_t* vs = ks + kOwnBytes;
-  uint8_t* qs = vs + kOwnBytes;                        // [stage][atom][kStream rows]
-  uint8_t* gs = qs + kStages * kStrBytes;
-  uint64_t* ring_bar = reinterpret_cast<uint64_t*>(gs + kStages * kStrBytes);
-  uint64_t* own_bar = ring_bar + kStages;
-  float* stats = reinterpret_cast<float*>(own_bar + 1);  // [stage][m, 1/l, delta][kStream]
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int s0 = blockIdx.x * kWgRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_tiles = (t_len + G::kStream - 1) / G::kStream;
-  const int64_t stat0 = (int64_t(b) * heads + h) * t_len;
-  const float* bias_b = bias + int64_t(b) * s_len;
-
-  // the statistics of query tile `tile` into ring stage `stage`; queries
-  // past T are never read
-  auto stage_stats = [&](int tile, int stage) {
-    if (tid < G::kStream) {
-      const int t = tile * G::kStream + tid;
-      const bool valid = t < t_len;
-      float* slot = stats + stage * 3 * G::kStream;
-      slot[tid] = valid ? m[stat0 + t] : 0.f;
-      slot[G::kStream + tid] = valid ? 1.f / l[stat0 + t] : 0.f;
-      slot[2 * G::kStream + tid] = valid ? delta[stat0 + t] : 0.f;
+// the loading warp (warp 0): streamed tile `tile` into ring stage `stage`,
+// by TMA, and its vector; the stage's full barrier takes the 32 lanes'
+// arrivals and the TMA bytes
+template <bool kDq>
+__device__ __forceinline__ void fill_stage(const BwdBlock& c, int stage, int tile,
+                                           const TileVec& vec) {
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    uint8_t* dst = c.ring + stage * 2 * kBwdTile;
+    hopper::mbar_expect_tx(&c.full[stage], 2 * kBwdTile);
+#pragma unroll
+    for (int a = 0; a < kBwdAtoms; ++a) {
+      const int col = (c.rank * kBwdAtoms + a) * kAtomCols;
+      hopper::tma_load_4d(dst + a * kBwdAtom, c.maps[2], &c.full[stage], col, c.h,
+                          tile * kBwdRows, c.b);
+      hopper::tma_load_4d(dst + kBwdTile + a * kBwdAtom, c.maps[3], &c.full[stage], col, c.h,
+                          tile * kBwdRows, c.b);
     }
-  };
-
-  if (tid == 0) {
-    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&ring_bar[st], 1);
-    hopper::mbar_init(own_bar, 1);
-    hopper::fence_barrier_init();
   }
-  for (int st = 0; st < kStages && st < n_tiles; ++st) stage_stats(st, st);
-  __syncthreads();
-  if (tid == 0) {
-    deep_load<D>(&k_map, kDk ? &v_map : nullptr, ks, vs, own_bar, kWgRows, s0, h, b);
-    for (int st = 0; st < kStages && st < n_tiles; ++st)
-      deep_load<D>(&q_map, &g_map, qs + st * kStrBytes, gs + st * kStrBytes, &ring_bar[st],
-                   G::kStream, st * G::kStream, h, b);
-  }
+  float* dst = c.vec + stage * kVecFloats;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int w = 0; w < (kDq ? 1 : 3); ++w)
+      dst[w * kBwdRows + lane + 32 * k] =
+          (!kDq && w == 1) ? (vec.v[1][k] != 0.f ? 1.f / vec.v[1][k] : 0.f) : vec.v[w][k];
+  if (lane != 0) hopper::mbar_arrive(&c.full[stage]);
+}
 
-  const int row0 = s0 + warp * 16 + lane / 4;  // this thread's keys: r = 0 and r = 1 (eight apart)
+// a warpgroup of role kRole: 0 computes the S share (and dv in
+// dk/dv), 1 the dP share (and dk); in dq both accumulate dq, atoms 2 kRole
+// and 2 kRole + 1 of the block's four. Each forms p and ds for its half of
+// the tile's 64 streamed rows (chunks 4 kRole .. 4 kRole + 3 of the
+// accumulator layout, k-steps 2 kRole and 2 kRole + 1) and hands the other
+// the bf16 fragments it needs (dq: ds; dk/dv: ds to the second, p to the
+// first) through the half of its share that no warpgroup of its block reads
+template <int D, bool kCausal, bool kDq, int kRole>
+__device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
+                                                  const float* __restrict__ bias,
+                                                  const float* __restrict__ m,
+                                                  const float* __restrict__ l,
+                                                  const float* __restrict__ delta,
+                                                  __nv_bfloat16* __restrict__ out) {
+  constexpr int kC = D / kBwdCols;  // blocks of a cluster
+  constexpr int kHeld = kDq ? kBwdAtoms / 2 : kBwdAtoms;
+  constexpr int kQ0 = 4 * kRole;    // the first chunk of this role's half
+  constexpr int kChunk = 128;       // float4s of one chunk of a share (one a thread)
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int row0 = c.own0 + warp * 16 + lane / 4;  // this thread's rows: r = 0 and r = 1 (eight apart)
   const int col_in_chunk = 2 * (lane % 4);
-  float bias_r[2];
-  bool key_valid[2];
+  const uint32_t peer = uint32_t(c.rank ^ 1);
+
+  // the owned rows' constants: dq's statistics (a row past T, or one whose
+  // keys are all masked, gets ds = 0), dk/dv's key bias
+  float m_r[2], inv_l[2], delta_r[2], bias_r[2];
+  bool zero_ds[2], key_valid[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    key_valid[r] = row0 + 8 * r < s_len;
-    bias_r[r] = key_valid[r] ? bias_b[row0 + 8 * r] : 0.f;
+    const int row = row0 + 8 * r;
+    if constexpr (kDq) {
+      const bool valid = row < c.t_len;
+      const int64_t stat = (int64_t(c.b) * c.heads + c.h) * c.t_len + row;
+      m_r[r] = valid ? m[stat] : 0.f;
+      inv_l[r] = valid ? 1.f / l[stat] : 0.f;
+      delta_r[r] = valid ? delta[stat] : 0.f;
+      zero_ds[r] = !valid || m_r[r] <= 0.5f * kMaskValue;
+    } else {
+      key_valid[r] = row < c.s_len;
+      bias_r[r] = key_valid[r] ? bias[int64_t(c.b) * c.s_len + row] : 0.f;
+    }
   }
 
-  float dk_acc[kHeld][32], dv_acc[kHeld][32];
+  float acc[kHeld][32];
 #pragma unroll
   for (int a = 0; a < kHeld; ++a)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[a][i] = dv_acc[a][i] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+  float4* const shares = reinterpret_cast<float4*>(c.xbuf);  // [role][chunk][thread]
+  float4* const mine = shares + kRole * 8 * kChunk;           // this role's: S or dP
+  const float4* const theirs = shares + (1 - kRole) * 8 * kChunk;
+  // the fragments for the other role go to this role's own half of its
+  // share, which only this warpgroup reads, and come from the other's
+  uint4* const drop = reinterpret_cast<uint4*>(mine + kQ0 * kChunk);
+  const uint4* const pick = reinterpret_cast<const uint4*>(theirs + (4 - kQ0) * kChunk);
 
-  hopper::mbar_wait(own_bar, 0);
-  for (int j = 0; j < n_tiles; ++j) {
+  // warp 0 of the first warpgroup loads: the owned tiles and the first
+  // stages now, each later tile into the stage its predecessor freed, one
+  // tile ahead (its vector fetched a tile before that)
+  const bool loader = kRole == 0 && warp == 0;
+  TileVec next;
+  if (loader) {
+    if (lane == 0) {
+      hopper::mbar_expect_tx(c.own_bar, 2 * kBwdTile);
+#pragma unroll
+      for (int a = 0; a < kBwdAtoms; ++a) {
+        const int col = (c.rank * kBwdAtoms + a) * kAtomCols;
+        hopper::tma_load_4d(c.own + a * kBwdAtom, c.maps[0], c.own_bar, col, c.h, c.own0, c.b);
+        hopper::tma_load_4d(c.own + kBwdTile + a * kBwdAtom, c.maps[1], c.own_bar, col, c.h,
+                            c.own0, c.b);
+      }
+    }
+    for (int st = 0; st < kStages && st < c.n_tiles; ++st)
+      fill_stage<kDq>(c, st, st, fetch_vec<kDq>(c, st, bias, m, l, delta));
+    if (kStages < c.n_tiles) next = fetch_vec<kDq>(c, kStages, bias, m, l, delta);
+  }
+
+  // at tile j, once both warpgroups are done with tile j - 1: its stage
+  // takes tile j + 1
+  auto refill = [&](int j) {
+    if (loader && j >= 1 && j + 1 < c.n_tiles) {
+      const int free_stage = (j + 1) % kStages;
+      hopper::mbar_wait(&c.empty[free_stage], ((j - 1) / kStages) & 1);
+      fill_stage<kDq>(c, free_stage, j + 1, next);
+      if (j + 2 < c.n_tiles) next = fetch_vec<kDq>(c, j + 2, bias, m, l, delta);
+    }
+  };
+
+  hopper::mbar_wait(c.own_bar, 0);
+  for (int j = 0; j < c.n_tiles; ++j) {
     const int stage = j % kStages;
-    hopper::mbar_wait(&ring_bar[stage], (j / kStages) & 1);
-    const uint8_t* q_tile = qs + stage * kStrBytes;
-    const uint8_t* g_tile = gs + stage * kStrBytes;
-    const float* st_m = stats + stage * 3 * G::kStream;
-    const float* st_inv_l = st_m + G::kStream;
-    const float* st_delta = st_inv_l + G::kStream;
-    float x[kX], dp[kX];
+    hopper::mbar_wait(&c.full[stage], (j / kStages) & 1);
+    const uint8_t* str = c.ring + stage * 2 * kBwdTile;
+    const float* vec = c.vec + stage * kVecFloats;
+
+    float x[32];  // this role's share, over the block's 256 columns
     hopper::wgmma_fence();
-    deep_product<D>(x, ks, kOwnAtom, q_tile, kStrAtom);             // S^T = K.Q^T
-    if (kDk) deep_product<D>(dp, vs, kOwnAtom, g_tile, kStrAtom);   // dP^T = V.G^T
+    deep_product<kBwdCols, 32>(x, c.own + kRole * kBwdTile, kBwdAtom, str + kRole * kBwdTile,
+                               kBwdAtom);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(x);
-    if (kDk) hopper::fence_regs(dp);
 
-    // p^T in place of x, ds^T in place of dp; queries past T masked by
-    // index, the causal bias by index after the pad bias
-    const int q0 = j * G::kStream;
+    // S and dP over this role's half of the tile: the own share's half in
+    // own[], the other's in oth[] (each own + peer at D=512)
+    float own[16], oth[16];
+    if constexpr (kC == 1) {
+      hopper::named_sync(1, kBwdThreads);  // the last tile's buffers are read
+      refill(j);
+      // the other role reads the other half of the share
 #pragma unroll
-    for (int c = 0; c < G::kStream / 8; ++c) {
+      for (int q = 4 - kQ0; q < 8 - kQ0; ++q)
+        mine[q * kChunk + t] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * c + col_in_chunk + e;
-        const bool valid = q0 + col < t_len;
-        const float m_c = st_m[col];
-        const bool zero_ds = !valid || m_c <= 0.5f * kMaskValue;
+      for (int i = 0; i < 16; ++i) own[i] = x[4 * kQ0 + i];
+    } else {
+      // push the share into the peer's buffer once the peer has read it,
+      // and refill the ring while it flies
+      if (j > 0) hopper::mbar_wait_cluster(c.sfree, (j - 1) & 1);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = 4 * c + 2 * r + e;
-          float logit = x[i] * scale + bias_r[r];
-          if (kCausal && row0 + 8 * r > q0 + col + causal_offset) logit += kMaskValue;
-          const float p = valid && key_valid[r]
-                              ? exp2f((logit - m_c) * kLog2e) * st_inv_l[col]
-                              : 0.f;
-          if (kDk) dp[i] = zero_ds ? 0.f : p * (dp[i] - st_delta[col]);
-          x[i] = p;
+      for (int q = 0; q < 8; ++q)
+        hopper::store_async_peer_f32x4(
+            mine + q * kChunk + t, &c.sfull[kRole], peer,
+            make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
+      refill(j);
+      // the peer's share of this role is in this block's buffer (and the
+      // barrier is armed for the next tile's): this role's half stays in
+      // registers, the other half goes back whole for the other role
+      hopper::mbar_wait_cluster(&c.sfull[kRole], j & 1);
+      if (t == 0 && j + 1 < c.n_tiles) hopper::mbar_expect_tx(&c.sfull[kRole], kXFloats * 4);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float4 v = mine[q * kChunk + t];
+        const float4 sum = make_float4(x[4 * q] + v.x, x[4 * q + 1] + v.y, x[4 * q + 2] + v.z,
+                                       x[4 * q + 3] + v.w);
+        if (q / 4 == kRole) {
+          own[4 * (q % 4)] = sum.x, own[4 * (q % 4) + 1] = sum.y;
+          own[4 * (q % 4) + 2] = sum.z, own[4 * (q % 4) + 3] = sum.w;
+        } else {
+          mine[q * kChunk + t] = sum;
         }
       }
     }
-    uint32_t p_a[kX / 8][4], ds_a[kX / 8][4];
-    if (kDv) deep_fragments(x, p_a);
-    if (kDk) deep_fragments(dp, ds_a);
-    hopper::wgmma_fence();
-    if (kDv) deep_accumulate<kHeld, G::kStream>(dv_acc, p_a, g_tile, kStrAtom, wg * kHeld);
-    if (kDk) deep_accumulate<kHeld, G::kStream>(dk_acc, ds_a, q_tile, kStrAtom, wg * kHeld);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    if (kDv) deep_wait_acc(dv_acc);
-    if (kDk) deep_wait_acc(dk_acc);
-    __syncthreads();  // both warpgroups are done with this stage
-    if (j + kStages < n_tiles) {
-      stage_stats(j + kStages, stage);  // read after the next iteration's barrier
-      if (tid == 0)
-        deep_load<D>(&q_map, &g_map, qs + stage * kStrBytes, gs + stage * kStrBytes,
-                     &ring_bar[stage], G::kStream, (j + kStages) * G::kStream, h, b);
+    hopper::named_sync(2, kBwdThreads);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = theirs[(kQ0 + q) * kChunk + t];
+      oth[4 * q] = v.x, oth[4 * q + 1] = v.y, oth[4 * q + 2] = v.z, oth[4 * q + 3] = v.w;
     }
+
+    // p and ds of the half, as bf16 A fragments; streamed rows past the
+    // end masked by index, the causal bias by index after the pad bias;
+    // every value computed, then selected (no branch an element)
+    const int s0 = j * kBwdRows;
+    uint32_t p_frag[2][4], ds_frag[2][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int cc = kQ0 + q;
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        const int i = 4 * q + k4;  // x[4 cc + 2 r + e]
+        const int r = k4 / 2;
+        const int col = 8 * cc + col_in_chunk + k4 % 2;
+        const int other = s0 + col;  // the streamed row: a key (dq) or a query (dk/dv)
+        const float s_val = kRole == 0 ? own[i] : oth[i];
+        const float dp_val = kRole == 0 ? oth[i] : own[i];
+        if constexpr (kDq) {
+          const bool valid = other < c.s_len;
+          float logit = fmaf(s_val, c.scale, vec[col]);
+          if (kCausal) logit += other > row0 + 8 * r + c.causal_offset ? kMaskValue : 0.f;
+          const float e = hopper::exp2_ftz((logit - m_r[r]) * kLog2e) * inv_l[r];
+          const float p = valid ? e : 0.f;
+          const float ds = p * (dp_val - delta_r[r]);
+          pv[k4] = p;
+          dsv[k4] = zero_ds[r] ? 0.f : ds;
+        } else {
+          const bool valid = other < c.t_len;
+          const float m_c = vec[col];
+          float logit = fmaf(s_val, c.scale, bias_r[r]);
+          if (kCausal) logit += row0 + 8 * r > other + c.causal_offset ? kMaskValue : 0.f;
+          const float e = hopper::exp2_ftz((logit - m_c) * kLog2e) * vec[kBwdRows + col];
+          const float p = valid && key_valid[r] ? e : 0.f;
+          const float ds = p * (dp_val - vec[2 * kBwdRows + col]);
+          pv[k4] = p;
+          dsv[k4] = (!valid || m_c <= 0.5f * kMaskValue) ? 0.f : ds;
+        }
+      }
+      p_frag[q / 2][2 * (q % 2)] = hopper::pack_bf16x2(pv[0], pv[1]);
+      p_frag[q / 2][2 * (q % 2) + 1] = hopper::pack_bf16x2(pv[2], pv[3]);
+      ds_frag[q / 2][2 * (q % 2)] = hopper::pack_bf16x2(dsv[0], dsv[1]);
+      ds_frag[q / 2][2 * (q % 2) + 1] = hopper::pack_bf16x2(dsv[2], dsv[3]);
+    }
+
+    // the other role's fragments: ds in dq; in dk/dv the first role keeps
+    // p and gives ds, the second keeps ds and gives p
+    constexpr bool kKeepP = !kDq && kRole == 0;
+    constexpr bool kGiveDs = kDq || kKeepP;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if constexpr (kGiveDs)
+        drop[kk * kChunk + t] =
+            make_uint4(ds_frag[kk][0], ds_frag[kk][1], ds_frag[kk][2], ds_frag[kk][3]);
+      else
+        drop[kk * kChunk + t] =
+            make_uint4(p_frag[kk][0], p_frag[kk][1], p_frag[kk][2], p_frag[kk][3]);
+    }
+    // dq += ds.K; dv += p^T.G; dk += ds^T.Q: this role's k-steps while
+    // the other's fragments come over, then the other's
+    const uint8_t* acc_b = kDq ? str : str + (1 - kRole) * kBwdTile;
+    const int acc_atom0 = kDq ? kRole * kHeld : 0;
+    uint32_t keep[2][4], got[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) keep[kk][e] = kKeepP ? p_frag[kk][e] : ds_frag[kk][e];
+    hopper::wgmma_fence();  // this role's 32 streamed rows, then the other's
+    deep_accumulate<kHeld, 32>(acc, keep, acc_b + kRole * 32 * kRowBytes, kBwdAtom, acc_atom0);
+    hopper::wgmma_commit();
+    hopper::named_sync(3, kBwdThreads);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint4 v = pick[kk * kChunk + t];
+      got[kk][0] = v.x, got[kk][1] = v.y, got[kk][2] = v.z, got[kk][3] = v.w;
+    }
+    hopper::wgmma_fence();
+    deep_accumulate<kHeld, 32>(acc, got, acc_b + (1 - kRole) * 32 * kRowBytes, kBwdAtom,
+                               acc_atom0);
+    hopper::wgmma_commit();
+    if constexpr (kC == 2) {  // this warp's reads of both buffers have landed: the peer may push
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive_peer_relaxed(c.sfree, peer);
+    }
+    hopper::wgmma_wait<0>();
+    deep_wait_acc(acc);
+    hopper::mbar_arrive(&c.empty[stage]);
   }
 
-  if (kDk) deep_store<D>(dk_acc, dk, row0, s_len, heads, h, b, wg * kHeld, scale);
-  if (kDv) deep_store<D>(dv_acc, dv, row0, s_len, heads, h, b, wg * kHeld, 1.f);
+  const int atom0 = c.rank * kBwdAtoms + (kDq ? kRole * kHeld : 0);
+  const int own_len = kDq ? c.t_len : c.s_len;
+  const float mul = (kDq || kRole == 1) ? c.scale : 1.f;
+  deep_store<D, kHeld>(acc, out, row0, own_len, c.heads, c.h, c.b, atom0, mul);
+}
+
+// dq (kDq: own Q and G, stream K and V, out0 = dq) or dk/dv (own K and V,
+// stream Q and G, out0 = dv, out1 = dk). One block per (64 owned rows,
+// column half at D=512, head, batch); blockIdx.x / (D / 256) is the row
+// tile, the cluster rank the column half.
+template <int D, bool kCausal, bool kDq>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+deep_bwd_kernel(const __grid_constant__ CUtensorMap own0_map,
+                const __grid_constant__ CUtensorMap own1_map,
+                const __grid_constant__ CUtensorMap str0_map,
+                const __grid_constant__ CUtensorMap str1_map, const float* __restrict__ bias,
+                const float* __restrict__ m, const float* __restrict__ l,
+                const float* __restrict__ delta, __nv_bfloat16* __restrict__ out0,
+                __nv_bfloat16* __restrict__ out1, int t_len, int s_len, int heads,
+                int causal_offset, float scale) {
+  constexpr int kC = D / kBwdCols;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  BwdBlock c;
+  c.own = smem;
+  c.ring = smem + 2 * kBwdTile;
+  c.xbuf = reinterpret_cast<float*>(smem + (2 + 2 * kStages) * kBwdTile);
+  c.vec = c.xbuf + 2 * kXFloats;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(c.vec + kStages * kVecFloats);
+  c.full = bars;
+  c.empty = bars + kStages;
+  c.own_bar = bars + 2 * kStages;
+  c.sfull = c.own_bar + 1;
+  c.sfree = c.sfull + 2;
+  c.rank = kC == 2 ? int(hopper::cluster_rank()) : 0;
+  c.own0 = int(blockIdx.x / kC) * kBwdRows;
+  c.n_tiles = ((kDq ? s_len : t_len) + kBwdRows - 1) / kBwdRows;
+  c.t_len = t_len;
+  c.s_len = s_len;
+  c.heads = heads;
+  c.h = blockIdx.y;
+  c.b = blockIdx.z;
+  c.causal_offset = causal_offset;
+  c.scale = scale;
+  c.maps[0] = &own0_map;
+  c.maps[1] = &own1_map;
+  c.maps[2] = &str0_map;
+  c.maps[3] = &str1_map;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&c.full[st], 32);  // the loading warp's lanes (lane 0's with the bytes)
+      hopper::mbar_init(&c.empty[st], kBwdThreads);
+    }
+    hopper::mbar_init(c.own_bar, 1);
+    // a share lands by st.async: one arrival (arming it for the share's
+    // bytes) a tile; the peer's warps free the buffers, one lane each
+    for (int role = 0; role < 2; ++role) {
+      hopper::mbar_init(&c.sfull[role], 1);
+      if (kC == 2) hopper::mbar_expect_tx(&c.sfull[role], kXFloats * 4);
+    }
+    hopper::mbar_init(c.sfree, 8);
+    hopper::fence_barrier_init();
+  }
+  if constexpr (kC == 2)
+    hopper::cluster_sync();  // the peer's barriers are initialised before any arrival
+  else
+    __syncthreads();
+
+  if (threadIdx.x < 128)
+    deep_bwd_warpgroup<D, kCausal, kDq, 0>(c, bias, m, l, delta, out0);
+  else
+    deep_bwd_warpgroup<D, kCausal, kDq, 1>(c, bias, m, l, delta, kDq ? out0 : out1);
+  if constexpr (kC == 2) hopper::cluster_sync();  // no block leaves while its peer reads it
 }
 
 // ---------------------------------------------------------------------------
@@ -1071,57 +1244,44 @@ cudaError_t dkv_scalar(const attn_deep::BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dq_wgmma(const attn_deep::BwdArgs& a) {
-  using G = Deep<D>;
+// dq (kDq) or dk/dv: one launch of deep_bwd_kernel, in clusters of D / 256
+// blocks
+template <int D, bool kDq>
+cudaError_t bwd_wgmma(const attn_deep::BwdArgs& a) {
+  constexpr int kC = D / kBwdCols;
   CUtensorMap q_map, g_map, k_map, v_map;
-  if (!encode_bwd_maps<D>(a, G::kRows, G::kStream, &q_map, &g_map, &k_map, &v_map))
+  if (!encode_bwd_maps<D>(a, kBwdRows, kBwdRows, &q_map, &g_map, &k_map, &v_map))
     return cudaErrorInvalidValue;
-  const size_t smem =
-      kSlack + 2 * size_t(G::kRows) * D * 2 + 2 * kStages * size_t(G::kStream) * D * 2;
-  const auto kernel = a.causal ? deep_dq_wgmma_kernel<D, true> : deep_dq_wgmma_kernel<D, false>;
+  const size_t smem = kSlack + kBwdBytes;
+  const auto kernel = a.causal ? deep_bwd_kernel<D, true, kDq> : deep_bwd_kernel<D, false, kDq>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.t_len + G::kRows - 1) / G::kRows, a.heads, a.batch);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      q_map, g_map, k_map, v_map, a.bias, a.m, a.l, a.delta, static_cast<__nv_bfloat16*>(a.dq),
-      a.t_len, a.s_len, a.heads, a.causal_offset, 1.0f / sqrtf(float(D)));
-  return cudaGetLastError();
-}
-
-template <int D, int kMode>
-cudaError_t dkv_wgmma_pass(const attn_deep::BwdArgs& a, const CUtensorMap& k_map,
-                           const CUtensorMap& v_map, const CUtensorMap& q_map,
-                           const CUtensorMap& g_map) {
-  using G = Deep<D>;
-  // + the statistics ring
-  const size_t smem = kSlack + 2 * size_t(kWgRows) * D * 2 +
-                      2 * kStages * size_t(G::kStream) * D * 2 +
-                      sizeof(float) * kStages * 3 * G::kStream;
-  const auto kernel = a.causal ? deep_dkv_wgmma_kernel<D, true, kMode>
-                               : deep_dkv_wgmma_kernel<D, false, kMode>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.s_len + kWgRows - 1) / kWgRows, a.heads, a.batch);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      k_map, v_map, q_map, g_map, a.bias, a.m, a.l, a.delta, static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.t_len, a.s_len, a.heads, a.causal_offset,
-      1.0f / sqrtf(float(D)));
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t dkv_wgmma(const attn_deep::BwdArgs& a) {
-  CUtensorMap q_map, g_map, k_map, v_map;
-  if (!encode_bwd_maps<D>(a, Deep<D>::kStream, kWgRows, &q_map, &g_map, &k_map, &v_map))
-    return cudaErrorInvalidValue;
-  if constexpr (D == 256) {
-    return dkv_wgmma_pass<D, 0>(a, k_map, v_map, q_map, g_map);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kC;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  const int own_len = kDq ? a.t_len : a.s_len;
+  cfg.gridDim = dim3(((own_len + kBwdRows - 1) / kBwdRows) * kC, a.heads, a.batch);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = kC > 1 ? 1 : 0;
+  const float scale = 1.0f / sqrtf(float(D));
+  if constexpr (kDq) {
+    __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(a.dq);
+    err = cudaLaunchKernelEx(&cfg, kernel, q_map, g_map, k_map, v_map, a.bias, a.m, a.l, a.delta,
+                             dq, dq, a.t_len, a.s_len, a.heads, a.causal_offset, scale);
   } else {
-    const cudaError_t err = dkv_wgmma_pass<D, 1>(a, k_map, v_map, q_map, g_map);  // dv
-    if (err != cudaSuccess) return err;
-    return dkv_wgmma_pass<D, 2>(a, k_map, v_map, q_map, g_map);                   // dk
+    err = cudaLaunchKernelEx(&cfg, kernel, k_map, v_map, q_map, g_map, a.bias, a.m, a.l, a.delta,
+                             static_cast<__nv_bfloat16*>(a.dv),
+                             static_cast<__nv_bfloat16*>(a.dk), a.t_len, a.s_len, a.heads,
+                             a.causal_offset, scale);
   }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1147,18 +1307,19 @@ cudaError_t fwd(int dtype, int head_dim, const void* q, const void* k, const voi
 
 cudaError_t bwd_dq(int dtype, int head_dim, const BwdArgs& a) {
   switch (head_dim) {
-    case 256: return dtype == 0 ? dq_scalar<256>(a) : dq_wgmma<256>(a);
-    case 512: return dtype == 0 ? dq_scalar<512>(a) : dq_wgmma<512>(a);
+    case 256: return dtype == 0 ? dq_scalar<256>(a) : bwd_wgmma<256, true>(a);
+    case 512: return dtype == 0 ? dq_scalar<512>(a) : bwd_wgmma<512, true>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t bwd_dkv(int dtype, int head_dim, const BwdArgs& a) {
   switch (head_dim) {
-    case 256: return dtype == 0 ? dkv_scalar<256>(a) : dkv_wgmma<256>(a);
-    case 512: return dtype == 0 ? dkv_scalar<512>(a) : dkv_wgmma<512>(a);
+    case 256: return dtype == 0 ? dkv_scalar<256>(a) : bwd_wgmma<256, false>(a);
+    case 512: return dtype == 0 ? dkv_scalar<512>(a) : bwd_wgmma<512, false>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace attn_deep
+

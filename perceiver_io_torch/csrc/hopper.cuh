@@ -62,6 +62,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival, releasing this thread's earlier shared-memory reads and writes
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the named barrier `id` (1-15; 0 is __syncthreads'): returns once
+// `threads` threads (whole warps) have reached it
+__device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // returns once the barrier has completed the phase of the given parity; a
 // phase that never completes (a lost TMA transaction) traps after ~2^34
 // clocks, so it surfaces as a launch error instead of a hung card
@@ -105,6 +116,58 @@ __device__ __forceinline__ float2 load_peer_f32x2(const float* local, uint32_t r
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(peer)
                : "memory");
   return v;
+}
+
+// four floats to the same shared-memory offset of block `rank` of the
+// cluster, asynchronously: their 16 bytes complete a transaction on the
+// barrier at `bar`'s offset there (armed by an mbar_expect_tx)
+__device__ __forceinline__ void store_async_peer_f32x4(float4* local, uint64_t* bar, uint32_t rank,
+                                                       float4 v) {
+  uint32_t addr, mbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(local)),
+               "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(mbar) : "r"(smem_u32(bar)),
+               "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar)
+      : "memory");
+}
+
+// one arrival on the barrier at the same offset in block `rank` of the
+// cluster, ordering nothing (for a signal that this thread's reads, whose
+// values it has used, are done)
+__device__ __forceinline__ void mbar_arrive_peer_relaxed(uint64_t* bar, uint32_t rank) {
+  uint32_t peer;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(smem_u32(bar)),
+               "r"(rank));
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(peer)
+               : "memory");
+}
+
+// 2^x, flushing results below 2^-126 to 0 (ex2.approx.ftz)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// mbar_wait that acquires at cluster scope: what landed by st.async from,
+// or was released by, another block of the cluster
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  } while (!done);
 }
 
 // ---- TMA ----

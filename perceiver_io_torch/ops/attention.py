@@ -58,7 +58,6 @@ from torch import nn
 
 from perceiver_io_torch.ops import dropout as drop
 from perceiver_io_torch.ops.attention_kernel import (
-    DEEP_HEAD_DIMS,
     SUPPORTED_HEAD_DIMS,
     fused_attention,
 )
@@ -94,18 +93,20 @@ AUTO_PALLAS_MIN_BLOCKS = 32              # 32 blocks win (tiny-self-b8, ar-step-
 # bf16 #1 design at D <= 256, two 64-row blocks of the D = 512 design
 # (csrc/attention_deep.cu)
 AUTO_KERNEL_ROWS = 128
-# At the deep head dims (DEEP_HEAD_DIMS, designs not tuned yet) the einsum
-# path is the faster wherever it fits (phase 24, fwd + bwd ms: flow-cross-b8
-# 98.1 vs 190.5, flow-dec-cross-b8 87.8 vs 228.1, flow-dec-cross at batch 2
-# 21.9 vs 90.9, d256-cross 2.07 vs 2.72; d256-self-b8 alone the other way,
-# 1.09 vs 0.85), so 'auto' sends a deep head to the kernels only where the
-# einsum path's (B, H, T, S) logits take too much memory. The line is drawn
-# from whole bf16 train_flow steps with every call on the einsum path
-# (phase 36, one 80 GB H100): batch 4 (1.5e9 logits a cross) peaks at
-# 63.3 GB, batch 8 (3.0e9) runs out of memory; on the kernels batch 8
-# peaks at 33.9 GB. A model with other calls beside its deep ones may cross
-# it elsewhere: the rule sees one call. As the JAX rule's D=512 note has it:
-# the kernel's O(S) memory breaks the tie.
+# At D = 512 (AUTO_EINSUM_HEAD_DIMS) the einsum path is the faster wherever
+# it fits (phase 24, fwd + bwd ms: flow-cross at batch 1 12.3 vs 27.4,
+# flow-dec-cross at batch 1 11.0 vs 17.7 and at batch 2 22.0 vs 26.1,
+# flow-cross-b8 98.7 vs 98.8, flow-dec-cross-b8 88.3 vs 105.3), so 'auto'
+# sends such a head to the kernels only where the einsum path's (B, H, T, S)
+# logits take too much memory. The line is drawn from whole bf16 train_flow
+# steps with every call on the einsum path (phase 36, one 80 GB H100):
+# batch 4 (1.5e9 logits a cross) peaks at 63.3 GB, batch 8 (3.0e9) runs out
+# of memory; on the kernels batch 8 peaks at 33.9 GB. A model with other
+# calls beside its deep ones may cross it elsewhere: the rule sees one call.
+# As the JAX rule's D=512 note has it: the kernel's O(S) memory breaks the
+# tie. At D = 256 the kernels win (d256-cross 1.57 vs 2.08, d256-self-b8
+# 0.56 vs 1.10), and the rule of the shallower heads routes them.
+AUTO_EINSUM_HEAD_DIMS = (512,)
 AUTO_DEEP_MIN_LOGITS = 1 << 31
 
 
@@ -113,9 +114,9 @@ def auto_attention_impl(b: int, t: int, s: int, h: int, d: int) -> str:
     """Resolve ``attn_impl='auto'`` for a non-causal (B, T, S, H, D) call:
     ``'pallas'`` iff the kernel takes D (``SUPPORTED_HEAD_DIMS``), the call
     fills at least ``AUTO_PALLAS_MIN_BLOCKS`` tiles of 128 query rows
-    (B·H·⌈T/128⌉), and either, at a deep D (``DEEP_HEAD_DIMS``), B·H·T·S >=
-    ``AUTO_DEEP_MIN_LOGITS``, or, at D <= 128, S >= ``AUTO_PALLAS_MIN_KV``
-    or B·H·T·S >= ``AUTO_PALLAS_MIN_LOGITS`` with D >=
+    (B·H·⌈T/128⌉), and either, at D = 512 (``AUTO_EINSUM_HEAD_DIMS``),
+    B·H·T·S >= ``AUTO_DEEP_MIN_LOGITS``, or, at D <= 256, S >=
+    ``AUTO_PALLAS_MIN_KV`` or B·H·T·S >= ``AUTO_PALLAS_MIN_LOGITS`` with D >=
     ``AUTO_PALLAS_AREA_MIN_HEAD_DIM``; else ``'xla'``. The same rule on every
     device (a CPU tensor runs the chosen path's plain version), so the CPU
     tests check the routing."""
@@ -123,7 +124,7 @@ def auto_attention_impl(b: int, t: int, s: int, h: int, d: int) -> str:
         return "xla"
     if b * h * -(-t // AUTO_KERNEL_ROWS) < AUTO_PALLAS_MIN_BLOCKS:
         return "xla"
-    if d in DEEP_HEAD_DIMS:
+    if d in AUTO_EINSUM_HEAD_DIMS:
         return "pallas" if b * h * t * s >= AUTO_DEEP_MIN_LOGITS else "xla"
     long_kv = s >= AUTO_PALLAS_MIN_KV
     big_logits = b * h * t * s >= AUTO_PALLAS_MIN_LOGITS and d >= AUTO_PALLAS_AREA_MIN_HEAD_DIM

@@ -36,7 +36,9 @@ unpadded keys at D=32 in the MNIST cross, f32 and bf16) and a classifier
 train step with the encoder frozen (#1 only in it) and not,
 the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
 the deep designs of #1-#3 (D = 256 and 512, f32 and bf16, with and
-without the causal offset) on their own counters,
+without the causal offset) on their own counters, and the bf16 deep
+backward at ragged, one-key and B=1 shapes, a second call bit for bit the
+first,
 ``'auto'`` routing by the rule's block floor, dropout from CUDA generators
 and remat's recompute drawing the same masks,
 and the bf16 wgmma designs of the forward, of the two backward kernels,
@@ -174,6 +176,43 @@ def test_deep_attention_kernels_match_plain(card, d, dtype, causal):
     assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1] + [wgmma] * 3
     if causal is None:
         assert not got[0][-1].any() and not got[1][-1].any()
+
+
+@pytest.mark.parametrize("causal", [None, 8])
+@pytest.mark.parametrize("b,t,s", [(1, 64, 64), (1, 1, 200), (2, 63, 65), (3, 130, 200),
+                                   (2, 200, 1)])
+@pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
+def test_deep_wgmma_backward_cases(card, d, b, t, s, causal):
+    """The bf16 deep backward (dq and dk/dv one launch each; at D=512 a
+    two-block cluster that adds its halves of each logit tile): T and S off
+    the 64-row tiles, B=1, one key; with B > 1 the last example fully masked
+    (dq and dk exactly 0, dv its uniform share) or, with the causal offset,
+    its first 12 keys padded (dq of the rows that see only padding exactly
+    0); a second call bit for bit the first."""
+    g = torch.Generator().manual_seed(b * 10000 + t * 10 + s + d + (causal or 0))
+    q, go = (torch.randn(b, t, 1, d, generator=g).to(card, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, s, 1, d, generator=g).to(card, torch.bfloat16) for _ in range(2))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    if b > 1:
+        pad[-1] = True if causal is None else torch.arange(s) < 12
+    pad = pad.to(card)
+    out, m, l = ak.attention_reference_with_stats(q, k, v, pad, causal)
+    before = [c.launches for c in (ak.dq_deep_counter, ak.dkv_deep_counter)]
+    got = ak.attention_bwd(q, k, v, pad, out, m, l, go, causal)
+    assert [c.launches - n for c, n in zip((ak.dq_deep_counter, ak.dkv_deep_counter),
+                                           before)] == [1, 1]
+    again = ak.attention_bwd(q, k, v, pad, out, m, l, go, causal)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    ref = ak.attention_bwd_reference(q, k, v, pad, out, m, l, go, causal)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.bfloat16 and x.is_contiguous()
+        _close(x, r, torch.bfloat16, BWD_ATOL * d / 128)
+    if b > 1 and causal is None:
+        assert not got[0][-1].any() and not got[1][-1].any()
+        assert got[2][-1].abs().max() > 0
+    if b > 1 and causal is not None:
+        assert not got[0][-1, :max(0, 12 - causal)].any()
 
 
 def test_fused_attention_autograd_runs_the_kernels(card):

@@ -12,7 +12,8 @@ CPU, from the same numpy-seeded inputs:
   within 1e-6;
 - ``combine_attention_masks``: equal;
 - ``auto_attention_impl``: a routing table (head depths the kernel
-  refuses, 256 and 512, never route to it) and, through
+  refuses never route to it; D=256 turns as the shallower heads do, D=512
+  at ``AUTO_DEEP_MIN_LOGITS``) and, through
   ``MultiHeadAttention``, every causal call on the einsum path;
 - ``MultiHeadAttention`` under ``'auto'`` and ``'xla'`` against the JAX
   module's (the stacked self-attention projection, a pad mask, an
@@ -152,16 +153,16 @@ SWEEP_ROUTES = {
     (2, 256, 512, 4, 16): "xla",           # mlm-cross-b2: 16 blocks
     (8, 64, 64, 4, 16): "pallas",          # tiny-self-b8: 32 blocks
     (8, 256, 256, 4, 8): "pallas",         # d8-self
-    (2, 50176, 50176, 8, 256): "pallas",   # D=256 and 512: the deep designs where the
-                                           # logits reach AUTO_DEEP_MIN_LOGITS
-    (64, 4096, 4096, 8, 512): "pallas",
+    (2, 50176, 50176, 8, 256): "pallas",   # the deep designs: D=256 by the rule of
+                                           # the shallower heads, D=512 where the
+    (64, 4096, 4096, 8, 512): "pallas",    # logits reach AUTO_DEEP_MIN_LOGITS
     (8, 2048, 182528, 1, 512): "pallas",   # train_flow's crosses at its batch of 8:
     (8, 182528, 2048, 1, 512): "pallas",   # 3.0e9 logits, no room for the einsum path
     (4, 2048, 182528, 1, 512): "xla",      # at batch 4, 1.5e9: its step fits at 63.3 GB
     (4, 182528, 2048, 1, 512): "xla",
     (1, 182528, 2048, 1, 512): "xla",
-    (2, 1024, 16384, 2, 256): "xla",       # d256-cross: einsum 2.07 vs 2.72
-    (8, 1024, 1024, 4, 256): "xla",        # d256-self-b8: kernel 0.85 vs 1.09 (misrouted)
+    (2, 1024, 16384, 2, 256): "pallas",    # d256-cross: kernel 1.57 vs einsum 2.08
+    (8, 1024, 1024, 4, 256): "pallas",     # d256-self-b8: kernel 0.56 vs 1.10
     (3, 16, 64, 4, 8): "xla",              # the tiny presets: 12 blocks
     (8, 1, 32768, 4, 128): "pallas",       # 32 blocks of one row over a long stream
     (1, 1, 32768, 4, 128): "xla",          # 4 blocks
@@ -191,11 +192,16 @@ def test_auto_attention_impl_thresholds():
     assert pat.auto_attention_impl(1, t - rows, 2 * s, 1, dmin) == "xla"  # one block short
     assert pat.auto_attention_impl(1, t, kv, 1, 8) == "pallas"           # long KV, any D
     assert pat.auto_attention_impl(1, t, s, 1, dmin // 2) == "xla"       # D under the floor
-    deep = pat.AUTO_DEEP_MIN_LOGITS        # the deep heads: the logits' floor alone
-    for d in (256, 512):
+    deep = pat.AUTO_DEEP_MIN_LOGITS        # D=512: the logits' floor alone
+    for d in pat.AUTO_EINSUM_HEAD_DIMS:
         assert pat.auto_attention_impl(64, 4096, 65536, 8, d) == "pallas"
         assert pat.auto_attention_impl(1, t, deep // t, 1, d) == "pallas"
         assert pat.auto_attention_impl(1, t, deep // t - 1, 1, d) == "xla"  # long KV, too few
+    # D=256 turns where the shallower heads do
+    assert pat.auto_attention_impl(1, t, s, 1, 256) == "pallas"
+    assert pat.auto_attention_impl(1, t, kv - 1, 1, 256) == ("pallas" if t * (kv - 1) >= area
+                                                             else "xla")
+    assert pat.auto_attention_impl(1, t - rows, 2 * s, 1, 256) == "xla"  # one block short
     for d in (1024, 24):  # no kernel takes them
         assert pat.auto_attention_impl(64, 4096, 65536, 8, d) == "xla"
 
