@@ -319,7 +319,8 @@ Phases (any failure exits nonzero):
     exactly 0 there), and at B=1 with the causal offset 8 and the first 12
     keys padded (rows 0-3 see only padding: their dq exactly 0); out, m, l,
     dq, dk, dv; each call one launch on the deep counters; every bf16
-    backward run twice, dq, dk and dv bit for bit the same. Times at the
+    forward and backward run twice, out, m, l and dq, dk, dv bit for bit
+    the same. Times at the
     comparison batch (kernel device ms, the plain versions', SDPA's or,
     where SDPA does not take the shape, the einsum path's, labelled, and
     the einsum path's beside it) and, in bf16 without padding, at B=8, each
@@ -3638,7 +3639,11 @@ DEEP_CAUSAL_OFFSET, DEEP_HEAD_PADDED, DEEP_TIME_BATCH = 8, 12, 8
 _DEEP_BWD = ("wgmma, 256 threads: a loading warp refills a 2-stage TMA ring of 64-row "
              "tiles through mbarriers; S and dP computed once, one a warpgroup; D=512 "
              "split over a 2-block cluster that adds its halves by st.async")
-DEEP_DESIGNS = dict(fwd="wgmma: two warpgroups, 8 KB-row K/V tiles, one barrier a tile",
+DEEP_DESIGNS = dict(fwd=("wgmma, 256 threads: 128 query rows a block, 64 a warpgroup; a "
+                         "loading warp refills 2-stage K and V rings of 64-key tiles through "
+                         "mbarriers; each logit tile computed once, the next tile's S issued "
+                         "before this tile's softmax; D=512 split over a 2-block cluster that "
+                         "adds its halves by st.async"),
                     dq=_DEEP_BWD, dkv=_DEEP_BWD)
 
 
@@ -3682,6 +3687,16 @@ def deep_counts(ak) -> list:
     return [c.launches for c in (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter)]
 
 
+def check_fwd_repeats(torch, ak, label: str, first, *args) -> bool:
+    """A second ``ak.attention_fwd_with_stats(*args)`` gives out, m and l
+    bit for bit equal to ``first``: the deep forward sums in a fixed order
+    (at D=512 own + peer on both blocks of a cluster), with no atomics."""
+    for name, a, again in zip(("out", "m", "l"), first, ak.attention_fwd_with_stats(*args)):
+        if not torch.equal(a, again):
+            raise AssertionError(f"{label}: a second forward's {name} differs from the first")
+    return True
+
+
 def check_bwd_repeats(torch, ak, label: str, grads, *args) -> bool:
     """A second ``ak.attention_bwd(*args)`` gives dq, dk and dv bit for bit
     equal to ``grads``: the deep backward reduces in a fixed order, with no
@@ -3715,14 +3730,17 @@ def deep_attention_phase(torch, ak, pat) -> list:
                         for _ in range(2))
                 before = deep_counts(ak)
                 out, m, l = ak.attention_fwd_with_stats(q, k, v, pad, off)
-                ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad, off)
                 label = f"deep {name} {dt} offset {off}"
+                fwd_repeats = (check_fwd_repeats(torch, ak, label, (out, m, l), q, k, v, pad,
+                                                 off) if dt == "bfloat16" else None)
+                ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad, off)
                 fwd_err = check(f"{label} out", out, ref_out, dt)
                 stat_err = max(check_stats(f"{label} m", m, ref_m),
                                check_stats(f"{label} l", l, ref_l))
                 del out, m, l
                 grads = ak.attention_bwd(q, k, v, pad, ref_out, ref_m, ref_l, g, off)
-                if deep_counts(ak) != [n + 1 for n in before]:
+                if deep_counts(ak) != [n + 1 + (dt == "bfloat16") * (i == 0)
+                                       for i, n in enumerate(before)]:
                     raise AssertionError(f"{label}: deep launches {deep_counts(ak)} from {before}")
                 repeats = (check_bwd_repeats(torch, ak, label, grads, q, k, v, pad, ref_out,
                                              ref_m, ref_l, g, off)
@@ -3739,7 +3757,8 @@ def deep_attention_phase(torch, ak, pat) -> list:
                            causal_offset=off, design=ak.forward_design(q, k, v),
                            max_abs_err=max([fwd_err] + errs), fwd_max_abs_err=fwd_err,
                            dq_max_abs_err=errs[0], dkv_max_abs_err=max(errs[1:]),
-                           stats_max_rel_err=stat_err, bwd_bit_identical=repeats)
+                           stats_max_rel_err=stat_err, fwd_bit_identical=fwd_repeats,
+                           bwd_bit_identical=repeats)
                 if off is None:
                     row.update(deep_timing(torch, ak, pat, q, k, v, g, pad, ref_m, ref_l,
                                            ref_out, dt, plain=True))
@@ -3758,13 +3777,15 @@ def deep_attention_phase(torch, ak, pat) -> list:
         k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
                 for _ in range(2))
         out, m, l = ak.attention_fwd_with_stats(q, k, v, None)
+        fwd_repeats = check_fwd_repeats(torch, ak, f"deep {name} bfloat16 B={b}", (out, m, l),
+                                        q, k, v, None)
         grads = ak.attention_bwd(q, k, v, None, out, m, l, g)
         repeats = check_bwd_repeats(torch, ak, f"deep {name} bfloat16 B={b}", grads, q, k, v,
                                     None, out, m, l, g)
         del grads
         row = dict(phase="deep_attention", shape=name, dims=[b, t, s, h, d], dtype="bfloat16",
                    causal_offset=None, design=ak.forward_design(q, k, v), timed_only=True,
-                   bwd_bit_identical=repeats,
+                   fwd_bit_identical=fwd_repeats, bwd_bit_identical=repeats,
                    **deep_timing(torch, ak, pat, q, k, v, g, None, m, l, out, "bfloat16",
                                  plain=False))
         row["row_s"] = time.perf_counter() - t_row

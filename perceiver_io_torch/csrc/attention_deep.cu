@@ -18,19 +18,31 @@
 // at 989 TF/s); the backward's dq and dk/dv take 6 and 8 times B.T.S.D
 // (9.3 and 12.4 ms).
 //
-// The forward and the f32 designs:
-// - registers: a 64-row f32 accumulator of D columns costs D/2 registers a
-//   thread of one warpgroup (256 at D=512, over the 255 a thread may hold).
-//   The bf16 forward gives a warpgroup at most 256 accumulator columns: it
-//   splits a block's rows between its two warpgroups at D=256 and its
-//   columns at D=512, where both compute the whole logit tile.
-// - shared memory: the forward's owned q tile is 64 KB and its K/V tiles 8
-//   KB of rows a stage (64 or 32 keys), two stages.
-// - float32 (exact scalar FMAs, as attention_fwd.cu / attention_bwd.cu): the
-//   forward keeps 64 rows and 4 threads a row with 64-key (D=256) or 16-key
-//   (D=512) tiles; the backward owns 32 rows with 8 threads a row and
-//   streams 32-row (D=256) or 16-row (D=512) tiles. All tiles are staged as
-//   f32 with row stride D+1.
+// Registers: a 64-row f32 accumulator of D columns costs D/2 registers a
+// thread of one warpgroup (256 at D=512, over the 255 a thread may hold), so
+// a bf16 block holds 256 head columns: all of them at D=256, one half at
+// D=512, where the two blocks of a cluster split the columns and add their
+// halves of each logit tile through distributed shared memory (st.async
+// pushes), so no logit tile is computed twice.
+//
+// The bf16 forward (deep_fwd_wgmma_kernel; its section says how): a block
+// owns 128 query rows, 64 a warpgroup, and streams 64-key K and V tiles
+// through two rings that a loading warp refills as mbarriers free them; each
+// warpgroup issues the next tile's S product before this tile's softmax, so
+// the exponentials run under a product, and at D=512 waits for the peer's
+// half under its last P.V product. The flow encoder cross at B=8 gets 256
+// blocks (two waves of 128 clusters on 132 SMs); at B=2 64, half the card:
+// 128-row blocks read each K/V tile once for twice the rows of 64-row ones
+// (shared-memory bandwidth, not the tensor cores, is what binds a 64-key
+// tile: its SS logit product alone reads 128 bytes a clock at the tensor
+// cores' peak), and the batch-8 training step is the path this design
+// serves.
+//
+// float32 (exact scalar FMAs, as attention_fwd.cu / attention_bwd.cu): the
+// forward keeps 64 rows and 4 threads a row with 64-key (D=256) or 16-key
+// (D=512) tiles; the backward owns 32 rows with 8 threads a row and streams
+// 32-row (D=256) or 16-row (D=512) tiles. All tiles are staged as f32 with
+// row stride D+1.
 //
 // The bf16 backward (deep_bwd_kernel; the section below says how): one
 // kernel template for dq and for dk/dv, one launch each, no atomics. A
@@ -425,16 +437,6 @@ constexpr int kRowBytes = 128;
 constexpr uint32_t kLayout = hopper::kSwizzle128;
 constexpr uint32_t kGroup = 8 * kRowBytes;  // bytes between 8-row groups
 
-template <int D>
-struct Deep {
-  static_assert(D == 256 || D == 512, "the deep designs take D = 256 or 512");
-  static constexpr int kAtoms = D / kAtomCols;      // 4 or 8
-  static constexpr int kSplit = D / 256;            // warpgroups sharing one 64-row group
-  static constexpr int kRows = 2 * kWgRows / kSplit;  // rows the forward and dq own: 128 or 64
-  static constexpr int kWgAtoms = kAtoms / kSplit;  // output atoms of a forward / dq warpgroup
-  static constexpr int kKeys = 16384 / D;           // keys a forward K/V tile: 64 or 32
-};
-
 // x = A . B^T over the head dim (started, not awaited): A the 64 rows of an
 // owned tile at `own` (atoms `own_atom` bytes apart), B a streamed tile of
 // 2N rows (atoms `stream_atom` bytes apart); x[4c + 2r + e] is (row r,
@@ -511,184 +513,480 @@ __device__ __forceinline__ void deep_store(const float (&acc)[kHeld][32], __nv_b
   }
 }
 
-// one thread: rows r0 .. r0 + rows of a and, unless map_b is null, b into
-// the tiles at ring_a and ring_b (atoms of `rows` rows), completing on `bar`
-template <int D>
-__device__ __forceinline__ void deep_load(const CUtensorMap* map_a, const CUtensorMap* map_b,
-                                          uint8_t* ring_a, uint8_t* ring_b, uint64_t* bar,
-                                          int rows, int r0, int h, int b) {
-  const int atom = rows * kRowBytes;
-  hopper::mbar_expect_tx(bar, (map_b ? 2 : 1) * Deep<D>::kAtoms * atom);
+// ---------------------------------------------------------------------------
+// bfloat16 forward (#1)
+// ---------------------------------------------------------------------------
+//
+// deep_fwd_wgmma_kernel<D, kCausal>: a block owns 128 query rows and 256 head
+// columns, all of them at D=256, one half at D=512, where the two blocks of
+// a cluster (blockIdx.x = 2 tile + rank) hold the two halves of the same
+// rows. Two warpgroups, 64 rows each, share every streamed tile; each holds
+// its rows' 64 x 256 f32 output (128 registers a thread) and its own
+// running max and sum.
+//
+// The ring. The block's Q columns (64 KB) are staged once; 64-key tiles of
+// K and of V (32 KB each at the block's 256 columns) stream through two
+// two-stage rings, the V stage carrying its keys' pad bias (two 64-value
+// TMA boxes from the 16-byte boundary at or before the tile's first key,
+// on the same barrier). Warp 0 loads: it refills a K stage once both
+// warpgroups' products of its tile have read it, and a V stage once both
+// have accumulated from it, each a tile ahead of its use; the consumers
+// free stages by mbarrier arrivals, one a warp, and no thread waits on a
+// block-wide barrier. A call with an odd number of key tiles runs one more
+// tile that lies wholly past S (TMA fills it with zeros and its keys are
+// masked by index, so it adds nothing), which keeps the loop's two logit
+// accumulators in turn.
+//
+// The pipeline, each warpgroup on its own (tile j; wgmma groups retire in
+// order, so waiting for all but the newest retires the older):
+//   S_j (Q.K_j^T, 16 SS steps of m64n64k16 over the block's 256 columns)
+//   landed -> D=512: its share pushed to the peer block and the peer's
+//   share added (own + peer: f32 addition gives both blocks the same bits,
+//   so both form the same m, l and P), while PV_{j-1} runs -> S_{j+1}
+//   issued -> the softmax of tile j, under S_{j+1}'s product -> PV_{j-1}
+//   landed: the output rescaled where a row's max moved -> P_j (bf16,
+//   unnormalised) times V_j accumulated (16 RS steps of m64n64k16).
+// So each logit tile is computed once, and the exponentials of one tile run
+// under the next tile's product. The exchange buffers take the peer's
+// share as thread-major float4s written by st.async, whose bytes complete a
+// transaction on the receiving warpgroup's barrier; one relaxed arrival a
+// warp frees the buffer for the next tile. (Adding the peer's share with
+// S_{j+1} already in flight would hide the wait for it behind that product
+// too, but holds three logit tiles beside the output and spills: measured
+// no faster.)
+//
+// What the compiler must be kept from (ptxas -v and the SASS): wgmma
+// descriptors and shared-memory addresses that never change across the
+// loop get hoisted into registers (the base address is made opaque each
+// tile, and thread and block indices are read where they are used); the
+// bf16 packing of P, or the zeroing of the output, sunk into a product's
+// window makes ptxas fence there and serialise every wgmma of the kernel
+// (C7519/C7520, C7515): both are pinned by register fences.
+//
+// Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512, without / with kCausal):
+// 256 threads, one block an SM; registers 250 / 255 and 238 / 254, zero
+// spill bytes. Shared memory at D=512: Q 65,536, the two rings 131,072, two
+// 16 KB exchange buffers 32,768, the bias ring 1,024, 13 barriers 104:
+// 230,504 bytes + 1,024 of alignment slack; at D=256 no exchange buffers:
+// 197,736 + 1,024. A third stage would need 64 KB more: it fits neither.
+
+constexpr int kFwdCols = 256;                          // head columns a block holds
+constexpr int kFwdAtoms = kFwdCols / kAtomCols;        // 4
+constexpr int kFwdRows = 2 * kWgRows;                  // query rows a block owns: 64 a warpgroup
+constexpr int kFwdKeys = 64;                           // keys a streamed tile
+constexpr int kFwdQAtom = kFwdRows * kRowBytes;        // 16 KB: one atom of the Q tile
+constexpr int kFwdQBytes = kFwdAtoms * kFwdQAtom;      // 64 KB
+constexpr int kFwdKVAtom = kFwdKeys * kRowBytes;       // 8 KB: one atom of a K or V tile
+constexpr int kFwdTile = kFwdAtoms * kFwdKVAtom;       // 32 KB
+constexpr int kFwdThreads = 256;                       // two warpgroups
+constexpr int kFwdXFloats = kWgRows * kFwdKeys;        // one warpgroup's 64 x 64 f32 share: 16 KB
+constexpr int kFwdChunk = 128;                         // float4s of one chunk of a share
+// a V stage's bias: two 64-value boxes from the 16-byte boundary at or
+// before the tile's first key (a TMA box starts on such a boundary)
+constexpr int kFwdBiasSlot = 2 * kFwdKeys * 4;
+
+// byte offsets in a forward block's shared memory (kC blocks a cluster);
+// the barriers: the Q tile's, then each ring's full and empty [stage], then
+// the exchange's full and free [role]
+template <int kC>
+struct FwdSmem {
+  static constexpr int kK = kFwdQBytes;                             // [stage][atom][64 keys]
+  static constexpr int kV = kK + kStages * kFwdTile;                // [stage][atom][64 keys]
+  static constexpr int kX = kV + kStages * kFwdTile;                // [role][kFwdXFloats]
+  static constexpr int kBias = kX + (kC == 2 ? 2 * kFwdXFloats * 4 : 0);  // [stage][128]
+  static constexpr int kBars = kBias + kStages * kFwdBiasSlot;
+  static constexpr int kQBar = kBars;
+  static constexpr int kKFull = kQBar + 8;        // the TMA bytes
+  static constexpr int kKEmpty = kKFull + 8 * kStages;   // the 8 warps
+  static constexpr int kVFull = kKEmpty + 8 * kStages;   // the TMA bytes (V and its bias)
+  static constexpr int kVEmpty = kVFull + 8 * kStages;   // the 8 warps
+  static constexpr int kSFull = kVEmpty + 8 * kStages;   // the peer's share is in this block's buffer
+  static constexpr int kSFree = kSFull + 16;             // the peer has read this block's last share
+  static constexpr int kBytes = kSFree + 16;
+};
+
+// a forward block's constants. Shared memory is named by its 32-bit address
+// (`smem`, 1024-aligned) plus FwdSmem's offsets, and a thread's coordinates
+// come from its special registers where they are used: each tile makes the
+// base opaque to the compiler and reads them anew, so the tile's addresses,
+// wgmma descriptors and indices are formed where they are used instead of
+// being held in registers across the loop, where the output tile and two
+// logit tiles leave little room
+struct FwdBlock {
+  uint32_t smem;
+  const CUtensorMap* k_map;
+  const CUtensorMap* v_map;
+  const CUtensorMap* bias_map;  // the (B S) pad bias
+  int n_tiles, s_len, causal_offset;
+  float scale;
+};
+
+// special registers, read at each use (an asm volatile read is neither
+// hoisted nor shared between uses)
+__device__ __forceinline__ int read_tid() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ int read_ctaid_x() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ int read_ctaid_y() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ int read_ctaid_z() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.z;\n" : "=r"(v));
+  return v;
+}
+
+// the block's rank in its cluster: its column half at D=512
+template <int kC>
+__device__ __forceinline__ int fwd_rank() {
+  return kC == 2 ? int(hopper::cluster_rank()) : 0;
+}
+
+// a thread's first row (its second is 8 on): its warpgroup's 64 of the
+// block's 128, 16 a warp, the accumulator layout's lane / 4
+template <int kC>
+__device__ __forceinline__ int fwd_row0(int tid) {
+  return (read_ctaid_x() / kC) * kFwdRows + (tid / 128) * kWgRows + ((tid % 128) / 32) * 16 +
+         (tid % 32) / 4;
+}
+
+// the loading warp: key tile `tile` of K into its stage, by TMA
+template <int kC>
+__device__ __forceinline__ void fill_k(const FwdBlock& c, uint32_t smem, int tile) {
+  using L = FwdSmem<kC>;
+  if (read_tid() == 0) {
+    const int st = tile % kStages;
+    const uint32_t bar = smem + L::kKFull + 8 * st;
+    hopper::mbar_expect_tx(bar, kFwdTile);
 #pragma unroll
-  for (int a = 0; a < Deep<D>::kAtoms; ++a) {
-    hopper::tma_load_4d(ring_a + a * atom, map_a, bar, a * kAtomCols, h, r0, b);
-    if (map_b) hopper::tma_load_4d(ring_b + a * atom, map_b, bar, a * kAtomCols, h, r0, b);
+    for (int a = 0; a < kFwdAtoms; ++a)
+      hopper::tma_load_4d(smem + L::kK + st * kFwdTile + a * kFwdKVAtom, c.k_map, bar,
+                          (fwd_rank<kC>() * kFwdAtoms + a) * kAtomCols, read_ctaid_y(),
+                          tile * kFwdKeys, read_ctaid_z());
   }
 }
 
-// The forward. One block per (kRows query rows, head, batch), two consumer
-// warpgroups: at D=256 each owns 64 rows and all 256 columns of its
-// output, at D=512 both take the same 64 rows and each 256 of the columns
-// (both compute the whole logit tile). TMA stages the q tile once and
-// streams kKeys-key K/V tiles through a two-stage ring.
+// the loading warp: key tile `tile` of V and its keys' pad bias into the V
+// stage, by TMA: the bias from the 16-byte boundary at or before the
+// tile's first key, (b S) % 4 values early (past S it is another example's
+// or zeros: the softmax masks those keys by index)
+template <int kC>
+__device__ __forceinline__ void fill_v(const FwdBlock& c, uint32_t smem, int tile) {
+  using L = FwdSmem<kC>;
+  if (read_tid() == 0) {
+    const int st = tile % kStages;
+    const uint32_t bar = smem + L::kVFull + 8 * st;
+    hopper::mbar_expect_tx(bar, kFwdTile + kFwdBiasSlot);
+#pragma unroll
+    for (int a = 0; a < kFwdAtoms; ++a)
+      hopper::tma_load_4d(smem + L::kV + st * kFwdTile + a * kFwdKVAtom, c.v_map, bar,
+                          (fwd_rank<kC>() * kFwdAtoms + a) * kAtomCols, read_ctaid_y(),
+                          tile * kFwdKeys, read_ctaid_z());
+    const int first = (read_ctaid_z() * c.s_len + tile * kFwdKeys) & ~3;
+    hopper::tma_load_1d(smem + L::kBias + st * kFwdBiasSlot, c.bias_map, bar, first);
+    hopper::tma_load_1d(smem + L::kBias + st * kFwdBiasSlot + kFwdKeys * 4, c.bias_map, bar,
+                        first + kFwdKeys);
+  }
+}
+
+// one warp's arrival on a barrier counting warps
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if (read_tid() % 32 == 0) hopper::mbar_arrive(bar);
+}
+
+// x = Q.K^T over the block's 256 columns (started, not awaited): 16 SS
+// steps of m64n64k16, Q from `q` (the warpgroup's 64 rows of the 128-row
+// tile), K from the 64-key tile at `k`, both descriptors of their first atom
+__device__ __forceinline__ void fwd_product(float (&x)[32], uint64_t q, uint64_t k) {
+#pragma unroll
+  for (int kk = 0; kk < kFwdCols / 16; ++kk) {
+    const uint32_t step = (kk % 4) * 32;  // 16 columns into the atom's 128-byte rows
+    hopper::wgmma_ss<32>(x, hopper::desc_add(q, (kk / 4) * kFwdQAtom + step),
+                         hopper::desc_add(k, (kk / 4) * kFwdKVAtom + step), kk > 0);
+  }
+}
+
+// o += P.V (started, not awaited): 16 RS steps of m64n64k16, P as the A
+// fragments of a 64 x 64 tile, V the 64-key tile at `v` (MN-major)
+__device__ __forceinline__ void fwd_accumulate(float (&o)[kFwdAtoms][32],
+                                               const uint32_t (&pa)[4][4], uint64_t v) {
+#pragma unroll
+  for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+#pragma unroll
+    for (int at = 0; at < kFwdAtoms; ++at)
+      hopper::wgmma_rs_tb<32>(o[at], pa[kk],
+                              hopper::desc_add(v, at * kFwdKVAtom + kk * 16 * kRowBytes));
+}
+
+// key tile j (in ring stage kStage = j % 2) of one warpgroup. On entry S_j
+// is in flight into `cur` (or landed) and PV_{j-1} into `o`; on return
+// S_{j+1} into `nxt` and PV_j. The wgmma groups retire in order, so wait<1>
+// retires all but the newer of the two in flight.
+template <int kC, bool kCausal, int kStage>
+__device__ __forceinline__ void fwd_tile(const FwdBlock& c, int j, float (&cur)[32],
+                                         float (&nxt)[32], float (&o)[kFwdAtoms][32],
+                                         float (&m_run)[2], float (&l_run)[2]) {
+  static_assert(kStages == 2, "the loop takes the ring's two stages in turn");
+  using L = FwdSmem<kC>;
+  constexpr int stage = kStage;
+  constexpr int other = kStage ^ 1;  // the stage of tiles j - 1 and j + 1
+  uint32_t smem = c.smem;
+  asm volatile("" : "+r"(smem));  // formed again each tile, not held across the loop
+  const int tid = read_tid();
+  const int role = tid / 128;  // the warpgroup: rows 64 role .. of the block
+
+  // S_j has landed (PV_{j-1} may still run): its K stage is read
+  hopper::wgmma_wait<1>();
+  hopper::fence_regs(cur);
+  warp_arrive(smem + L::kKEmpty + 8 * stage);
+  // this thread's float4 of each 128-float4 chunk of its warpgroup's share
+  const uint32_t share = L::kX + role * kFwdXFloats * 4 + 16 * (tid % 128);
+  if constexpr (kC == 2) {
+    // this block's share to the peer, once the peer has read the last; then
+    // the peer's share added to it (and the buffer armed for the next), while
+    // PV_{j-1} runs: no second logit tile is in flight beside the sum
+    const uint32_t peer = hopper::map_peer(smem, uint32_t(fwd_rank<kC>() ^ 1));
+    if (j > 0) hopper::mbar_wait_cluster(smem + L::kSFree + 8 * role, (j - 1) & 1);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      hopper::store_async_f32x4(peer + share + q * kFwdChunk * 16, peer + L::kSFull + 8 * role,
+                                make_float4(cur[4 * q], cur[4 * q + 1], cur[4 * q + 2],
+                                            cur[4 * q + 3]));
+    hopper::mbar_wait_cluster(smem + L::kSFull + 8 * role, j & 1);
+    if (tid % 128 == 0 && j + 1 < c.n_tiles)
+      hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdXFloats * 4);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 v = hopper::ld_shared_f32x4(smem + share + q * kFwdChunk * 16);
+      cur[4 * q] += v.x, cur[4 * q + 1] += v.y, cur[4 * q + 2] += v.z, cur[4 * q + 3] += v.w;
+    }
+    __syncwarp();
+    if (tid % 32 == 0)
+      hopper::mbar_arrive_cluster_relaxed(
+          hopper::map_peer(smem + L::kSFree + 8 * role, uint32_t(fwd_rank<kC>() ^ 1)));
+  }
+
+  // S_{j+1}, under this tile's softmax (past the last tile it repeats a
+  // landed stage's product into nxt, which nothing reads)
+  if (j + 1 < c.n_tiles) hopper::mbar_wait(smem + L::kKFull + 8 * other, ((j + 1) / kStages) & 1);
+  hopper::wgmma_fence();
+  const uint64_t desc = hopper::make_desc(smem, kGroup, kLayout);
+  fwd_product(nxt, hopper::desc_add(desc, role * kWgRows * kRowBytes),
+              hopper::desc_add(desc, L::kK + other * kFwdTile));
+  hopper::wgmma_commit();
+  if (tid < 32 && j + 2 < c.n_tiles) {  // warp 0: K_{j+2} into the stage S_j freed
+    hopper::mbar_wait(smem + L::kKEmpty + 8 * stage, (j / kStages) & 1);
+    fill_k<kC>(c, smem, j + 2);
+  }
+
+  // logits: scale, pad bias, then the causal bias by index; keys past S
+  // masked by index (-inf: no weight, and no say in the max); every value
+  // computed, then selected (no branch an element)
+  hopper::mbar_wait(smem + L::kVFull + 8 * stage, (j / kStages) & 1);
+  const int col = 2 * (tid % 4);  // this thread's first column of each 8-column chunk
+  const uint32_t bias_t = smem + L::kBias + stage * kFwdBiasSlot +
+                          4 * ((read_ctaid_z() * c.s_len) % 4 + col);
+  const int s0 = j * kFwdKeys + col;  // this thread's first key of the tile
+  const int key_limit = kCausal ? fwd_row0<kC>(tid) + c.causal_offset : 0;  // its first row's last key
+  float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int cc = 0; cc < 8; ++cc) {
+    const int key = s0 + 8 * cc;
+    const float b0 = hopper::ld_shared_f32(bias_t + 4 * 8 * cc);
+    const float b1 = hopper::ld_shared_f32(bias_t + 4 * (8 * cc + 1));
+    const float bias_e[2] = {key < c.s_len ? b0 : -INFINITY, key + 1 < c.s_len ? b1 : -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x = fmaf(cur[4 * cc + 2 * r + e], c.scale, bias_e[e]);
+        if (kCausal) x += key + e > key_limit + 8 * r ? kMaskValue : 0.f;
+        cur[4 * cc + 2 * r + e] = x;
+        tile_max[r] = fmaxf(tile_max[r], x);
+      }
+    }
+  }
+  float alpha[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+    const float m_new = fmaxf(m_run[r], tile_max[r]);
+    alpha[r] = hopper::exp2_ftz((m_run[r] - m_new) * kLog2e);
+    m_run[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = hopper::exp2_ftz((cur[i] - m_run[(i / 2) % 2]) * kLog2e);
+    row_sum[(i / 2) % 2] += p;
+    cur[i] = p;
+  }
+  // this thread's share of each row's sum; the row's four threads add
+  // theirs at the end
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = alpha[r] * l_run[r] + row_sum[r];
+  uint32_t pa[4][4];  // P (bf16, unnormalised) as A fragments
+  deep_fragments(cur, pa);
+  hopper::fence_regs(pa);  // packed here, not at the wgmma that reads them (ptxas would
+                           // fence there and serialise the products: C7519, C7520)
+
+  // PV_{j-1} has landed: o is free, and V_{j-1}'s stage takes V_{j+1}
+  uint32_t smem_pv = c.smem;
+  asm volatile("" : "+r"(smem_pv));  // formed anew: nothing of the above held over the softmax
+  hopper::wgmma_wait<1>();
+  deep_wait_acc(o);
+  if (j > 0) warp_arrive(smem_pv + L::kVEmpty + 8 * other);
+  if (read_tid() < 32 && j > 0 && j + 1 < c.n_tiles) {
+    hopper::mbar_wait(smem_pv + L::kVEmpty + 8 * other, ((j - 1) / kStages) & 1);
+    fill_v<kC>(c, smem_pv, j + 1);
+  }
+  // rescaled only where a row's max moved (alpha is exactly 1 where it did
+  // not, so the skip changes no bit), one vote a warp
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
+#pragma unroll
+  for (int a = 0; a < kFwdAtoms; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[a][i] *= alpha[(i / 2) % 2];
+  deep_wait_acc(o);
+  hopper::wgmma_fence();
+  fwd_accumulate(o, pa,
+                 hopper::desc_add(hopper::make_desc(smem_pv, kGroup, kLayout),
+                                  L::kV + stage * kFwdTile));
+  hopper::wgmma_commit();
+}
+
+// The forward. One block per (128 query rows, column half at D=512, head,
+// batch); blockIdx.x / (D / 256) is the row tile, the cluster rank the
+// column half.
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kFwdThreads, 1)
 deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
-                      const __grid_constant__ CUtensorMap v_map, const float* __restrict__ bias,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap bias_map,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
                       float* __restrict__ l_out, int t_len, int s_len, int heads,
                       int causal_offset, float scale) {
-  using G = Deep<D>;
-  constexpr int kQAtom = G::kRows * kRowBytes;
-  constexpr int kKVAtom = G::kKeys * kRowBytes;
-  constexpr int kKVBytes = G::kAtoms * kKVAtom;
-  constexpr int kS = G::kKeys / 2;  // logit floats a thread
+  constexpr int kC = D / kFwdCols;
+  using L = FwdSmem<kC>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = hopper::align_1024(smem_raw);
-  uint8_t* qs = smem;                                   // [atom][kRows rows]
-  uint8_t* ks = qs + G::kAtoms * kQAtom;                // [stage][atom][kKeys rows]
-  uint8_t* vs = ks + kStages * kKVBytes;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + kStages * kKVBytes);
-  uint64_t* q_bar = bars;                               // q tile landed
-  uint64_t* kv_bar = bars + 1;                          // [stage] K and V tiles landed
+  FwdBlock c;
+  c.smem = hopper::smem_u32(hopper::align_1024(smem_raw));
+  c.k_map = &k_map;
+  c.v_map = &v_map;
+  c.bias_map = &bias_map;
+  const int n_keys = (s_len + kFwdKeys - 1) / kFwdKeys;
+  c.n_tiles = n_keys + (n_keys & 1);  // even: the loop takes two tiles a turn
+  c.s_len = s_len;
+  c.causal_offset = causal_offset;
+  c.scale = scale;
 
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int rg = wg / G::kSplit;  // the warpgroup's 64-row group of the block
-  const int cg = wg % G::kSplit;  // its output atoms: cg * kWgAtoms ..
-  const int t0 = blockIdx.x * G::kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_tiles = (s_len + G::kKeys - 1) / G::kKeys;
-
-  if (tid == 0) {
-    hopper::mbar_init(q_bar, 1);
-    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&kv_bar[st], 1);
+  const uint32_t smem = c.smem;
+  if (threadIdx.x == 0) {
+    uint8_t* base = hopper::align_1024(smem_raw);
+    auto init = [&](int offset, uint32_t count) {
+      hopper::mbar_init(reinterpret_cast<uint64_t*>(base + offset), count);
+    };
+    init(L::kQBar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      init(L::kKFull + 8 * st, 1);
+      init(L::kKEmpty + 8 * st, kFwdThreads / 32);
+      init(L::kVFull + 8 * st, 1);
+      init(L::kVEmpty + 8 * st, kFwdThreads / 32);
+    }
+    // a share lands by st.async: one arrival (arming it for the share's
+    // bytes) a tile; the peer warpgroup's four warps free the buffer
+    for (int role = 0; role < 2; ++role) {
+      init(L::kSFull + 8 * role, 1);
+      if (kC == 2) hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdXFloats * 4);
+      init(L::kSFree + 8 * role, 4);
+    }
     hopper::fence_barrier_init();
   }
-  __syncthreads();
-  if (tid == 0) {
-    deep_load<D>(&q_map, nullptr, qs, nullptr, q_bar, G::kRows, t0, h, b);
-    for (int st = 0; st < kStages && st < n_tiles; ++st)
-      deep_load<D>(&k_map, &v_map, ks + st * kKVBytes, vs + st * kKVBytes, &kv_bar[st],
-                   G::kKeys, st * G::kKeys, h, b);
+  if constexpr (kC == 2)
+    hopper::cluster_sync();  // the peer's barriers are initialised before any arrival
+  else
+    __syncthreads();
+
+  // warp 0 loads the Q tile and the first two stages of each ring
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(smem + L::kQBar, kFwdQBytes);
+#pragma unroll
+      for (int a = 0; a < kFwdAtoms; ++a)
+        hopper::tma_load_4d(smem + a * kFwdQAtom, &q_map, smem + L::kQBar,
+                            (fwd_rank<kC>() * kFwdAtoms + a) * kAtomCols, blockIdx.y,
+                            (blockIdx.x / kC) * kFwdRows, blockIdx.z);
+    }
+    for (int tile = 0; tile < kStages; ++tile) {
+      fill_k<kC>(c, smem, tile);
+      fill_v<kC>(c, smem, tile);
+    }
   }
 
-  const int row_in_block = rg * kWgRows + warp * 16 + lane / 4;
-  const int col_in_chunk = 2 * (lane % 4);
-  const bool active = t0 + rg * kWgRows < t_len;
-  const float* bias_b = bias + int64_t(b) * s_len;
-  const int key_limit[2] = {t0 + row_in_block + causal_offset,
-                            t0 + row_in_block + 8 + causal_offset};
-
-  float o[G::kWgAtoms][32];
+  float o[kFwdAtoms][32];
 #pragma unroll
-  for (int a = 0; a < G::kWgAtoms; ++a)
+  for (int a = 0; a < kFwdAtoms; ++a)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
+  // zeroed here: sunk into the first product's window, the zeroing would make
+  // ptxas serialise every wgmma of the kernel (C7515)
+  deep_wait_acc(o);
   float m_run[2] = {kMaskValue, kMaskValue};
   float l_run[2] = {0.f, 0.f};
+  float s_a[32], s_b[32];
 
-  if (active) hopper::mbar_wait(q_bar, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j % kStages;
-    if (active) {
-      hopper::mbar_wait(&kv_bar[stage], (j / kStages) & 1);
-      const uint8_t* k_tile = ks + stage * kKVBytes;
-      const uint8_t* v_tile = vs + stage * kKVBytes;
-      float s[kS];
-      hopper::wgmma_fence();
-      deep_product<D>(s, qs + rg * kWgRows * kRowBytes, kQAtom, k_tile, kKVAtom);  // S = Q.K^T
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(s);
-
-      // logits: scale, pad bias, then the causal bias by index; keys past S
-      // masked by index
-      const int s0 = j * G::kKeys;
-      float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int c = 0; c < G::kKeys / 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = s0 + 8 * c + col_in_chunk + e;
-          const bool valid = key < s_len;
-          const float bj = valid ? bias_b[key] : 0.f;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float x = s[4 * c + 2 * r + e] * scale + bj;
-            if (kCausal && key > key_limit[r]) x += kMaskValue;
-            s[4 * c + 2 * r + e] = x;
-            if (valid) tile_max[r] = fmaxf(tile_max[r], x);
-          }
-        }
-      }
-      float alpha[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-        tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-        const float m_new = fmaxf(m_run[r], tile_max[r]);
-        alpha[r] = exp2f((m_run[r] - m_new) * kLog2e);
-        m_run[r] = m_new;
-      }
-#pragma unroll
-      for (int c = 0; c < G::kKeys / 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool valid = s0 + 8 * c + col_in_chunk + e < s_len;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float p = valid ? exp2f((s[4 * c + 2 * r + e] - m_run[r]) * kLog2e) : 0.f;
-            row_sum[r] += p;
-            s[4 * c + 2 * r + e] = p;
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
-        row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
-        l_run[r] = alpha[r] * l_run[r] + row_sum[r];
-      }
-#pragma unroll
-      for (int a = 0; a < G::kWgAtoms; ++a)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[a][i] *= alpha[(i / 2) % 2];
-
-      uint32_t pa[kS / 8][4];  // P (bf16, unnormalised) as A fragments
-      deep_fragments(s, pa);
-      hopper::wgmma_fence();
-      deep_accumulate<G::kWgAtoms, G::kKeys>(o, pa, v_tile, kKVAtom, cg * G::kWgAtoms);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      deep_wait_acc(o);
-    }
-    __syncthreads();  // both warpgroups are done with this stage
-    if (tid == 0 && j + kStages < n_tiles)
-      deep_load<D>(&k_map, &v_map, ks + stage * kKVBytes, vs + stage * kKVBytes,
-                   &kv_bar[stage], G::kKeys, (j + kStages) * G::kKeys, h, b);
+  // S_0, and an empty group where PV_{-1} would be
+  hopper::mbar_wait(smem + L::kQBar, 0);
+  hopper::mbar_wait(smem + L::kKFull, 0);
+  hopper::wgmma_fence();
+  const uint64_t desc = hopper::make_desc(smem, kGroup, kLayout);
+  fwd_product(s_a, hopper::desc_add(desc, (threadIdx.x / 128) * kWgRows * kRowBytes),
+              hopper::desc_add(desc, L::kK));
+  hopper::wgmma_commit();
+  hopper::wgmma_commit();
+  for (int j = 0; j < c.n_tiles; j += 2) {
+    fwd_tile<kC, kCausal, 0>(c, j, s_a, s_b, o, m_run, l_run);
+    fwd_tile<kC, kCausal, 1>(c, j + 1, s_b, s_a, o, m_run, l_run);
   }
+  hopper::wgmma_wait<0>();
+  deep_wait_acc(o);
+  hopper::fence_regs(s_a);
 
-  if (!active) return;
 #pragma unroll
-  for (int a = 0; a < G::kWgAtoms; ++a)
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int a = 0; a < kFwdAtoms; ++a)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[a][i] /= l_run[(i / 2) % 2];
-  deep_store<D>(o, out, t0 + row_in_block, t_len, heads, h, b, cg * G::kWgAtoms, 1.f);
-  if (cg == 0 && m_out != nullptr && lane % 4 == 0) {  // the row's four threads hold equal m, l
+  const int rank = fwd_rank<kC>();
+  const int tid = read_tid();
+  const int row0 = fwd_row0<kC>(tid);
+  const int h = read_ctaid_y(), b = read_ctaid_z();
+  deep_store<D, kFwdAtoms>(o, out, row0, t_len, heads, h, b, rank * kFwdAtoms, 1.f);
+  if (rank == 0 && m_out != nullptr && tid % 4 == 0) {  // the row's four threads hold equal m, l
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int t = t0 + row_in_block + 8 * r;
+      const int t = row0 + 8 * r;
       if (t >= t_len) continue;
       const int64_t stat = (int64_t(b) * heads + h) * t_len + t;
       m_out[stat] = m_run[r];
       l_out[stat] = l_run[r];
     }
   }
+  if constexpr (kC == 2) hopper::cluster_sync();  // no block leaves while its peer writes to it
 }
 
 // ---------------------------------------------------------------------------
@@ -1175,26 +1473,40 @@ cudaError_t fwd_scalar(const void* q, const void* k, const void* v, const float*
   return cudaGetLastError();
 }
 
+// the forward: one launch of deep_fwd_wgmma_kernel, in clusters of D / 256
+// blocks
 template <int D>
 cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, const float* bias, void* out,
                       float* m_out, float* l_out, int batch, int t_len, int s_len, int heads,
                       int causal, int causal_offset, const int64_t* sq, const int64_t* sk,
                       const int64_t* sv, cudaStream_t stream) {
-  using G = Deep<D>;
-  CUtensorMap q_map, k_map, v_map;
-  if (!hopper::encode_head_map(&q_map, q, batch, t_len, heads, D, sq, kAtomCols, G::kRows) ||
-      !hopper::encode_head_map(&k_map, k, batch, s_len, heads, D, sk, kAtomCols, G::kKeys) ||
-      !hopper::encode_head_map(&v_map, v, batch, s_len, heads, D, sv, kAtomCols, G::kKeys))
+  constexpr int kC = D / kFwdCols;
+  CUtensorMap q_map, k_map, v_map, bias_map;
+  if (!hopper::encode_head_map(&q_map, q, batch, t_len, heads, D, sq, kAtomCols, kFwdRows) ||
+      !hopper::encode_head_map(&k_map, k, batch, s_len, heads, D, sk, kAtomCols, kFwdKeys) ||
+      !hopper::encode_head_map(&v_map, v, batch, s_len, heads, D, sv, kAtomCols, kFwdKeys) ||
+      !hopper::encode_f32_vector_map(&bias_map, bias, uint64_t(batch) * s_len, kFwdKeys))
     return cudaErrorInvalidValue;
-  const size_t smem = kSlack + size_t(G::kRows) * D * 2 + 2 * kStages * size_t(G::kKeys) * D * 2;
+  const size_t smem = 1024 + FwdSmem<kC>::kBytes;  // with the alignment slack
   const auto kernel = causal ? deep_fwd_wgmma_kernel<D, true> : deep_fwd_wgmma_kernel<D, false>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((t_len + G::kRows - 1) / G::kRows, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(q_map, k_map, v_map, bias,
-                                           static_cast<__nv_bfloat16*>(out), m_out, l_out,
-                                           t_len, s_len, heads, causal_offset,
-                                           1.0f / sqrtf(float(D)));
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kC;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((t_len + kFwdRows - 1) / kFwdRows) * kC, heads, batch);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = kC > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, q_map, k_map, v_map, bias_map,
+                           static_cast<__nv_bfloat16*>(out), m_out, l_out, t_len, s_len, heads,
+                           causal_offset, 1.0f / sqrtf(float(D)));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -55,17 +55,24 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// Barriers and tiles are named by pointer or by their 32-bit shared-memory
+// address (smem_u32): a kernel that forms its addresses from one base at
+// each use, instead of holding pointers across a loop, takes the latter.
+
 // one arrival that also announces `bytes` of TMA traffic to come
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  mbar_expect_tx(smem_u32(bar), bytes);
 }
 
 // one arrival, releasing this thread's earlier shared-memory reads and writes
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
 
 // the named barrier `id` (1-15; 0 is __syncthreads'): returns once
 // `threads` threads (whole warps) have reached it
@@ -76,8 +83,7 @@ __device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
 // returns once the barrier has completed the phase of the given parity; a
 // phase that never completes (a lost TMA transaction) traps after ~2^34
 // clocks, so it surfaces as a launch error instead of a hung card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long start = clock64();
   uint32_t done = 0;
   do {
@@ -85,10 +91,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(addr), "r"(parity)
+        : "r"(bar), "r"(parity)
         : "memory");
     if (!done && clock64() - start > (1LL << 34)) __trap();
   } while (!done);
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
 }
 
 // ---- thread block clusters ----
@@ -118,32 +127,46 @@ __device__ __forceinline__ float2 load_peer_f32x2(const float* local, uint32_t r
   return v;
 }
 
+// the address of the same shared-memory offset in block `rank` of the
+// cluster, in the cluster's shared window
+__device__ __forceinline__ uint32_t map_peer(uint32_t addr, uint32_t rank) {
+  uint32_t peer;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(addr), "r"(rank));
+  return peer;
+}
+
+// four floats to `addr` of the cluster's shared window (map_peer),
+// asynchronously: their 16 bytes complete a transaction on the barrier at
+// `bar`, an address of the same block (armed there by an mbar_expect_tx)
+__device__ __forceinline__ void store_async_f32x4(uint32_t addr, uint32_t bar, float4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
 // four floats to the same shared-memory offset of block `rank` of the
 // cluster, asynchronously: their 16 bytes complete a transaction on the
 // barrier at `bar`'s offset there (armed by an mbar_expect_tx)
 __device__ __forceinline__ void store_async_peer_f32x4(float4* local, uint64_t* bar, uint32_t rank,
                                                        float4 v) {
-  uint32_t addr, mbar;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(local)),
-               "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(mbar) : "r"(smem_u32(bar)),
-               "r"(rank));
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar)
-      : "memory");
+  store_async_f32x4(map_peer(smem_u32(local), rank), map_peer(smem_u32(bar), rank), v);
+}
+
+// one arrival on the barrier at `bar` of the cluster's shared window
+// (map_peer), ordering nothing: a signal that this thread's reads, whose
+// values it has used, are done
+__device__ __forceinline__ void mbar_arrive_cluster_relaxed(uint32_t bar) {
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
 // one arrival on the barrier at the same offset in block `rank` of the
 // cluster, ordering nothing (for a signal that this thread's reads, whose
 // values it has used, are done)
 __device__ __forceinline__ void mbar_arrive_peer_relaxed(uint64_t* bar, uint32_t rank) {
-  uint32_t peer;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(smem_u32(bar)),
-               "r"(rank));
-  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(peer)
-               : "memory");
+  mbar_arrive_cluster_relaxed(map_peer(smem_u32(bar), rank));
 }
 
 // 2^x, flushing results below 2^-126 to 0 (ex2.approx.ftz)
@@ -155,8 +178,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 // mbar_wait that acquires at cluster scope: what landed by st.async from,
 // or was released by, another block of the cluster
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
   const long long start = clock64();
   uint32_t done = 0;
   do {
@@ -164,13 +186,42 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
         "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(addr), "r"(parity)
+        : "r"(bar), "r"(parity)
         : "memory");
     if (!done && clock64() - start > (1LL << 34)) __trap();
   } while (!done);
 }
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  mbar_wait_cluster(smem_u32(bar), parity);
+}
+
+// ---- shared memory by address ----
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 // ---- TMA ----
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
@@ -181,14 +232,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  tma_load_4d(smem_u32(dst), map, smem_u32(bar), c0, c1, c2, c3);
 }
 
 // ---- cp.async ----
@@ -268,6 +322,22 @@ inline bool encode_head_map(CUtensorMap* map, const void* base, int batch, int r
   return encode_bf16_map(map, 4, base, dims, bytes, box);
 }
 
+// A 1-D map over `n` contiguous f32 values (16-byte aligned), boxes of
+// `box` values (a multiple of 4). Values past `n` land as zeros; a box's
+// first value must lie on a 16-byte boundary.
+inline bool encode_f32_vector_map(CUtensorMap* map, const void* base, uint64_t n, uint32_t box) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[1] = {cuuint64_t(n)};
+  const cuuint64_t strides[1] = {cuuint64_t((n * 4 + 15) / 16 * 16)};  // a rank-1 map reads none
+  const cuuint32_t boxes[1] = {box};
+  const cuuint32_t unit[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims, strides,
+                boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 // ---- wgmma ----
 
 // A shared-memory matrix descriptor: start address, stride between 8-row
@@ -275,11 +345,22 @@ inline bool encode_head_map(CUtensorMap* map, const void* base, int batch, int r
 // stride: no instruction here spans two swizzle atoms across a row, where
 // that field would be read, so it costs nothing and holds for either
 // reading of the field in an MN-major operand.
-__device__ __forceinline__ uint64_t make_desc(const void* smem_ptr, uint32_t group_stride_bytes,
+__device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr, uint32_t group_stride_bytes,
                                               uint32_t layout) {
-  const uint64_t addr = smem_u32(smem_ptr);
+  const uint64_t addr = smem_addr;
   const uint64_t stride = (group_stride_bytes >> 4) & 0x3FFF;
   return ((addr & 0x3FFFF) >> 4) | (stride << 16) | (stride << 32) | (uint64_t(layout) << 62);
+}
+__device__ __forceinline__ uint64_t make_desc(const void* smem_ptr, uint32_t group_stride_bytes,
+                                              uint32_t layout) {
+  return make_desc(smem_u32(smem_ptr), group_stride_bytes, layout);
+}
+
+// the descriptor of make_desc(addr + bytes, ...) from make_desc(addr, ...):
+// the start address field (addr / 16, 14 bits) takes no carry while the
+// address stays inside the 228 KB of shared memory
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -300,6 +381,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the same for A fragments held in registers: their packing is done here,
+// not sunk past a later wgmma.fence to the instruction that reads them
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

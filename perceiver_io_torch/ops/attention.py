@@ -90,15 +90,16 @@ AUTO_PALLAS_MIN_BLOCKS = 32              # 32 blocks win (tiny-self-b8, ar-step-
 # at 16 mlm-cross-b2 loses (0.059 vs 0.051) and mlm-32k wins (1.88 vs 2.01),
 # at 8 every row loses (mlm-131k 8.44 vs 4.11)
 # the rule counts a call's work in tiles of 128 query rows: one block of the
-# bf16 #1 design at D <= 256, two 64-row blocks of the D = 512 design
-# (csrc/attention_deep.cu)
+# bf16 #1 design at D <= 256 (csrc/attention_fwd.cu, and attention_deep.cu at
+# D = 256), a two-block cluster of the D = 512 design (each block half the
+# head's columns)
 AUTO_KERNEL_ROWS = 128
 # At D = 512 (AUTO_EINSUM_HEAD_DIMS) the einsum path is the faster wherever
-# it fits (phase 24, fwd + bwd ms: flow-cross at batch 1 12.3 vs 27.4,
-# flow-dec-cross at batch 1 11.0 vs 17.7 and at batch 2 22.0 vs 26.1,
-# flow-cross-b8 98.7 vs 98.8, flow-dec-cross-b8 88.3 vs 105.3), so 'auto'
-# sends such a head to the kernels only where the einsum path's (B, H, T, S)
-# logits take too much memory. The line is drawn from whole bf16 train_flow
+# it fits (phase 24, fwd + bwd ms, einsum vs kernels: flow-cross at batch 1
+# 12.3 vs 19.0, flow-dec-cross at batch 1 11.0 vs 15.6 and at batch 2 21.9 vs
+# 22.3; at batch 8, where a step does not fit it, flow-cross-b8 98.0 vs 81.7,
+# flow-dec-cross-b8 87.7 vs 90.0), so 'auto' sends such a head to the kernels
+# only where the einsum path's (B, H, T, S) logits take too much memory. The line is drawn from whole bf16 train_flow
 # steps with every call on the einsum path (phase 36, one 80 GB H100):
 # batch 4 (1.5e9 logits a cross) peaks at 63.3 GB, batch 8 (3.0e9) runs out
 # of memory; on the kernels batch 8 peaks at 33.9 GB. A model with other

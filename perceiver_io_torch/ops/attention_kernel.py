@@ -32,12 +32,14 @@ causal call.
 - deep heads: at D = 256 and 512 (``DEEP_HEAD_DIMS``; the optical-flow
   model's one-head crosses are D = 512) the same entry points run the
   designs of ``csrc/attention_deep.cu``, both dtypes, with and without the
-  causal offset, whose tiles fit such a head: the forward's 64-column
-  accumulator atoms split between two warpgroups over 8 KB-row K/V tiles;
-  the bf16 backward one launch each of dq and dk/dv, 256 head columns a
-  block (a two-block cluster at D = 512), 64-row tiles, S and dP computed
-  once. They skip no padded tile and use no atomics (two calls give the
-  same bits). Their launches also count on ``deep_counter``,
+  causal offset, whose tiles fit such a head. In bf16 each holds 256 head
+  columns a block (a two-block cluster at D = 512 that adds its halves of
+  each logit tile) and computes every logit tile once: the forward 128
+  query rows a block, 64-key tiles streamed through rings a loading warp
+  refills, the next tile's product issued under this tile's softmax; the
+  backward one launch each of dq and dk/dv, 64-row tiles, S and dP once.
+  They skip no padded tile and use no atomics (two calls give the same
+  bits). Their launches also count on ``deep_counter``,
   ``dq_deep_counter`` and ``dkv_deep_counter``.
 - :class:`FusedAttention`: the ``torch.autograd.Function`` twin of the
   ``_fused_attention`` custom VJP. :func:`fused_attention` applies it when

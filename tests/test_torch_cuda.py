@@ -37,8 +37,8 @@ train step with the encoder frozen (#1 only in it) and not,
 the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
 the deep designs of #1-#3 (D = 256 and 512, f32 and bf16, with and
 without the causal offset) on their own counters, and the bf16 deep
-backward at ragged, one-key and B=1 shapes, a second call bit for bit the
-first,
+forward (with and without statistics) and backward at ragged, one-key and
+B=1 shapes, a second call bit for bit the first,
 ``'auto'`` routing by the rule's block floor, dropout from CUDA generators
 and remat's recompute drawing the same masks,
 and the bf16 wgmma designs of the forward, of the two backward kernels,
@@ -213,6 +213,48 @@ def test_deep_wgmma_backward_cases(card, d, b, t, s, causal):
         assert got[2][-1].abs().max() > 0
     if b > 1 and causal is not None:
         assert not got[0][-1, :max(0, 12 - causal)].any()
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("causal", [None, 8])
+@pytest.mark.parametrize("b,t,s", [(1, 64, 64), (1, 1, 200), (2, 63, 65), (3, 130, 200),
+                                   (2, 200, 1)])
+@pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
+def test_deep_wgmma_forward_cases(card, d, b, t, s, causal, stats):
+    """The bf16 deep forward (128 query rows a block; at D=512 a two-block
+    cluster that adds its halves of each logit tile): T and S off the
+    128-row and 64-key tiles, an odd number of key tiles, B=1, one key;
+    with B > 1 the last example fully masked (out the uniform average of
+    its values) or, with the causal offset, its first 12 keys padded; out,
+    and with ``stats`` m and l, against the plain version; one launch on
+    the deep and the wgmma counters; a second call bit for bit the first."""
+    g = torch.Generator().manual_seed(b * 10000 + t * 10 + s + d + (causal or 0))
+    q = torch.randn(b, t, 1, d, generator=g).to(card, torch.bfloat16)
+    k, v = (torch.randn(b, s, 1, d, generator=g).to(card, torch.bfloat16) for _ in range(2))
+    pad = torch.rand(b, s, generator=g) < 0.3
+    if b > 1:
+        pad[-1] = True if causal is None else torch.arange(s) < 12
+    pad = pad.to(card)
+    counters = (ak.deep_counter, ak.wgmma_counter)
+    before = [c.launches for c in counters]
+    if stats:
+        got = ak.attention_fwd_with_stats(q, k, v, pad, causal)
+    else:
+        got = (ak.fused_attention(q, k, v, pad, causal),)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
+    again = (ak.attention_fwd_with_stats(q, k, v, pad, causal) if stats
+             else (ak.fused_attention(q, k, v, pad, causal),))
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, pad, causal)
+    assert got[0].shape == ref_out.shape and got[0].dtype == torch.bfloat16
+    _close(got[0], ref_out, torch.bfloat16)
+    if stats:
+        torch.testing.assert_close(got[1], ref_m, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[2], ref_l, rtol=1e-5, atol=1e-5)
+    if b > 1 and causal is None:  # every key of the masked example weighs alike
+        uniform = v[-1].float().mean(dim=0, keepdim=True).expand(t, 1, d)
+        _close(got[0][-1], uniform, torch.bfloat16)
 
 
 def test_fused_attention_autograd_runs_the_kernels(card):
