@@ -343,7 +343,34 @@ Phases (any failure exits nonzero):
     memory; one bf16 step at batches 2, 4 and 8 on the einsum path: its
     peak memory, or that it does not fit; six bf16 steps at batch 2 at the
     CLI's Adam 1e-3 from one set of weights, on the kernels and on the
-    einsum path (``flow_lr_witness``).
+    einsum path (``lr_witness``);
+37. multimodal audio-video autoencoding at the Perceiver IO paper's
+    Kinetics width: first #1-#3 at each call of its step (``MM_CALLS``: the
+    encoder cross (B, 784, 52096, 1, 512), whose last 128-row block has 16
+    live rows, the decoder cross (B, 52097, 784, 1, 512), one live row in
+    its last block and 13 key tiles, the last of 16 keys, on the D=512
+    designs; the self layer (B, 784, 784, 8, 64)) against their plain
+    versions at batch 2, f32 and bf16, no pad mask, one launch a kernel a
+    call, every bf16 forward and backward twice and bit for bit the same;
+    bf16 at batch 8 timed beside the bounds and the library; then
+    ``train_multimodal --synthetic_size 48 --attn_impl pallas --learning_rate
+    1e-4`` with the CLI's other defaults (16 × 224 × 224 × 3 video, 30,720
+    audio samples, 784 × 512 latents, one cross head of depth 512, 8 self
+    layers of 8 heads, 52,097 decoder queries, batch 8, bf16), P37_STEPS
+    steps in-process: every step launches 10 #1 (with statistics), 10 #2
+    and 10 #3, all wgmma, 2 + 2 + 2 of them the D=512 design, and no plain
+    version; the eval batch 10 #1, 2 deep; every metric in the rows, the
+    loss falling; then the batch-8 step on each route in turn (``xla``,
+    ``auto``, ``pallas``), each step's launches checked against the route
+    (``auto`` 8 + 8 + 8, none deep, by ``auto_attention_impl``): clips/s
+    over a 10-step window, device ms a step and idle share of a profiled
+    window, peak memory; three f32 steps at batch 1 on the kernels against
+    the plain versions in their place (phase 36's bars); the f32 loss with
+    ``--video_patch_loss`` against the pixel-space loss on the same weights
+    and clip (1e-6 relative, gradients 1e-5 of each leaf's peak); five bf16
+    steps at the CLI's Adam 1e-3 from one set of weights on the kernels and
+    on the einsum path (the witness: the checked fit takes 1e-4, as phase
+    36's does).
 
 Phases 23 and 27 run ``train_ar`` with ``--sample_prefix_len 0`` (their
 checks count the training path's launches; phase 31 drives the hook);
@@ -3888,7 +3915,7 @@ def one_key_sweep(torch, ak) -> list:
 
 # phase 36: train_flow at the paper's width. Adam at the CLI's 1e-3 swings
 # the end-point error over the first steps (2.31, 5.28, 6.88, 5.86, 2.29,
-# 3.38: PERF.md §6), on the einsum path as on the kernels (flow_lr_witness),
+# 3.38: PERF.md §6), on the einsum path as on the kernels (lr_witness),
 # so the checked fit takes 1e-4
 P36_STEPS, P36_PAIRS = 8, 48
 P36_ARGS = ["--synthetic", "--synthetic_size", str(P36_PAIRS), "--max_steps", str(P36_STEPS),
@@ -3898,27 +3925,27 @@ FLOW_ATTENTION = 26  # 1 encoder cross + 24 self + 1 decoder cross
 FLOW_DEEP = 2        # the two crosses, one head of depth 512
 
 
-def flow_launches(training: bool) -> dict:
-    """#1-#3 launches (and their wgmma ones) of one flow train step or eval
-    batch at the CLI's batch, in KERNEL_NAMES order: every call on the
-    kernels by the ``auto`` rule."""
+def attention_launches(calls: int, training: bool) -> dict:
+    """#1-#3 launches (and their wgmma ones) of one train step or eval batch
+    whose forward makes ``calls`` attention calls on the kernels, in
+    KERNEL_NAMES order (flow at the CLI's batch: FLOW_ATTENTION, every call
+    on the kernels by the ``auto`` rule)."""
     counts = dict.fromkeys(KERNEL_NAMES, 0)
-    bwd = FLOW_ATTENTION if training else 0
-    counts.update(attention_fwd=FLOW_ATTENTION, attention_fwd_wgmma=FLOW_ATTENTION,
-                  attention_bwd_dq=bwd, attention_bwd_dkv=bwd, attention_bwd_dq_wgmma=bwd,
-                  attention_bwd_dkv_wgmma=bwd)
+    bwd = calls if training else 0
+    counts.update(attention_fwd=calls, attention_fwd_wgmma=calls, attention_bwd_dq=bwd,
+                  attention_bwd_dkv=bwd, attention_bwd_dq_wgmma=bwd, attention_bwd_dkv_wgmma=bwd)
     return counts
 
 
-def check_deep_launches(trainer, ak, label: str) -> None:
-    """Wrap the trainer's steps: each train step launches FLOW_DEEP of each
-    deep kernel, each eval batch FLOW_DEEP forwards."""
+def check_deep_launches(trainer, ak, label: str, deep: int = FLOW_DEEP) -> None:
+    """Wrap the trainer's steps: each train step launches ``deep`` of each
+    deep kernel, each eval batch ``deep`` forwards."""
     def wrap(step, training: bool):
         def run(state, batch, *rest, **kwargs):
             before = deep_counts(ak)
             out = step(state, batch, *rest, **kwargs)
             got = [a - b for a, b in zip(deep_counts(ak), before)]
-            want = [FLOW_DEEP] + [FLOW_DEEP if training else 0] * 2
+            want = [deep] + [deep if training else 0] * 2
             if got != want:
                 raise AssertionError(f"{label}: deep launches {got} != {want}")
             return out
@@ -3936,16 +3963,18 @@ def flow_model(port, dtype: str, attn_impl: str):
     return train_flow.common.build_flow_model(args, shape, "cuda")
 
 
-def flow_parity(torch, port, batches) -> dict:
-    """Three f32 steps at batch 1 (weights from seed 0, Adam 1e-3) with the
-    kernels at every call (``'pallas'``), then with the plain versions in
-    their place, on the same batches: losses within 1e-4 relative, the first
-    step's gradients within 1e-3 of each leaf's peak (phase 9's bars)."""
+def f32_step_parity(torch, port, build, make_steps, batches, deep: int, label: str) -> dict:
+    """Three f32 steps (weights from seed 0, Adam 1e-3) of the model
+    ``build()`` gives with the kernels at every call (``'pallas'``), then
+    with the plain versions in their place, on the same batches: losses
+    within 1e-4 relative, the first step's gradients within 1e-3 of each
+    leaf's peak (phase 9's bars); ``deep`` calls a step on the deep
+    designs."""
     ak, MHA = port["ak"], port["MultiHeadAttention"]
     counters = path_counters(port)
     runs = []
     for plain in (False, True):
-        model = flow_model(port, "float32", "pallas")
+        model = build()
         if plain:
             for module in model.modules():
                 if isinstance(module, MHA):
@@ -3953,7 +3982,7 @@ def flow_parity(torch, port, batches) -> dict:
         optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](),
                                                      model.parameters())
         state = port["TrainState"].create(model, optimizer, schedule, seed=2)
-        step, _ = port["make_flow_steps"](model, schedule)
+        step, _ = make_steps(model, schedule)
         before = [c.launches for c in counters] + deep_counts(ak)
         losses, grads = [], None
         for batch in batches:
@@ -3962,30 +3991,40 @@ def flow_parity(torch, port, batches) -> dict:
             if grads is None:
                 grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
         got = [a - b for a, b in zip([c.launches for c in counters] + deep_counts(ak), before)]
-        if (sum(got) == 0) != plain or (not plain and got[-3:] != [3 * FLOW_DEEP] * 3):
-            raise AssertionError(f"phase 36 f32 parity: plain={plain} launched {got}")
+        if (sum(got) == 0) != plain or (not plain and got[-3:] != [3 * deep] * 3):
+            raise AssertionError(f"{label} f32 parity: plain={plain} launched {got}")
         runs.append((losses, grads))
         del model, state, optimizer
         gc.collect()
         torch.cuda.empty_cache()
     (k_losses, k_grads), (p_losses, p_grads) = runs
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
-    peak_all = max(float(x.abs().max()) for x in p_grads.values())
-    worst, worst_name, symmetric = 0.0, None, 0.0
-    for name, ref in p_grads.items():
-        if name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise on both sides
-            symmetric = max(symmetric, float(k_grads[name].abs().max()) / peak_all,
-                            float(ref.abs().max()) / peak_all)
-            continue
-        err = float((k_grads[name] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name, symmetric = grads_apart(k_grads, p_grads)
     reading = dict(kernel_losses=k_losses, plain_losses=p_losses, loss_max_rel_diff=loss_rel,
                    grad_max_err_over_leaf_peak=worst, worst_leaf=worst_name,
                    k_proj_bias_over_global_peak=symmetric)
     if not (loss_rel <= 1e-4 and worst <= 1e-3 and symmetric < 1e-5):
-        raise AssertionError(f"phase 36 f32 parity: {reading}")
+        raise AssertionError(f"{label} f32 parity: {reading}")
     return reading
+
+
+def grads_apart(got: dict, ref: dict) -> tuple:
+    """(the largest gradient difference over its leaf's peak, that leaf,
+    the larger ``k_proj.bias`` gradient over the global peak): a
+    ``k_proj.bias`` gradient is zero in exact arithmetic, noise on both
+    sides, so it is held to the other gradients' scale."""
+    peak_all = max(float(x.abs().max()) for x in ref.values())
+    worst, worst_name, symmetric = 0.0, None, 0.0
+    for name, r in ref.items():
+        if name.endswith("k_proj.bias"):
+            symmetric = max(symmetric, float(got[name].abs().max()) / peak_all,
+                            float(r.abs().max()) / peak_all)
+            continue
+        err = float((got[name] - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, symmetric
+
 
 
 def flow_routes(torch, port, batch) -> dict:
@@ -4057,36 +4096,37 @@ def flow_einsum_steps(torch, port, batch) -> dict:
     return readings
 
 
-def flow_lr_witness(torch, port, batches) -> dict:
-    """bf16 steps at the CLI's Adam 1e-3 on ``batches`` (WITNESS_STEPS of
-    WITNESS_BATCH pairs) from the same weights (seed 0), once with every
-    call on the kernels (``'pallas'``: the crosses on the D=512 wgmma
-    design) and once on the einsum path (``'xla'``): whether the end-point
-    error's swing at 1e-3 comes with the kernels or with the optimizer."""
+def lr_witness(torch, port, build, make_steps, batches, deep: int, label: str) -> dict:
+    """bf16 steps at the CLI's Adam 1e-3 on ``batches`` from the same
+    weights (seed 0), once with every call on the kernels (``'pallas'``:
+    ``deep`` calls a step on the D=512 wgmma design) and once on the einsum
+    path (``'xla'``), the model ``build(impl)`` gives: whether a swing of
+    the loss at 1e-3 comes with the kernels or with the optimizer."""
     ak = port["ak"]
     runs = {}
     for impl in ("pallas", "xla"):
-        model = flow_model(port, "bfloat16", impl)
+        model = build(impl)
         optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](),
                                                      model.parameters())
         state = port["TrainState"].create(model, optimizer, schedule, seed=2)
-        step, _ = port["make_flow_steps"](model, schedule)
+        step, _ = make_steps(model, schedule)
         before = ak.deep_counter.launches
         losses = []
         for batch in batches:
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))
-        deep = ak.deep_counter.launches - before
+        launched = ak.deep_counter.launches - before
         if not all(math.isfinite(x) for x in losses) \
-                or deep != (FLOW_DEEP * len(batches) if impl == "pallas" else 0):
-            raise AssertionError(f"phase 36 witness {impl}: losses {losses}, deep {deep}")
+                or launched != (deep * len(batches) if impl == "pallas" else 0):
+            raise AssertionError(f"{label} witness {impl}: losses {losses}, deep {launched}")
         runs[impl] = losses
         del model, state, optimizer, step
         gc.collect()
         torch.cuda.empty_cache()
-    return dict(batch=WITNESS_BATCH, learning_rate=port["OptimizerConfig"]().learning_rate,
-                **runs, max_rel_diff=max(abs(a - b) / abs(b)
-                                         for a, b in zip(runs["pallas"], runs["xla"])))
+    return dict(batch=len(next(iter(batches[0].values()))),
+                learning_rate=port["OptimizerConfig"]().learning_rate, **runs,
+                max_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(runs["pallas"], runs["xla"])))
+
 
 
 def flow_phase(torch, port, root: str) -> dict:
@@ -4100,7 +4140,8 @@ def flow_phase(torch, port, root: str) -> dict:
     t0 = time.perf_counter()
     trainer, data = train_flow.prepare(P36_ARGS + ["--root", root, "--logdir", f"{root}/p36"])
     setup_s = time.perf_counter() - t0
-    check_launches(trainer, counters, lambda batch, training: flow_launches(training),
+    check_launches(trainer, counters,
+                   lambda batch, training: attention_launches(FLOW_ATTENTION, training),
                    "phase 36")
     check_deep_launches(trainer, ak, "phase 36")
     torch.cuda.reset_peak_memory_stats()
@@ -4136,19 +4177,279 @@ def flow_phase(torch, port, root: str) -> dict:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    parity = flow_parity(torch, port, batch1)
+    parity = f32_step_parity(torch, port, lambda: flow_model(port, "float32", "pallas"),
+                             port["make_flow_steps"], batch1, FLOW_DEEP, "phase 36")
     routes = flow_routes(torch, port, batch1[0])
     einsum = flow_einsum_steps(torch, port, batches[0])
-    witness = flow_lr_witness(torch, port, witness_batches[:WITNESS_STEPS])
+    witness = lr_witness(torch, port, lambda impl: flow_model(port, "bfloat16", impl),
+                         port["make_flow_steps"], witness_batches[:WITNESS_STEPS], FLOW_DEEP,
+                         "phase 36")
     log(phase="flow", card=card_line(), steps=P36_STEPS, losses=losses,
         val=[(r["step"], r["val_loss"]) for r in val], launches=launches, deep_launches=deep,
-        launches_per_step={k: v for k, v in flow_launches(True).items() if v},
+        launches_per_step={k: v for k, v in attention_launches(FLOW_ATTENTION, True).items()
+                           if v},
         deep_per_step=FLOW_DEEP, setup_s=setup_s, fit_s=fit_s,
         checked_fit_pairs_per_s=[r["examples_per_sec"] for r in train],
         fit_peak_memory_bytes=fit_peak, window_peak_memory_bytes=window_peak,
         **windows, f32_parity=parity, b1_routes=routes, einsum_steps=einsum,
         lr_witness=witness,
         phase_s=time.perf_counter() - t_phase)
+    launches.update(deep)
+    return launches
+
+
+# phase 37: train_multimodal at the paper's Kinetics width, on the kernels
+# (--attn_impl pallas: the CLI's preset, xla, runs every call on the einsum
+# path). Adam at the CLI's 1e-3 swings the loss over the first steps (2.59,
+# 5.29, 3.97, 7.78, 8.86: the label CE; PERF.md §6) on the einsum path as on
+# the kernels (the witness), so the checked fit takes 1e-4. Each call of one
+# forward, (T, S, H, D) and its count:
+P37_STEPS, P37_CLIPS, P37_WITNESS_STEPS = 8, 48, 5
+P37_ARGS = ["--synthetic_size", str(P37_CLIPS), "--max_steps", str(P37_STEPS),
+            "--eval_every_n_steps", str(P37_STEPS), "--log_every_n_steps", "1",
+            "--attn_impl", "pallas", "--learning_rate", "1e-4", "--no_tensorboard"]
+MM_CALLS = (("mm-enc-cross", (784, 52096, 1, 512), 1),   # latents over the fused stream
+            ("mm-dec-cross", (52097, 784, 1, 512), 1),   # every output query over the latents
+            ("mm-self", (784, 784, 8, 64), 8))           # the 8 self-attention layers
+MM_CHECK_BATCH, MM_TIME_BATCH, MM_PARITY_BATCH = 2, 8, 1
+MM_ROUTES = ("xla", "auto", "pallas")
+
+
+def mm_kernel_calls(pat, b: int, impl: str) -> tuple:
+    """(#1 calls, of them on the deep designs) of one multimodal forward at
+    batch ``b`` with every layer on ``impl``: ``'pallas'`` every call,
+    ``'auto'`` the calls ``auto_attention_impl`` sends to the kernels,
+    ``'xla'`` none."""
+    calls = deep = 0
+    for _, (t, s, h, d), n in MM_CALLS:
+        if impl == "pallas" or (impl == "auto"
+                                and pat.auto_attention_impl(b, t, s, h, d) == "pallas"):
+            calls += n
+            deep += n * (d >= 256)
+    return calls, deep
+
+
+def mm_launches(pat, impl: str):
+    """``want(batch, training)`` for :func:`check_launches`: #1-#3 launches
+    (and their wgmma ones) of one multimodal train step or eval batch on
+    ``impl``, in KERNEL_NAMES order."""
+    def want(batch, training: bool) -> dict:
+        return attention_launches(mm_kernel_calls(pat, len(batch["label"]), impl)[0], training)
+    return want
+
+
+def mm_model(port, dtype: str, attn_impl: str, video_patch_loss: bool = False):
+    """The multimodal autoencoder at the CLI's defaults, weights from seed 0."""
+    tm = port["train_multimodal"]
+    args = tm.build_parser().parse_args(
+        ["--dtype", dtype, "--attn_impl", attn_impl]
+        + (["--video_patch_loss"] if video_patch_loss else []))
+    shape = (args.video_frames, args.video_size, args.video_size, args.video_channels)
+    return tm.common.build_multimodal_model(args, shape, args.num_classes, "cuda")
+
+
+def multimodal_attention_phase(torch, ak, pat) -> list:
+    """Phase 37's kernel rows: #1-#3 at each call of the multimodal step
+    (MM_CALLS; the crosses on the D=512 designs, the self layer on the
+    D=64 ones) against their plain versions at MM_CHECK_BATCH, f32 and bf16,
+    no pad mask: out, m, l, dq, dk, dv, one launch of each kernel a call
+    (on the deep counters at D=512), every bf16 forward and backward run
+    twice, bit for bit the same; then bf16 at MM_TIME_BATCH, the step's
+    batch: the kernels' times beside their bounds and the library's."""
+    rows = []
+    for name, (t, s, h, d), _ in MM_CALLS:
+        deep = d in ak.DEEP_HEAD_DIMS
+        for dtype in (torch.float32, torch.bfloat16):
+            t_row = time.perf_counter()
+            dt = str(dtype).split(".")[1]
+            b = MM_CHECK_BATCH
+            gen = torch.Generator().manual_seed(t + s + d)
+            q, g = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, h, d, generator=gen).to("cuda", dtype) for _ in range(2))
+            counters = (ak.counter, ak.dq_counter, ak.dkv_counter)
+            before = [c.launches for c in counters] + deep_counts(ak)
+            label = f"multimodal {name} {dt}"
+            out, m, l = ak.attention_fwd_with_stats(q, k, v, None)
+            bf16 = dt == "bfloat16"
+            fwd_repeats = (check_fwd_repeats(torch, ak, label, (out, m, l), q, k, v, None)
+                           if bf16 else None)
+            ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, None)
+            fwd_err = check(f"{label} out", out, ref_out, dt)
+            stat_err = max(check_stats(f"{label} m", m, ref_m),
+                           check_stats(f"{label} l", l, ref_l))
+            del out, m, l
+            grads = ak.attention_bwd(q, k, v, None, ref_out, ref_m, ref_l, g)
+            per_kernel = [1 + bf16, 1, 1]
+            want = [n + x for n, x in zip(before, per_kernel + [x * deep for x in per_kernel])]
+            if [c.launches for c in counters] + deep_counts(ak) != want:
+                raise AssertionError(f"{label}: launches {[c.launches for c in counters]} + "
+                                     f"deep {deep_counts(ak)} != {want}")
+            repeats = (check_bwd_repeats(torch, ak, label, grads, q, k, v, None, ref_out, ref_m,
+                                         ref_l, g) if bf16 else None)
+            refs = ak.attention_bwd_reference(q, k, v, None, ref_out, ref_m, ref_l, g)
+            errs = [check(f"{label} {x}", got, ref, dt)
+                    for x, got, ref in zip(("dq", "dk", "dv"), grads, refs)]
+            row = dict(phase="multimodal_attention", shape=name, dims=[b, t, s, h, d], dtype=dt,
+                       design=ak.forward_design(q, k, v), max_abs_err=max([fwd_err] + errs),
+                       fwd_max_abs_err=fwd_err, dq_max_abs_err=errs[0],
+                       dkv_max_abs_err=max(errs[1:]), stats_max_rel_err=stat_err,
+                       fwd_bit_identical=fwd_repeats, bwd_bit_identical=repeats,
+                       row_s=time.perf_counter() - t_row)
+            log(**row)
+            rows.append(row)
+            del q, k, v, g, grads, refs, ref_out, ref_m, ref_l
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_row = time.perf_counter()
+        b = MM_TIME_BATCH
+        gen = torch.Generator(device="cuda").manual_seed(t + s + d)
+        q, g = (torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        out, m, l = ak.attention_fwd_with_stats(q, k, v, None)
+        label = f"multimodal {name} bfloat16 B={b}"
+        fwd_repeats = check_fwd_repeats(torch, ak, label, (out, m, l), q, k, v, None)
+        grads = ak.attention_bwd(q, k, v, None, out, m, l, g)
+        repeats = check_bwd_repeats(torch, ak, label, grads, q, k, v, None, out, m, l, g)
+        del grads
+        row = dict(phase="multimodal_attention", shape=name, dims=[b, t, s, h, d],
+                   dtype="bfloat16", design=ak.forward_design(q, k, v), timed_only=True,
+                   fwd_bit_identical=fwd_repeats, bwd_bit_identical=repeats,
+                   **deep_timing(torch, ak, pat, q, k, v, g, None, m, l, out, "bfloat16",
+                                 plain=False))
+        row["row_s"] = time.perf_counter() - t_row
+        log(**row)
+        rows.append(row)
+        del q, k, v, g, out, m, l
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mm_patch_loss(torch, port, batch) -> dict:
+    """``--video_patch_loss`` in f32 on the same weights (seed 0) and
+    ``batch``: the patch-space loss against the pixel-space one within 1e-6
+    relative, every gradient within 1e-5 of its leaf's peak."""
+    mm = port["multimodal"]
+    runs = []
+    for patch in (False, True):
+        model = mm_model(port, "float32", "pallas", patch)
+        target = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        out = model({"video": target["video"], "audio": target["audio"]})
+        loss, _ = mm.multimodal_autoencoding_loss(out, target,
+                                                  video_patch_info=mm.video_patch_info(model))
+        loss.backward()
+        runs.append((float(loss.detach()), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters()},
+                     tuple(out["video"].shape)))
+        del model, out, loss, target
+        gc.collect()
+        torch.cuda.empty_cache()
+    (pixel, p_grads, p_shape), (patch, q_grads, q_shape) = runs
+    worst, worst_name, symmetric = grads_apart(q_grads, p_grads)
+    reading = dict(pixel_loss=pixel, patch_loss=patch, loss_rel_diff=abs(patch - pixel) / pixel,
+                   grad_max_err_over_leaf_peak=worst, worst_leaf=worst_name,
+                   k_proj_bias_over_global_peak=symmetric, pixel_video_shape=p_shape,
+                   patch_video_shape=q_shape)
+    if not (reading["loss_rel_diff"] <= 1e-6 and worst <= 1e-5 and symmetric < 1e-5
+            and len(p_shape) == 5 and len(q_shape) == 3):
+        raise AssertionError(f"phase 37 video_patch_loss: {reading}")
+    return reading
+
+
+def mm_route_windows(torch, port, steps, state, loader, root: str) -> dict:
+    """The batch-8 bf16 step on each route of MM_ROUTES in turn, from the
+    checked fit's state: every step's launches checked against the route
+    (``'auto'``: ``auto_attention_impl`` call by call), then
+    :func:`cli_windows` (clips/s over a WINDOW_STEPS window, device ms a
+    step and the idle share of a profiled window) and the peak memory
+    (``max_memory_allocated``) over them."""
+    from types import SimpleNamespace
+
+    ak, pat = port["ak"], port["pat"]
+    counters = path_counters(port)
+    readings = {}
+    for impl in MM_ROUTES:
+        use_attn_impl(state.model, port, impl)
+        run = SimpleNamespace(train_step=steps[0], eval_step=steps[1], state=state)
+        check_launches(run, counters, mm_launches(pat, impl), f"phase 37 {impl}")
+        check_deep_launches(run, ak, f"phase 37 {impl}",
+                            mm_kernel_calls(pat, MM_TIME_BATCH, impl)[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        windows = cli_windows(torch, port, run, loader, f"{root}/p37_{impl}",
+                              f"multimodal_{impl}", per="examples")
+        state = run.state
+        readings[impl] = dict(**windows, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                              kernel_calls_per_step=mm_kernel_calls(pat, MM_TIME_BATCH, impl))
+    use_attn_impl(state.model, port, "pallas")
+    return readings
+
+
+def multimodal_phase(torch, port, root: str) -> dict:
+    """Phase 37 (see the module docstring): ``train_multimodal`` at the
+    CLI's defaults on the kernels; returns the checked fit's launches."""
+    t_phase = time.perf_counter()
+    ak, pat, tm = port["ak"], port["pat"], port["train_multimodal"]
+    counters = path_counters(port)
+    for c in counters + (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter):
+        c.reset()
+    t0 = time.perf_counter()
+    trainer, data = tm.prepare(P37_ARGS + ["--root", root, "--logdir", f"{root}/p37"])
+    setup_s = time.perf_counter() - t0
+    steps = (trainer.train_step, trainer.eval_step)
+    check_launches(trainer, counters, mm_launches(pat, "pallas"), "phase 37")
+    check_deep_launches(trainer, ak, "phase 37", mm_kernel_calls(pat, MM_TIME_BATCH,
+                                                                 "pallas")[1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with trainer:
+        trainer.fit(data.train_dataloader(), data.val_dataloader())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in zip(KERNEL_NAMES, counters)}
+    deep = dict(zip(("attention_fwd_deep", "attention_bwd_dq_deep", "attention_bwd_dkv_deep"),
+                    deep_counts(ak)))
+    rows = read_rows(trainer.run_dir)
+    train = [r for r in rows if "train_loss" in r]
+    val = [r for r in rows if "val_loss" in r]
+    losses = [r["train_loss"] for r in train]
+    metric_keys = {"video_loss", "audio_loss", "label_loss", "video_psnr", "train_acc", "lr"}
+    if [r["step"] for r in train] != list(range(1, P37_STEPS + 1)) \
+            or not all(metric_keys <= set(r) for r in train) \
+            or [r["step"] for r in val] != [P37_STEPS] \
+            or not all(math.isfinite(x) for x in losses + [val[0]["val_loss"]]):
+        raise AssertionError(f"phase 37: rows {rows}")
+    batches = [b for _, b in zip(range(3), data.train_dataloader())]
+    routes = mm_route_windows(torch, port, steps, trainer.state, data.train_dataloader(), root)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = [{k: v[:MM_PARITY_BATCH] for k, v in b.items()} for b in batches]
+    parity = f32_step_parity(torch, port, lambda: mm_model(port, "float32", "pallas"),
+                             port["make_multimodal_steps"], one,
+                             mm_kernel_calls(pat, MM_PARITY_BATCH, "pallas")[1], "phase 37")
+    patch_loss = mm_patch_loss(torch, port, one[0])
+    witness = lr_witness(torch, port, lambda impl: mm_model(port, "bfloat16", impl),
+                         port["make_multimodal_steps"],
+                         [b for _, b in zip(range(P37_WITNESS_STEPS), data.train_dataloader())],
+                         mm_kernel_calls(pat, MM_TIME_BATCH, "pallas")[1], "phase 37")
+    log(phase="multimodal", card=card_line(), steps=P37_STEPS, losses=losses,
+        metrics_last={k: train[-1][k] for k in sorted(metric_keys)},
+        val={k: v for k, v in val[0].items() if k.startswith("val_")}, launches=launches,
+        deep_launches=deep,
+        launches_per_step={k: v for k, v in mm_launches(pat, "pallas")(
+            batches[0], True).items() if v},
+        setup_s=setup_s, fit_s=fit_s,
+        checked_fit_clips_per_s=[r["examples_per_sec"] for r in train],
+        fit_peak_memory_bytes=fit_peak, routes=routes, f32_parity=parity,
+        video_patch_loss=patch_loss, lr_witness=witness,
+        phase_s=time.perf_counter() - t_phase)
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"phase 37: the loss did not fall: {losses}")
     launches.update(deep)
     return launches
 
@@ -4186,13 +4487,14 @@ def main() -> int:
         train_flow,
         train_img_clf,
         train_mlm,
+        train_multimodal,
         train_seq_clf,
     )
     from perceiver_io_torch.data.imdb import IMDBDataModule, synthetic_reviews
     from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
     from perceiver_io_torch.inference.engine import MLMServer
     from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig
-    from perceiver_io_torch.models import presets
+    from perceiver_io_torch.models import multimodal, presets
     from perceiver_io_torch.ops import attention as pat
     from perceiver_io_torch.ops import attention_kernel as ak
     from perceiver_io_torch.ops import build
@@ -4215,6 +4517,7 @@ def main() -> int:
         make_classifier_steps,
         make_flow_steps,
         make_mlm_steps,
+        make_multimodal_steps,
     )
     from perceiver_io_torch.training.train_state import TrainState
     from perceiver_io_torch.training.trainer import Trainer, TrainerConfig
@@ -4272,7 +4575,8 @@ def main() -> int:
                 param_tree=param_tree, tree_digest=tree_digest, load_tokenizer=load_tokenizer,
                 train_img_clf=train_img_clf, train_seq_clf=train_seq_clf,
                 make_classifier_steps=make_classifier_steps, train_flow=train_flow,
-                make_flow_steps=make_flow_steps)
+                make_flow_steps=make_flow_steps, train_multimodal=train_multimodal,
+                make_multimodal_steps=make_multimodal_steps, multimodal=multimodal)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
@@ -4355,6 +4659,12 @@ def main() -> int:
         enter("36: optical flow at the paper's width")
         flow_launches_run = flow_phase(torch, port, root)
         path_launches.append(flow_launches_run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("37: multimodal autoencoding at the paper's width")
+        multimodal_attention_phase(torch, ak, pat)
+        mm_launches_run = multimodal_phase(torch, port, root)
+        path_launches.append(mm_launches_run)
     enter("16: packed serving")
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
@@ -4468,7 +4778,7 @@ def main() -> int:
             design=row["design"],
             event_ms=row[f"{part}_ms"], ms_source="device" if device else "event"))
     # the deep designs (D = 256, 512) at the flow encoder's cross, bf16, B=2
-    # with padding (phase 35); launches: phase 36's checked fit
+    # with padding (phase 35); launches: phases 36's and 37's checked fits
     deep_row = next(r for r in deep_rows if r["shape"] == "flow-cross"
                     and r["dtype"] == "bfloat16" and r["causal_offset"] is None
                     and not r.get("timed_only"))
@@ -4479,7 +4789,8 @@ def main() -> int:
         device = deep_row[f"{part}_device_ms"] is not None
         kernels.append(dict(
             name=name, route="cuda", source=deep_src, replaces=tpu_attn.format(site),
-            launches=flow_launches_run[name], max_abs_err=deep_row[f"{part}_max_abs_err"],
+            launches=flow_launches_run[name] + mm_launches_run[name],
+            max_abs_err=deep_row[f"{part}_max_abs_err"],
             ms=deep_row[f"{part}_device_ms" if device else f"{part}_ms"],
             plain_ms=deep_row[f"plain_{way}_ms"], bound_ms=deep_row[f"{part}_bound_ms"],
             bound_by=deep_row[f"{part}_bound_by"], library_ms=deep_row[f"library_{way}_ms"],

@@ -346,6 +346,27 @@ def build_flow_model(args, image_shape, device) -> PerceiverIO:
         reuse_kv=not args.no_reuse_kv), args, device)
 
 
+def build_multimodal_model(args, video_shape, num_classes: int, device):
+    """The multimodal autoencoder (``models.multimodal``): video patches
+    and audio patches fused into the encoder's input, video, audio and one
+    label query out of the decoder, weights drawn from ``--seed``."""
+    from perceiver_io_torch.models.multimodal import build_multimodal_autoencoder
+
+    return _init(build_multimodal_autoencoder(
+        video_shape=tuple(video_shape), num_audio_samples=args.audio_samples,
+        samples_per_patch=args.samples_per_patch, num_audio_channels=args.audio_channels,
+        num_classes=num_classes, latent_shape=(args.num_latents, args.num_latent_channels),
+        video_patch_shape=tuple(args.video_patch), num_layers=args.num_encoder_layers,
+        num_self_attention_layers_per_block=args.num_self_attention_layers_per_block,
+        num_cross_attention_heads=args.num_cross_attention_heads,
+        num_self_attention_heads=args.num_self_attention_heads,
+        num_modality_channels=args.num_modality_channels,
+        video_frequency_bands=args.video_frequency_bands,
+        audio_frequency_bands=args.audio_frequency_bands, dropout=args.dropout,
+        dtype=DTYPES[args.dtype], attn_impl=args.attn_impl, remat=args.remat,
+        reuse_kv=not args.no_reuse_kv, video_patch_loss=args.video_patch_loss), args, device)
+
+
 # the flags that shape a model: a checkpoint's hparams override them, so a
 # restored encoder fits what it was trained as
 MODEL_HPARAM_KEYS = ("num_latents", "num_latent_channels", "num_encoder_layers",

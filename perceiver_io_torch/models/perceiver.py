@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from perceiver_io_torch.models.adapters import TextInputAdapter
+from perceiver_io_torch.models.multimodal import MultimodalInputAdapter
 from perceiver_io_torch.ops.attention import (
     CrossAttentionLayer,
     LayerNorm,
@@ -532,9 +533,11 @@ class PerceiverARLM(nn.Module):
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight of ``model`` from ``generator`` with the JAX twin's
     initializers (the learned latent/output arrays N(0, 0.02) clamped to
-    ±2; adapters and projections by their own ``reset_parameters``)."""
+    ±2; adapters and projections by their own ``reset_parameters``: the
+    multimodal padding and modality vectors flax's ``truncated_normal(0.02)``,
+    within ±0.04)."""
     for module in model.modules():
-        if isinstance(module, (Linear, TextInputAdapter)):
+        if isinstance(module, (Linear, TextInputAdapter, MultimodalInputAdapter)):
             module.reset_parameters(generator)
         elif isinstance(module, LayerNorm):
             module.scale.fill_(1.0)

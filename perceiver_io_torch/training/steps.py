@@ -1,7 +1,8 @@
-"""MLM, Perceiver-AR, classifier and optical-flow step builders (the
-counterpart of ``perceiver_io_tpu/training/steps.py``:
+"""MLM, Perceiver-AR, classifier, optical-flow and multimodal step
+builders (the counterpart of ``perceiver_io_tpu/training/steps.py``:
 ``mlm_gather_capacity``, ``make_mlm_steps``, ``make_ar_steps``,
-``make_classifier_steps``, ``make_flow_steps``, ``make_guarded_step``).
+``make_classifier_steps``, ``make_flow_steps``, ``make_multimodal_steps``,
+``make_guarded_step``).
 
 Batches are dicts of numpy arrays or tensors, which the steps move to the
 model's device:
@@ -9,7 +10,9 @@ model's device:
 - text: ``token_ids`` (B, L) int and ``pad_mask`` (B, L) bool (and, for a
   classifier, ``label`` (B,) int);
 - image: ``image`` (B, *image_shape) float and ``label`` (B,) int;
-- flow: ``frames`` (B, 2, H, W, C) float and ``flow`` (B, H, W, 2) float.
+- flow: ``frames`` (B, 2, H, W, C) float and ``flow`` (B, H, W, 2) float;
+- audio-video: ``video`` (B, T, H, W, C) float, ``audio`` (B, S, C_a)
+  float and ``label`` (B,) int.
 """
 
 from __future__ import annotations
@@ -277,5 +280,50 @@ def make_flow_steps(model, schedule: Optional[Callable[[int], float]] = None):
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None
                   ) -> Metrics:
         return {"loss": loss_fn(batch)}
+
+    return train_step, eval_step
+
+
+def make_multimodal_steps(model, schedule: Optional[Callable[[int], float]] = None,
+                          video_weight: float = 1.0, audio_weight: float = 1.0,
+                          label_weight: float = 1.0):
+    """(train_step, eval_step) for the multimodal autoencoder
+    (``models.multimodal.build_multimodal_autoencoder``), with the
+    signatures of :func:`make_classifier_steps`: the loss is
+    ``multimodal_autoencoding_loss`` (weighted MSE(video) + MSE(audio) +
+    CE(label)); metrics ``loss``, ``video_loss``, ``audio_loss``,
+    ``label_loss``, ``video_psnr``, ``acc`` and, given ``schedule``, ``lr``
+    in training; dropout from the state's (seed, step) key in training,
+    none in evaluation. When the model's video head runs in patch space
+    (``VideoOutputAdapter.as_patches``), its patch geometry is read off the
+    adapter here, never inferred from shapes, and the target is
+    patchified."""
+    from perceiver_io_torch.models.multimodal import (
+        multimodal_autoencoding_loss,
+        video_patch_info,
+    )
+
+    device = next(model.parameters()).device
+    patch_info = video_patch_info(model)
+
+    def loss_fn(batch, dropout_key=None):
+        batch = {k: _to(batch[k], device) for k in ("video", "audio", "label")}
+        outputs = model({"video": batch["video"], "audio": batch["audio"]},
+                        deterministic=dropout_key is None, dropout_key=dropout_key)
+        loss, metrics = multimodal_autoencoding_loss(
+            outputs, batch, video_weight, audio_weight, label_weight,
+            video_patch_info=patch_info)
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(state: TrainState, batch, guard: bool = False
+                   ) -> Tuple[TrainState, Metrics]:
+        return _update(state, schedule, lambda: loss_fn(batch, state.step_dropout_key()),
+                       guard)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None
+                  ) -> Metrics:
+        loss, metrics = loss_fn(batch)
+        return {"loss": loss, **metrics}
 
     return train_step, eval_step

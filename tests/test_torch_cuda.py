@@ -38,7 +38,9 @@ the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
 the deep designs of #1-#3 (D = 256 and 512, f32 and bf16, with and
 without the causal offset) on their own counters, and the bf16 deep
 forward (with and without statistics) and backward at ragged, one-key and
-B=1 shapes, a second call bit for bit the first,
+B=1 shapes, a second call bit for bit the first, and at the multimodal
+autoencoder's tails (784 query rows; 1025 rows over 784 keys, 13 key
+tiles),
 ``'auto'`` routing by the rule's block floor, dropout from CUDA generators
 and remat's recompute drawing the same masks,
 and the bf16 wgmma designs of the forward, of the two backward kernels,
@@ -255,6 +257,40 @@ def test_deep_wgmma_forward_cases(card, d, b, t, s, causal, stats):
     if b > 1 and causal is None:  # every key of the masked example weighs alike
         uniform = v[-1].float().mean(dim=0, keepdim=True).expand(t, 1, d)
         _close(got[0][-1], uniform, torch.bfloat16)
+
+
+# the multimodal crosses' tails at a small batch: the encoder cross's 784
+# query rows (its last 128-row block 16 live rows, dq's last 64-row tile 16),
+# and the decoder cross's one-row last block over 784 keys (12 full 64-key
+# tiles and a 16-key tail: 13 tiles, an odd count)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s", [(2, 784, 4096), (2, 1025, 784)])
+def test_deep_kernels_at_the_multimodal_tails(card, dtype, b, t, s):
+    """#1-#3's D=512 designs at the multimodal autoencoder's tails, no pad
+    mask: out, m and l, dq, dk and dv against the plain versions; each call
+    one launch of each kernel on its deep counter; in bf16 a second
+    forward and backward bit for bit the first."""
+    g = torch.Generator().manual_seed(b * 10000 + t + s)
+    q, go = (torch.randn(b, t, 1, 512, generator=g).to(card, dtype) for _ in range(2))
+    k, v = (torch.randn(b, s, 1, 512, generator=g).to(card, dtype) for _ in range(2))
+    counters = (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter)
+    before = [c.launches for c in counters]
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, None)
+    ref_out, ref_m, ref_l = ak.attention_reference_with_stats(q, k, v, None)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(m, ref_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=1e-5)
+    got = ak.attention_bwd(q, k, v, None, ref_out, ref_m, ref_l, go)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
+    ref = ak.attention_bwd_reference(q, k, v, None, ref_out, ref_m, ref_l, go)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape
+        _close(x, r, dtype)
+    if dtype == torch.bfloat16:
+        for x, y in zip((out, m, l), ak.attention_fwd_with_stats(q, k, v, None)):
+            assert torch.equal(x, y)
+        for x, y in zip(got, ak.attention_bwd(q, k, v, None, ref_out, ref_m, ref_l, go)):
+            assert torch.equal(x, y)
 
 
 def test_fused_attention_autograd_runs_the_kernels(card):

@@ -160,11 +160,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "perceiver_io_torch").rglob("*.py"))
-    # the generation path's and the flow path's modules are among them
+    # the generation path's, the flow path's and the multimodal path's
+    # modules are among them
     assert {"perceiver_io_torch.inference.generate", "perceiver_io_torch.cli.serve",
             "perceiver_io_torch.models.perceiver", "perceiver_io_torch.ops.masking",
             "perceiver_io_torch.models.flow", "perceiver_io_torch.data.flow",
-            "perceiver_io_torch.cli.train_flow"} <= set(modules)
+            "perceiver_io_torch.cli.train_flow", "perceiver_io_torch.models.multimodal",
+            "perceiver_io_torch.data.av", "perceiver_io_torch.cli.train_multimodal"
+            } <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
