@@ -229,7 +229,7 @@ Phases (any failure exits nonzero):
     --accumulate_steps 2 --one_cycle_lr --one_cycle_pct_start 0.3``, 12
     steps at batch 64 x 512: the JAX trainer's rows, the loss falling, no
     #1-#3 launch (22 einsum calls a step and an eval batch), the peak
-    memory; then three fresh CLI runs in turns (A B C C B A): A these
+    memory; then three fresh CLI runs, one an arm (A B C): A these
     flags, B ``--attn_impl pallas --dropout 0``, C ``--dropout 0``, each
     with its tokens/s over a 10-step window, device ms a step and idle
     share over a profiled 4-step one;
@@ -321,7 +321,7 @@ Phases (any failure exits nonzero):
     dq, dk, dv; each call one launch on the deep counters; every bf16
     forward and backward run twice, out, m, l and dq, dk, dv bit for bit
     the same. Times at the
-    comparison batch (kernel device ms, the plain versions', SDPA's or,
+    comparison batch (the kernels' by CUDA events, the plain versions', SDPA's or,
     where SDPA does not take the shape, the einsum path's, labelled, and
     the einsum path's beside it) and, in bf16 without padding, at B=8, each
     beside its bound; then the bf16
@@ -338,8 +338,8 @@ Phases (any failure exits nonzero):
     falling; then the frame-pairs/s window, the profiled window (device ms
     a step, idle share) and ``torch.cuda.max_memory_allocated``; three f32
     steps at batch 1 (``'pallas'``: every call on the kernels) against the
-    plain versions in their place, phase 9's bars; one bf16 batch-1 step on
-    each route, ``'auto'``, ``'pallas'`` and ``'xla'``: device ms and peak
+    plain versions in float64 in their place, phase 9's bars; one bf16
+    batch-1 step on each route, ``'auto'``, ``'pallas'`` and ``'xla'``: device ms and peak
     memory; one bf16 step at batches 2, 4 and 8 on the einsum path: its
     peak memory, or that it does not fit; six bf16 steps at batch 2 at the
     CLI's Adam 1e-3 from one set of weights, on the kernels and on the
@@ -365,12 +365,42 @@ Phases (any failure exits nonzero):
     (``auto`` 8 + 8 + 8, none deep, by ``auto_attention_impl``): clips/s
     over a 10-step window, device ms a step and idle share of a profiled
     window, peak memory; three f32 steps at batch 1 on the kernels against
-    the plain versions in their place (phase 36's bars); the f32 loss with
-    ``--video_patch_loss`` against the pixel-space loss on the same weights
+    the plain versions in float64 in their place (phase 36's bars); the f32
+    loss with ``--video_patch_loss`` against the pixel-space loss on the same weights
     and clip (1e-6 relative, gradients 1e-5 of each leaf's peak); five bf16
     steps at the CLI's Adam 1e-3 from one set of weights on the kernels and
     on the einsum path (the witness: the checked fit takes 1e-4, as phase
-    36's does).
+    36's does);
+38. #1-#3 at head depth 1024 (ImageNet's one-head crosses, ``IN_SHAPES``:
+    the encoder cross (B, 512, 50176, 1, 1024) and the decoder cross (B, 1,
+    512, 1, 1024)) through phase 35's ``deep_attention_phase``: f32 (the
+    scalar design, its sums in float64 and compensated) and bf16 (the wgmma
+    design over a four-block cluster) at B=2 with ~30% of keys padded and
+    the second example fully masked, and at B=1 with the causal offset 8,
+    against the plain versions at phase 35's bars; bf16 at B=8 timed beside
+    the bounds, SDPA and the einsum path (CUDA events); then
+    ``quarters_check``: bf16 at the encoder cross with k, v and g one
+    quarter repeated four times, out's, dq's and dv's four column quarters
+    bit for bit equal (the cluster's fixed summation order);
+39. ImageNet classification at the Perceiver paper's width:
+    ``train_imagenet --synthetic --attn_impl pallas --learning_rate 1e-4``
+    with the CLI's other defaults (224 × 224 × 3 images, 64 bands, 512 ×
+    1024 latents, 6 encoder layers (2..6 one weight set reusing one K/V
+    projection) × (a cross of one head of depth 1024 + 6 self layers of 8
+    heads of depth 128), a one-query decoder of depth 1024, batch 64, bf16,
+    remat), P39_STEPS steps in-process: every step launches 85 #1 (with
+    statistics; 42 of them remat's recompute), 43 #2 and 43 #3, all wgmma,
+    13 + 7 + 7 of them the D=1024 design, and no plain version; the eval
+    batch 43 #1, 7 deep; the loss falls; then the batch-64 step on each
+    route in turn (``pallas``, ``auto``, ``xla``), each step's launches
+    checked against the route (``auto`` 72/36/36, none deep; a route that
+    does not fit the card fails the phase): images/s
+    over a 10-step window, device ms a step and idle share of a profiled
+    window, peak memory; three f32 steps at batch 1 on the kernels against
+    the plain versions in float64 (phase 36's bars: the one-query decoder
+    over near-equal latents amplifies f32 rounding, so an f32 plain version
+    is no reference there); five bf16 steps at the CLI's AdamW 4e-3 at batch 16 from one
+    set of weights on the kernels and on the einsum path (the witness).
 
 Phases 23 and 27 run ``train_ar`` with ``--sample_prefix_len 0`` (their
 checks count the training path's launches; phase 31 drives the hook);
@@ -633,6 +663,17 @@ def key_padding(torch, gen, padding, b: int, s: int):
     return pad.cuda()
 
 
+def live_work(pad, b: int, s: int) -> tuple:
+    """(examples with a live key, live keys in all): the work this call's
+    data needs, which the bounds count. A fully masked example needs no
+    logits: its output is the mean of V, its dq and dk are 0 and its dv
+    each key's share of G's column sums, so it reads only V (forward) or G
+    (backward) and writes its outputs."""
+    if pad is None:
+        return b, b * s
+    return int((~pad).any(1).sum()), int((~pad).sum())
+
+
 # #1-#3 at the classifiers' calls (phases 33-34), name, (B, T, S, H, D),
 # padding: the MNIST encoder's cross over 784 unpadded pixels and its
 # self-attention at D=32, the reference-width text classifier's cross over
@@ -682,10 +723,10 @@ def attention_phase(torch, ak):
             bias = ak.pad_bias(pad, b, s, "cuda")
             mask = bias[:, None, None, :].to(dtype)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            item = q.element_size()
-            valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
-            nbytes = item * (2 * b * t * h * d + 2 * b * s * h * d) + 4 * b * s
-            bound, by = bound_ms(nbytes, 4 * h * t * d * valid, dt)
+            io_t, io_s = (q.element_size() * n * h * d for n in (t, s))  # one example's
+            live, keys = live_work(pad, b, s)
+            nbytes = live * (2 * io_t + 2 * io_s) + (b - live) * (io_t + io_s) + 4 * b * s
+            bound, by = bound_ms(nbytes, 4 * h * t * d * keys, dt)
             library = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
                                                              attn_mask=mask)
             row = dict(kernel="attention_fwd", shape=name, dims=[b, t, s, h, d], dtype=dt,
@@ -797,15 +838,16 @@ def attention_bwd_phase(torch, ak):
                 raise AssertionError(f"{name} {dt}: dq/dk of the fully masked example not 0")
             bias = ak.pad_bias(pad, b, s, "cuda")
             delta = ak.bwd_delta(g, ref_out)
-            item = q.element_size()
-            valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
+            io_t, io_s = (q.element_size() * n * h * d for n in (t, s))  # one example's
+            live, keys = live_work(pad, b, s)
+            dead = b - live
             stats_bytes = 4 * 3 * b * h * t + 4 * b * s  # m, l, delta, bias
-            dq_bound = bound_ms(item * (3 * b * t * h * d + 2 * b * s * h * d) + stats_bytes,
-                                3 * 2 * h * t * d * valid, dt)
-            dkv_bound = bound_ms(item * (2 * b * t * h * d + 4 * b * s * h * d) + stats_bytes,
-                                 4 * 2 * h * t * d * valid, dt)
-            bwd_bound = bound_ms(item * (4 * b * t * h * d + 4 * b * s * h * d)
-                                 + 8 * b * h * t + 4 * b * s, 5 * 2 * h * t * d * valid, dt)
+            dq_bound = bound_ms(live * (3 * io_t + 2 * io_s) + dead * io_t + stats_bytes,
+                                3 * 2 * h * t * d * keys, dt)
+            dkv_bound = bound_ms(live * (2 * io_t + 4 * io_s) + dead * (io_t + 2 * io_s)
+                                 + stats_bytes, 4 * 2 * h * t * d * keys, dt)
+            bwd_bound = bound_ms(live * (4 * io_t + 4 * io_s) + dead * (2 * io_t + 2 * io_s)
+                                 + 8 * b * h * t + 4 * b * s, 5 * 2 * h * t * d * keys, dt)
             plain = time_ms(lambda: ak.attention_bwd_reference(q, k, v, pad, ref_out, ref_m,
                                                                ref_l, g))
             library, library_device = library_bwd_ms(torch, q, k, v, g,
@@ -1652,8 +1694,7 @@ def packed_phase(torch, ak, pk, clock_hz: float):
     as its mask (events and device), and of kernel #1's forward and whole
     backward at the same shape; the share of key tiles the bf16 design
     skips (``skipped_tiles``); each kernel's bound (``roofline_bound``),
-    counting the keys the data leaves unmasked (every key of a fully masked
-    example)."""
+    counting the work the data needs (``live_work``)."""
     import torch.nn.functional as F
 
     wgmma_counters = (pk.fwd_wgmma_counter, pk.dq_wgmma_counter, pk.dkv_wgmma_counter)
@@ -1671,7 +1712,8 @@ def packed_phase(torch, ak, pk, clock_hz: float):
             pad = pad.cuda()
         tiles_skip, rows_skip = skipped_tiles(pad, s)
         bias = ak.pad_bias(pad, b, s, "cuda")
-        valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
+        live, keys = live_work(pad, b, s)
+        dead = b - live
         for dtype in (torch.float32, torch.bfloat16):
             dt = str(dtype).split(".")[1]
             q, g = (torch.randn(b, t, e, generator=gen).to("cuda", dtype) for _ in range(2))
@@ -1693,18 +1735,19 @@ def packed_phase(torch, ak, pk, clock_hz: float):
                                      f"not 0")
             del grads, refs
             stats = pk.launch_bwd_dq(q, k, v, bias, g, h)[1]
-            item = q.element_size()
-            io_t, io_s, stat_bytes = item * b * t * e, item * b * s * e, 12 * b * t * h
-            exps = h * t * valid  # one exponential per (head, query, key)
+            io_t, io_s = (q.element_size() * n * e for n in (t, s))  # one example's
+            stat_bytes = 12 * b * t * h
+            exps = h * t * keys  # one exponential per (head, query, key)
             bounds = {
-                "fwd": roofline_bound(2 * io_t + 2 * io_s + 4 * b * s, 4 * t * e * valid, exps,
-                                      dt, clock_hz),
-                "dq": roofline_bound(3 * io_t + 2 * io_s + 4 * b * s + stat_bytes,
-                                     6 * t * e * valid, exps, dt, clock_hz),
-                "dkv": roofline_bound(2 * io_t + 4 * io_s + 4 * b * s + stat_bytes,
-                                      8 * t * e * valid, exps, dt, clock_hz),
-                "bwd": roofline_bound(3 * io_t + 4 * io_s + 4 * b * s, 10 * t * e * valid, exps,
-                                      dt, clock_hz),
+                "fwd": roofline_bound(live * (2 * io_t + 2 * io_s) + dead * (io_t + io_s)
+                                      + 4 * b * s, 4 * t * e * keys, exps, dt, clock_hz),
+                "dq": roofline_bound(live * (3 * io_t + 2 * io_s) + dead * io_t + 4 * b * s
+                                     + stat_bytes, 6 * t * e * keys, exps, dt, clock_hz),
+                "dkv": roofline_bound(live * (2 * io_t + 4 * io_s) + dead * (io_t + 2 * io_s)
+                                      + 4 * b * s + stat_bytes, 8 * t * e * keys, exps, dt,
+                                      clock_hz),
+                "bwd": roofline_bound(live * (3 * io_t + 4 * io_s) + dead * (2 * io_t + 2 * io_s)
+                                      + 4 * b * s, 10 * t * e * keys, exps, dt, clock_hz),
             }
             qh, kh, vh, gh = (x.view(x.shape[0], x.shape[1], h, d) for x in (q, k, v, g))
             mask = bias[:, None, None, :].to(dtype)
@@ -2379,6 +2422,7 @@ def ar_train_cli_phase(torch, port, root: str, vocab: int) -> None:
 
 # phase 24: tools/attn_shapes_bench.py's shapes, (name, (B, T, S, H, D),
 # causal offset or None); the decode family's step rows are forward only
+SWEEP_ITERS = 5  # profiled calls a reading
 SWEEP_SHAPES = (("mlm-cross", (8, 256, 512, 4, 16), None),
                 ("mlm-self", (8, 256, 256, 4, 16), None),
                 ("in-cross", (2, 512, 50176, 1, 1024), None),
@@ -2506,9 +2550,9 @@ def auto_sweep_phase(torch, ak, pat) -> list:
                     row[f"{impl}_fwd_ms"] = row[f"{impl}_ms"] = "refused"
                     continue
                 with torch.no_grad():
-                    row[f"{impl}_fwd_ms"] = device_ms(torch, fn, iters=10)
+                    row[f"{impl}_fwd_ms"] = device_ms(torch, fn, iters=SWEEP_ITERS)
                 row[f"{impl}_ms"] = (device_ms(torch, lambda: torch.autograd.grad(
-                    fn(), leaves, g), iters=10) if backward else None)
+                    fn(), leaves, g), iters=SWEEP_ITERS) if backward else None)
                 torch.cuda.empty_cache()
         except torch.cuda.OutOfMemoryError:
             row["skipped"] = "does not fit in the card's memory"
@@ -2610,8 +2654,8 @@ def mlm_flagship_cli_phase(torch, port, root: str) -> dict:
     in-process: the rows of the JAX trainer, the loss falling, no launch of
     #1-#3 (every call on the einsum path: 22 a train step and 22 an eval
     batch), the peak memory. Then tokens/s, device ms a step and the idle
-    share of three arms, each a fresh run of the CLI, in turns (A B C C B
-    A): A these flags, B ``--attn_impl pallas --dropout 0``, C ``--dropout
+    share of three arms, each a fresh run of the CLI, one after another
+    (A B C): A these flags, B ``--attn_impl pallas --dropout 0``, C ``--dropout
     0`` alone (the einsum path without dropout)."""
     pat, counters = port["pat"], path_counters(port)
     base = ["--preset", "flagship_tpu", "--synthetic", "--optimizer", "AdamW",
@@ -2653,7 +2697,7 @@ def mlm_flagship_cli_phase(torch, port, root: str) -> dict:
         checked_fit_tokens_per_s=[r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r])
     del trainer
     turns = {arm: [] for arm in arms}
-    for arm in ("xla_dropout", "pallas", "xla", "xla", "pallas", "xla_dropout"):
+    for arm in arms:
         trainer, data = port["train_mlm"].prepare(
             base + arms[arm] + ["--max_steps", "1000", "--logdir", f"{root}/turns_{arm}"])
         turns[arm].append(cli_windows(torch, port, trainer, data.train_dataloader(),
@@ -3672,6 +3716,17 @@ DEEP_DESIGNS = dict(fwd=("wgmma, 256 threads: 128 query rows a block, 64 a warpg
                          "before this tile's softmax; D=512 split over a 2-block cluster that "
                          "adds its halves by st.async"),
                     dq=_DEEP_BWD, dkv=_DEEP_BWD)
+# D=1024: the same kernels over a 4-block cluster, 256 head columns a block,
+# whose blocks sum each logit tile's shares by a 2-round butterfly
+_IN_SPLIT = ("; D=1024 split over a 4-block cluster that sums its shares by a 2-round "
+             "butterfly of st.async pushes ((s0 + s1) + (s2 + s3) in every block)")
+_IN_BWD = ("wgmma, 256 threads: a loading warp refills a 2-stage TMA ring of 64-row "
+           "tiles through mbarriers; S and dP computed once, one a warpgroup" + _IN_SPLIT)
+IN_DESIGNS = dict(fwd=("wgmma, 256 threads: 128 query rows a block, 64 a warpgroup; a "
+                       "loading warp refills 2-stage K and V rings of 64-key tiles through "
+                       "mbarriers; each logit tile computed once, the next tile's S issued "
+                       "before this tile's softmax" + _IN_SPLIT),
+                  dq=_IN_BWD, dkv=_IN_BWD)
 
 
 def deep_library_ms(torch, pat, q, k, v, g, pad) -> dict:
@@ -3734,11 +3789,12 @@ def check_bwd_repeats(torch, ak, label: str, grads, *args) -> bool:
     return True
 
 
-def deep_attention_phase(torch, ak, pat) -> list:
-    """Phase 35: #1-#3's deep designs against their plain versions (see the
-    module docstring); the rows of the ``kernels`` line."""
+def deep_attention_phase(torch, ak, pat, shapes=None) -> list:
+    """Phases 35 and 38: #1-#3's deep designs against their plain versions
+    at ``shapes`` (phase 35's DEEP_SHAPES by default; see the module
+    docstring); the rows of the ``kernels`` line."""
     rows = []
-    for name, (t, s, h, d) in DEEP_SHAPES:
+    for name, (t, s, h, d) in shapes or DEEP_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for off in (None, DEEP_CAUSAL_OFFSET):
                 t_row = time.perf_counter()
@@ -3825,10 +3881,11 @@ def deep_attention_phase(torch, ak, pat) -> list:
 
 
 def deep_timing(torch, ak, pat, q, k, v, g, pad, m, l, out, dt: str, plain: bool) -> dict:
-    """Times of the deep kernels on these inputs (device ms by torch.profiler
-    in bf16, CUDA events in f32, whose kernels run long), their bounds, the
-    library's (``deep_library_ms``) and, with ``plain``, the plain
-    versions' (forward with statistics; the whole backward)."""
+    """Times of the deep kernels on these inputs (CUDA events: the profiler
+    misses part of a cluster's launch), their bounds
+    (counting the work the data needs, ``live_work``), the library's
+    (``deep_library_ms``) and, with ``plain``, the plain versions' (forward
+    with statistics; the whole backward)."""
     b, t, h, d = q.shape
     s = k.shape[1]
     bias = ak.pad_bias(pad, b, s, "cuda")
@@ -3836,20 +3893,19 @@ def deep_timing(torch, ak, pat, q, k, v, g, pad, m, l, out, dt: str, plain: bool
     run = dict(fwd=lambda: ak.attention_fwd_with_stats(q, k, v, pad),
                dq=lambda: ak.launch_bwd_dq(q, k, v, bias, m, l, delta, g),
                dkv=lambda: ak.launch_bwd_dkv(q, k, v, bias, m, l, delta, g))
-    item = q.element_size()
-    valid = s * b if pad is None else int((~pad).sum()) + s * int(pad.all(1).sum())
+    io_t, io_s = (q.element_size() * n * h * d for n in (t, s))  # one example's
+    live, keys = live_work(pad, b, s)
+    dead = b - live
     stats_bytes = 4 * 3 * b * h * t + 4 * b * s
-    bounds = dict(fwd=bound_ms(item * (2 * b * t * h * d + 2 * b * s * h * d) + 4 * b * s
-                               + 8 * b * h * t, 4 * h * t * d * valid, dt),
-                  dq=bound_ms(item * (3 * b * t * h * d + 2 * b * s * h * d) + stats_bytes,
-                              6 * h * t * d * valid, dt),
-                  dkv=bound_ms(item * (2 * b * t * h * d + 4 * b * s * h * d) + stats_bytes,
-                               8 * h * t * d * valid, dt))
+    bounds = dict(fwd=bound_ms(live * (2 * io_t + 2 * io_s) + dead * (io_t + io_s) + 4 * b * s
+                               + 8 * b * h * t, 4 * h * t * d * keys, dt),
+                  dq=bound_ms(live * (3 * io_t + 2 * io_s) + dead * io_t + stats_bytes,
+                              6 * h * t * d * keys, dt),
+                  dkv=bound_ms(live * (2 * io_t + 4 * io_s) + dead * (io_t + 2 * io_s)
+                               + stats_bytes, 8 * h * t * d * keys, dt))
     row = {}
     for part, fn in run.items():
         row[f"{part}_ms"] = time_ms(fn, 2)
-        row[f"{part}_device_ms"] = (device_ms(torch, fn, iters=2, tries=2)
-                                    if dt == "bfloat16" else None)
         row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = bounds[part]
     if plain:
         row["plain_fwd_ms"] = time_ms(lambda: ak.attention_reference_with_stats(q, k, v, pad),
@@ -3866,7 +3922,7 @@ ONE_KEY_SEEDS = 3
 def one_key_sweep(torch, ak) -> list:
     """The bf16 backward where ds = p (g.v - delta) is 0 in exact arithmetic
     (one key, so p = 1 and out = v), at every head dim from the same draw
-    (the first D columns of a D=512 one), ONE_KEY_SEEDS draws of (3, 250,
+    (the first D columns of one at the widest D), ONE_KEY_SEEDS draws of (3, 250,
     2, D) queries: how far the wgmma kernels' dq, dk and the plain
     versions' lie from 0 (the card tests' ``BWD_ATOL`` cases) and where it
     comes from. ds of a row is read back from dq by least squares over k's
@@ -3874,14 +3930,15 @@ def one_key_sweep(torch, ak) -> list:
     against float64), the rest of the kernel's ds is its tensor-core sum
     g.v against float64, beside the plain version's f32 einsum."""
     rows = []
+    width = max(ak.SUPPORTED_HEAD_DIMS)
     for d in ak.SUPPORTED_HEAD_DIMS:
         worst = dict.fromkeys(("kernel_dq", "kernel_dk", "plain_dq", "plain_dk", "kernel_ds",
                                "plain_ds", "delta_err", "kernel_dp_err", "plain_dp_err",
                                "kernel_minus_plain"), 0.0)
         for seed in range(ONE_KEY_SEEDS):
             gen = torch.Generator().manual_seed(seed)
-            q, g = (torch.randn(3, 250, 2, 512, generator=gen)[..., :d] for _ in range(2))
-            k, v = (torch.randn(3, 1, 2, 512, generator=gen)[..., :d] for _ in range(2))
+            q, g = (torch.randn(3, 250, 2, width, generator=gen)[..., :d] for _ in range(2))
+            k, v = (torch.randn(3, 1, 2, width, generator=gen)[..., :d] for _ in range(2))
             q, k, v, g = (x.to("cuda", torch.bfloat16).contiguous() for x in (q, k, v, g))
             pad = torch.zeros(3, 1, dtype=torch.bool, device="cuda")
             out, m, l = ak.attention_reference_with_stats(q, k, v, pad)
@@ -3937,17 +3994,24 @@ def attention_launches(calls: int, training: bool) -> dict:
     return counts
 
 
-def check_deep_launches(trainer, ak, label: str, deep: int = FLOW_DEEP) -> None:
-    """Wrap the trainer's steps: each train step launches ``deep`` of each
-    deep kernel, each eval batch ``deep`` forwards."""
+def deep_per_step(deep: int):
+    """``want`` of :func:`check_deep_launches` for a model with ``deep``
+    deep calls at any batch: as many of each deep kernel a train step, as
+    many forwards an eval batch."""
+    return lambda batch, training: [deep] + [deep if training else 0] * 2
+
+
+def check_deep_launches(trainer, ak, label: str, want) -> None:
+    """Wrap the trainer's steps: each launches ``want(batch, training)`` of
+    #1, #2 and #3 on the deep designs."""
     def wrap(step, training: bool):
         def run(state, batch, *rest, **kwargs):
             before = deep_counts(ak)
             out = step(state, batch, *rest, **kwargs)
             got = [a - b for a, b in zip(deep_counts(ak), before)]
-            want = [deep] + [deep if training else 0] * 2
-            if got != want:
-                raise AssertionError(f"{label}: deep launches {got} != {want}")
+            expected = want(batch, training)
+            if got != expected:
+                raise AssertionError(f"{label}: deep launches {got} != {expected}")
             return out
         return run
 
@@ -3969,16 +4033,23 @@ def f32_step_parity(torch, port, build, make_steps, batches, deep: int, label: s
     with the plain versions in their place, on the same batches: losses
     within 1e-4 relative, the first step's gradients within 1e-3 of each
     leaf's peak (phase 9's bars); ``deep`` calls a step on the deep
-    designs."""
+    designs. The plain versions run in float64 (f32 inputs upcast, the
+    output rounded to f32): an f32 plain version's own rounding, which the
+    one-query crosses amplify in their q/k gradients, is not the kernels'."""
     ak, MHA = port["ak"], port["MultiHeadAttention"]
     counters = path_counters(port)
+
+    def plain_in_f64(q, k, v, pad_mask=None, causal_offset=None):
+        return ak.plain_attention(q.double(), k.double(), v.double(), pad_mask,
+                                  causal_offset).to(q.dtype)
+
     runs = []
     for plain in (False, True):
         model = build()
         if plain:
             for module in model.modules():
                 if isinstance(module, MHA):
-                    module.attention = ak.plain_attention
+                    module.attention = plain_in_f64
         optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](),
                                                      model.parameters())
         state = port["TrainState"].create(model, optimizer, schedule, seed=2)
@@ -4096,18 +4167,19 @@ def flow_einsum_steps(torch, port, batch) -> dict:
     return readings
 
 
-def lr_witness(torch, port, build, make_steps, batches, deep: int, label: str) -> dict:
-    """bf16 steps at the CLI's Adam 1e-3 on ``batches`` from the same
-    weights (seed 0), once with every call on the kernels (``'pallas'``:
-    ``deep`` calls a step on the D=512 wgmma design) and once on the einsum
-    path (``'xla'``), the model ``build(impl)`` gives: whether a swing of
-    the loss at 1e-3 comes with the kernels or with the optimizer."""
+def lr_witness(torch, port, build, make_steps, batches, deep: int, label: str,
+               config) -> dict:
+    """bf16 steps at the CLI's optimizer ``config`` on ``batches`` from the
+    same weights (seed 0), once with every call on the kernels
+    (``'pallas'``: ``deep`` forward calls a step on the deep wgmma design)
+    and once on the einsum path (``'xla'``), the model ``build(impl)``
+    gives: whether a swing of the loss at the CLI's rate
+    comes with the kernels or with the optimizer."""
     ak = port["ak"]
     runs = {}
     for impl in ("pallas", "xla"):
         model = build(impl)
-        optimizer, schedule = port["make_optimizer"](port["OptimizerConfig"](),
-                                                     model.parameters())
+        optimizer, schedule = port["make_optimizer"](config, model.parameters())
         state = port["TrainState"].create(model, optimizer, schedule, seed=2)
         step, _ = make_steps(model, schedule)
         before = ak.deep_counter.launches
@@ -4123,8 +4195,8 @@ def lr_witness(torch, port, build, make_steps, batches, deep: int, label: str) -
         del model, state, optimizer, step
         gc.collect()
         torch.cuda.empty_cache()
-    return dict(batch=len(next(iter(batches[0].values()))),
-                learning_rate=port["OptimizerConfig"]().learning_rate, **runs,
+    return dict(batch=len(next(iter(batches[0].values()))), optimizer=config.optimizer,
+                learning_rate=config.learning_rate, weight_decay=config.weight_decay, **runs,
                 max_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(runs["pallas"], runs["xla"])))
 
 
@@ -4143,7 +4215,7 @@ def flow_phase(torch, port, root: str) -> dict:
     check_launches(trainer, counters,
                    lambda batch, training: attention_launches(FLOW_ATTENTION, training),
                    "phase 36")
-    check_deep_launches(trainer, ak, "phase 36")
+    check_deep_launches(trainer, ak, "phase 36", deep_per_step(FLOW_DEEP))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with trainer:
@@ -4183,7 +4255,7 @@ def flow_phase(torch, port, root: str) -> dict:
     einsum = flow_einsum_steps(torch, port, batches[0])
     witness = lr_witness(torch, port, lambda impl: flow_model(port, "bfloat16", impl),
                          port["make_flow_steps"], witness_batches[:WITNESS_STEPS], FLOW_DEEP,
-                         "phase 36")
+                         "phase 36", port["OptimizerConfig"]())
     log(phase="flow", card=card_line(), steps=P36_STEPS, losses=losses,
         val=[(r["step"], r["val_loss"]) for r in val], launches=launches, deep_launches=deep,
         launches_per_step={k: v for k, v in attention_launches(FLOW_ATTENTION, True).items()
@@ -4375,7 +4447,7 @@ def mm_route_windows(torch, port, steps, state, loader, root: str) -> dict:
         run = SimpleNamespace(train_step=steps[0], eval_step=steps[1], state=state)
         check_launches(run, counters, mm_launches(pat, impl), f"phase 37 {impl}")
         check_deep_launches(run, ak, f"phase 37 {impl}",
-                            mm_kernel_calls(pat, MM_TIME_BATCH, impl)[1])
+                            deep_per_step(mm_kernel_calls(pat, MM_TIME_BATCH, impl)[1]))
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4401,8 +4473,8 @@ def multimodal_phase(torch, port, root: str) -> dict:
     setup_s = time.perf_counter() - t0
     steps = (trainer.train_step, trainer.eval_step)
     check_launches(trainer, counters, mm_launches(pat, "pallas"), "phase 37")
-    check_deep_launches(trainer, ak, "phase 37", mm_kernel_calls(pat, MM_TIME_BATCH,
-                                                                 "pallas")[1])
+    check_deep_launches(trainer, ak, "phase 37",
+                        deep_per_step(mm_kernel_calls(pat, MM_TIME_BATCH, "pallas")[1]))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with trainer:
@@ -4436,7 +4508,8 @@ def multimodal_phase(torch, port, root: str) -> dict:
     witness = lr_witness(torch, port, lambda impl: mm_model(port, "bfloat16", impl),
                          port["make_multimodal_steps"],
                          [b for _, b in zip(range(P37_WITNESS_STEPS), data.train_dataloader())],
-                         mm_kernel_calls(pat, MM_TIME_BATCH, "pallas")[1], "phase 37")
+                         mm_kernel_calls(pat, MM_TIME_BATCH, "pallas")[1], "phase 37",
+                         port["OptimizerConfig"]())
     log(phase="multimodal", card=card_line(), steps=P37_STEPS, losses=losses,
         metrics_last={k: train[-1][k] for k in sorted(metric_keys)},
         val={k: v for k, v in val[0].items() if k.startswith("val_")}, launches=launches,
@@ -4450,6 +4523,212 @@ def multimodal_phase(torch, port, root: str) -> dict:
         phase_s=time.perf_counter() - t_phase)
     if not sum(losses[-3:]) / 3 < losses[0]:
         raise AssertionError(f"phase 37: the loss did not fall: {losses}")
+    launches.update(deep)
+    return launches
+
+
+# phase 38: #1-#3 at head depth 1024 (ImageNet's one-head crosses) through
+# deep_attention_phase, (T, S, H, D): the encoder cross (the latents over
+# 224 x 224 pixels) and the decoder cross (the class query over the latents)
+IN_SHAPES = (("in-enc-cross", (512, 50176, 1, 1024)),
+             ("in-dec-cross", (1, 512, 1, 1024)))
+
+
+def quarters_check(torch, ak) -> dict:
+    """Phase 38: the four blocks of a D=1024 cluster add their shares of each
+    logit tile in one fixed order, so all four form the same m, l, P and ds.
+    bf16 at ImageNet's encoder cross (B=1, ~30% of keys padded), q random
+    (its column quarters differ, so do the blocks' shares of S), k, v and g
+    each one random quarter repeated four times: out's, dq's and dv's four
+    column quarters must be bit for bit equal."""
+    t, s, h, d = IN_SHAPES[0][1]
+    gen = torch.Generator().manual_seed(d)
+    pad = (torch.rand(1, s, generator=gen) < 0.3).cuda()
+    q = torch.randn(1, t, h, d, generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn(1, s, h, d // 4, generator=gen).repeat(1, 1, 1, 4)
+            .to("cuda", torch.bfloat16) for _ in range(2))
+    g = torch.randn(1, t, h, d // 4, generator=gen).repeat(1, 1, 1, 4).to("cuda", torch.bfloat16)
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad)
+    grads = ak.attention_bwd(q, k, v, pad, out, m, l, g)
+    torch.cuda.synchronize()
+    reading = {}
+    for name, x in (("out", out), ("dq", grads[0]), ("dv", grads[2])):
+        quarters = x.reshape(*x.shape[:-1], 4, d // 4)
+        reading[f"{name}_quarters_equal"] = all(
+            torch.equal(quarters[..., 0, :], quarters[..., i, :]) for i in range(1, 4))
+    log(phase="imagenet_quarters", dims=[1, t, s, h, d], **reading)
+    if not all(reading.values()):
+        raise AssertionError(f"phase 38: the D=1024 cluster's quarters disagree: {reading}")
+    return reading
+
+
+# phase 39: train_imagenet at the Perceiver paper's width (the CLI's defaults:
+# bf16, batch 64, remat), on the kernels. The CLI's AdamW 4e-3 blows the loss
+# up within 5 steps (2.28 to 119 over the 8 checked steps), on the einsum
+# path as on the kernels (the witness: 2.28, 6.76, 15.47, 20.71, 98.49 on
+# 'xla', 2.28, 6.90, 15.55, 38.70, 39.12 on 'pallas'; PERF.md §6), so the
+# checked fit takes 1e-4. Each call of one forward, (T, S, H, D) and its
+# count; remat recomputes the encoder's in the backward
+P39_STEPS, P39_IMAGES, P39_WITNESS_STEPS, P39_PARITY_BATCH = 8, 1024, 5, 1
+P39_WITNESS_BATCH = 16
+P39_ARGS = ["--synthetic", "--synthetic_size", str(P39_IMAGES), "--max_steps", str(P39_STEPS),
+            "--eval_every_n_steps", str(P39_STEPS), "--log_every_n_steps", "1",
+            "--attn_impl", "pallas", "--learning_rate", "1e-4", "--no_tensorboard"]
+IN_CALLS = (("in-enc-cross", IN_SHAPES[0][1], 6),   # layer 1 and the shared layers 2..6
+            ("in-self", (512, 512, 8, 128), 36),     # 6 self layers in each
+            ("in-dec-cross", IN_SHAPES[1][1], 1))    # the class query
+IN_ROUTES = ("pallas", "auto", "xla")
+
+
+def in_launches(pat, b: int, impl: str, training: bool, remat: bool = True) -> tuple:
+    """(#1, #2 = #3, deep #1, deep #2 = #3) launches of one ImageNet train
+    step (``training``) or eval batch at batch ``b`` with every layer on
+    ``impl``: ``'pallas'`` every call, ``'auto'`` the calls
+    ``auto_attention_impl`` sends to the kernels, ``'xla'`` none; remat
+    adds the encoder's calls again to #1 in a train step."""
+    fwd = bwd = deep_fwd = deep_bwd = 0
+    for name, (t, s, h, d), n in IN_CALLS:
+        if not (impl == "pallas"
+                or (impl == "auto" and pat.auto_attention_impl(b, t, s, h, d) == "pallas")):
+            continue
+        calls = n * (1 + (training and remat and name != "in-dec-cross"))
+        fwd, bwd = fwd + calls, bwd + n * training
+        if d >= 256:
+            deep_fwd, deep_bwd = deep_fwd + calls, deep_bwd + n * training
+    return fwd, bwd, deep_fwd, deep_bwd
+
+
+def check_in_launches(run, port, impl: str, label: str, remat: bool = True) -> None:
+    """Wrap ``run``'s steps: each train step and eval batch launches what
+    :func:`in_launches` gives on ``impl``, all wgmma, no plain version, and
+    as many on the deep designs."""
+    ak, pat = port["ak"], port["pat"]
+
+    def want(batch, training: bool) -> dict:
+        fwd, bwd, _, _ = in_launches(pat, len(batch["label"]), impl, training, remat)
+        counts = dict.fromkeys(KERNEL_NAMES, 0)
+        counts.update(attention_fwd=fwd, attention_fwd_wgmma=fwd, attention_bwd_dq=bwd,
+                      attention_bwd_dkv=bwd, attention_bwd_dq_wgmma=bwd,
+                      attention_bwd_dkv_wgmma=bwd)
+        return counts
+
+    check_launches(run, path_counters(port), want, label)
+    check_deep_launches(run, ak, label, want=lambda batch, training: [
+        in_launches(pat, len(batch["label"]), impl, training, remat)[i] for i in (2, 3, 3)])
+
+
+def in_model(port, dtype: str, attn_impl: str, extra=()):
+    """The ImageNet classifier at the CLI's defaults (remat by its rule),
+    weights from seed 0, the synthetic set's classes."""
+    ti = port["train_imagenet"]
+    args = ti.build_parser().parse_args(["--dtype", dtype, "--attn_impl", attn_impl, *extra])
+    return ti.build_model(args, args.synthetic_classes, "cuda")
+
+
+def in_optimizer(port):
+    """The CLI's optimizer: AdamW 4e-3, weight decay 0.1."""
+    args = port["train_imagenet"].build_parser().parse_args([])
+    return port["OptimizerConfig"](optimizer=args.optimizer, learning_rate=args.learning_rate,
+                                   weight_decay=args.weight_decay)
+
+
+def in_steps(port):
+    return lambda model, schedule: port["make_classifier_steps"](model, schedule,
+                                                                 input_kind="image")
+
+
+def in_route_windows(torch, port, steps, state, loader, root: str, b: int) -> dict:
+    """The CLI's step on each route of IN_ROUTES in turn, from the checked
+    fit's state: every step's launches checked against the route, then
+    :func:`cli_windows` (images/s over a WINDOW_STEPS window, device ms a
+    step and the idle share of a profiled window) and the peak memory
+    (``max_memory_allocated``) over them. Every route fits the card at the
+    CLI's batch (PERF.md); one that does not fails the phase."""
+    from types import SimpleNamespace
+
+    readings = {}
+    for impl in IN_ROUTES:
+        use_attn_impl(state.model, port, impl)
+        run = SimpleNamespace(train_step=steps[0], eval_step=steps[1], state=state)
+        check_in_launches(run, port, impl, f"phase 39 {impl}")
+        state.optimizer.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        windows = cli_windows(torch, port, run, loader, f"{root}/p39_{impl}",
+                              f"imagenet_{impl}", per="examples")
+        readings[impl] = dict(**windows, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                              kernel_calls_per_step=in_launches(port["pat"], b, impl, True))
+        state = run.state
+    use_attn_impl(state.model, port, "pallas")
+    state.optimizer.zero_grad(set_to_none=True)
+    return readings
+
+
+def imagenet_phase(torch, port, root: str) -> dict:
+    """Phase 39 (see the module docstring): ``train_imagenet`` at the CLI's
+    defaults on the kernels; returns the checked fit's launches."""
+    t_phase = time.perf_counter()
+    ak, ti = port["ak"], port["train_imagenet"]
+    counters = path_counters(port)
+    for c in counters + (ak.deep_counter, ak.dq_deep_counter, ak.dkv_deep_counter):
+        c.reset()
+    t0 = time.perf_counter()
+    trainer, data = ti.prepare(P39_ARGS + ["--root", root, "--logdir", f"{root}/p39"])
+    setup_s = time.perf_counter() - t0
+    steps = (trainer.train_step, trainer.eval_step)
+    check_in_launches(trainer, port, "pallas", "phase 39")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with trainer:
+        trainer.fit(data.train_dataloader(), data.val_dataloader())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in zip(KERNEL_NAMES, counters)}
+    deep = dict(zip(("attention_fwd_deep", "attention_bwd_dq_deep", "attention_bwd_dkv_deep"),
+                    deep_counts(ak)))
+    rows = read_rows(trainer.run_dir)
+    train = [r for r in rows if "train_loss" in r]
+    val = [r for r in rows if "val_loss" in r]
+    losses = [r["train_loss"] for r in train]
+    if [r["step"] for r in train] != list(range(1, P39_STEPS + 1)) \
+            or not all({"train_acc", "lr"} <= set(r) for r in train) \
+            or [r["step"] for r in val] != [P39_STEPS] or "val_acc" not in val[0] \
+            or not all(math.isfinite(x) for x in losses + [val[0]["val_loss"]]):
+        raise AssertionError(f"phase 39: rows {rows}")
+    batches = [b for _, b in zip(range(3), data.train_dataloader())]
+    batch_size = len(batches[0]["label"])
+    routes = in_route_windows(torch, port, steps, trainer.state, data.train_dataloader(), root,
+                              batch_size)
+    del trainer, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = [{k: v[:P39_PARITY_BATCH] for k, v in x.items()} for x in batches]
+    parity = f32_step_parity(torch, port,
+                             lambda: in_model(port, "float32", "pallas", ["--no_remat"]),
+                             in_steps(port), one,
+                             in_launches(port["pat"], P39_PARITY_BATCH, "pallas", True,
+                                         False)[2], "phase 39")
+    witness_batches = [{k: v[:P39_WITNESS_BATCH] for k, v in x.items()}
+                       for _, x in zip(range(P39_WITNESS_STEPS), data.train_dataloader())]
+    witness = lr_witness(torch, port, lambda impl: in_model(port, "bfloat16", impl),
+                         in_steps(port), witness_batches,
+                         in_launches(port["pat"], P39_WITNESS_BATCH, "pallas", True)[2],
+                         "phase 39", in_optimizer(port))
+    log(phase="imagenet", card=card_line(), steps=P39_STEPS, losses=losses,
+        train_acc=[r["train_acc"] for r in train],
+        val={k: v for k, v in val[0].items() if k.startswith("val_")}, launches=launches,
+        deep_launches=deep,
+        batch=batch_size, launches_per_step=dict(zip(
+            ("fwd", "dq_dkv", "deep_fwd", "deep_dq_dkv"),
+            in_launches(port["pat"], batch_size, "pallas", True))),
+        setup_s=setup_s, fit_s=fit_s,
+        checked_fit_images_per_s=[r["examples_per_sec"] for r in train],
+        fit_peak_memory_bytes=fit_peak, routes=routes, f32_parity=parity,
+        lr_witness=witness, phase_s=time.perf_counter() - t_phase)
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"phase 39: the loss did not fall: {losses}")
     launches.update(deep)
     return launches
 
@@ -4485,6 +4764,7 @@ def main() -> int:
         serve,
         train_ar,
         train_flow,
+        train_imagenet,
         train_img_clf,
         train_mlm,
         train_multimodal,
@@ -4576,7 +4856,8 @@ def main() -> int:
                 train_img_clf=train_img_clf, train_seq_clf=train_seq_clf,
                 make_classifier_steps=make_classifier_steps, train_flow=train_flow,
                 make_flow_steps=make_flow_steps, train_multimodal=train_multimodal,
-                make_multimodal_steps=make_multimodal_steps, multimodal=multimodal)
+                make_multimodal_steps=make_multimodal_steps, multimodal=multimodal,
+                train_imagenet=train_imagenet)
     launches = serving_phase(torch, ak, qm, port, tokenizer, texts)
     enter("7: serving parity")
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
@@ -4665,6 +4946,16 @@ def main() -> int:
         multimodal_attention_phase(torch, ak, pat)
         mm_launches_run = multimodal_phase(torch, port, root)
         path_launches.append(mm_launches_run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("38: attention kernels at head depth 1024")
+        in_rows = deep_attention_phase(torch, ak, pat, IN_SHAPES)
+        quarters_check(torch, ak)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("39: ImageNet classification at the paper's width")
+        in_launches_run = imagenet_phase(torch, port, root)
+        path_launches.append(in_launches_run)
     enter("16: packed serving")
     path_launches.append(packed_serving_phase(torch, port, tokenizer, texts))
     enter("kernels line")
@@ -4778,7 +5069,8 @@ def main() -> int:
             design=row["design"],
             event_ms=row[f"{part}_ms"], ms_source="device" if device else "event"))
     # the deep designs (D = 256, 512) at the flow encoder's cross, bf16, B=2
-    # with padding (phase 35); launches: phases 36's and 37's checked fits
+    # with padding (phase 35; CUDA-event times: the profiler misses part of
+    # a cluster's launch); launches: phases 36's and 37's checked fits
     deep_row = next(r for r in deep_rows if r["shape"] == "flow-cross"
                     and r["dtype"] == "bfloat16" and r["causal_offset"] is None
                     and not r.get("timed_only"))
@@ -4786,17 +5078,33 @@ def main() -> int:
     for name, part, way, site in (("attention_fwd_deep", "fwd", "fwd", 272),
                                   ("attention_bwd_dq_deep", "dq", "bwd", 402),
                                   ("attention_bwd_dkv_deep", "dkv", "bwd", 424)):
-        device = deep_row[f"{part}_device_ms"] is not None
         kernels.append(dict(
             name=name, route="cuda", source=deep_src, replaces=tpu_attn.format(site),
             launches=flow_launches_run[name] + mm_launches_run[name],
-            max_abs_err=deep_row[f"{part}_max_abs_err"],
-            ms=deep_row[f"{part}_device_ms" if device else f"{part}_ms"],
+            max_abs_err=deep_row[f"{part}_max_abs_err"], ms=deep_row[f"{part}_ms"],
             plain_ms=deep_row[f"plain_{way}_ms"], bound_ms=deep_row[f"{part}_bound_ms"],
             bound_by=deep_row[f"{part}_bound_by"], library_ms=deep_row[f"library_{way}_ms"],
             library=deep_row["library"], shape=deep_row["shape"], dims=deep_row["dims"],
             dtype=deep_row["dtype"], design=DEEP_DESIGNS[part],
-            event_ms=deep_row[f"{part}_ms"], ms_source="device" if device else "event"))
+            event_ms=deep_row[f"{part}_ms"], ms_source="event"))
+    # the D=1024 design at ImageNet's encoder cross, bf16, B=2 with padding
+    # (phase 38; CUDA-event times: the profiler misses part of a cluster's
+    # launch); launches: phase 39's checked fit
+    in_row = next(r for r in in_rows if r["shape"] == "in-enc-cross"
+                  and r["dtype"] == "bfloat16" and r["causal_offset"] is None
+                  and not r.get("timed_only"))
+    for name, part, way, site in (("attention_fwd_deep_d1024", "fwd", "fwd", 272),
+                                  ("attention_bwd_dq_deep_d1024", "dq", "bwd", 402),
+                                  ("attention_bwd_dkv_deep_d1024", "dkv", "bwd", 424)):
+        counted = name.replace("_d1024", "")
+        kernels.append(dict(
+            name=name, route="cuda", source=deep_src, replaces=tpu_attn.format(site),
+            launches=in_launches_run[counted], max_abs_err=in_row[f"{part}_max_abs_err"],
+            ms=in_row[f"{part}_ms"], plain_ms=in_row[f"plain_{way}_ms"],
+            bound_ms=in_row[f"{part}_bound_ms"], bound_by=in_row[f"{part}_bound_by"],
+            library_ms=in_row[f"library_{way}_ms"], library=in_row["library"],
+            shape=in_row["shape"], dims=in_row["dims"], dtype=in_row["dtype"],
+            design=IN_DESIGNS[part], event_ms=in_row[f"{part}_ms"], ms_source="event"))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels the main paths never launched: {missing}")

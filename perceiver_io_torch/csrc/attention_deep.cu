@@ -1,12 +1,13 @@
-// Fused multi-head attention at head depths 256 and 512, forward (#1) and
-// backward (#2 dq, #3 dk/dv), written by hand for Hopper (sm_90a).
+// Fused multi-head attention at head depths 256, 512 and 1024, forward (#1)
+// and backward (#2 dq, #3 dk/dv), written by hand for Hopper (sm_90a).
 //
 // Replaces: perceiver_io_tpu/ops/pallas_attention.py::_fused_attention_fwd_impl
 // (Pallas kernel _attention_kernel, with or without causal_offset and the
 // with_lse statistics) and ::_fused_attention_bwd_impl (_bwd_dq_kernel,
-// _bwd_dkv_kernel) at the head depths the TPU kernel takes beyond 128
-// (LONG_KV_MAX_D = 512): the optical-flow model's one-head crosses
-// (D = 512) and the multimodal model's. It computes what attention_fwd.cu
+// _bwd_dkv_kernel) at head depths the TPU kernel takes beyond 128 (any D:
+// LONG_KV_MAX_D = 512 only caps its long-KV query block): the optical-flow
+// model's one-head crosses (D = 512), the multimodal model's, and
+// ImageNet's (D = 1024). It computes what attention_fwd.cu
 // and attention_bwd.cu compute, with the same biases, statistics, rounding
 // points and masked-row rules (see their headers); only the geometry
 // differs, because a head this deep does not fit their tiles.
@@ -16,14 +17,23 @@
 // 4.B.T.S.D = 6.1 TFLOP forward against 3.2 GB of q/k/v/out: ~1,900
 // FLOP/byte, far above the bf16 ridge, so the tensor cores bound it (6.2 ms
 // at 989 TF/s); the backward's dq and dk/dv take 6 and 8 times B.T.S.D
-// (9.3 and 12.4 ms).
+// (9.3 and 12.4 ms). ImageNet's encoder cross (B=8, T=512 latents against
+// S=50,176 pixels, D=1024) is 4.B.T.S.D = 0.84 TFLOP forward against 1.6
+// GB: the tensor cores again (0.85 ms; dq 1.28, dk/dv 1.70 ms).
 //
 // Registers: a 64-row f32 accumulator of D columns costs D/2 registers a
 // thread of one warpgroup (256 at D=512, over the 255 a thread may hold), so
 // a bf16 block holds 256 head columns: all of them at D=256, one half at
 // D=512, where the two blocks of a cluster split the columns and add their
 // halves of each logit tile through distributed shared memory (st.async
-// pushes), so no logit tile is computed twice.
+// pushes), so no logit tile is computed twice; one quarter at D=1024, where
+// the four blocks of a cluster sum their shares by a two-round butterfly
+// through the same exchange buffers (round r with block rank ^ 2^r), so
+// every block adds them as (s0 + s1) + (s2 + s3) and all four hold the same
+// bits (a sum of four in each block's own order would give the four column
+// quarters of a row different m, l and P). The shared memory of D=512
+// serves D=1024 unchanged: the second round reuses the first's buffer once
+// the partner has read it.
 //
 // The bf16 forward (deep_fwd_wgmma_kernel; its section says how): a block
 // owns 128 query rows, 64 a warpgroup, and streams 64-key K and V tiles
@@ -36,19 +46,22 @@
 // (shared-memory bandwidth, not the tensor cores, is what binds a 64-key
 // tile: its SS logit product alone reads 128 bytes a clock at the tensor
 // cores' peak), and the batch-8 training step is the path this design
-// serves.
+// serves. ImageNet's encoder cross at B=8 gets 128 blocks (32 four-block
+// clusters), one wave.
 //
 // float32 (exact scalar FMAs, as attention_fwd.cu / attention_bwd.cu): the
 // forward keeps 64 rows and 4 threads a row with 64-key (D=256) or 16-key
-// (D=512) tiles; the backward owns 32 rows with 8 threads a row and streams
-// 32-row (D=256) or 16-row (D=512) tiles. All tiles are staged as f32 with
-// row stride D+1.
+// (D=512) tiles, 16 rows and 16 threads a row with 16-key tiles at D=1024;
+// the backward owns 32 rows with 8 threads a row and streams 32-row (D=256)
+// or 16-row (D=512) tiles, at D=1024 16 rows with 16 threads a row, 16-row
+// tiles, and the owned rows read from device memory. All staged tiles are
+// f32 with row stride D+1.
 //
 // The bf16 backward (deep_bwd_kernel; the section below says how): one
 // kernel template for dq and for dk/dv, one launch each, no atomics. A
-// block owns 64 rows and 256 head columns; at D=512 a two-block cluster
-// splits the columns, and its blocks add their halves of each logit tile
-// through distributed shared memory. Its bound at the flow crosses is the
+// block owns 64 rows and 256 head columns; at D=512 and 1024 a cluster of
+// two or four blocks splits the columns, and its blocks add their shares of
+// each logit tile through distributed shared memory. Its bound at the flow crosses is the
 // tensor cores (above); what holds it back is the work between the
 // products: the exchange of the logit tiles (at D=512 across the cluster),
 // p and ds, and the bf16 fragments, each tile in turn (two ring stages
@@ -68,6 +81,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kMaskValue = -1e30f;  // pallas_attention.MASK_VALUE
@@ -79,13 +94,29 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kThreads = 256;
 
+// At D=1024 the sums are kept at least as accurate as the plain version's
+// cuBLAS products (a sequential f32 chain of n terms errs ~sqrt(n) ulps of
+// its sum: single chains left ImageNet's out and dq 5-10x further from
+// float64 than the plain version's, and its f32 parity step, whose
+// one-query decoder over near-equal latents amplifies any logit error, a
+// step outside its bar): each dot product over the head dim in float64
+// (Dot; f32 products are exact there), kSplit interleaved partial sums
+// added pairwise, and the forward's P.V and row-sum and dq's ds.K sums over
+// the keys compensated (Kahan), which needs the 64 accumulator columns a
+// thread of 16 lanes a row holds; the logits, p and the backward's ds are
+// formed in float64 too and rounded to f32 once, and the wrapper sums delta in
+// float64 (the decoder's ds = p (dp - delta) cancels to ~1e-3 of its terms).
+// D <= 512 keeps its single f32 chains.
 template <int D>
 struct ScalarFwd {
-  static constexpr int kRows = 64;                // query rows a block owns
-  static constexpr int kLanes = 4;                // threads a query row
+  static constexpr int kRows = D <= 512 ? 64 : 16;  // query rows a block owns
+  static constexpr int kLanes = D <= 512 ? 4 : 16;  // threads a query row
   static constexpr int kKeys = D == 256 ? 64 : 16;  // keys a K/V tile
   static constexpr int kKeysPerLane = kKeys / kLanes;
   static constexpr int kCols = D / kLanes;        // accumulator columns a thread
+  static constexpr int kSplit = D <= 512 ? 1 : 4;   // partial sums of a dot product
+  using Dot = std::conditional_t<(D <= 512), float, double>;  // their type
+  static constexpr bool kKahan = D > 512;          // compensated sums over the keys
   static constexpr size_t kSmem =
       sizeof(float) * (size_t(kRows) * (D + 1) + 2 * size_t(kKeys) * (D + 1) +
                        size_t(kRows) * (kKeys + 1) + kKeys);
@@ -93,20 +124,52 @@ struct ScalarFwd {
 
 template <int D>
 struct ScalarBwd {
-  static constexpr int kRows = 32;                // rows (queries or keys) a block owns
-  static constexpr int kLanes = 8;                // threads an owned row
-  static constexpr int kTile = D == 256 ? 32 : 16;  // rows of a streamed tile
+  static constexpr int kRows = D <= 512 ? 32 : 16;   // rows (queries or keys) a block owns
+  static constexpr int kLanes = D <= 512 ? 8 : 16;   // threads an owned row
+  static constexpr int kTile = D == 256 ? 32 : 16;   // rows of a streamed tile
   static constexpr int kPerLane = kTile / kLanes;
   static constexpr int kCols = D / kLanes;
+  static constexpr int kSplit = D <= 512 ? 1 : 4;   // partial sums of a dot product
+  using Dot = std::conditional_t<(D <= 512), float, double>;  // their type
+  static constexpr bool kKahan = D > 512;          // compensated dq sum over the keys
+  // at D=1024 the owned pair is read from device memory (its lanes read one
+  // address at a time, a broadcast): staged, it and the streamed pair would
+  // take 262 KB
+  static constexpr bool kStageOwned = D <= 512;
+  static constexpr size_t kOwnFloats = kStageOwned ? size_t(kRows) * (D + 1) : 0;
   // owned pair + streamed pair + ds strip + bias
   static constexpr size_t kDqSmem =
-      sizeof(float) * (2 * size_t(kRows) * (D + 1) + 2 * size_t(kTile) * (D + 1) +
+      sizeof(float) * (2 * kOwnFloats + 2 * size_t(kTile) * (D + 1) +
                        size_t(kRows) * (kTile + 1) + kTile);
   // owned pair + streamed pair + p and ds strips + m, l, delta
   static constexpr size_t kDkvSmem =
-      sizeof(float) * (2 * size_t(kRows) * (D + 1) + 2 * size_t(kTile) * (D + 1) +
+      sizeof(float) * (2 * kOwnFloats + 2 * size_t(kTile) * (D + 1) +
                        2 * size_t(kRows) * (kTile + 1) + 3 * kTile);
 };
+
+// the sum of N partial sums, added pairwise in a fixed order
+template <typename T, int N>
+__device__ __forceinline__ T pairwise_sum(T (&x)[N]) {
+#pragma unroll
+  for (int w = N / 2; w >= 1; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) x[i] += x[i + w];
+  return x[0];
+}
+
+// one step of a dot product's partial sum, in its type (Dot)
+__device__ __forceinline__ float dot_fma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double dot_fma(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float dot_exp(float x) { return expf(x); }
+__device__ __forceinline__ double dot_exp(double x) { return exp(x); }
+
+// sum += x, compensated (Kahan): c carries the sum's lost low-order bits
+__device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
+  const float y = x - c;
+  const float t = sum + y;
+  c = (t - sum) - y;
+  sum = t;
+}
 
 // rows [r0, r0 + rows) of a (.., n, ., D) operand with row stride `rs` into
 // an f32 [rows][D + 1] tile; rows at or past n become zeros
@@ -148,11 +211,13 @@ deep_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* biasb = bias + int64_t(b) * s_len;
 
   stage_f32<D>(qs, q + b * sqb + h * sqh, sqt, t0, t_len, G::kRows);
-  float acc[G::kCols];
+  float acc[G::kCols], comp[G::kKahan ? G::kCols : 1];
 #pragma unroll
   for (int i = 0; i < G::kCols; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (G::kKahan ? G::kCols : 1); ++i) comp[i] = 0.f;
   float m = kMaskValue;
-  float l = 0.f;
+  float l = 0.f, l_comp = 0.f;
   const int key_limit = t0 + row + causal_offset;  // the last key the row sees unmasked
 
   for (int s0 = 0; s0 < s_len; s0 += G::kKeys) {
@@ -163,49 +228,75 @@ deep_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tid < G::kKeys) bs[tid] = tid < n ? biasb[s0 + tid] : 0.f;
     __syncthreads();
 
-    float s[G::kKeysPerLane];
+    using Dot = typename G::Dot;
+    Dot s[G::kKeysPerLane], part[G::kKeysPerLane][G::kSplit];
 #pragma unroll
-    for (int i = 0; i < G::kKeysPerLane; ++i) s[i] = 0.f;
+    for (int i = 0; i < G::kKeysPerLane; ++i)
+#pragma unroll
+      for (int u = 0; u < G::kSplit; ++u) part[i][u] = 0;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qs[row * DP + d];
+    for (int d = 0; d < D; d += G::kSplit) {
 #pragma unroll
-      for (int i = 0; i < G::kKeysPerLane; ++i)
-        s[i] = fmaf(qd, ks[(lane + i * G::kLanes) * DP + d], s[i]);
+      for (int u = 0; u < G::kSplit; ++u) {
+        const Dot qd = qs[row * DP + d + u];
+#pragma unroll
+        for (int i = 0; i < G::kKeysPerLane; ++i)
+          part[i][u] = dot_fma(qd, Dot(ks[(lane + i * G::kLanes) * DP + d + u]), part[i][u]);
+      }
     }
-    float tile_max = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < G::kKeysPerLane; ++i) s[i] = pairwise_sum(part[i]);
+    float tile_max = -INFINITY;  // the logits in the dot products' type; the max in f32
 #pragma unroll
     for (int i = 0; i < G::kKeysPerLane; ++i) {
       const int j = lane + i * G::kLanes;
-      s[i] = s[i] * scale + bs[j];
-      if (kCausal && s0 + j > key_limit) s[i] += kMaskValue;
-      if (j < n) tile_max = fmaxf(tile_max, s[i]);
+      s[i] = s[i] * Dot(scale) + Dot(bs[j]);
+      if (kCausal && s0 + j > key_limit) s[i] += Dot(kMaskValue);
+      if (j < n) tile_max = fmaxf(tile_max, float(s[i]));
     }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+#pragma unroll
+    for (int o = 1; o < G::kLanes; o *= 2)
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, o));
     const float m_new = fmaxf(m, tile_max);
     const float alpha = expf(m - m_new);
     float p_sum = 0.f;
 #pragma unroll
     for (int i = 0; i < G::kKeysPerLane; ++i) {
       const int j = lane + i * G::kLanes;
-      const float p = j < n ? expf(s[i] - m_new) : 0.f;
+      const float p = j < n ? float(dot_exp(s[i] - Dot(m_new))) : 0.f;
       p_sum += p;
       ps[row * PP + j] = p;
     }
-    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
-    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 2);
-    l = alpha * l + p_sum;
+#pragma unroll
+    for (int o = 1; o < G::kLanes; o *= 2) p_sum += __shfl_xor_sync(0xffffffffu, p_sum, o);
+    if constexpr (G::kKahan) {
+      l *= alpha;
+      l_comp *= alpha;
+      kahan_add(l, l_comp, p_sum);
+    } else {
+      l = alpha * l + p_sum;
+    }
     m = m_new;
-    __syncwarp();  // the row's four threads see each other's probabilities
+    __syncwarp();  // the row's threads see each other's probabilities
 
 #pragma unroll
     for (int i = 0; i < G::kCols; ++i) acc[i] *= alpha;
-    for (int j = 0; j < n; ++j) {
-      const float p = ps[row * PP + j];
+    if constexpr (G::kKahan) {
 #pragma unroll
-      for (int i = 0; i < G::kCols; ++i)
-        acc[i] = fmaf(p, vs[j * DP + lane + i * G::kLanes], acc[i]);
+      for (int i = 0; i < G::kCols; ++i) comp[i] *= alpha;
+      for (int j = 0; j < n; ++j) {
+        const float p = ps[row * PP + j];
+#pragma unroll
+        for (int i = 0; i < G::kCols; ++i)
+          kahan_add(acc[i], comp[i], p * vs[j * DP + lane + i * G::kLanes]);
+      }
+    } else {
+      for (int j = 0; j < n; ++j) {
+        const float p = ps[row * PP + j];
+#pragma unroll
+        for (int i = 0; i < G::kCols; ++i)
+          acc[i] = fmaf(p, vs[j * DP + lane + i * G::kLanes], acc[i]);
+      }
     }
   }
 
@@ -214,7 +305,7 @@ deep_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + ((int64_t(b) * t_len + t) * heads + h) * D;
 #pragma unroll
     for (int i = 0; i < G::kCols; ++i) o[lane + i * G::kLanes] = acc[i] / l;
-    if (m_out != nullptr && lane == 0) {  // the row's four threads hold equal m, l
+    if (m_out != nullptr && lane == 0) {  // the row's threads hold equal m, l
       const int64_t stat = (int64_t(b) * heads + h) * t_len + t;
       m_out[stat] = m;
       l_out[stat] = l;
@@ -234,9 +325,9 @@ deep_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int DP = D + 1;
   constexpr int PP = G::kTile + 1;
   extern __shared__ float smem[];
-  float* qs = smem;                   // [kRows][DP]
-  float* gs = qs + G::kRows * DP;     // [kRows][DP]
-  float* ks = gs + G::kRows * DP;     // [kTile][DP]
+  float* qs = smem;                   // [kRows][DP] (staged at D <= 512)
+  float* gs = qs + G::kOwnFloats;     // [kRows][DP] (staged at D <= 512)
+  float* ks = gs + G::kOwnFloats;     // [kTile][DP]
   float* vs = ks + G::kTile * DP;     // [kTile][DP]
   float* dss = vs + G::kTile * DP;    // [kRows][PP]
   float* bs = dss + G::kRows * PP;    // [kTile]
@@ -250,8 +341,15 @@ deep_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t = t0 + row;
   const int64_t* st = a.st;
 
-  stage_f32<D>(qs, q + b * st[0] + h * st[2], st[1], t0, t_len, G::kRows);
-  stage_f32<D>(gs, g + b * st[9] + h * st[11], st[10], t0, t_len, G::kRows);
+  if constexpr (G::kStageOwned) {
+    stage_f32<D>(qs, q + b * st[0] + h * st[2], st[1], t0, t_len, G::kRows);
+    stage_f32<D>(gs, g + b * st[9] + h * st[11], st[10], t0, t_len, G::kRows);
+  }
+  // the row in device memory (unstaged; a row past T reads the last one,
+  // whose ds is zeroed below)
+  const int t_own = min(t, t_len - 1);
+  const float* q_own = q + b * st[0] + t_own * st[1] + h * st[2];
+  const float* g_own = g + b * st[9] + t_own * st[10] + h * st[11];
   const float* kb = k + b * st[3] + h * st[5];
   const float* vb = v + b * st[6] + h * st[8];
   const float* biasb = bias + int64_t(b) * s_len;
@@ -264,9 +362,11 @@ deep_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool masked_row = !live || m_t <= 0.5f * kMaskValue;
   const int key_limit = t + causal_offset;
 
-  float acc[G::kCols];
+  float acc[G::kCols], comp[G::kKahan ? G::kCols : 1];
 #pragma unroll
   for (int i = 0; i < G::kCols; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (G::kKahan ? G::kCols : 1); ++i) comp[i] = 0.f;
 
   for (int s0 = 0; s0 < s_len; s0 += G::kTile) {
     const int n = min(G::kTile, s_len - s0);
@@ -276,35 +376,52 @@ deep_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tid < G::kTile) bs[tid] = tid < n ? biasb[s0 + tid] : 0.f;
     __syncthreads();
 
-    float s[G::kPerLane], dp[G::kPerLane];
+    using Dot = typename G::Dot;
+    Dot s[G::kPerLane], dp[G::kPerLane];
+    Dot s_part[G::kPerLane][G::kSplit], dp_part[G::kPerLane][G::kSplit];
 #pragma unroll
-    for (int i = 0; i < G::kPerLane; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < G::kPerLane; ++i)
+#pragma unroll
+      for (int u = 0; u < G::kSplit; ++u) s_part[i][u] = dp_part[i][u] = 0;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qs[row * DP + d];
-      const float gd = gs[row * DP + d];
+    for (int d = 0; d < D; d += G::kSplit) {
 #pragma unroll
-      for (int i = 0; i < G::kPerLane; ++i) {
-        const int j = lane + i * G::kLanes;
-        s[i] = fmaf(qd, ks[j * DP + d], s[i]);
-        dp[i] = fmaf(gd, vs[j * DP + d], dp[i]);
+      for (int u = 0; u < G::kSplit; ++u) {
+        const Dot qd = G::kStageOwned ? qs[row * DP + d + u] : q_own[d + u];
+        const Dot gd = G::kStageOwned ? gs[row * DP + d + u] : g_own[d + u];
+#pragma unroll
+        for (int i = 0; i < G::kPerLane; ++i) {
+          const int j = lane + i * G::kLanes;
+          s_part[i][u] = dot_fma(qd, Dot(ks[j * DP + d + u]), s_part[i][u]);
+          dp_part[i][u] = dot_fma(gd, Dot(vs[j * DP + d + u]), dp_part[i][u]);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < G::kPerLane; ++i) {
+      s[i] = pairwise_sum(s_part[i]);
+      dp[i] = pairwise_sum(dp_part[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < G::kPerLane; ++i) {
       const int j = lane + i * G::kLanes;
-      float x = s[i] * scale + bs[j];
-      if (kCausal && s0 + j > key_limit) x += kMaskValue;
-      const float p = expf(x - m_t) / l_t;
-      dss[row * PP + j] = (masked_row || j >= n) ? 0.f : p * (dp[i] - delta_t);
+      // logit, p and ds in the dot products' type, rounded to f32 once
+      Dot x = s[i] * Dot(scale) + Dot(bs[j]);
+      if (kCausal && s0 + j > key_limit) x += Dot(kMaskValue);
+      const Dot p = dot_exp(x - Dot(m_t)) / Dot(l_t);
+      dss[row * PP + j] = (masked_row || j >= n) ? 0.f : float(p * (dp[i] - Dot(delta_t)));
     }
     __syncwarp();  // the row's threads see each other's ds
 
     for (int j = 0; j < n; ++j) {
       const float ds = dss[row * PP + j];
 #pragma unroll
-      for (int i = 0; i < G::kCols; ++i)
-        acc[i] = fmaf(ds, ks[j * DP + lane + i * G::kLanes], acc[i]);
+      for (int i = 0; i < G::kCols; ++i) {
+        if constexpr (G::kKahan)
+          kahan_add(acc[i], comp[i], ds * ks[j * DP + lane + i * G::kLanes]);
+        else
+          acc[i] = fmaf(ds, ks[j * DP + lane + i * G::kLanes], acc[i]);
+      }
     }
   }
 
@@ -327,9 +444,9 @@ deep_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int DP = D + 1;
   constexpr int PP = G::kTile + 1;
   extern __shared__ float smem[];
-  float* ks = smem;                   // [kRows][DP]
-  float* vs = ks + G::kRows * DP;     // [kRows][DP]
-  float* qs = vs + G::kRows * DP;     // [kTile][DP]
+  float* ks = smem;                   // [kRows][DP] (staged at D <= 512)
+  float* vs = ks + G::kOwnFloats;     // [kRows][DP] (staged at D <= 512)
+  float* qs = vs + G::kOwnFloats;     // [kTile][DP]
   float* gs = qs + G::kTile * DP;     // [kTile][DP]
   float* ps = gs + G::kTile * DP;     // [kRows][PP]
   float* dss = ps + G::kRows * PP;    // [kRows][PP]
@@ -346,8 +463,15 @@ deep_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int s_idx = s0 + row;
   const int64_t* st = a.st;
 
-  stage_f32<D>(ks, k + b * st[3] + h * st[5], st[4], s0, s_len, G::kRows);
-  stage_f32<D>(vs, v + b * st[6] + h * st[8], st[7], s0, s_len, G::kRows);
+  if constexpr (G::kStageOwned) {
+    stage_f32<D>(ks, k + b * st[3] + h * st[5], st[4], s0, s_len, G::kRows);
+    stage_f32<D>(vs, v + b * st[6] + h * st[8], st[7], s0, s_len, G::kRows);
+  }
+  // the key in device memory (unstaged; a key past S reads the last one,
+  // whose dk and dv are not written)
+  const int s_own = min(s_idx, s_len - 1);
+  const float* k_own = k + b * st[3] + s_own * st[4] + h * st[5];
+  const float* v_own = v + b * st[6] + s_own * st[7] + h * st[8];
   const float* qb = q + b * st[0] + h * st[2];
   const float* gb = g + b * st[9] + h * st[11];
   const int64_t stat0 = (int64_t(b) * heads + h) * t_len;
@@ -370,29 +494,41 @@ deep_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[G::kPerLane], dp[G::kPerLane];
+    using Dot = typename G::Dot;
+    Dot s[G::kPerLane], dp[G::kPerLane];
+    Dot s_part[G::kPerLane][G::kSplit], dp_part[G::kPerLane][G::kSplit];
 #pragma unroll
-    for (int i = 0; i < G::kPerLane; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < G::kPerLane; ++i)
+#pragma unroll
+      for (int u = 0; u < G::kSplit; ++u) s_part[i][u] = dp_part[i][u] = 0;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float kd = ks[row * DP + d];
-      const float vd = vs[row * DP + d];
+    for (int d = 0; d < D; d += G::kSplit) {
 #pragma unroll
-      for (int i = 0; i < G::kPerLane; ++i) {
-        const int j = lane + i * G::kLanes;
-        s[i] = fmaf(qs[j * DP + d], kd, s[i]);
-        dp[i] = fmaf(gs[j * DP + d], vd, dp[i]);
+      for (int u = 0; u < G::kSplit; ++u) {
+        const Dot kd = G::kStageOwned ? ks[row * DP + d + u] : k_own[d + u];
+        const Dot vd = G::kStageOwned ? vs[row * DP + d + u] : v_own[d + u];
+#pragma unroll
+        for (int i = 0; i < G::kPerLane; ++i) {
+          const int j = lane + i * G::kLanes;
+          s_part[i][u] = dot_fma(Dot(qs[j * DP + d + u]), kd, s_part[i][u]);
+          dp_part[i][u] = dot_fma(Dot(gs[j * DP + d + u]), vd, dp_part[i][u]);
+        }
       }
+    }
+#pragma unroll
+    for (int i = 0; i < G::kPerLane; ++i) {
+      s[i] = pairwise_sum(s_part[i]);
+      dp[i] = pairwise_sum(dp_part[i]);
     }
 #pragma unroll
     for (int i = 0; i < G::kPerLane; ++i) {
       const int j = lane + i * G::kLanes;
       const float m_j = ms[j];
-      float x = s[i] * scale + bias_s;
-      if (kCausal && s_idx > t0 + j + causal_offset) x += kMaskValue;  // past the row's limit
-      const float p = j < n ? expf(x - m_j) / ls[j] : 0.f;
-      ps[row * PP + j] = p;
-      dss[row * PP + j] = m_j <= 0.5f * kMaskValue ? 0.f : p * (dp[i] - des[j]);
+      Dot x = s[i] * Dot(scale) + Dot(bias_s);
+      if (kCausal && s_idx > t0 + j + causal_offset) x += Dot(kMaskValue);  // past the row's limit
+      const Dot p = j < n ? dot_exp(x - Dot(m_j)) / Dot(ls[j]) : Dot(0);
+      ps[row * PP + j] = float(p);
+      dss[row * PP + j] = m_j <= 0.5f * kMaskValue ? 0.f : float(p * (dp[i] - Dot(des[j])));
     }
     __syncwarp();  // the row's threads see each other's p and ds
 
@@ -520,9 +656,10 @@ __device__ __forceinline__ void deep_store(const float (&acc)[kHeld][32], __nv_b
 // deep_fwd_wgmma_kernel<D, kCausal>: a block owns 128 query rows and 256 head
 // columns, all of them at D=256, one half at D=512, where the two blocks of
 // a cluster (blockIdx.x = 2 tile + rank) hold the two halves of the same
-// rows. Two warpgroups, 64 rows each, share every streamed tile; each holds
-// its rows' 64 x 256 f32 output (128 registers a thread) and its own
-// running max and sum.
+// rows, one quarter at D=1024 (blockIdx.x = 4 tile + rank). Two
+// warpgroups, 64 rows each, share every streamed tile; each holds its rows'
+// 64 x 256 f32 output (128 registers a thread) and its own running max and
+// sum.
 //
 // The ring. The block's Q columns (64 KB) are staged once; 64-key tiles of
 // K and of V (32 KB each at the block's 256 columns) stream through two
@@ -565,10 +702,12 @@ __device__ __forceinline__ void deep_store(const float (&acc)[kHeld][32], __nv_b
 //
 // Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512, without / with kCausal):
 // 256 threads, one block an SM; registers 250 / 255 and 238 / 254, zero
-// spill bytes. Shared memory at D=512: Q 65,536, the two rings 131,072, two
-// 16 KB exchange buffers 32,768, the bias ring 1,024, 13 barriers 104:
-// 230,504 bytes + 1,024 of alignment slack; at D=256 no exchange buffers:
-// 197,736 + 1,024. A third stage would need 64 KB more: it fits neither.
+// spill bytes; D=1024 237 / 255, zero spill bytes. Shared memory at D=512:
+// Q 65,536, the two rings 131,072, two 16 KB exchange buffers 32,768, the
+// bias ring 1,024, 13 barriers 104: 230,504 bytes + 1,024 of alignment
+// slack; at D=1024 two barriers more (each round's free signal): 230,520 +
+// 1,024; at D=256 no exchange buffers: 197,736 + 1,024. A third stage would
+// need 64 KB more: it fits none.
 
 constexpr int kFwdCols = 256;                          // head columns a block holds
 constexpr int kFwdAtoms = kFwdCols / kAtomCols;        // 4
@@ -593,7 +732,7 @@ struct FwdSmem {
   static constexpr int kK = kFwdQBytes;                             // [stage][atom][64 keys]
   static constexpr int kV = kK + kStages * kFwdTile;                // [stage][atom][64 keys]
   static constexpr int kX = kV + kStages * kFwdTile;                // [role][kFwdXFloats]
-  static constexpr int kBias = kX + (kC == 2 ? 2 * kFwdXFloats * 4 : 0);  // [stage][128]
+  static constexpr int kBias = kX + (kC > 1 ? 2 * kFwdXFloats * 4 : 0);  // [stage][128]
   static constexpr int kBars = kBias + kStages * kFwdBiasSlot;
   static constexpr int kQBar = kBars;
   static constexpr int kKFull = kQBar + 8;        // the TMA bytes
@@ -601,8 +740,10 @@ struct FwdSmem {
   static constexpr int kVFull = kKEmpty + 8 * kStages;   // the TMA bytes (V and its bias)
   static constexpr int kVEmpty = kVFull + 8 * kStages;   // the 8 warps
   static constexpr int kSFull = kVEmpty + 8 * kStages;   // the peer's share is in this block's buffer
-  static constexpr int kSFree = kSFull + 16;             // the peer has read this block's last share
-  static constexpr int kBytes = kSFree + 16;
+  // the peer has read this block's last share: [role] at kC=2, [round][role]
+  // at kC=4 (round r's partner is rank ^ 2^r)
+  static constexpr int kSFree = kSFull + 16;
+  static constexpr int kBytes = kSFree + (kC == 4 ? 32 : 16);
 };
 
 // a forward block's constants. Shared memory is named by its 32-bit address
@@ -644,10 +785,11 @@ __device__ __forceinline__ int read_ctaid_z() {
   return v;
 }
 
-// the block's rank in its cluster: its column half at D=512
+// the block's rank in its cluster: its column half at D=512, quarter at
+// D=1024
 template <int kC>
 __device__ __forceinline__ int fwd_rank() {
-  return kC == 2 ? int(hopper::cluster_rank()) : 0;
+  return kC > 1 ? int(hopper::cluster_rank()) : 0;
 }
 
 // a thread's first row (its second is 8 on): its warpgroup's 64 of the
@@ -773,6 +915,40 @@ __device__ __forceinline__ void fwd_tile(const FwdBlock& c, int j, float (&cur)[
     if (tid % 32 == 0)
       hopper::mbar_arrive_cluster_relaxed(
           hopper::map_peer(smem + L::kSFree + 8 * role, uint32_t(fwd_rank<kC>() ^ 1)));
+  } else if constexpr (kC == 4) {
+    // a butterfly in two rounds through the same buffer: round r trades the
+    // running sum with block rank ^ 2^r, so every block ends with
+    // (s0 + s1) + (s2 + s3) (each round's own + partner is the same f32 sum
+    // in both blocks): the same bits in all four, so the same m, l and P
+#pragma unroll
+    for (int round = 0; round < 2; ++round) {
+      const uint32_t rank = uint32_t(fwd_rank<kC>());
+      const uint32_t peer = hopper::map_peer(smem, rank ^ (1u << round));
+      // the partner has read what its other partner last pushed to it
+      if (round == 1 || j > 0)
+        hopper::mbar_wait_cluster(smem + L::kSFree + 8 * (2 * round + role),
+                                  (round == 0 ? j - 1 : j) & 1);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        hopper::store_async_f32x4(peer + share + q * kFwdChunk * 16, peer + L::kSFull + 8 * role,
+                                  make_float4(cur[4 * q], cur[4 * q + 1], cur[4 * q + 2],
+                                              cur[4 * q + 3]));
+      hopper::mbar_wait_cluster(smem + L::kSFull + 8 * role, round);
+      if (tid % 128 == 0 && (round == 0 || j + 1 < c.n_tiles))
+        hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdXFloats * 4);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float4 v = hopper::ld_shared_f32x4(smem + share + q * kFwdChunk * 16);
+        cur[4 * q] += v.x, cur[4 * q + 1] += v.y, cur[4 * q + 2] += v.z, cur[4 * q + 3] += v.w;
+      }
+      // the buffer is free for the other round's partner (the reads' values
+      // used first)
+      hopper::fence_regs(cur);
+      __syncwarp();
+      if (tid % 32 == 0)
+        hopper::mbar_arrive_cluster_relaxed(hopper::map_peer(
+            smem + L::kSFree + 8 * (2 * (round ^ 1) + role), rank ^ (2u >> round)));
+    }
   }
 
   // S_{j+1}, under this tile's softmax (past the last tile it repeats a
@@ -864,9 +1040,9 @@ __device__ __forceinline__ void fwd_tile(const FwdBlock& c, int j, float (&cur)[
   hopper::wgmma_commit();
 }
 
-// The forward. One block per (128 query rows, column half at D=512, head,
-// batch); blockIdx.x / (D / 256) is the row tile, the cluster rank the
-// column half.
+// The forward. One block per (128 query rows, column half at D=512 or
+// quarter at D=1024, head, batch); blockIdx.x / (D / 256) is the row tile,
+// the cluster rank the column share.
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -907,13 +1083,14 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // bytes) a tile; the peer warpgroup's four warps free the buffer
     for (int role = 0; role < 2; ++role) {
       init(L::kSFull + 8 * role, 1);
-      if (kC == 2) hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdXFloats * 4);
+      if (kC > 1) hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdXFloats * 4);
       init(L::kSFree + 8 * role, 4);
+      if (kC == 4) init(L::kSFree + 8 * (2 + role), 4);
     }
     hopper::fence_barrier_init();
   }
-  if constexpr (kC == 2)
-    hopper::cluster_sync();  // the peer's barriers are initialised before any arrival
+  if constexpr (kC > 1)
+    hopper::cluster_sync();  // the peers' barriers are initialised before any arrival
   else
     __syncthreads();
 
@@ -986,7 +1163,7 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       l_out[stat] = l_run[r];
     }
   }
-  if constexpr (kC == 2) hopper::cluster_sync();  // no block leaves while its peer writes to it
+  if constexpr (kC > 1) hopper::cluster_sync();  // no block leaves while a peer writes to it
 }
 
 // ---------------------------------------------------------------------------
@@ -996,7 +1173,8 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // deep_bwd_kernel<D, kCausal, kDq> computes dq (kDq) or dk and dv. A block
 // owns 64 rows (queries for dq, keys for dk/dv) and 256 head columns: all
 // of them at D=256, one half at D=512, where the two blocks of a cluster
-// (blockIdx.x = 2 tile + rank) hold the two halves of the same rows.
+// (blockIdx.x = 2 tile + rank) hold the two halves of the same rows, one
+// quarter at D=1024 (four blocks, blockIdx.x = 4 tile + rank).
 //
 // Tiles and stages. The owned pair (Q, G or K, V: 2 x 32 KB) is staged once;
 // 64-row tiles of the other side (K, V or Q, G: 64 KB a stage) stream
@@ -1019,6 +1197,11 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 //   other warpgroup. Every sum is own + peer, so f32 addition gives both
 //   blocks the same bits. The peer's warps free the buffer for the next
 //   tile with one arrival each.
+// - D=1024: the same in two rounds through the same buffer: the share goes
+//   to block rank ^ 1 and comes back summed with it; that pair's sum goes
+//   to block rank ^ 2 (once that block has read its first round: a
+//   per-role free barrier) and is added as the D=512 step adds, so every
+//   block holds (s0 + s1) + (s2 + s3).
 // Then each warpgroup forms p and ds for its half of the tile's 64 streamed
 // rows (16 elements a thread, computed then selected, no branch), rounds
 // them to bf16 A fragments, and hands the other warpgroup the fragments it
@@ -1029,9 +1212,10 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // (second) take 4 atoms each, 128 registers.
 //
 // Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512, without / with
-// kCausal): 256 threads, one block an SM; shared memory 230,984 bytes +
+// kCausal): 256 threads, one block an SM; shared memory 231,000 bytes +
 // 1,088 of alignment slack; registers dq 144 / 141 and 164 / 168, dk/dv
-// 200 / 202 and 213 / 214, zero spill bytes (under the 255 of 256 threads;
+// 200 / 202 and 213 / 214, zero spill bytes; D=1024 dq 174 / 170, dk/dv
+// 236 / 236, zero spill bytes (under the 255 of 256 threads;
 // a producer warpgroup with setmaxnreg left dk/dv about 200 and it
 // spilled). Nothing is reduced across blocks: each block writes its own
 // rows and columns.
@@ -1045,9 +1229,9 @@ constexpr int kBwdThreads = 256;                    // two warpgroups
 constexpr int kXFloats = kBwdRows * kBwdRows;       // one 64 x 64 f32 share: 16 KB
 constexpr int kVecFloats = 3 * kBwdRows;            // a streamed tile's vectors
 // the owned pair, the ring's pairs, two exchange buffers, the vector ring
-// and nine barriers: 230,984 bytes
+// and eleven barriers: 231,000 bytes
 constexpr size_t kBwdBytes = size_t(2 + 2 * kStages) * kBwdTile + 2 * sizeof(float) * kXFloats +
-                             kStages * sizeof(float) * kVecFloats + 9 * sizeof(uint64_t);
+                             kStages * sizeof(float) * kVecFloats + 11 * sizeof(uint64_t);
 
 // a backward block's shared memory and coordinates
 struct BwdBlock {
@@ -1060,6 +1244,7 @@ struct BwdBlock {
   uint64_t* own_bar;
   uint64_t* sfull;  // [role] the peer's share of that role is in this block's buffer
   uint64_t* sfree;  // the peer's buffers are free for this block's shares
+  uint64_t* sfree1;  // [role] kC=4: block rank ^ 2's buffer of that role is free for its round
   const CUtensorMap* maps[4];  // own0, own1, str0, str1
   int rank, own0, n_tiles, t_len, s_len, heads, h, b, causal_offset;
   float scale;
@@ -1253,10 +1438,33 @@ __device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
             mine + q * kChunk + t, &c.sfull[kRole], peer,
             make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
       refill(j);
+      if constexpr (kC == 4) {
+        // a butterfly in two rounds through the same buffer: the share
+        // above went to block rank ^ 1, and x becomes that pair's sum; the
+        // sum goes to block rank ^ 2 and comes back as (s0 + s1) + (s2 + s3)
+        // (each round's own + partner is the same f32 sum in both blocks):
+        // the same bits in all four blocks
+        hopper::mbar_wait_cluster(&c.sfull[kRole], 0);
+        if (t == 0) hopper::mbar_expect_tx(&c.sfull[kRole], kXFloats * 4);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float4 v = mine[q * kChunk + t];
+          x[4 * q] += v.x, x[4 * q + 1] += v.y, x[4 * q + 2] += v.z, x[4 * q + 3] += v.w;
+        }
+        hopper::fence_regs(x);  // the reads' values used before the buffer is handed on
+        __syncwarp();  // the buffer is free for block rank ^ 2's round
+        if (lane == 0) hopper::mbar_arrive_peer_relaxed(&c.sfree1[kRole], uint32_t(c.rank ^ 2));
+        hopper::mbar_wait_cluster(&c.sfree1[kRole], j & 1);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          hopper::store_async_peer_f32x4(
+              mine + q * kChunk + t, &c.sfull[kRole], uint32_t(c.rank ^ 2),
+              make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
+      }
       // the peer's share of this role is in this block's buffer (and the
       // barrier is armed for the next tile's): this role's half stays in
       // registers, the other half goes back whole for the other role
-      hopper::mbar_wait_cluster(&c.sfull[kRole], j & 1);
+      hopper::mbar_wait_cluster(&c.sfull[kRole], kC == 4 ? 1 : j & 1);
       if (t == 0 && j + 1 < c.n_tiles) hopper::mbar_expect_tx(&c.sfull[kRole], kXFloats * 4);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -1357,7 +1565,7 @@ __device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
     deep_accumulate<kHeld, 32>(acc, got, acc_b + (1 - kRole) * 32 * kRowBytes, kBwdAtom,
                                acc_atom0);
     hopper::wgmma_commit();
-    if constexpr (kC == 2) {  // this warp's reads of both buffers have landed: the peer may push
+    if constexpr (kC > 1) {  // this warp's reads of both buffers have landed: the peer may push
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive_peer_relaxed(c.sfree, peer);
     }
@@ -1400,7 +1608,8 @@ deep_bwd_kernel(const __grid_constant__ CUtensorMap own0_map,
   c.own_bar = bars + 2 * kStages;
   c.sfull = c.own_bar + 1;
   c.sfree = c.sfull + 2;
-  c.rank = kC == 2 ? int(hopper::cluster_rank()) : 0;
+  c.sfree1 = c.sfree + 1;
+  c.rank = kC > 1 ? int(hopper::cluster_rank()) : 0;
   c.own0 = int(blockIdx.x / kC) * kBwdRows;
   c.n_tiles = ((kDq ? s_len : t_len) + kBwdRows - 1) / kBwdRows;
   c.t_len = t_len;
@@ -1425,13 +1634,14 @@ deep_bwd_kernel(const __grid_constant__ CUtensorMap own0_map,
     // bytes) a tile; the peer's warps free the buffers, one lane each
     for (int role = 0; role < 2; ++role) {
       hopper::mbar_init(&c.sfull[role], 1);
-      if (kC == 2) hopper::mbar_expect_tx(&c.sfull[role], kXFloats * 4);
+      if (kC > 1) hopper::mbar_expect_tx(&c.sfull[role], kXFloats * 4);
+      hopper::mbar_init(&c.sfree1[role], 4);
     }
     hopper::mbar_init(c.sfree, 8);
     hopper::fence_barrier_init();
   }
-  if constexpr (kC == 2)
-    hopper::cluster_sync();  // the peer's barriers are initialised before any arrival
+  if constexpr (kC > 1)
+    hopper::cluster_sync();  // the peers' barriers are initialised before any arrival
   else
     __syncthreads();
 
@@ -1439,7 +1649,7 @@ deep_bwd_kernel(const __grid_constant__ CUtensorMap own0_map,
     deep_bwd_warpgroup<D, kCausal, kDq, 0>(c, bias, m, l, delta, out0);
   else
     deep_bwd_warpgroup<D, kCausal, kDq, 1>(c, bias, m, l, delta, kDq ? out0 : out1);
-  if constexpr (kC == 2) hopper::cluster_sync();  // no block leaves while its peer reads it
+  if constexpr (kC > 1) hopper::cluster_sync();  // no block leaves while a peer reads it
 }
 
 // ---------------------------------------------------------------------------
@@ -1612,6 +1822,7 @@ cudaError_t fwd(int dtype, int head_dim, const void* q, const void* k, const voi
   switch (head_dim) {
     case 256: return PIT_DEEP(256);
     case 512: return PIT_DEEP(512);
+    case 1024: return PIT_DEEP(1024);
     default: return cudaErrorInvalidValue;
   }
 #undef PIT_DEEP
@@ -1621,6 +1832,7 @@ cudaError_t bwd_dq(int dtype, int head_dim, const BwdArgs& a) {
   switch (head_dim) {
     case 256: return dtype == 0 ? dq_scalar<256>(a) : bwd_wgmma<256, true>(a);
     case 512: return dtype == 0 ? dq_scalar<512>(a) : bwd_wgmma<512, true>(a);
+    case 1024: return dtype == 0 ? dq_scalar<1024>(a) : bwd_wgmma<1024, true>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1629,6 +1841,7 @@ cudaError_t bwd_dkv(int dtype, int head_dim, const BwdArgs& a) {
   switch (head_dim) {
     case 256: return dtype == 0 ? dkv_scalar<256>(a) : bwd_wgmma<256, false>(a);
     case 512: return dtype == 0 ? dkv_scalar<512>(a) : bwd_wgmma<512, false>(a);
+    case 1024: return dtype == 0 ? dkv_scalar<1024>(a) : bwd_wgmma<1024, false>(a);
     default: return cudaErrorInvalidValue;
   }
 }

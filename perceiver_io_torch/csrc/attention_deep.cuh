@@ -1,5 +1,5 @@
 // The deep-head designs of the attention kernels (#1 forward, #2 dq, #3
-// dk/dv) at head depths 256 and 512, defined in attention_deep.cu and
+// dk/dv) at head depths 256, 512 and 1024, defined in attention_deep.cu and
 // reached through the C entry points of attention_fwd.cu and
 // attention_bwd.cu, whose dispatch sends these depths here. The kernels of
 // depths up to 128 are not touched by them: each depth class has kernels of
@@ -13,7 +13,9 @@
 namespace attn_deep {
 
 // the head dims the deep designs take
-constexpr bool takes(int head_dim) { return head_dim == 256 || head_dim == 512; }
+constexpr bool takes(int head_dim) {
+  return head_dim == 256 || head_dim == 512 || head_dim == 1024;
+}
 
 // the arguments of the backward entry points, as attention_bwd.cu receives them
 struct BwdArgs {

@@ -511,7 +511,8 @@ cudaError_t dispatch(int dtype, int head_dim, const void* q, const void* k, cons
     case 64: return PIT_LAUNCH(64);
     case 128: return PIT_LAUNCH(128);
     case 256:
-    case 512:  // the deep designs (attention_deep.cu)
+    case 512:
+    case 1024:  // the deep designs (attention_deep.cu)
       return attn_deep::fwd(dtype, head_dim, q, k, v, bias, out, m_out, l_out, batch, t_len,
                             s_len, heads, causal, causal_offset, sq, sk, sv, stream);
     default: return cudaErrorInvalidValue;

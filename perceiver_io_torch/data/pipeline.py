@@ -1,13 +1,14 @@
 """Host-side batching (the port's single-process subset of
 ``perceiver_io_tpu/data/pipeline.py``): ``resolve_bucket_width`` and a
 ``DataLoader`` with a seeded shuffle, length-sorted windows, width-bucketed
-batches, batching, collation and a mid-epoch ``skip_next``. Multi-host
-sharding, dispatch groups and prefetch threads are not part of it: for one
-seed it yields the JAX loader's batches, widths and order with one shard and
-a group size of 1."""
+batches, batching, collation, a decode pool and a mid-epoch ``skip_next``.
+Multi-host sharding, dispatch groups and prefetch threads are not part of
+it: for one seed it yields the JAX loader's batches, widths and order with
+one shard and a group size of 1."""
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -34,12 +35,18 @@ class DataLoader:
     window are then permuted, from (seed, epoch), so no short-to-long
     curriculum shows. ``group_widths``: the bucket widths; each batch is
     collated at the smallest one holding its longest example
-    (``collate(examples, width=...)``)."""
+    (``collate(examples, width=...)``). ``num_workers``: the threads that
+    read a batch's examples (``dataset[i]``: decoding an image file, say),
+    in the batch's order, so every ``num_workers`` gives the same batches: a
+    dataset whose reads draw a seed each (``draw_seed()`` and ``read(i,
+    seed)``, an augmenting image folder) has the batch's seeds drawn here,
+    in order, before the threads read. Threads, as the JAX loader's pool:
+    PIL and numpy release the GIL in their hot parts."""
 
     def __init__(self, dataset, batch_size: int, collate: Callable[..., Batch],
                  shuffle: bool = False, seed: int = 0, drop_last: bool = True,
                  sort_key: Optional[np.ndarray] = None, sort_window: int = 0,
-                 group_widths: Optional[Sequence[int]] = None):
+                 group_widths: Optional[Sequence[int]] = None, num_workers: int = 0):
         if sort_window and sort_key is None:
             raise ValueError("sort_window requires a sort_key array")
         if sort_key is not None and len(sort_key) != len(dataset):
@@ -55,6 +62,7 @@ class DataLoader:
         self.sort_key = None if sort_key is None else np.asarray(sort_key)
         self.sort_window = sort_window
         self.group_widths = None if group_widths is None else sorted(int(w) for w in group_widths)
+        self.num_workers = num_workers
         self.epoch = 0
         self._skip = 0
 
@@ -106,6 +114,15 @@ class DataLoader:
         what an uninterrupted run would see."""
         self._skip = num_batches
 
+    def _read(self, pool, batch_idx: np.ndarray) -> list:
+        if pool is None:
+            return [self.dataset[int(i)] for i in batch_idx]
+        draw = getattr(self.dataset, "draw_seed", None)
+        if draw is None:
+            return list(pool.map(self.dataset.__getitem__, map(int, batch_idx)))
+        seeds = [draw() for _ in batch_idx]
+        return list(pool.map(self.dataset.read, map(int, batch_idx), seeds))
+
     def __iter__(self) -> Iterator[Batch]:
         # the epoch advances up front, so a loop that breaks early still
         # moves the next iteration to a fresh shuffle
@@ -114,10 +131,16 @@ class DataLoader:
         self._skip = 0
         idx = self._epoch_indices(epoch)
         stop = len(idx) - self.batch_size + 1 if self.drop_last else len(idx)
-        for start in range(skip * self.batch_size, max(stop, 0), self.batch_size):
-            batch_idx = idx[start: start + self.batch_size]
-            examples = [self.dataset[int(i)] for i in batch_idx]
-            if self.group_widths is not None:
-                yield self.collate(examples, width=self._batch_width(batch_idx))
-            else:
-                yield self.collate(examples)
+        pool = (ThreadPoolExecutor(self.num_workers, thread_name_prefix="loader")
+                if self.num_workers > 0 else None)
+        try:
+            for start in range(skip * self.batch_size, max(stop, 0), self.batch_size):
+                batch_idx = idx[start: start + self.batch_size]
+                examples = self._read(pool, batch_idx)
+                if self.group_widths is not None:
+                    yield self.collate(examples, width=self._batch_width(batch_idx))
+                else:
+                    yield self.collate(examples)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)

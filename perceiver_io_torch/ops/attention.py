@@ -108,12 +108,19 @@ AUTO_KERNEL_ROWS = 128
 # tie. At D = 256 the kernels win (d256-cross 1.57 vs 2.08, d256-self-b8
 # 0.56 vs 1.10), and the rule of the shallower heads routes them.
 AUTO_EINSUM_HEAD_DIMS = (512,)
+# Past D = 512 (ImageNet's one-head crosses, D = 1024) the JAX rule's line
+# holds: d > 512 takes the einsum path at any size (its deep contraction is
+# compute-bound, where the einsum's matmuls win), and the D = 1024 designs
+# run under attn_impl='pallas'. ImageNet's encoder cross at the CLI's batch
+# 64 has 1.6e9 logits, under AUTO_DEEP_MIN_LOGITS as well.
+AUTO_MAX_HEAD_DIM = 512
 AUTO_DEEP_MIN_LOGITS = 1 << 31
 
 
 def auto_attention_impl(b: int, t: int, s: int, h: int, d: int) -> str:
     """Resolve ``attn_impl='auto'`` for a non-causal (B, T, S, H, D) call:
-    ``'pallas'`` iff the kernel takes D (``SUPPORTED_HEAD_DIMS``), the call
+    ``'pallas'`` iff the kernel takes D (``SUPPORTED_HEAD_DIMS``) and D <=
+    ``AUTO_MAX_HEAD_DIM`` (the JAX rule's line), the call
     fills at least ``AUTO_PALLAS_MIN_BLOCKS`` tiles of 128 query rows
     (B·H·⌈T/128⌉), and either, at D = 512 (``AUTO_EINSUM_HEAD_DIMS``),
     B·H·T·S >= ``AUTO_DEEP_MIN_LOGITS``, or, at D <= 256, S >=
@@ -121,7 +128,7 @@ def auto_attention_impl(b: int, t: int, s: int, h: int, d: int) -> str:
     ``AUTO_PALLAS_AREA_MIN_HEAD_DIM``; else ``'xla'``. The same rule on every
     device (a CPU tensor runs the chosen path's plain version), so the CPU
     tests check the routing."""
-    if d not in SUPPORTED_HEAD_DIMS:
+    if d not in SUPPORTED_HEAD_DIMS or d > AUTO_MAX_HEAD_DIM:
         return "xla"
     if b * h * -(-t // AUTO_KERNEL_ROWS) < AUTO_PALLAS_MIN_BLOCKS:
         return "xla"

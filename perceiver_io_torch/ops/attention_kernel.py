@@ -29,12 +29,15 @@ causal call.
   kernels, bfloat16 the tensor-core kernels (``wgmma`` fed by TMA, key
   tiles that are all padding skipped); a bf16 input they cannot take
   raises ``ValueError``.
-- deep heads: at D = 256 and 512 (``DEEP_HEAD_DIMS``; the optical-flow
-  model's one-head crosses are D = 512) the same entry points run the
-  designs of ``csrc/attention_deep.cu``, both dtypes, with and without the
-  causal offset, whose tiles fit such a head. In bf16 each holds 256 head
-  columns a block (a two-block cluster at D = 512 that adds its halves of
-  each logit tile) and computes every logit tile once: the forward 128
+- deep heads: at D = 256, 512 and 1024 (``DEEP_HEAD_DIMS``; the
+  optical-flow model's one-head crosses are D = 512, ImageNet's D = 1024)
+  the same entry points run the designs of ``csrc/attention_deep.cu``, both
+  dtypes, with and without the causal offset, whose tiles fit such a head.
+  In bf16 each holds 256 head columns a block (a cluster of D / 256 blocks
+  at D = 512 and 1024 that adds its shares of each logit tile, at D = 1024
+  in a fixed order, so all four blocks hold the same bits) and computes
+  every logit tile once (in f32 at D = 1024 every dot product sums in
+  float64 and the sums over the keys are compensated): the forward 128
   query rows a block, 64-key tiles streamed through rings a loading warp
   refills, the next tile's product issued under this tile's softmax; the
   backward one launch each of dq and dk/dv, 64-row tiles, S and dP once.
@@ -63,10 +66,11 @@ from perceiver_io_torch.ops.masking import causal_mask
 MASK_VALUE = -1e30
 # the mask value as the f32 bias holds it (the kernels' running-max floor)
 _MASK_F32 = float(torch.tensor(MASK_VALUE, dtype=torch.float32))
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 256, 512)
-# the head dims of the deep designs (csrc/attention_deep.cu, up to the TPU
-# kernel's LONG_KV_MAX_D = 512), reached through the same entry points
-DEEP_HEAD_DIMS = (256, 512)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 256, 512, 1024)
+# the head dims of the deep designs (csrc/attention_deep.cu), reached through
+# the same entry points; the TPU kernel takes any D (LONG_KV_MAX_D = 512 only
+# caps its long-KV query block), and ImageNet's one-head crosses are D = 1024
+DEEP_HEAD_DIMS = (256, 512, 1024)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 counter = build.LaunchCounter()          # attention_fwd, either design
@@ -317,8 +321,11 @@ def _launch_fwd(q, k, v, bias, stats: bool, causal_offset: Optional[int] = None)
 
 
 def bwd_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """delta = sum_d g * out in f32, (B, H, T) contiguous."""
-    return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    """delta = sum_d g * out, (B, H, T) f32 contiguous: summed in float64
+    for f32 inputs (ds = p (dp - delta) cancels against it, and the f32
+    designs at D=1024 sum dp in float64), in f32 for bf16."""
+    acc = torch.float64 if g.dtype == torch.float32 else torch.float32
+    return (g.to(acc) * out.to(acc)).sum(dim=-1).transpose(1, 2).float().contiguous()
 
 
 def _bwd_args(q, k, v, bias, m, l, delta, g, causal_offset: Optional[int]):

@@ -313,12 +313,14 @@ DEEP_CASES = {
     "d512_full_row": (2, 9, 40, 1, 512, "full_row", None, 9, 8),
     "d256_causal": (3, 12, 20, 1, 256, "head_padded", 8, 12, 20),
     "d512_causal": (3, 12, 20, 1, 512, "head_padded", 8, 4, 20),
+    "d1024_full_row": (2, 9, 40, 1, 1024, "full_row", None, 9, 8),
+    "d1024_causal": (3, 12, 20, 1, 1024, "head_padded", 8, 4, 20),
 }
 
 
 @pytest.mark.parametrize("name", sorted(DEEP_CASES))
 def test_deep_heads_plain_forward_and_backward_match_jax(name):
-    """At D = 256 and 512: out, m, l and (dq, dk, dv) of the plain versions
+    """At D = 256, 512 and 1024: out, m, l and (dq, dk, dv) of the plain versions
     against the Pallas forward with_lse and backward (interpret mode, with
     blocks smaller than T or S where they divide), each side from its own
     residuals; a fully masked example gets dq = dk = 0 exactly, and causal
@@ -350,3 +352,4 @@ def test_deep_heads_plain_forward_and_backward_match_jax(name):
         for i in range(4):
             once = pad[-1] ^ future[i]
             np.testing.assert_allclose(out[-1, i].numpy(), v[-1][once].mean(axis=0), **TOL)
+

@@ -35,8 +35,10 @@ the classifiers' calls of #1-#3 (one query row in the decoders, 784
 unpadded keys at D=32 in the MNIST cross, f32 and bf16) and a classifier
 train step with the encoder frozen (#1 only in it) and not,
 the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
-the deep designs of #1-#3 (D = 256 and 512, f32 and bf16, with and
-without the causal offset) on their own counters, and the bf16 deep
+the deep designs of #1-#3 (D = 256, 512 and 1024, f32 and bf16, with and
+without the causal offset) on their own counters, D = 1024's four-block
+cluster giving bit for bit equal column quarters where v, k and g repeat
+one quarter four times, and the bf16 deep
 forward (with and without statistics) and backward at ragged, one-key and
 B=1 shapes, a second call bit for bit the first, and at the multimodal
 autoencoder's tails (784 query rows; 1025 rows over 784 keys, 13 key
@@ -153,7 +155,7 @@ def test_attention_backward_kernels_match_plain(card, dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
 def test_deep_attention_kernels_match_plain(card, d, dtype, causal):
-    """The deep designs (D = 256, 512) of #1-#3, with and without the causal
+    """The deep designs (D = 256, 512, 1024) of #1-#3, with and without the causal
     offset: out, m and l, dq, dk and dv against the plain versions at a T
     and S that are not multiples of their tiles; a fully masked example
     (dq = dk = 0 exactly) or, with the offset, rows whose visible keys are
@@ -185,8 +187,9 @@ def test_deep_attention_kernels_match_plain(card, d, dtype, causal):
                                    (2, 200, 1)])
 @pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
 def test_deep_wgmma_backward_cases(card, d, b, t, s, causal):
-    """The bf16 deep backward (dq and dk/dv one launch each; at D=512 a
-    two-block cluster that adds its halves of each logit tile): T and S off
+    """The bf16 deep backward (dq and dk/dv one launch each; at D=512 and
+    1024 a cluster of two or four blocks that adds its shares of each logit
+    tile): T and S off
     the 64-row tiles, B=1, one key; with B > 1 the last example fully masked
     (dq and dk exactly 0, dv its uniform share) or, with the causal offset,
     its first 12 keys padded (dq of the rows that see only padding exactly
@@ -223,8 +226,9 @@ def test_deep_wgmma_backward_cases(card, d, b, t, s, causal):
                                    (2, 200, 1)])
 @pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
 def test_deep_wgmma_forward_cases(card, d, b, t, s, causal, stats):
-    """The bf16 deep forward (128 query rows a block; at D=512 a two-block
-    cluster that adds its halves of each logit tile): T and S off the
+    """The bf16 deep forward (128 query rows a block; at D=512 and 1024 a
+    cluster of two or four blocks that adds its shares of each logit tile):
+    T and S off the
     128-row and 64-key tiles, an odd number of key tiles, B=1, one key;
     with B > 1 the last example fully masked (out the uniform average of
     its values) or, with the causal offset, its first 12 keys padded; out,
@@ -257,6 +261,27 @@ def test_deep_wgmma_forward_cases(card, d, b, t, s, causal, stats):
     if b > 1 and causal is None:  # every key of the masked example weighs alike
         uniform = v[-1].float().mean(dim=0, keepdim=True).expand(t, 1, d)
         _close(got[0][-1], uniform, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,t,s", [(1, 130, 200), (2, 200, 65), (2, 1, 512)])
+def test_deep_1024_cluster_quarters_agree(card, b, t, s):
+    """D=1024's four blocks add their shares of each logit tile in one fixed
+    order ((s0 + s1) + (s2 + s3)), so all four form the same m, l, P and ds:
+    with q random (each block's share of S differs) and k, v and g one
+    random quarter repeated four times, out's, dq's and dv's four column
+    quarters are bit for bit equal, ~30% of keys padded."""
+    g = torch.Generator().manual_seed(b * 1000 + t + s)
+    q = torch.randn(b, t, 1, 1024, generator=g).to(card, torch.bfloat16)
+    k, v, go = (torch.randn(b, n, 1, 256, generator=g).repeat(1, 1, 1, 4).to(card, torch.bfloat16)
+                for n in (s, s, t))
+    pad = (torch.rand(b, s, generator=g) < 0.3).to(card)
+    out, m, l = ak.attention_fwd_with_stats(q, k, v, pad)
+    dq, _, dv = ak.attention_bwd(q, k, v, pad, out, m, l, go)
+    for x in (out, dq, dv):
+        quarters = x.reshape(*x.shape[:-1], 4, 256)
+        for i in range(1, 4):
+            assert torch.equal(quarters[..., 0, :], quarters[..., i, :])
+    _close(out, ak.attention_reference(q, k, v, pad), torch.bfloat16)
 
 
 # the multimodal crosses' tails at a small batch: the encoder cross's 784

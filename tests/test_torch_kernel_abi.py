@@ -14,6 +14,8 @@
   cotangent layouts the backward reads in place and which it copies first;
   the CE kernels' bf16 view of W (``ce_kernel.round_weight_t``). The rules read layouts only, so CPU
   tensors answer them.
+- The deep head dims (256, 512 and 1024) reach the deep designs through
+  the C entry points' dispatch.
 """
 
 import ctypes
@@ -251,6 +253,30 @@ def test_attention_backward_prototypes_take_the_causal_offset(name, outputs):
         + ["batch", "t_len", "s_len", "heads", "causal", "causal_offset"]
         + [f"s{t}{d}" for t in "qkvg" for d in ("b", "t" if t in "qg" else "s", "h")]
         + ["stream"])
+
+
+def test_deep_head_dims_reach_the_deep_designs():
+    """Every ``DEEP_HEAD_DIMS`` depth is dispatched on the C side, and no
+    other: ``attention_fwd.cu``'s switch sends it to ``attn_deep::fwd``,
+    ``attn_deep::takes`` admits it for ``attention_bwd.cu``, and
+    ``attention_deep.cu`` has its case in ``fwd``, ``bwd_dq`` and
+    ``bwd_dkv`` (both designs each). D = 1024 is ImageNet's cross head."""
+    csrc = build.CSRC_DIR
+    takes = re.search(r"bool takes\(int head_dim\) \{(.*?)\}",
+                      (csrc / "attention_deep.cuh").read_text(), re.S).group(1)
+    assert sorted(int(x) for x in re.findall(r"head_dim == (\d+)", takes)) == list(
+        ak.DEEP_HEAD_DIMS)
+    fwd = (csrc / "attention_fwd.cu").read_text()
+    to_deep = re.search(r"case 128: return PIT_LAUNCH\(128\);(.*?)return attn_deep::fwd",
+                        fwd, re.S).group(1)
+    assert [int(x) for x in re.findall(r"case (\d+):", to_deep)] == list(ak.DEEP_HEAD_DIMS)
+    deep = (csrc / "attention_deep.cu").read_text()
+    cases = [int(x) for x in re.findall(r"case (\d+): return", deep)]
+    assert cases == list(ak.DEEP_HEAD_DIMS) * 3
+    for d in ak.DEEP_HEAD_DIMS:
+        assert f"dq_scalar<{d}>(a) : bwd_wgmma<{d}, true>(a)" in deep
+        assert f"dkv_scalar<{d}>(a) : bwd_wgmma<{d}, false>(a)" in deep
+    assert max(ak.SUPPORTED_HEAD_DIMS) == max(ak.DEEP_HEAD_DIMS) == 1024
 
 
 def _ce_design_by_dtype(design_of, dtype, design, c):

@@ -135,7 +135,7 @@ def test_combine_attention_masks_matches_jax(case):
 SWEEP_ROUTES = {
     (8, 256, 512, 4, 16): "pallas",        # mlm-cross
     (8, 256, 256, 4, 16): "pallas",        # mlm-self
-    (2, 512, 50176, 1, 1024): "xla",       # in-cross: D refused
+    (2, 512, 50176, 1, 1024): "xla",       # in-cross: D > 512, the JAX rule's line
     (2, 512, 50176, 8, 128): "pallas",     # in-8h
     (1, 2048, 182528, 1, 512): "xla",      # flow-cross: 3.7e8 logits, einsum 12.3 vs 56.5
     (2, 2048, 2048, 8, 64): "pallas",      # flow-self
@@ -179,6 +179,22 @@ def test_auto_attention_impl_routing_table(dims):
         assert dims[-1] in ak.SUPPORTED_HEAD_DIMS
 
 
+# ImageNet's calls (T, S, H, D) at train_imagenet's defaults: the encoder and
+# decoder crosses, one head of depth 1024
+IMAGENET_CROSSES = ((512, 50176, 1, 1024), (1, 512, 1, 1024))
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("call", IMAGENET_CROSSES)
+def test_auto_attention_impl_routes_imagenet_crosses_as_jax(b, call):
+    """The D = 1024 crosses at batch 1, 8 and the CLI's 64 route as the JAX
+    rule routes them on a TPU (d > 512: the einsum path), though the
+    kernels take D = 1024."""
+    assert 1024 in ak.SUPPORTED_HEAD_DIMS
+    want = jat.auto_attention_impl(b, *call, backend="tpu")
+    assert pat.auto_attention_impl(b, *call) == want == "xla"
+
+
 def test_auto_attention_impl_thresholds():
     """Each threshold is where the route turns."""
     area, kv, blocks = (pat.AUTO_PALLAS_MIN_LOGITS, pat.AUTO_PALLAS_MIN_KV,
@@ -202,7 +218,7 @@ def test_auto_attention_impl_thresholds():
     assert pat.auto_attention_impl(1, t, kv - 1, 1, 256) == ("pallas" if t * (kv - 1) >= area
                                                              else "xla")
     assert pat.auto_attention_impl(1, t - rows, 2 * s, 1, 256) == "xla"  # one block short
-    for d in (1024, 24):  # no kernel takes them
+    for d in (1024, 24):  # past the JAX rule's D line; no kernel takes D=24
         assert pat.auto_attention_impl(64, 4096, 65536, 8, d) == "xla"
 
 
