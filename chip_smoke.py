@@ -381,7 +381,8 @@ Phases (any failure exits nonzero):
     the bounds, SDPA and the einsum path (CUDA events); then
     ``quarters_check``: bf16 at the encoder cross with k, v and g one
     quarter repeated four times, out's, dq's and dv's four column quarters
-    bit for bit equal (the cluster's fixed summation order);
+    bit for bit equal (the cluster's fixed summation order, in the forward's
+    butterfly and in the backward's reduce and scatter);
 39. ImageNet classification at the Perceiver paper's width:
     ``train_imagenet --synthetic --attn_impl pallas --learning_rate 1e-4``
     with the CLI's other defaults (224 × 224 × 3 images, 64 bands, 512 ×
@@ -3716,12 +3717,19 @@ DEEP_DESIGNS = dict(fwd=("wgmma, 256 threads: 128 query rows a block, 64 a warpg
                          "before this tile's softmax; D=512 split over a 2-block cluster that "
                          "adds its halves by st.async"),
                     dq=_DEEP_BWD, dkv=_DEEP_BWD)
-# D=1024: the same kernels over a 4-block cluster, 256 head columns a block,
-# whose blocks sum each logit tile's shares by a 2-round butterfly
+# D=1024: the same kernels over a 4-block cluster, 256 head columns a block;
+# the forward's blocks sum each logit tile's shares by a 2-round butterfly,
+# the backward's reduce and scatter them in one round and gather bf16 p, ds
 _IN_SPLIT = ("; D=1024 split over a 4-block cluster that sums its shares by a 2-round "
              "butterfly of st.async pushes ((s0 + s1) + (s2 + s3) in every block)")
 _IN_BWD = ("wgmma, 256 threads: a loading warp refills a 2-stage TMA ring of 64-row "
-           "tiles through mbarriers; S and dP computed once, one a warpgroup" + _IN_SPLIT)
+           "tiles through mbarriers; S and dP computed once, one a warpgroup; D=1024 "
+           "split over a 4-block cluster whose blocks reduce and scatter each tile's f32 "
+           "shares in one round of st.async pushes (block r sums quarter r as (s0 + s1) + "
+           "(s2 + s3)), form p and ds there and gather their bf16 fragments; dq holds its "
+           "owned tile as register A fragments, so a third ring stage lets the next "
+           "tile's products run under the quarters' flight; dk/dv issues them under the "
+           "fragments' flight")
 IN_DESIGNS = dict(fwd=("wgmma, 256 threads: 128 query rows a block, 64 a warpgroup; a "
                        "loading warp refills 2-stage K and V rings of 64-key tiles through "
                        "mbarriers; each logit tile computed once, the next tile's S issued "
@@ -4536,11 +4544,12 @@ IN_SHAPES = (("in-enc-cross", (512, 50176, 1, 1024)),
 
 def quarters_check(torch, ak) -> dict:
     """Phase 38: the four blocks of a D=1024 cluster add their shares of each
-    logit tile in one fixed order, so all four form the same m, l, P and ds.
-    bf16 at ImageNet's encoder cross (B=1, ~30% of keys padded), q random
-    (its column quarters differ, so do the blocks' shares of S), k, v and g
-    each one random quarter repeated four times: out's, dq's and dv's four
-    column quarters must be bit for bit equal."""
+    logit tile in one fixed order (the forward in every block, the backward
+    in the block that forms that quarter's p and ds), so all four use the
+    same m, l, P and ds. bf16 at ImageNet's encoder cross (B=1, ~30% of keys
+    padded), q random (its column quarters differ, so do the blocks' shares
+    of S), k, v and g each one random quarter repeated four times: out's,
+    dq's and dv's four column quarters must be bit for bit equal."""
     t, s, h, d = IN_SHAPES[0][1]
     gen = torch.Generator().manual_seed(d)
     pad = (torch.rand(1, s, generator=gen) < 0.3).cuda()

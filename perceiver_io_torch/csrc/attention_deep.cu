@@ -27,13 +27,13 @@
 // D=512, where the two blocks of a cluster split the columns and add their
 // halves of each logit tile through distributed shared memory (st.async
 // pushes), so no logit tile is computed twice; one quarter at D=1024, where
-// the four blocks of a cluster sum their shares by a two-round butterfly
-// through the same exchange buffers (round r with block rank ^ 2^r), so
-// every block adds them as (s0 + s1) + (s2 + s3) and all four hold the same
-// bits (a sum of four in each block's own order would give the four column
-// quarters of a row different m, l and P). The shared memory of D=512
-// serves D=1024 unchanged: the second round reuses the first's buffer once
-// the partner has read it.
+// the four blocks of a cluster sum their shares in one order, (s0 + s1) +
+// (s2 + s3) (a sum of four in each block's own order would give the four
+// column quarters of a row different m, l and P): the forward by a
+// two-round butterfly through the same exchange buffers (round r with
+// block rank ^ 2^r; the second round reuses the first's buffer once the
+// partner has read it), the backward by one round of reduce and scatter
+// (its section below).
 //
 // The bf16 forward (deep_fwd_wgmma_kernel; its section says how): a block
 // owns 128 query rows, 64 a warpgroup, and streams 64-key K and V tiles
@@ -65,7 +65,9 @@
 // tensor cores (above); what holds it back is the work between the
 // products: the exchange of the logit tiles (at D=512 across the cluster),
 // p and ds, and the bf16 fragments, each tile in turn (two ring stages
-// leave no room to run the next tile's products meanwhile). No tile is
+// leave no room to run the next tile's products meanwhile; at D=1024 the
+// exchange is a reduce and scatter of f32 quarters and a gather of bf16
+// fragments, and dq's third stage runs the next products under it). No tile is
 // split across blocks: the grids fill the card at B=8 (512 blocks at the
 // flow crosses' 2048-row sides), and at B=1 the 2048-row sides leave half
 // of it idle.
@@ -559,9 +561,11 @@ deep_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 //
 // Tiles are 64-column swizzle atoms (128-byte rows, the 128-byte swizzle),
-// D/64 of them side by side (4 in a backward block), each a TMA box of (64
-// columns, the tile's rows) read through the 4-D (B, rows, H, D) maps of
-// hopper::encode_head_map. x = A.B^T of an owned and a streamed tile is an
+// D/64 of them side by side (4 in a backward block). The forward reads each
+// atom as a TMA box of (64 columns, the tile's rows) through the 4-D (B,
+// rows, H, D) maps of hopper::encode_head_map; the backward reads a block's
+// four atoms of a tile as one box of the 5-D maps of
+// hopper::encode_atom_tile_map, which land the same bytes. x = A.B^T of an owned and a streamed tile is an
 // SS wgmma (both K-major), 16 columns a step; acc += X.B an RS wgmma with X
 // rounded to bf16 in registers and the streamed tile as an MN-major B, one
 // 64-column atom an instruction.
@@ -1197,28 +1201,53 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 //   other warpgroup. Every sum is own + peer, so f32 addition gives both
 //   blocks the same bits. The peer's warps free the buffer for the next
 //   tile with one arrival each.
-// - D=1024: the same in two rounds through the same buffer: the share goes
-//   to block rank ^ 1 and comes back summed with it; that pair's sum goes
-//   to block rank ^ 2 (once that block has read its first round: a
-//   per-role free barrier) and is added as the D=512 step adds, so every
-//   block holds (s0 + s1) + (s2 + s3).
-// Then each warpgroup forms p and ds for its half of the tile's 64 streamed
-// rows (16 elements a thread, computed then selected, no branch), rounds
-// them to bf16 A fragments, and hands the other warpgroup the fragments it
-// needs (dq: ds; dk/dv: ds to the second, p to the first) through the half
-// of its buffer that only it had read. Its own k-steps are issued (RS,
-// m64n64k16 an atom) before the hand-over, the other's after: dq's 4
-// column atoms split 2 + 2 between the warpgroups; dv (first) and dk
-// (second) take 4 atoms each, 128 registers.
+// - D=1024 (deep_bwd_quarters, below): one round of reduce and scatter,
+//   then a gather of bf16 fragments. Each warpgroup pushes quarter q (16
+//   streamed columns) of its share to block q, so block r sums the four
+//   shares of quarter r of S and of dP ((s0 + s1) + (s2 + s3), one order in
+//   every block), forms p and ds there (each warpgroup 8 columns) and sends
+//   k-step r's bf16 A fragments to the three peers (dq: ds; dk/dv: p and
+//   ds), over the start of the same buffer once every block has read its
+//   quarters. Each block sends 24 KB of f32 shares and 6 or 12 KB of
+//   fragments a tile (summing whole shares in every block would send 48 KB
+//   by all-to-all, 64 KB by a butterfly), and every element of p and ds is
+//   formed once in the cluster.
+// Then (D <= 512) each warpgroup forms p and ds for its half of the tile's
+// 64 streamed rows (16 elements a thread, computed then selected, no
+// branch), rounds them to bf16 A fragments, and hands the other warpgroup
+// the fragments it needs (dq: ds; dk/dv: ds to the second, p to the first)
+// through the half of its buffer that only it had read. Its own k-steps
+// are issued (RS, m64n64k16 an atom) before the hand-over, the other's
+// after: dq's 4 column atoms split 2 + 2 between the warpgroups; dv
+// (first) and dk (second) take 4 atoms each, 128 registers; D=1024 issues
+// its k-steps in the same order.
 //
-// Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512, without / with
+// dq at D=1024 holds its owned tile (Q in the first warpgroup, G in the
+// second) as the A fragments of its products, 64 registers a thread, so the
+// owned pair's 64 KB becomes a third ring stage and the next tile's products
+// are issued as soon as this tile's quarters are pushed, to run under their
+// flight; its ring is refilled while the fragments fly (a tile of lead
+// suffices with three stages), one TMA box an operand. dk/dv, whose dk and
+// dv accumulators take 128 registers a thread, keeps two stages and SS
+// products, issuing the next tile's under the fragments' flight.
+//
+// What bounds D=1024 on the H100: ImageNet's encoder cross at B=8 is 1.28
+// (dq) and 1.70 (dk/dv) ms of tensor-core work, but a block's tile is a
+// chain of the push of its 24 KB (the SM-to-SM network moves ~32 GB/s an SM
+// with every SM pushing), p and ds, the fragments' flight and the
+// accumulation, with the products beside it: 2.1 us a tile for dq, 3.1 for
+// dk/dv (H100 at 700 W; perceiver_io_torch/tools/deep_bwd_stamps.py reads
+// the split). A wgmma issue blocks while the tensor cores run the other
+// warpgroup's, so the products overlap the wait they are issued before and
+// little else.
+//
+// Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512 / D=1024, without / with
 // kCausal): 256 threads, one block an SM; shared memory 231,000 bytes +
-// 1,088 of alignment slack; registers dq 144 / 141 and 164 / 168, dk/dv
-// 200 / 202 and 213 / 214, zero spill bytes; D=1024 dq 174 / 170, dk/dv
-// 236 / 236, zero spill bytes (under the 255 of 256 threads;
-// a producer warpgroup with setmaxnreg left dk/dv about 200 and it
-// spilled). Nothing is reduced across blocks: each block writes its own
-// rows and columns.
+// 1,088 of alignment slack; registers dq 140 / 141, 164 / 168 and 230 /
+// 230, dk/dv 201 / 200, 216 / 214 and 242 / 242, zero spill bytes, no
+// C75xx (under the 255 of 256 threads; a producer warpgroup with
+// setmaxnreg left dk/dv about 200 and it spilled). Nothing is reduced
+// across blocks: each block writes its own rows and columns.
 
 constexpr int kBwdCols = 256;                       // head columns a block holds
 constexpr int kBwdAtoms = kBwdCols / kAtomCols;     // 4
@@ -1228,8 +1257,9 @@ constexpr int kBwdTile = kBwdAtoms * kBwdAtom;      // 32 KB: one operand's tile
 constexpr int kBwdThreads = 256;                    // two warpgroups
 constexpr int kXFloats = kBwdRows * kBwdRows;       // one 64 x 64 f32 share: 16 KB
 constexpr int kVecFloats = 3 * kBwdRows;            // a streamed tile's vectors
+constexpr int kBwdStages = 3;                       // the most ring stages (dq at D=1024)
 // the owned pair, the ring's pairs, two exchange buffers, the vector ring
-// and eleven barriers: 231,000 bytes
+// and eleven barriers (full and empty for three stages): 231,000 bytes
 constexpr size_t kBwdBytes = size_t(2 + 2 * kStages) * kBwdTile + 2 * sizeof(float) * kXFloats +
                              kStages * sizeof(float) * kVecFloats + 11 * sizeof(uint64_t);
 
@@ -1242,9 +1272,11 @@ struct BwdBlock {
   uint64_t* full;   // [stage] the loading warp's 32 lanes and the TMA bytes
   uint64_t* empty;  // [stage] the 256 threads
   uint64_t* own_bar;
-  uint64_t* sfull;  // [role] the peer's share of that role is in this block's buffer
-  uint64_t* sfree;  // the peer's buffers are free for this block's shares
-  uint64_t* sfree1;  // [role] kC=4: block rank ^ 2's buffer of that role is free for its round
+  // kC=2: [role] the peer's share of that role is in this block's buffer;
+  // kC=4: [0] the peers' quarters of both shares, [1] their fragments
+  uint64_t* sfull;
+  uint64_t* sfree;  // the peers' buffers are free for this block's shares
+  uint64_t* gok;    // kC=4: every block has read its quarters: fragments may be pushed
   const CUtensorMap* maps[4];  // own0, own1, str0, str1
   int rank, own0, n_tiles, t_len, s_len, heads, h, b, causal_offset;
   float scale;
@@ -1253,62 +1285,186 @@ struct BwdBlock {
 
 // a streamed tile's vector, as the lanes of the loading warp hold it: rows
 // lane and lane + 32 of the tile (dq: the keys' bias; dk/dv: the queries'
-// m, 1/l, delta), zeros past the end
+// m, l, delta), read from the last row where the tile runs past the end
+// (fill_stage writes zeros there): no select waits for the loads, which
+// land under the tile before the one that needs them
 struct TileVec {
   float v[3][2];
 };
 
 template <bool kDq>
-__device__ __forceinline__ TileVec fetch_vec(const BwdBlock& c, int tile,
-                                             const float* __restrict__ bias,
-                                             const float* __restrict__ m,
-                                             const float* __restrict__ l,
-                                             const float* __restrict__ delta) {
+__device__ __forceinline__ void fetch_vec(const BwdBlock& c, int tile, TileVec& out,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ m,
+                                          const float* __restrict__ l,
+                                          const float* __restrict__ delta) {
   const int lane = threadIdx.x % 32;
-  TileVec out;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const int r = tile * kBwdRows + lane + 32 * k;
-    const bool valid = r < (kDq ? c.s_len : c.t_len);
+    const int len = kDq ? c.s_len : c.t_len;
+    const int r = min(tile * kBwdRows + lane + 32 * k, len - 1);
     if constexpr (kDq) {
-      out.v[0][k] = valid ? bias[int64_t(c.b) * c.s_len + r] : 0.f;
+      out.v[0][k] = bias[int64_t(c.b) * c.s_len + r];
     } else {
       const int64_t stat = (int64_t(c.b) * c.heads + c.h) * c.t_len + r;
-      out.v[0][k] = valid ? m[stat] : 0.f;
-      out.v[1][k] = valid ? l[stat] : 0.f;  // inverted in fill_stage, once it has landed
-      out.v[2][k] = valid ? delta[stat] : 0.f;
+      out.v[0][k] = m[stat];
+      out.v[1][k] = l[stat];  // inverted in fill_stage, once it has landed
+      out.v[2][k] = delta[stat];
     }
   }
-  return out;
 }
 
 // the loading warp (warp 0): streamed tile `tile` into ring stage `stage`,
 // by TMA, and its vector; the stage's full barrier takes the 32 lanes'
 // arrivals and the TMA bytes
-template <bool kDq>
+// a ring stage's tiles: stages 0 and 1 in the ring, a third (dq at D=1024,
+// whose owned tiles move to registers) in the owned pair's region
+__device__ __forceinline__ uint8_t* stage_tiles(const BwdBlock& c, int stage) {
+  return stage < 2 ? c.ring + stage * 2 * kBwdTile : c.own;
+}
+
+// a ring stage's vector: kVecFloats a stage, or the keys' bias alone (64) in
+// a ring of three stages (dq)
+template <int kSt>
+__device__ __forceinline__ float* stage_vec(const BwdBlock& c, int stage) {
+  return c.vec + stage * (kSt == 3 ? kBwdRows : kVecFloats);
+}
+
+// one TMA box an operand: the whole 64 x 256 tile (encode_atom_tile_map)
+template <bool kDq, int kSt>
 __device__ __forceinline__ void fill_stage(const BwdBlock& c, int stage, int tile,
                                            const TileVec& vec) {
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
-    uint8_t* dst = c.ring + stage * 2 * kBwdTile;
+    uint8_t* dst = stage_tiles(c, stage);
     hopper::mbar_expect_tx(&c.full[stage], 2 * kBwdTile);
+    hopper::tma_load_5d(dst, c.maps[2], &c.full[stage], 0, tile * kBwdRows, c.rank * kBwdAtoms,
+                        c.h, c.b);
+    hopper::tma_load_5d(dst + kBwdTile, c.maps[3], &c.full[stage], 0, tile * kBwdRows,
+                        c.rank * kBwdAtoms, c.h, c.b);
+  }
+  float* dst = stage_vec<kSt>(c, stage);
 #pragma unroll
-    for (int a = 0; a < kBwdAtoms; ++a) {
-      const int col = (c.rank * kBwdAtoms + a) * kAtomCols;
-      hopper::tma_load_4d(dst + a * kBwdAtom, c.maps[2], &c.full[stage], col, c.h,
-                          tile * kBwdRows, c.b);
-      hopper::tma_load_4d(dst + kBwdTile + a * kBwdAtom, c.maps[3], &c.full[stage], col, c.h,
-                          tile * kBwdRows, c.b);
+  for (int k = 0; k < 2; ++k) {
+    const bool valid = tile * kBwdRows + lane + 32 * k < (kDq ? c.s_len : c.t_len);
+#pragma unroll
+    for (int w = 0; w < (kDq ? 1 : 3); ++w) {
+      const float x = valid ? vec.v[w][k] : 0.f;
+      dst[w * kBwdRows + lane + 32 * k] = (!kDq && w == 1) ? (x != 0.f ? 1.f / x : 0.f) : x;
     }
   }
-  float* dst = c.vec + stage * kVecFloats;
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-#pragma unroll
-    for (int w = 0; w < (kDq ? 1 : 3); ++w)
-      dst[w * kBwdRows + lane + 32 * k] =
-          (!kDq && w == 1) ? (vec.v[1][k] != 0.f ? 1.f / vec.v[1][k] : 0.f) : vec.v[w][k];
   if (lane != 0) hopper::mbar_arrive(&c.full[stage]);
+}
+
+// the loading warp's start: the owned tiles and the ring's first two stages
+// now (each later tile goes into the stage its predecessor's predecessor
+// freed, kSt - 1 tiles ahead: refill_stage; a third stage, in the owned
+// region, takes tile 2 once the owned tiles are in registers: fill_stage),
+// and the vector of the tile after them
+template <bool kDq, int kSt>
+__device__ __forceinline__ void start_loads(const BwdBlock& c, TileVec& next,
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ m,
+                                            const float* __restrict__ l,
+                                            const float* __restrict__ delta) {
+  if (threadIdx.x % 32 == 0) {
+    hopper::mbar_expect_tx(c.own_bar, 2 * kBwdTile);
+    hopper::tma_load_5d(c.own, c.maps[0], c.own_bar, 0, c.own0, c.rank * kBwdAtoms, c.h, c.b);
+    hopper::tma_load_5d(c.own + kBwdTile, c.maps[1], c.own_bar, 0, c.own0, c.rank * kBwdAtoms,
+                        c.h, c.b);
+  }
+  for (int st = 0; st < 2 && st < c.n_tiles; ++st) {
+    fetch_vec<kDq>(c, st, next, bias, m, l, delta);
+    fill_stage<kDq, kSt>(c, st, st, next);
+  }
+  if (2 < c.n_tiles) fetch_vec<kDq>(c, 2, next, bias, m, l, delta);
+}
+
+// the loading warp at tile j, once both warpgroups are done with tile j - 1:
+// its stage takes tile j + kSt - 1 (and the vector of the tile after is
+// fetched)
+template <bool kDq, int kSt>
+__device__ __forceinline__ void refill_stage(const BwdBlock& c, int j, TileVec& next,
+                                             const float* __restrict__ bias,
+                                             const float* __restrict__ m,
+                                             const float* __restrict__ l,
+                                             const float* __restrict__ delta) {
+  if (j >= 1 && j + kSt - 1 < c.n_tiles) {
+    const int free_stage = (j + kSt - 1) % kSt;
+    hopper::mbar_wait(&c.empty[free_stage], ((j - 1) / kSt) & 1);
+    fill_stage<kDq, kSt>(c, free_stage, j + kSt - 1, next);
+    if (j + kSt < c.n_tiles) fetch_vec<kDq>(c, j + kSt, next, bias, m, l, delta);
+  }
+}
+
+// a thread's owned rows (r = 0, 1: eight apart): dq's statistics (a row past
+// T, or one whose keys are all masked, gets ds = 0), dk/dv's key bias
+struct OwnRows {
+  float m[2], inv_l[2], delta[2], bias[2];
+  bool zero_ds[2], key_valid[2];
+};
+
+template <bool kDq>
+__device__ __forceinline__ OwnRows own_rows(const BwdBlock& c, int row0,
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ m,
+                                            const float* __restrict__ l,
+                                            const float* __restrict__ delta) {
+  OwnRows o;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if constexpr (kDq) {
+      const bool valid = row < c.t_len;
+      const int64_t stat = (int64_t(c.b) * c.heads + c.h) * c.t_len + row;
+      o.m[r] = valid ? m[stat] : 0.f;
+      o.inv_l[r] = valid ? 1.f / l[stat] : 0.f;
+      o.delta[r] = valid ? delta[stat] : 0.f;
+      o.zero_ds[r] = !valid || o.m[r] <= 0.5f * kMaskValue;
+    } else {
+      o.key_valid[r] = row < c.s_len;
+      o.bias[r] = o.key_valid[r] ? bias[int64_t(c.b) * c.s_len + row] : 0.f;
+    }
+  }
+  return o;
+}
+
+// p and ds of this thread's four elements of chunk cc (8 streamed columns)
+// of a 64 x 64 logit tile, x[4 cc + 2 r + e], from S and dP: streamed rows
+// past the end masked by index, the causal bias by index after the pad
+// bias; every value computed, then selected (no branch an element)
+template <bool kDq, bool kCausal>
+__device__ __forceinline__ void chunk_p_ds(const BwdBlock& c, const OwnRows& o, const float* vec,
+                                           int s0, int cc, int row0, const float (&s_val)[4],
+                                           const float (&dp_val)[4], float (&pv)[4],
+                                           float (&dsv)[4]) {
+  const int col_in_chunk = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4) {
+    const int r = k4 / 2;
+    const int col = 8 * cc + col_in_chunk + k4 % 2;
+    const int other = s0 + col;  // the streamed row: a key (dq) or a query (dk/dv)
+    if constexpr (kDq) {
+      const bool valid = other < c.s_len;
+      float logit = fmaf(s_val[k4], c.scale, vec[col]);
+      if (kCausal) logit += other > row0 + 8 * r + c.causal_offset ? kMaskValue : 0.f;
+      const float e = hopper::exp2_ftz((logit - o.m[r]) * kLog2e) * o.inv_l[r];
+      const float p = valid ? e : 0.f;
+      const float ds = p * (dp_val[k4] - o.delta[r]);
+      pv[k4] = p;
+      dsv[k4] = o.zero_ds[r] ? 0.f : ds;
+    } else {
+      const bool valid = other < c.t_len;
+      const float m_c = vec[col];
+      float logit = fmaf(s_val[k4], c.scale, o.bias[r]);
+      if (kCausal) logit += row0 + 8 * r > other + c.causal_offset ? kMaskValue : 0.f;
+      const float e = hopper::exp2_ftz((logit - m_c) * kLog2e) * vec[kBwdRows + col];
+      const float p = valid && o.key_valid[r] ? e : 0.f;
+      const float ds = p * (dp_val[k4] - vec[2 * kBwdRows + col]);
+      pv[k4] = p;
+      dsv[k4] = (!valid || m_c <= 0.5f * kMaskValue) ? 0.f : ds;
+    }
+  }
 }
 
 // a warpgroup of role kRole: 0 computes the S share (and dv in
@@ -1333,28 +1489,9 @@ __device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
   const int warp = t / 32;
   const int lane = t % 32;
   const int row0 = c.own0 + warp * 16 + lane / 4;  // this thread's rows: r = 0 and r = 1 (eight apart)
-  const int col_in_chunk = 2 * (lane % 4);
   const uint32_t peer = uint32_t(c.rank ^ 1);
 
-  // the owned rows' constants: dq's statistics (a row past T, or one whose
-  // keys are all masked, gets ds = 0), dk/dv's key bias
-  float m_r[2], inv_l[2], delta_r[2], bias_r[2];
-  bool zero_ds[2], key_valid[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if constexpr (kDq) {
-      const bool valid = row < c.t_len;
-      const int64_t stat = (int64_t(c.b) * c.heads + c.h) * c.t_len + row;
-      m_r[r] = valid ? m[stat] : 0.f;
-      inv_l[r] = valid ? 1.f / l[stat] : 0.f;
-      delta_r[r] = valid ? delta[stat] : 0.f;
-      zero_ds[r] = !valid || m_r[r] <= 0.5f * kMaskValue;
-    } else {
-      key_valid[r] = row < c.s_len;
-      bias_r[r] = key_valid[r] ? bias[int64_t(c.b) * c.s_len + row] : 0.f;
-    }
-  }
+  const OwnRows rows = own_rows<kDq>(c, row0, bias, m, l, delta);
 
   float acc[kHeld][32];
 #pragma unroll
@@ -1369,36 +1506,12 @@ __device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
   uint4* const drop = reinterpret_cast<uint4*>(mine + kQ0 * kChunk);
   const uint4* const pick = reinterpret_cast<const uint4*>(theirs + (4 - kQ0) * kChunk);
 
-  // warp 0 of the first warpgroup loads: the owned tiles and the first
-  // stages now, each later tile into the stage its predecessor freed, one
-  // tile ahead (its vector fetched a tile before that)
+  // warp 0 of the first warpgroup loads (see start_loads, refill)
   const bool loader = kRole == 0 && warp == 0;
   TileVec next;
-  if (loader) {
-    if (lane == 0) {
-      hopper::mbar_expect_tx(c.own_bar, 2 * kBwdTile);
-#pragma unroll
-      for (int a = 0; a < kBwdAtoms; ++a) {
-        const int col = (c.rank * kBwdAtoms + a) * kAtomCols;
-        hopper::tma_load_4d(c.own + a * kBwdAtom, c.maps[0], c.own_bar, col, c.h, c.own0, c.b);
-        hopper::tma_load_4d(c.own + kBwdTile + a * kBwdAtom, c.maps[1], c.own_bar, col, c.h,
-                            c.own0, c.b);
-      }
-    }
-    for (int st = 0; st < kStages && st < c.n_tiles; ++st)
-      fill_stage<kDq>(c, st, st, fetch_vec<kDq>(c, st, bias, m, l, delta));
-    if (kStages < c.n_tiles) next = fetch_vec<kDq>(c, kStages, bias, m, l, delta);
-  }
-
-  // at tile j, once both warpgroups are done with tile j - 1: its stage
-  // takes tile j + 1
+  if (loader) start_loads<kDq, kStages>(c, next, bias, m, l, delta);
   auto refill = [&](int j) {
-    if (loader && j >= 1 && j + 1 < c.n_tiles) {
-      const int free_stage = (j + 1) % kStages;
-      hopper::mbar_wait(&c.empty[free_stage], ((j - 1) / kStages) & 1);
-      fill_stage<kDq>(c, free_stage, j + 1, next);
-      if (j + 2 < c.n_tiles) next = fetch_vec<kDq>(c, j + 2, bias, m, l, delta);
-    }
+    if (loader) refill_stage<kDq, kStages>(c, j, next, bias, m, l, delta);
   };
 
   hopper::mbar_wait(c.own_bar, 0);
@@ -1438,33 +1551,10 @@ __device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
             mine + q * kChunk + t, &c.sfull[kRole], peer,
             make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
       refill(j);
-      if constexpr (kC == 4) {
-        // a butterfly in two rounds through the same buffer: the share
-        // above went to block rank ^ 1, and x becomes that pair's sum; the
-        // sum goes to block rank ^ 2 and comes back as (s0 + s1) + (s2 + s3)
-        // (each round's own + partner is the same f32 sum in both blocks):
-        // the same bits in all four blocks
-        hopper::mbar_wait_cluster(&c.sfull[kRole], 0);
-        if (t == 0) hopper::mbar_expect_tx(&c.sfull[kRole], kXFloats * 4);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const float4 v = mine[q * kChunk + t];
-          x[4 * q] += v.x, x[4 * q + 1] += v.y, x[4 * q + 2] += v.z, x[4 * q + 3] += v.w;
-        }
-        hopper::fence_regs(x);  // the reads' values used before the buffer is handed on
-        __syncwarp();  // the buffer is free for block rank ^ 2's round
-        if (lane == 0) hopper::mbar_arrive_peer_relaxed(&c.sfree1[kRole], uint32_t(c.rank ^ 2));
-        hopper::mbar_wait_cluster(&c.sfree1[kRole], j & 1);
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          hopper::store_async_peer_f32x4(
-              mine + q * kChunk + t, &c.sfull[kRole], uint32_t(c.rank ^ 2),
-              make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
-      }
       // the peer's share of this role is in this block's buffer (and the
       // barrier is armed for the next tile's): this role's half stays in
       // registers, the other half goes back whole for the other role
-      hopper::mbar_wait_cluster(&c.sfull[kRole], kC == 4 ? 1 : j & 1);
+      hopper::mbar_wait_cluster(&c.sfull[kRole], j & 1);
       if (t == 0 && j + 1 < c.n_tiles) hopper::mbar_expect_tx(&c.sfull[kRole], kXFloats * 4);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -1486,44 +1576,18 @@ __device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
       oth[4 * q] = v.x, oth[4 * q + 1] = v.y, oth[4 * q + 2] = v.z, oth[4 * q + 3] = v.w;
     }
 
-    // p and ds of the half, as bf16 A fragments; streamed rows past the
-    // end masked by index, the causal bias by index after the pad bias;
-    // every value computed, then selected (no branch an element)
+    // p and ds of the half, as bf16 A fragments
     const int s0 = j * kBwdRows;
     uint32_t p_frag[2][4], ds_frag[2][4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int cc = kQ0 + q;
-      float pv[4], dsv[4];
+      float s_val[4], dp_val[4], pv[4], dsv[4];
 #pragma unroll
       for (int k4 = 0; k4 < 4; ++k4) {
-        const int i = 4 * q + k4;  // x[4 cc + 2 r + e]
-        const int r = k4 / 2;
-        const int col = 8 * cc + col_in_chunk + k4 % 2;
-        const int other = s0 + col;  // the streamed row: a key (dq) or a query (dk/dv)
-        const float s_val = kRole == 0 ? own[i] : oth[i];
-        const float dp_val = kRole == 0 ? oth[i] : own[i];
-        if constexpr (kDq) {
-          const bool valid = other < c.s_len;
-          float logit = fmaf(s_val, c.scale, vec[col]);
-          if (kCausal) logit += other > row0 + 8 * r + c.causal_offset ? kMaskValue : 0.f;
-          const float e = hopper::exp2_ftz((logit - m_r[r]) * kLog2e) * inv_l[r];
-          const float p = valid ? e : 0.f;
-          const float ds = p * (dp_val - delta_r[r]);
-          pv[k4] = p;
-          dsv[k4] = zero_ds[r] ? 0.f : ds;
-        } else {
-          const bool valid = other < c.t_len;
-          const float m_c = vec[col];
-          float logit = fmaf(s_val, c.scale, bias_r[r]);
-          if (kCausal) logit += row0 + 8 * r > other + c.causal_offset ? kMaskValue : 0.f;
-          const float e = hopper::exp2_ftz((logit - m_c) * kLog2e) * vec[kBwdRows + col];
-          const float p = valid && key_valid[r] ? e : 0.f;
-          const float ds = p * (dp_val - vec[2 * kBwdRows + col]);
-          pv[k4] = p;
-          dsv[k4] = (!valid || m_c <= 0.5f * kMaskValue) ? 0.f : ds;
-        }
+        s_val[k4] = kRole == 0 ? own[4 * q + k4] : oth[4 * q + k4];
+        dp_val[k4] = kRole == 0 ? oth[4 * q + k4] : own[4 * q + k4];
       }
+      chunk_p_ds<kDq, kCausal>(c, rows, vec, s0, kQ0 + q, row0, s_val, dp_val, pv, dsv);
       p_frag[q / 2][2 * (q % 2)] = hopper::pack_bf16x2(pv[0], pv[1]);
       p_frag[q / 2][2 * (q % 2) + 1] = hopper::pack_bf16x2(pv[2], pv[3]);
       ds_frag[q / 2][2 * (q % 2)] = hopper::pack_bf16x2(dsv[0], dsv[1]);
@@ -1580,6 +1644,235 @@ __device__ __forceinline__ void deep_bwd_warpgroup(const BwdBlock& c,
   deep_store<D, kHeld>(acc, out, row0, own_len, c.heads, c.h, c.b, atom0, mul);
 }
 
+// D=1024: a warpgroup of role kRole of a four-block cluster (block rank r
+// holds head columns 256 r ..). Its share of the tile (S for role 0, dP for
+// role 1) is reduced and scattered in one round: quarter q (16 streamed
+// columns, chunks 2q and 2q + 1 of the accumulator layout) goes to block q,
+// the own quarter to this block's buffer, so block r holds all four blocks'
+// shares of quarter r of S and of dP, [role][rank][half][thread] float4s.
+// The warpgroup sums chunk 2r + kRole as (s0 + s1) + (s2 + s3), forms its p
+// and ds, and puts their bf16 halves of k-step r's A fragments beside the
+// other role's in this block's slot ([kind][k-step][thread] uint4s, this
+// role's half at .xy or .zw; kind 0 ds, 1 p in dk/dv); the whole fragments
+// then go to the same slot of the three peers (dq: ds, to block q from
+// warpgroup q % 2; dk/dv: p from the first, ds from the second), over the
+// start of the same buffer once every block has read its quarters. The
+// accumulation then runs as at D <= 512 (k-steps 2 kRole, 2 kRole + 1,
+// then the others). dq's products take their A from registers (the section
+// above says why).
+template <bool kCausal, bool kDq, int kRole>
+__device__ __forceinline__ void deep_bwd_quarters(const BwdBlock& c,
+                                                 const float* __restrict__ bias,
+                                                 const float* __restrict__ m,
+                                                 const float* __restrict__ l,
+                                                 const float* __restrict__ delta,
+                                                 __nv_bfloat16* __restrict__ out) {
+  constexpr int kHeld = kDq ? kBwdAtoms / 2 : kBwdAtoms;
+  constexpr int kKinds = kDq ? 1 : 2;  // fragments gathered: ds (and p)
+  // dq holds its owned tile (Q or G) as A fragments, 64 registers, so the
+  // owned region becomes a third ring stage and the next tile's products
+  // run under this tile's exchange; dk/dv, whose accumulators take 128
+  // registers, keeps two stages and SS products
+  constexpr int kSt = kDq ? 3 : 2;
+  constexpr int kT = 128;              // threads of a warpgroup: one float4 / uint4 each
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int row0 = c.own0 + warp * 16 + lane / 4;  // this thread's rows: r = 0 and r = 1 (eight apart)
+  const int rank = c.rank;
+  const OwnRows rows = own_rows<kDq>(c, row0, bias, m, l, delta);
+
+  float acc[kHeld][32];
+#pragma unroll
+  for (int a = 0; a < kHeld; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+  float4* const quarters = reinterpret_cast<float4*>(c.xbuf);  // [role][rank][half][thread]
+  uint4* const frags = reinterpret_cast<uint4*>(c.xbuf);        // [kind][k-step][thread]
+  uint64_t* const q_full = &c.sfull[0];
+  uint64_t* const f_full = &c.sfull[1];
+
+  const bool loader = kRole == 0 && warp == 0;
+  TileVec next;
+  if (loader) start_loads<kDq, kSt>(c, next, bias, m, l, delta);
+
+  // dq: this role's owned tile as the A fragments of its 16 k-steps (rows
+  // r0, r0 + 8; columns 16 kk + 2 (lane % 4) .. and 8 on), read from the
+  // swizzled atoms TMA wrote
+  uint32_t own_a[kDq ? kBwdCols / 16 : 1][4];
+  hopper::mbar_wait(c.own_bar, 0);
+  if constexpr (kDq) {
+    const uint8_t* tile = c.own + kRole * kBwdTile;
+#pragma unroll
+    for (int kk = 0; kk < kBwdCols / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = warp * 16 + lane / 4 + 8 * (e % 2);
+        const int col = (kk % 4) * 16 + 8 * (e / 2) + 2 * (lane % 4);  // in the atom
+        own_a[kk][e] = *reinterpret_cast<const uint32_t*>(
+            tile + (kk / 4) * kBwdAtom + row * kRowBytes + (((col / 8) ^ (row % 8)) * 16) +
+            (col % 8) * 2);
+      }
+    hopper::fence_regs(own_a);
+    hopper::fence_proxy_async();  // the reads done before TMA writes the region
+    hopper::named_sync(3, kBwdThreads);
+    if (loader && 2 < c.n_tiles) {  // the owned region becomes stage 2: tile 2
+      fill_stage<kDq, kSt>(c, 2, 2, next);
+      if (3 < c.n_tiles) fetch_vec<kDq>(c, 3, next, bias, m, l, delta);
+    }
+  }
+
+  // this role's share of tile j (started, not awaited), over the block's
+  // 256 columns
+  auto product = [&](float (&x)[32], int j) {
+    const int stage = j % kSt;
+    hopper::mbar_wait(&c.full[stage], (j / kSt) & 1);
+    const uint8_t* str = stage_tiles(c, stage) + kRole * kBwdTile;
+    hopper::wgmma_fence();
+    if constexpr (kDq) {
+#pragma unroll
+      for (int kk = 0; kk < kBwdCols / 16; ++kk)
+        hopper::wgmma_rs_m64n64k16(
+            x, own_a[kk],
+            hopper::make_desc(str + (kk / 4) * kBwdAtom + (kk % 4) * 32, kGroup, kLayout),
+            kk > 0);
+    } else {
+      deep_product<kBwdCols, 32>(x, c.own + kRole * kBwdTile, kBwdAtom, str, kBwdAtom);
+    }
+    hopper::wgmma_commit();
+  };
+
+  float x[32];
+  product(x, 0);
+  for (int j = 0; j < c.n_tiles; ++j) {
+    const int stage = j % kSt;
+    const uint8_t* str = stage_tiles(c, stage);
+    const float* vec = stage_vec<kSt>(c, stage);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(x);
+
+    // quarter q of the share to block q, once every block has read the
+    // last tile's fragments (over which it lands)
+    if (j > 0) hopper::mbar_wait_cluster(c.sfree, (j - 1) & 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4* const dst = quarters + ((kRole * 4 + rank) * 2 + h) * kT + t;
+        const float4 v = make_float4(x[8 * q + 4 * h], x[8 * q + 4 * h + 1],
+                                     x[8 * q + 4 * h + 2], x[8 * q + 4 * h + 3]);
+        if (q == rank)
+          *dst = v;
+        else
+          hopper::store_async_peer_f32x4(dst, q_full, uint32_t(q), v);
+      }
+    // dk/dv: the ring refilled while the quarters fly (its next tile is
+    // needed after this tile's p and ds)
+    if (loader && !kDq) refill_stage<kDq, kSt>(c, j, next, bias, m, l, delta);
+    // dq: the next tile's share under this tile's exchange (its stage was
+    // filled two tiles ago)
+    if (kDq && j + 1 < c.n_tiles) product(x, j + 1);
+    // the peers' quarters have landed (the barrier is armed for the next
+    // tile's), and this block's own, written by both warpgroups
+    hopper::mbar_wait_cluster(q_full, j & 1);
+    if (threadIdx.x == 0 && j + 1 < c.n_tiles) hopper::mbar_expect_tx(q_full, 3 * 2 * 2 * kT * 16);
+    hopper::named_sync(1, kBwdThreads);
+
+    // S and dP of chunk 2r + kRole: the four shares in rank order
+    float s_val[4], dp_val[4];
+    {
+      float4 sh[2][4];
+#pragma unroll
+      for (int role = 0; role < 2; ++role)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sh[role][k] = quarters[((role * 4 + k) * 2 + kRole) * kT + t];
+      auto sum4 = [](const float4 (&v)[4], float (&o)[4]) {
+        o[0] = (v[0].x + v[1].x) + (v[2].x + v[3].x);
+        o[1] = (v[0].y + v[1].y) + (v[2].y + v[3].y);
+        o[2] = (v[0].z + v[1].z) + (v[2].z + v[3].z);
+        o[3] = (v[0].w + v[1].w) + (v[2].w + v[3].w);
+      };
+      sum4(sh[0], s_val);
+      sum4(sh[1], dp_val);
+    }
+    hopper::fence_regs(s_val);  // the reads' values used before the buffer is handed on
+    hopper::fence_regs(dp_val);
+    __syncwarp();  // this warp has read its quarters: fragments may land over them
+    if (lane < 4) hopper::mbar_arrive_peer_relaxed(c.gok, uint32_t(lane));
+
+    // p and ds of the chunk: this role's halves of k-step r's A fragments
+    // (rows r0 and r0 + 8, k 8 kRole + 2 (lane % 4) ..), put beside the other
+    // role's in this block's slot of k-step r
+    float pv[4], dsv[4];
+    chunk_p_ds<kDq, kCausal>(c, rows, vec, j * kBwdRows, 2 * rank + kRole, row0, s_val, dp_val,
+                             pv, dsv);
+    const uint2 half_frag[2] = {
+        make_uint2(hopper::pack_bf16x2(dsv[0], dsv[1]), hopper::pack_bf16x2(dsv[2], dsv[3])),
+        make_uint2(hopper::pack_bf16x2(pv[0], pv[1]), hopper::pack_bf16x2(pv[2], pv[3]))};
+    hopper::mbar_wait_cluster(c.gok, j & 1);
+#pragma unroll
+    for (int kind = 0; kind < kKinds; ++kind)
+      reinterpret_cast<uint2*>(frags + (kind * 4 + rank) * kT + t)[kRole] = half_frag[kind];
+    hopper::named_sync(2, kBwdThreads);
+
+    // k-step r's fragments to the peers: in dq ds, from the warpgroup q % 2
+    // for block q; in dk/dv p from the first, ds from the second, to all three
+    constexpr int kKind = kDq || kRole == 1 ? 0 : 1;  // the kind this warpgroup accumulates
+    {
+      uint4* const mine = frags + (kKind * 4 + rank) * kT + t;
+      const uint4 v = *mine;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q != rank && (!kDq || (q & 1) == kRole))
+          hopper::store_async_peer_u32x4(mine, f_full, uint32_t(q), v);
+    }
+    // dk/dv: the next tile's share, under the fragments' flight and this
+    // tile's accumulation (its stage was refilled a tile ago)
+    if (!kDq && j + 1 < c.n_tiles) product(x, j + 1);
+    // dq: the ring refilled while the fragments fly, off the path to the
+    // quarters (its tile is needed a tile later)
+    if (loader && kDq) refill_stage<kDq, kSt>(c, j, next, bias, m, l, delta);
+    hopper::mbar_wait_cluster(f_full, j & 1);
+    if (threadIdx.x == 0 && j + 1 < c.n_tiles)
+      hopper::mbar_expect_tx(f_full, 3 * kKinds * kT * 16);
+
+    // dq += ds.K; dv += p^T.G; dk += ds^T.Q, k-steps 2 kRole and 2 kRole + 1
+    // first, as the D <= 512 body
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint4 v = frags[(kKind * 4 + kk) * kT + t];
+      a[kk][0] = v.x, a[kk][1] = v.y, a[kk][2] = v.z, a[kk][3] = v.w;
+    }
+    const uint8_t* acc_b = kDq ? str : str + (1 - kRole) * kBwdTile;
+    const int acc_atom0 = kDq ? kRole * kHeld : 0;
+    uint32_t first[2][4], second[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        first[kk][e] = a[2 * kRole + kk][e];
+        second[kk][e] = a[2 * (1 - kRole) + kk][e];
+      }
+    hopper::wgmma_fence();
+    deep_accumulate<kHeld, 32>(acc, first, acc_b + kRole * 32 * kRowBytes, kBwdAtom, acc_atom0);
+    deep_accumulate<kHeld, 32>(acc, second, acc_b + (1 - kRole) * 32 * kRowBytes, kBwdAtom,
+                               acc_atom0);
+    hopper::wgmma_commit();
+    __syncwarp();  // this warp's fragments are read: the peers may push the next quarters
+    if (lane < 4) hopper::mbar_arrive_peer_relaxed(c.sfree, uint32_t(lane));
+    hopper::wgmma_wait<0>();  // the next share, then this accumulation
+    deep_wait_acc(acc);
+    hopper::mbar_arrive(&c.empty[stage]);
+  }
+
+  hopper::wgmma_wait<0>();  // (a no-op: ptxas would otherwise insert it before the store)
+  const int atom0 = rank * kBwdAtoms + (kDq ? kRole * kHeld : 0);
+  const int own_len = kDq ? c.t_len : c.s_len;
+  const float mul = (kDq || kRole == 1) ? c.scale : 1.f;
+  deep_store<1024, kHeld>(acc, out, row0, own_len, c.heads, c.h, c.b, atom0, mul);
+}
+
 // dq (kDq: own Q and G, stream K and V, out0 = dq) or dk/dv (own K and V,
 // stream Q and G, out0 = dv, out1 = dk). One block per (64 owned rows,
 // column half at D=512, head, batch); blockIdx.x / (D / 256) is the row
@@ -1604,11 +1897,11 @@ deep_bwd_kernel(const __grid_constant__ CUtensorMap own0_map,
   c.vec = c.xbuf + 2 * kXFloats;
   uint64_t* bars = reinterpret_cast<uint64_t*>(c.vec + kStages * kVecFloats);
   c.full = bars;
-  c.empty = bars + kStages;
-  c.own_bar = bars + 2 * kStages;
+  c.empty = bars + kBwdStages;
+  c.own_bar = bars + 2 * kBwdStages;
   c.sfull = c.own_bar + 1;
   c.sfree = c.sfull + 2;
-  c.sfree1 = c.sfree + 1;
+  c.gok = c.sfree + 1;
   c.rank = kC > 1 ? int(hopper::cluster_rank()) : 0;
   c.own0 = int(blockIdx.x / kC) * kBwdRows;
   c.n_tiles = ((kDq ? s_len : t_len) + kBwdRows - 1) / kBwdRows;
@@ -1625,19 +1918,23 @@ deep_bwd_kernel(const __grid_constant__ CUtensorMap own0_map,
   c.maps[3] = &str1_map;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < kBwdStages; ++st) {
       hopper::mbar_init(&c.full[st], 32);  // the loading warp's lanes (lane 0's with the bytes)
       hopper::mbar_init(&c.empty[st], kBwdThreads);
     }
     hopper::mbar_init(c.own_bar, 1);
-    // a share lands by st.async: one arrival (arming it for the share's
-    // bytes) a tile; the peer's warps free the buffers, one lane each
-    for (int role = 0; role < 2; ++role) {
-      hopper::mbar_init(&c.sfull[role], 1);
-      if (kC > 1) hopper::mbar_expect_tx(&c.sfull[role], kXFloats * 4);
-      hopper::mbar_init(&c.sfree1[role], 4);
+    // shares land by st.async: one arrival (arming the barrier for their
+    // bytes) a tile; the peers' warps free the buffers, one lane each (at
+    // D=1024 every warp of the cluster, this block's too)
+    for (int role = 0; role < 2; ++role) hopper::mbar_init(&c.sfull[role], 1);
+    if constexpr (kC == 2) {
+      for (int role = 0; role < 2; ++role) hopper::mbar_expect_tx(&c.sfull[role], kXFloats * 4);
+    } else if constexpr (kC == 4) {
+      hopper::mbar_expect_tx(&c.sfull[0], 3 * 2 * 2 * 128 * 16);        // the peers' quarters
+      hopper::mbar_expect_tx(&c.sfull[1], 3 * (kDq ? 1 : 2) * 128 * 16);  // their fragments
     }
-    hopper::mbar_init(c.sfree, 8);
+    hopper::mbar_init(c.sfree, kC == 4 ? 4 * 8 : 8);
+    hopper::mbar_init(c.gok, 4 * 8);
     hopper::fence_barrier_init();
   }
   if constexpr (kC > 1)
@@ -1645,10 +1942,17 @@ deep_bwd_kernel(const __grid_constant__ CUtensorMap own0_map,
   else
     __syncthreads();
 
-  if (threadIdx.x < 128)
-    deep_bwd_warpgroup<D, kCausal, kDq, 0>(c, bias, m, l, delta, out0);
-  else
-    deep_bwd_warpgroup<D, kCausal, kDq, 1>(c, bias, m, l, delta, kDq ? out0 : out1);
+  if constexpr (kC == 4) {
+    if (threadIdx.x < 128)
+      deep_bwd_quarters<kCausal, kDq, 0>(c, bias, m, l, delta, out0);
+    else
+      deep_bwd_quarters<kCausal, kDq, 1>(c, bias, m, l, delta, kDq ? out0 : out1);
+  } else {
+    if (threadIdx.x < 128)
+      deep_bwd_warpgroup<D, kCausal, kDq, 0>(c, bias, m, l, delta, out0);
+    else
+      deep_bwd_warpgroup<D, kCausal, kDq, 1>(c, bias, m, l, delta, kDq ? out0 : out1);
+  }
   if constexpr (kC > 1) hopper::cluster_sync();  // no block leaves while a peer reads it
 }
 
@@ -1720,22 +2024,6 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, const float* 
   return cudaGetLastError();
 }
 
-// the four TMA maps of a backward launch: q and g boxes of `q_rows`, k and
-// v of `k_rows`
-template <int D>
-bool encode_bwd_maps(const attn_deep::BwdArgs& a, int q_rows, int k_rows, CUtensorMap* q_map,
-                     CUtensorMap* g_map, CUtensorMap* k_map, CUtensorMap* v_map) {
-  const int64_t* st = a.st;
-  return hopper::encode_head_map(q_map, a.q, a.batch, a.t_len, a.heads, D, st + 0, kAtomCols,
-                                 q_rows) &&
-         hopper::encode_head_map(g_map, a.g, a.batch, a.t_len, a.heads, D, st + 9, kAtomCols,
-                                 q_rows) &&
-         hopper::encode_head_map(k_map, a.k, a.batch, a.s_len, a.heads, D, st + 3, kAtomCols,
-                                 k_rows) &&
-         hopper::encode_head_map(v_map, a.v, a.batch, a.s_len, a.heads, D, st + 6, kAtomCols,
-                                 k_rows);
-}
-
 template <int D>
 cudaError_t dq_scalar(const attn_deep::BwdArgs& a) {
   using G = ScalarBwd<D>;
@@ -1772,7 +2060,13 @@ template <int D, bool kDq>
 cudaError_t bwd_wgmma(const attn_deep::BwdArgs& a) {
   constexpr int kC = D / kBwdCols;
   CUtensorMap q_map, g_map, k_map, v_map;
-  if (!encode_bwd_maps<D>(a, kBwdRows, kBwdRows, &q_map, &g_map, &k_map, &v_map))
+  const int64_t* st = a.st;
+  const auto tile = [&](CUtensorMap* map, const void* x, int rows, const int64_t* strides) {
+    return hopper::encode_atom_tile_map(map, x, a.batch, rows, a.heads, D, strides, kBwdRows,
+                                        kBwdAtoms);
+  };
+  if (!tile(&q_map, a.q, a.t_len, st + 0) || !tile(&g_map, a.g, a.t_len, st + 9) ||
+      !tile(&k_map, a.k, a.s_len, st + 3) || !tile(&v_map, a.v, a.s_len, st + 6))
     return cudaErrorInvalidValue;
   const size_t smem = kSlack + kBwdBytes;
   const auto kernel = a.causal ? deep_bwd_kernel<D, true, kDq> : deep_bwd_kernel<D, false, kDq>;

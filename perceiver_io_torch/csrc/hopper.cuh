@@ -154,6 +154,17 @@ __device__ __forceinline__ void store_async_peer_f32x4(float4* local, uint64_t* 
   store_async_f32x4(map_peer(smem_u32(local), rank), map_peer(smem_u32(bar), rank), v);
 }
 
+// four 32-bit words to the same shared-memory offset of block `rank` of the
+// cluster, as store_async_peer_f32x4 stores four floats
+__device__ __forceinline__ void store_async_peer_u32x4(uint4* local, uint64_t* bar, uint32_t rank,
+                                                       uint4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(map_peer(smem_u32(local), rank)),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(map_peer(smem_u32(bar), rank))
+      : "memory");
+}
+
 // one arrival on the barrier at `bar` of the cluster's shared window
 // (map_peer), ordering nothing: a signal that this thread's reads, whose
 // values it has used, are done
@@ -245,6 +256,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
   tma_load_4d(smem_u32(dst), map, smem_u32(bar), c0, c1, c2, c3);
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // ---- cp.async ----
 
 // 16 bytes global -> shared, asynchronously; with src_bytes 0 nothing is
@@ -320,6 +341,22 @@ inline bool encode_head_map(CUtensorMap* map, const void* base, int batch, int r
                                cuuint64_t(strides[0]) * 2};
   const cuuint32_t box[4] = {cuuint32_t(box_cols), 1, cuuint32_t(box_rows), 1};
   return encode_bf16_map(map, 4, base, dims, bytes, box);
+}
+
+// A 5-D map over the same view whose box is a whole tile of `atoms`
+// 64-column swizzle atoms side by side: dims (64 columns, rows, atoms,
+// heads, batch), boxes of (64, box_rows, atoms, one head, one batch), which
+// land as `atoms` consecutive [box_rows][64] atoms, each as a 4-D box of one
+// atom would: one TMA instruction where encode_head_map takes `atoms`
+inline bool encode_atom_tile_map(CUtensorMap* map, const void* base, int batch, int rows,
+                                 int heads, int head_dim, const int64_t* strides, int box_rows,
+                                 int atoms) {
+  const cuuint64_t dims[5] = {64, cuuint64_t(rows), cuuint64_t(head_dim / 64), cuuint64_t(heads),
+                              cuuint64_t(batch)};
+  const cuuint64_t bytes[4] = {cuuint64_t(strides[1]) * 2, 128, cuuint64_t(strides[2]) * 2,
+                               cuuint64_t(strides[0]) * 2};
+  const cuuint32_t box[5] = {64, cuuint32_t(box_rows), cuuint32_t(atoms), 1, 1};
+  return encode_bf16_map(map, 5, base, dims, bytes, box);
 }
 
 // A 1-D map over `n` contiguous f32 values (16-byte aligned), boxes of
@@ -539,6 +576,26 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (+)= A . B with A from registers (the fragments of a 64 x 16 tile) and
+// B K-major in shared memory, as wgmma_ss takes it; d is overwritten when
+// `accumulate` is false
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(int(accumulate)));
 }
 
 // the RS product of an m64 tile whose accumulator holds N floats a thread

@@ -38,7 +38,8 @@ the einsum attention (``attn_impl='xla'``) against #1-#3 under autograd,
 the deep designs of #1-#3 (D = 256, 512 and 1024, f32 and bf16, with and
 without the causal offset) on their own counters, D = 1024's four-block
 cluster giving bit for bit equal column quarters where v, k and g repeat
-one quarter four times, and the bf16 deep
+one quarter four times (the backward also over a walk of 301 key tiles
+with a ragged tail and over 9 query tiles), and the bf16 deep
 forward (with and without statistics) and backward at ragged, one-key and
 B=1 shapes, a second call bit for bit the first, and at the multimodal
 autoencoder's tails (784 query rows; 1025 rows over 784 keys, 13 key
@@ -184,13 +185,15 @@ def test_deep_attention_kernels_match_plain(card, d, dtype, causal):
 
 @pytest.mark.parametrize("causal", [None, 8])
 @pytest.mark.parametrize("b,t,s", [(1, 64, 64), (1, 1, 200), (2, 63, 65), (3, 130, 200),
-                                   (2, 200, 1)])
+                                   (2, 200, 1), (1, 512, 19217), (2, 513, 300), (8, 1, 512)])
 @pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
 def test_deep_wgmma_backward_cases(card, d, b, t, s, causal):
     """The bf16 deep backward (dq and dk/dv one launch each; at D=512 and
     1024 a cluster of two or four blocks that adds its shares of each logit
     tile): T and S off
-    the 64-row tiles, B=1, one key; with B > 1 the last example fully masked
+    the 64-row tiles, B=1, one key, a walk of 301 key tiles with a 17-key
+    tail, 9 query tiles, ImageNet's one-query decoder cross over 512 keys;
+    with B > 1 the last example fully masked
     (dq and dk exactly 0, dv its uniform share) or, with the causal offset,
     its first 12 keys padded (dq of the rows that see only padding exactly
     0); a second call bit for bit the first."""
@@ -263,7 +266,8 @@ def test_deep_wgmma_forward_cases(card, d, b, t, s, causal, stats):
         _close(got[0][-1], uniform, torch.bfloat16)
 
 
-@pytest.mark.parametrize("b,t,s", [(1, 130, 200), (2, 200, 65), (2, 1, 512)])
+@pytest.mark.parametrize("b,t,s", [(1, 130, 200), (2, 200, 65), (2, 1, 512), (1, 512, 19217),
+                                   (2, 513, 300)])
 def test_deep_1024_cluster_quarters_agree(card, b, t, s):
     """D=1024's four blocks add their shares of each logit tile in one fixed
     order ((s0 + s1) + (s2 + s3)), so all four form the same m, l, P and ds:
