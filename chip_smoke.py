@@ -91,7 +91,7 @@ Phases (any failure exits nonzero):
     all three through the wgmma design (each eval batch 22 attention
     forward and one CE forward), and the loss falls; the share of the CE
     backward's 64-row tiles whose g are all 0 (skipped), per checked step;
-    the 10-step window and the 3-step profile; then the unfused head
+    the 5-step window and the 3-step profile; then the unfused head
     on the same model and state (windows in turns: unfused, unfused,
     fused), and both heads timed on bench.py's own batch (ids from
     ``default_rng(0)``, no padding), fused / unfused / unfused / fused;
@@ -200,7 +200,7 @@ Phases (any failure exits nonzero):
     fit, must read per step 22 causal #1 launches with statistics, 22 causal
     dq and 22 causal dk/dv, all wgmma (3 cross, 18 self, 1 output decode),
     and no other kernel; the loss finite and the mean of the last 5 below the
-    first step's. Then the 10-step window (tokens/s) and the profiled 3-step
+    first step's. Then the 5-step window (tokens/s) and the profiled 3-step
     window (device busy ms, idle share), as phase 8;
 22. three f32 ``flagship_ar`` train steps with the kernels, then with the
     plain versions in their place, from the same weights and batches:
@@ -231,7 +231,7 @@ Phases (any failure exits nonzero):
     #1-#3 launch (22 einsum calls a step and an eval batch), the peak
     memory; then three fresh CLI runs, one an arm (A B C): A these
     flags, B ``--attn_impl pallas --dropout 0``, C ``--dropout 0``, each
-    with its tokens/s over a 10-step window, device ms a step and idle
+    with its tokens/s over a 5-step window, device ms a step and idle
     share over a profiled 4-step one;
 26. ``train_mlm --preset reference --synthetic`` with its defaults
     (``auto``, ``--fused_head auto``), 5 steps with validation every 2,
@@ -363,7 +363,7 @@ Phases (any failure exits nonzero):
     loss falling; then the batch-8 step on each route in turn (``xla``,
     ``auto``, ``pallas``), each step's launches checked against the route
     (``auto`` 8 + 8 + 8, none deep, by ``auto_attention_impl``): clips/s
-    over a 10-step window, device ms a step and idle share of a profiled
+    over a 5-step window, device ms a step and idle share of a profiled
     window, peak memory; three f32 steps at batch 1 on the kernels against
     the plain versions in float64 in their place (phase 36's bars); the f32
     loss with ``--video_patch_loss`` against the pixel-space loss on the same weights
@@ -381,8 +381,8 @@ Phases (any failure exits nonzero):
     the bounds, SDPA and the einsum path (CUDA events); then
     ``quarters_check``: bf16 at the encoder cross with k, v and g one
     quarter repeated four times, out's, dq's and dv's four column quarters
-    bit for bit equal (the cluster's fixed summation order, in the forward's
-    butterfly and in the backward's reduce and scatter);
+    bit for bit equal (the cluster's fixed summation order, in the reduce
+    and scatter of the forward and of the backward);
 39. ImageNet classification at the Perceiver paper's width:
     ``train_imagenet --synthetic --attn_impl pallas --learning_rate 1e-4``
     with the CLI's other defaults (224 × 224 × 3 images, 64 bands, 512 ×
@@ -396,7 +396,7 @@ Phases (any failure exits nonzero):
     route in turn (``pallas``, ``auto``, ``xla``), each step's launches
     checked against the route (``auto`` 72/36/36, none deep; a route that
     does not fit the card fails the phase): images/s
-    over a 10-step window, device ms a step and idle share of a profiled
+    over a 5-step window, device ms a step and idle share of a profiled
     window, peak memory; three f32 steps at batch 1 on the kernels against
     the plain versions in float64 (phase 36's bars: the one-query decoder
     over near-equal latents amplifies f32 rounding, so an f32 plain version
@@ -462,7 +462,7 @@ DEQUANT_PER_FORWARD = 131   # 124 encoder (layer_n reuses its k/v) + 6 decoder +
 ATTN_PER_ENCODE, DEQUANT_PER_ENCODE = 21, 124
 ATTN_PER_DECODE, DEQUANT_PER_DECODE = 1, 7
 TRAIN_STEPS, TRAIN_BATCH, SEQ_LEN, CAPACITY = 30, 64, 512, 160
-WINDOW_STEPS, PROFILE_STEPS = 10, 3
+WINDOW_STEPS, PROFILE_STEPS = 5, 3
 PARITY_SEEDS = (2, 3, 4)
 STAT_TOL = 1e-5
 KERNEL_NAMES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
@@ -2234,7 +2234,7 @@ def ar_training_phase(torch, port, train, val, logdir):
     """Phase 21: Trainer.fit over TRAIN_STEPS bf16 ``flagship_ar`` steps on
     the packed batches ``train`` (validation once, at the end, on ``val``),
     each step checked for its launches (AR_PER_STEP, no other kernel, no
-    plain version) and a finite loss; then the 10-step window and the
+    plain version) and a finite loss; then the 5-step window and the
     profiled 3-step one."""
     counters, names = ar_counters(port), AR_NAMES
     per_step = [AR_PER_STEP.get(name, 0) for name in names]
@@ -3717,11 +3717,16 @@ DEEP_DESIGNS = dict(fwd=("wgmma, 256 threads: 128 query rows a block, 64 a warpg
                          "before this tile's softmax; D=512 split over a 2-block cluster that "
                          "adds its halves by st.async"),
                     dq=_DEEP_BWD, dkv=_DEEP_BWD)
-# D=1024: the same kernels over a 4-block cluster, 256 head columns a block;
-# the forward's blocks sum each logit tile's shares by a 2-round butterfly,
-# the backward's reduce and scatter them in one round and gather bf16 p, ds
-_IN_SPLIT = ("; D=1024 split over a 4-block cluster that sums its shares by a 2-round "
-             "butterfly of st.async pushes ((s0 + s1) + (s2 + s3) in every block)")
+# D=1024: the same kernels over a 4-block cluster, 256 head columns a block,
+# whose blocks reduce and scatter each logit tile's f32 shares in one round
+# (block r sums quarter r in rank order), form what the product needs there
+# (the forward p, after trading the rows' maxima; the backward p and ds) and
+# gather its bf16 fragments
+_IN_SPLIT = ("; D=1024 split over a 4-block cluster whose blocks reduce and scatter each "
+             "tile's f32 shares in one round of st.async pushes (block r sums quarter r as "
+             "(s0 + s1) + (s2 + s3)), trade the rows' maxima, form p of their quarter and "
+             "gather its bf16 fragments; the rows' sums added across the blocks at the end; "
+             "the next tile's S issued under the exchanges")
 _IN_BWD = ("wgmma, 256 threads: a loading warp refills a 2-stage TMA ring of 64-row "
            "tiles through mbarriers; S and dP computed once, one a warpgroup; D=1024 "
            "split over a 4-block cluster whose blocks reduce and scatter each tile's f32 "

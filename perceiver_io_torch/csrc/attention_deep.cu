@@ -29,11 +29,11 @@
 // pushes), so no logit tile is computed twice; one quarter at D=1024, where
 // the four blocks of a cluster sum their shares in one order, (s0 + s1) +
 // (s2 + s3) (a sum of four in each block's own order would give the four
-// column quarters of a row different m, l and P): the forward by a
-// two-round butterfly through the same exchange buffers (round r with
-// block rank ^ 2^r; the second round reuses the first's buffer once the
-// partner has read it), the backward by one round of reduce and scatter
-// (its section below).
+// column quarters of a row different m, l and P): both by one round of
+// reduce and scatter (block r sums quarter r of each logit tile from the
+// four blocks' shares), then forming there what the product needs (the
+// forward p, after the blocks trade their rows' maxima; the backward p and
+// ds) and gathering its bf16 fragments (their sections below).
 //
 // The bf16 forward (deep_fwd_wgmma_kernel; its section says how): a block
 // owns 128 query rows, 64 a warpgroup, and streams 64-key K and V tiles
@@ -47,7 +47,7 @@
 // tile: its SS logit product alone reads 128 bytes a clock at the tensor
 // cores' peak), and the batch-8 training step is the path this design
 // serves. ImageNet's encoder cross at B=8 gets 128 blocks (32 four-block
-// clusters), one wave.
+// clusters), of which the card holds 30 at once: two waves.
 //
 // float32 (exact scalar FMAs, as attention_fwd.cu / attention_bwd.cu): the
 // forward keeps 64 rows and 4 threads a row with 64-key (D=256) or 16-key
@@ -696,6 +696,45 @@ __device__ __forceinline__ void deep_store(const float (&acc)[kHeld][32], __nv_b
 // too, but holds three logit tiles beside the output and spills: measured
 // no faster.)
 //
+// D=1024: one round of reduce and scatter, the rows' maxima traded, and a
+// gather of bf16 fragments. S_j landed -> quarter q of the warpgroup's
+// share (16 keys, chunks 2q and 2q + 1 of the accumulator layout) pushed to
+// block q, [role][rank][half][thread] float4s, the own quarter to its own
+// slot -> S_{j+1} issued, its product under the quarters' flight -> block r
+// sums quarter r in rank order, (s0 + s1) + (s2 + s3), the same f32 logits
+// for every column quarter, and forms the quarter's logits (the pad bias
+// read from device memory at the tile's top) and each row's max over them
+// -> once every block has read its quarters (gok: the rest lands over
+// them), the maxima go to every block ([rank][quad] float4s), whose max of
+// the four is the tile's (a max is exact, so m is the one-block design's)
+// -> p of the quarter (a quarter of the exponentials), this block's share of
+// each row's sum, and k-step r of P's bf16 A fragments to every block
+// ([rank][thread] uint4s) -> P_j.V_j as at D=512, the four k-steps in order.
+// The four blocks' sums of each row are added once, at the end, in rank
+// order, (l0 + l1) + (l2 + l3), so all four blocks use the same l (P, m and
+// o are those of summing whole tiles in every block, l is that order's
+// sum). A block sends 24 KB of quarters, 3 KB of maxima and 12 KB of
+// fragments a tile (the earlier two-round butterfly: 64 KB; gathering the
+// four f32 sums instead, so that every block forms the whole softmax: 48 KB
+// and four times the exponentials) over one 32 KB buffer and five barriers
+// a warpgroup: the quarters, the maxima and the fragments landed, the
+// peers have read the fragments (free), every block has read its quarters
+// (gok).
+//
+// What bounds D=1024 on the H100: ImageNet's encoder cross (8, 512, 50176,
+// 1, 1024) is 0.85 ms of tensor-core work, but a 64-key tile of a block is
+// 8.4 MFLOP (1.1 us at the tensor cores' peak; its SS logit product also
+// reads 128 bytes of shared memory a clock), 39 KB over the SM-to-SM
+// network (~32.6 GB/s an SM with every SM pushing: 1.2 us) in three
+// dependent rounds that hold all eight warpgroups of the cluster in step,
+// and the 2-stage rings tie the two warpgroups together through the
+// loading warp: the tile takes ~3.1 us (the split:
+// perceiver_io_torch/tools/deep_stamps.py; the products' issue ~1.3 us, the
+// three rounds and the quarter's softmax ~1.0), no resource near its peak,
+// and moving one wait moves another. The card holds 30 four-block clusters of
+// 231 KB at once (cudaOccupancyMaxActiveClusters: the GPCs' SM counts leave
+// 12 SMs idle), so B=8's 32 clusters run in two waves.
+//
 // What the compiler must be kept from (ptxas -v and the SASS): wgmma
 // descriptors and shared-memory addresses that never change across the
 // loop get hoisted into registers (the base address is made opaque each
@@ -704,14 +743,13 @@ __device__ __forceinline__ void deep_store(const float (&acc)[kHeld][32], __nv_b
 // window makes ptxas fence there and serialise every wgmma of the kernel
 // (C7519/C7520, C7515): both are pinned by register fences.
 //
-// Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512, without / with kCausal):
-// 256 threads, one block an SM; registers 250 / 255 and 238 / 254, zero
-// spill bytes; D=1024 237 / 255, zero spill bytes. Shared memory at D=512:
-// Q 65,536, the two rings 131,072, two 16 KB exchange buffers 32,768, the
-// bias ring 1,024, 13 barriers 104: 230,504 bytes + 1,024 of alignment
-// slack; at D=1024 two barriers more (each round's free signal): 230,520 +
-// 1,024; at D=256 no exchange buffers: 197,736 + 1,024. A third stage would
-// need 64 KB more: it fits none.
+// Budgets (nvcc -Xptxas -v, sm_90a; D=256 / D=512 / D=1024, without / with
+// kCausal): 256 threads, one block an SM; registers 250 / 255, 238 / 254 and
+// 233 / 233, zero spill bytes, no C75xx. Shared memory at D=512: Q 65,536,
+// the two rings 131,072, two 16 KB exchange buffers 32,768, the bias ring
+// 1,024, 13 barriers 104: 230,504 bytes + 1,024 of alignment slack; at
+// D=1024 six barriers more: 230,552 + 1,024; at D=256 no exchange buffers:
+// 197,736 + 1,024. A third stage would need 64 KB more: it fits none.
 
 constexpr int kFwdCols = 256;                          // head columns a block holds
 constexpr int kFwdAtoms = kFwdCols / kAtomCols;        // 4
@@ -724,6 +762,14 @@ constexpr int kFwdTile = kFwdAtoms * kFwdKVAtom;       // 32 KB
 constexpr int kFwdThreads = 256;                       // two warpgroups
 constexpr int kFwdXFloats = kWgRows * kFwdKeys;        // one warpgroup's 64 x 64 f32 share: 16 KB
 constexpr int kFwdChunk = 128;                         // float4s of one chunk of a share
+// D=1024: what lands in a warpgroup's 16 KB buffer from the three peers a
+// tile: their quarters ([rank][half][thread] float4s, 12 KB), then, over
+// them, their rows' maxima ([rank][quad] float4s at kFwdMaxAt, 1.5 KB) and
+// their bf16 P fragments ([rank][thread] uint4s at 0, 6 KB)
+constexpr int kFwdPeerBytes = 3 * 2 * kFwdChunk * 16;
+constexpr int kFwdMaxAt = 8192;
+constexpr int kFwdMaxBytes = 3 * 32 * 16;
+constexpr int kFwdFragBytes = 3 * kFwdChunk * 16;
 // a V stage's bias: two 64-value boxes from the 16-byte boundary at or
 // before the tile's first key (a TMA box starts on such a boundary)
 constexpr int kFwdBiasSlot = 2 * kFwdKeys * 4;
@@ -743,11 +789,18 @@ struct FwdSmem {
   static constexpr int kKEmpty = kKFull + 8 * kStages;   // the 8 warps
   static constexpr int kVFull = kKEmpty + 8 * kStages;   // the TMA bytes (V and its bias)
   static constexpr int kVEmpty = kVFull + 8 * kStages;   // the 8 warps
-  static constexpr int kSFull = kVEmpty + 8 * kStages;   // the peer's share is in this block's buffer
-  // the peer has read this block's last share: [role] at kC=2, [round][role]
-  // at kC=4 (round r's partner is rank ^ 2^r)
+  // [role] the peer's share is in this block's buffer (kC=4: the peers'
+  // quarters)
+  static constexpr int kSFull = kVEmpty + 8 * kStages;
+  // [role] the peers have read what this block last pushed to them (kC=4:
+  // its fragments and maxima, so its next quarters may land)
   static constexpr int kSFree = kSFull + 16;
-  static constexpr int kBytes = kSFree + (kC == 4 ? 32 : 16);
+  // kC=4, [role]: every block has read its quarters, so the maxima and the
+  // fragments may land; the peers' maxima have landed; their fragments
+  static constexpr int kGok = kSFree + 16;
+  static constexpr int kMFull = kGok + 16;
+  static constexpr int kFFull = kMFull + 16;
+  static constexpr int kBytes = kGok + (kC == 4 ? 48 : 0);
 };
 
 // a forward block's constants. Shared memory is named by its 32-bit address
@@ -762,6 +815,7 @@ struct FwdBlock {
   const CUtensorMap* k_map;
   const CUtensorMap* v_map;
   const CUtensorMap* bias_map;  // the (B S) pad bias
+  const float* bias;            // the same, read directly at D=1024
   int n_tiles, s_len, causal_offset;
   float scale;
 };
@@ -890,12 +944,30 @@ __device__ __forceinline__ void fwd_tile(const FwdBlock& c, int j, float (&cur)[
   const int tid = read_tid();
   const int role = tid / 128;  // the warpgroup: rows 64 role .. of the block
 
+  // D=1024: the pad bias of this thread's keys of the block's quarter, read
+  // now from device memory, used after the quarters' round
+  float qbias[4];
+  if constexpr (kC == 4) {
+    const int key0 = j * kFwdKeys + 16 * fwd_rank<kC>() + 2 * (tid % 4);
+    const float* row = c.bias + int64_t(read_ctaid_z()) * c.s_len;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) qbias[2 * h + e] = row[min(key0 + 8 * h + e, c.s_len - 1)];
+    hopper::fence_regs(qbias);  // issued here, not at the first use
+  }
+
   // S_j has landed (PV_{j-1} may still run): its K stage is read
   hopper::wgmma_wait<1>();
   hopper::fence_regs(cur);
   warp_arrive(smem + L::kKEmpty + 8 * stage);
   // this thread's float4 of each 128-float4 chunk of its warpgroup's share
   const uint32_t share = L::kX + role * kFwdXFloats * 4 + 16 * (tid % 128);
+  // at D=1024, this thread's float4 of slot (rank k, half h) of its
+  // warpgroup's [rank][half][thread] buffer
+  const auto slot = [&](int k, int h) {
+    return uint32_t(L::kX + ((role * 4 + k) * 2 + h) * kFwdChunk * 16 + 16 * (tid % 128));
+  };
   if constexpr (kC == 2) {
     // this block's share to the peer, once the peer has read the last; then
     // the peer's share added to it (and the buffer armed for the next), while
@@ -920,43 +992,30 @@ __device__ __forceinline__ void fwd_tile(const FwdBlock& c, int j, float (&cur)[
       hopper::mbar_arrive_cluster_relaxed(
           hopper::map_peer(smem + L::kSFree + 8 * role, uint32_t(fwd_rank<kC>() ^ 1)));
   } else if constexpr (kC == 4) {
-    // a butterfly in two rounds through the same buffer: round r trades the
-    // running sum with block rank ^ 2^r, so every block ends with
-    // (s0 + s1) + (s2 + s3) (each round's own + partner is the same f32 sum
-    // in both blocks): the same bits in all four, so the same m, l and P
+    // reduce and scatter: quarter q of the share (16 keys, chunks 2q and
+    // 2q + 1) to block q, once every block has read the last tile's
+    // fragments there; this block's own quarter to its own slot
+    if (j > 0) hopper::mbar_wait_cluster(smem + L::kSFree + 8 * role, (j - 1) & 1);
+    const uint32_t rank = uint32_t(fwd_rank<kC>());
 #pragma unroll
-    for (int round = 0; round < 2; ++round) {
-      const uint32_t rank = uint32_t(fwd_rank<kC>());
-      const uint32_t peer = hopper::map_peer(smem, rank ^ (1u << round));
-      // the partner has read what its other partner last pushed to it
-      if (round == 1 || j > 0)
-        hopper::mbar_wait_cluster(smem + L::kSFree + 8 * (2 * round + role),
-                                  (round == 0 ? j - 1 : j) & 1);
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        hopper::store_async_f32x4(peer + share + q * kFwdChunk * 16, peer + L::kSFull + 8 * role,
-                                  make_float4(cur[4 * q], cur[4 * q + 1], cur[4 * q + 2],
-                                              cur[4 * q + 3]));
-      hopper::mbar_wait_cluster(smem + L::kSFull + 8 * role, round);
-      if (tid % 128 == 0 && (round == 0 || j + 1 < c.n_tiles))
-        hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdXFloats * 4);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float4 v = hopper::ld_shared_f32x4(smem + share + q * kFwdChunk * 16);
-        cur[4 * q] += v.x, cur[4 * q + 1] += v.y, cur[4 * q + 2] += v.z, cur[4 * q + 3] += v.w;
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t at = smem + slot(int(rank), h);
+        const float4 v = make_float4(cur[8 * q + 4 * h], cur[8 * q + 4 * h + 1],
+                                     cur[8 * q + 4 * h + 2], cur[8 * q + 4 * h + 3]);
+        if (q == int(rank))
+          hopper::st_shared_f32x4(at, v);
+        else
+          hopper::store_async_f32x4(hopper::map_peer(at, uint32_t(q)),
+                                    hopper::map_peer(smem + L::kSFull + 8 * role, uint32_t(q)),
+                                    v);
       }
-      // the buffer is free for the other round's partner (the reads' values
-      // used first)
-      hopper::fence_regs(cur);
-      __syncwarp();
-      if (tid % 32 == 0)
-        hopper::mbar_arrive_cluster_relaxed(hopper::map_peer(
-            smem + L::kSFree + 8 * (2 * (round ^ 1) + role), rank ^ (2u >> round)));
-    }
   }
 
-  // S_{j+1}, under this tile's softmax (past the last tile it repeats a
-  // landed stage's product into nxt, which nothing reads)
+  // S_{j+1}, under this tile's softmax (at D=1024 under the exchanges too;
+  // past the last tile it repeats a landed stage's product into nxt, which
+  // nothing reads)
   if (j + 1 < c.n_tiles) hopper::mbar_wait(smem + L::kKFull + 8 * other, ((j + 1) / kStages) & 1);
   hopper::wgmma_fence();
   const uint64_t desc = hopper::make_desc(smem, kGroup, kLayout);
@@ -968,56 +1027,174 @@ __device__ __forceinline__ void fwd_tile(const FwdBlock& c, int j, float (&cur)[
     fill_k<kC>(c, smem, j + 2);
   }
 
-  // logits: scale, pad bias, then the causal bias by index; keys past S
-  // masked by index (-inf: no weight, and no say in the max); every value
-  // computed, then selected (no branch an element)
-  hopper::mbar_wait(smem + L::kVFull + 8 * stage, (j / kStages) & 1);
-  const int col = 2 * (tid % 4);  // this thread's first column of each 8-column chunk
-  const uint32_t bias_t = smem + L::kBias + stage * kFwdBiasSlot +
-                          4 * ((read_ctaid_z() * c.s_len) % 4 + col);
-  const int s0 = j * kFwdKeys + col;  // this thread's first key of the tile
-  const int key_limit = kCausal ? fwd_row0<kC>(tid) + c.causal_offset : 0;  // its first row's last key
-  float tile_max[2] = {-INFINITY, -INFINITY};
+  float alpha[2];
+  uint32_t pa[4][4];  // P (bf16, unnormalised) as A fragments
+  if constexpr (kC == 4) {
+    // the peers' quarters have landed (the barrier is armed for the next
+    // tile's): this block's quarter summed in rank order
+    const uint32_t rank = uint32_t(fwd_rank<kC>());
+    hopper::mbar_wait_cluster(smem + L::kSFull + 8 * role, j & 1);
+    if (tid % 128 == 0 && j + 1 < c.n_tiles)
+      hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdPeerBytes);
+    float x[8];  // the quarter's logits, then its p: x[4h + 2r + e] of chunk 2 rank + h
 #pragma unroll
-  for (int cc = 0; cc < 8; ++cc) {
-    const int key = s0 + 8 * cc;
-    const float b0 = hopper::ld_shared_f32(bias_t + 4 * 8 * cc);
-    const float b1 = hopper::ld_shared_f32(bias_t + 4 * (8 * cc + 1));
-    const float bias_e[2] = {key < c.s_len ? b0 : -INFINITY, key + 1 < c.s_len ? b1 : -INFINITY};
+    for (int h = 0; h < 2; ++h) {
+      float4 sh[4];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
+      for (int k = 0; k < 4; ++k) sh[k] = hopper::ld_shared_f32x4(smem + slot(k, h));
+      x[4 * h] = (sh[0].x + sh[1].x) + (sh[2].x + sh[3].x);
+      x[4 * h + 1] = (sh[0].y + sh[1].y) + (sh[2].y + sh[3].y);
+      x[4 * h + 2] = (sh[0].z + sh[1].z) + (sh[2].z + sh[3].z);
+      x[4 * h + 3] = (sh[0].w + sh[1].w) + (sh[2].w + sh[3].w);
+    }
+    hopper::fence_regs(x);  // the reads' values used before the buffers are handed on
+    __syncwarp();
+    if (tid % 32 < 4)  // this warp has read its quarters: maxima and fragments may land
+      hopper::mbar_arrive_cluster_relaxed(
+          hopper::map_peer(smem + L::kGok + 8 * role, uint32_t(tid % 32)));
+    // the quarter's logits (as the full tile's below) and each row's max
+    // over them; the pad bias came from device memory at the tile's top
+    const int col = 2 * (tid % 4);
+    const int key0 = j * kFwdKeys + 16 * int(rank) + col;
+    const int key_limit = kCausal ? fwd_row0<kC>(tid) + c.causal_offset : 0;
+    float q_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float x = fmaf(cur[4 * cc + 2 * r + e], c.scale, bias_e[e]);
-        if (kCausal) x += key + e > key_limit + 8 * r ? kMaskValue : 0.f;
-        cur[4 * cc + 2 * r + e] = x;
-        tile_max[r] = fmaxf(tile_max[r], x);
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * h + e;
+        const float bias_e = key < c.s_len ? qbias[2 * h + e] : -INFINITY;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float v = fmaf(x[4 * h + 2 * r + e], c.scale, bias_e);
+          if (kCausal) v += key > key_limit + 8 * r ? kMaskValue : 0.f;
+          x[4 * h + 2 * r + e] = v;
+          q_max[r] = fmaxf(q_max[r], v);
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      q_max[r] = fmaxf(q_max[r], __shfl_xor_sync(0xffffffffu, q_max[r], 1));
+      q_max[r] = fmaxf(q_max[r], __shfl_xor_sync(0xffffffffu, q_max[r], 2));
+    }
+    // the rows' maxima to every block ([rank][quad] float4s), once every
+    // block has read its quarters; the tile's max is the four quarters'
+    hopper::mbar_wait_cluster(smem + L::kGok + 8 * role, j & 1);
+    const uint32_t maxima = smem + L::kX + role * kFwdXFloats * 4 + kFwdMaxAt;
+    const uint32_t quad = uint32_t(tid % 128) / 4;
+    if (tid % 4 == 0) {
+      const float4 v = make_float4(q_max[0], q_max[1], 0.f, 0.f);
+      hopper::st_shared_f32x4(maxima + (rank * 32 + quad) * 16, v);
+#pragma unroll
+      for (int q = 1; q < 4; ++q) {
+        const uint32_t peer = (rank + uint32_t(q)) % 4;
+        hopper::store_async_f32x4(hopper::map_peer(maxima + (rank * 32 + quad) * 16, peer),
+                                  hopper::map_peer(smem + L::kMFull + 8 * role, peer), v);
       }
     }
-  }
-  float alpha[2], row_sum[2] = {0.f, 0.f};
+    __syncwarp();
+    hopper::mbar_wait_cluster(smem + L::kMFull + 8 * role, j & 1);
+    if (tid % 128 == 0 && j + 1 < c.n_tiles)
+      hopper::mbar_expect_tx(smem + L::kMFull + 8 * role, kFwdMaxBytes);
+    float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-    const float m_new = fmaxf(m_run[r], tile_max[r]);
-    alpha[r] = hopper::exp2_ftz((m_run[r] - m_new) * kLog2e);
-    m_run[r] = m_new;
-  }
+    for (int k = 0; k < 4; ++k) {
+      const float4 v = hopper::ld_shared_f32x4(maxima + (k * 32 + quad) * 16);
+      tile_max[0] = fmaxf(tile_max[0], v.x);
+      tile_max[1] = fmaxf(tile_max[1], v.y);
+    }
+    float row_sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float p = hopper::exp2_ftz((cur[i] - m_run[(i / 2) % 2]) * kLog2e);
-    row_sum[(i / 2) % 2] += p;
-    cur[i] = p;
-  }
-  // this thread's share of each row's sum; the row's four threads add
-  // theirs at the end
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], tile_max[r]);
+      alpha[r] = hopper::exp2_ftz((m_run[r] - m_new) * kLog2e);
+      m_run[r] = m_new;
+    }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) l_run[r] = alpha[r] * l_run[r] + row_sum[r];
-  uint32_t pa[4][4];  // P (bf16, unnormalised) as A fragments
-  deep_fragments(cur, pa);
-  hopper::fence_regs(pa);  // packed here, not at the wgmma that reads them (ptxas would
-                           // fence there and serialise the products: C7519, C7520)
+    for (int i = 0; i < 8; ++i) {
+      const float p = hopper::exp2_ftz((x[i] - m_run[(i / 2) % 2]) * kLog2e);
+      row_sum[(i / 2) % 2] += p;
+      x[i] = p;
+    }
+    // this thread's share of its rows' sums over this block's quarters; the
+    // row's four threads, then the four blocks, add theirs at the end
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = alpha[r] * l_run[r] + row_sum[r];
+    // k-step `rank` of P's A fragments to every block's [rank][thread] slot
+    const uint4 frag = make_uint4(hopper::pack_bf16x2(x[0], x[1]), hopper::pack_bf16x2(x[2], x[3]),
+                                  hopper::pack_bf16x2(x[4], x[5]), hopper::pack_bf16x2(x[6], x[7]));
+    const uint32_t frags = smem + L::kX + role * kFwdXFloats * 4 + 16 * (tid % 128);
+    const float4 bits = make_float4(__uint_as_float(frag.x), __uint_as_float(frag.y),
+                                    __uint_as_float(frag.z), __uint_as_float(frag.w));
+    hopper::st_shared_f32x4(frags + rank * kFwdChunk * 16, bits);
+#pragma unroll
+    for (int q = 1; q < 4; ++q) {
+      const uint32_t peer = (rank + uint32_t(q)) % 4;
+      hopper::store_async_f32x4(hopper::map_peer(frags + rank * kFwdChunk * 16, peer),
+                                hopper::map_peer(smem + L::kFFull + 8 * role, peer), bits);
+    }
+    hopper::mbar_wait_cluster(smem + L::kFFull + 8 * role, j & 1);
+    if (tid % 128 == 0 && j + 1 < c.n_tiles)
+      hopper::mbar_expect_tx(smem + L::kFFull + 8 * role, kFwdFragBytes);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 v = hopper::ld_shared_f32x4(frags + kk * kFwdChunk * 16);
+      pa[kk][0] = __float_as_uint(v.x), pa[kk][1] = __float_as_uint(v.y);
+      pa[kk][2] = __float_as_uint(v.z), pa[kk][3] = __float_as_uint(v.w);
+    }
+    hopper::fence_regs(pa);
+  } else {
+    // logits: scale, pad bias, then the causal bias by index; keys past S
+    // masked by index (-inf: no weight, and no say in the max); every value
+    // computed, then selected (no branch an element)
+    hopper::mbar_wait(smem + L::kVFull + 8 * stage, (j / kStages) & 1);
+    const int col = 2 * (tid % 4);  // this thread's first column of each 8-column chunk
+    const uint32_t bias_t = smem + L::kBias + stage * kFwdBiasSlot +
+                            4 * ((read_ctaid_z() * c.s_len) % 4 + col);
+    const int s0 = j * kFwdKeys + col;  // this thread's first key of the tile
+    const int key_limit = kCausal ? fwd_row0<kC>(tid) + c.causal_offset : 0;  // its first row's last key
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc) {
+      const int key = s0 + 8 * cc;
+      const float b0 = hopper::ld_shared_f32(bias_t + 4 * 8 * cc);
+      const float b1 = hopper::ld_shared_f32(bias_t + 4 * (8 * cc + 1));
+      const float bias_e[2] = {key < c.s_len ? b0 : -INFINITY, key + 1 < c.s_len ? b1 : -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = fmaf(cur[4 * cc + 2 * r + e], c.scale, bias_e[e]);
+          if (kCausal) x += key + e > key_limit + 8 * r ? kMaskValue : 0.f;
+          cur[4 * cc + 2 * r + e] = x;
+          tile_max[r] = fmaxf(tile_max[r], x);
+        }
+      }
+    }
+    float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m_run[r], tile_max[r]);
+      alpha[r] = hopper::exp2_ftz((m_run[r] - m_new) * kLog2e);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = hopper::exp2_ftz((cur[i] - m_run[(i / 2) % 2]) * kLog2e);
+      row_sum[(i / 2) % 2] += p;
+      cur[i] = p;
+    }
+    // this thread's share of each row's sum; the row's four threads add
+    // theirs at the end
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = alpha[r] * l_run[r] + row_sum[r];
+    deep_fragments(cur, pa);
+    hopper::fence_regs(pa);  // packed here, not at the wgmma that reads them (ptxas would
+                             // fence there and serialise the products: C7519, C7520)
+
+  }
 
   // PV_{j-1} has landed: o is free, and V_{j-1}'s stage takes V_{j+1}
   uint32_t smem_pv = c.smem;
@@ -1037,11 +1214,18 @@ __device__ __forceinline__ void fwd_tile(const FwdBlock& c, int j, float (&cur)[
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[a][i] *= alpha[(i / 2) % 2];
   deep_wait_acc(o);
+  if constexpr (kC == 4) hopper::mbar_wait(smem_pv + L::kVFull + 8 * stage, (j / kStages) & 1);
   hopper::wgmma_fence();
   fwd_accumulate(o, pa,
                  hopper::desc_add(hopper::make_desc(smem_pv, kGroup, kLayout),
                                   L::kV + stage * kFwdTile));
   hopper::wgmma_commit();
+  if constexpr (kC == 4) {  // this warp's fragments are read: the peers may push the next quarters
+    __syncwarp();
+    if (read_tid() % 32 < 4)
+      hopper::mbar_arrive_cluster_relaxed(hopper::map_peer(
+          smem_pv + L::kSFree + 8 * (read_tid() / 128), uint32_t(read_tid() % 32)));
+  }
 }
 
 // The forward. One block per (128 query rows, column half at D=512 or
@@ -1054,7 +1238,8 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const __grid_constant__ CUtensorMap bias_map,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
-                      float* __restrict__ l_out, int t_len, int s_len, int heads,
+                      float* __restrict__ l_out, const float* __restrict__ bias,
+                      int t_len, int s_len, int heads,
                       int causal_offset, float scale) {
   constexpr int kC = D / kFwdCols;
   using L = FwdSmem<kC>;
@@ -1064,6 +1249,7 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   c.k_map = &k_map;
   c.v_map = &v_map;
   c.bias_map = &bias_map;
+  c.bias = bias;
   const int n_keys = (s_len + kFwdKeys - 1) / kFwdKeys;
   c.n_tiles = n_keys + (n_keys & 1);  // even: the loop takes two tiles a turn
   c.s_len = s_len;
@@ -1083,13 +1269,24 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       init(L::kVFull + 8 * st, 1);
       init(L::kVEmpty + 8 * st, kFwdThreads / 32);
     }
-    // a share lands by st.async: one arrival (arming it for the share's
-    // bytes) a tile; the peer warpgroup's four warps free the buffer
+    // shares land by st.async: one arrival (arming the barrier for their
+    // bytes) a round; the peer warpgroup's four warps free the buffer (at
+    // D=1024 the four warps of the role in every block of the cluster, this
+    // one's too, and as many say every block has read its quarters; the
+    // maxima and the fragments land on barriers of their own)
     for (int role = 0; role < 2; ++role) {
       init(L::kSFull + 8 * role, 1);
-      if (kC > 1) hopper::mbar_expect_tx(smem + L::kSFull + 8 * role, kFwdXFloats * 4);
-      init(L::kSFree + 8 * role, 4);
-      if (kC == 4) init(L::kSFree + 8 * (2 + role), 4);
+      if (kC > 1)
+        hopper::mbar_expect_tx(smem + L::kSFull + 8 * role,
+                               kC == 4 ? kFwdPeerBytes : kFwdXFloats * 4);
+      init(L::kSFree + 8 * role, kC == 4 ? 16 : 4);
+      if (kC == 4) {
+        init(L::kGok + 8 * role, 16);
+        init(L::kMFull + 8 * role, 1);
+        hopper::mbar_expect_tx(smem + L::kMFull + 8 * role, kFwdMaxBytes);
+        init(L::kFFull + 8 * role, 1);
+        hopper::mbar_expect_tx(smem + L::kFFull + 8 * role, kFwdFragBytes);
+      }
     }
     hopper::fence_barrier_init();
   }
@@ -1147,6 +1344,24 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  if constexpr (kC == 4) {
+    // each block summed its own quarters: the rows' sums are the four blocks'
+    // in rank order, (l0 + l1) + (l2 + l3), the same in every block
+    hopper::cluster_sync();  // the exchange buffers are idle
+    float* sums = reinterpret_cast<float*>(hopper::align_1024(smem_raw) + L::kX) +
+                  2 * (threadIdx.x / 4);  // [row quad] float2s
+    if (threadIdx.x % 4 == 0) sums[0] = l_run[0], sums[1] = l_run[1];
+    hopper::cluster_sync();
+    float2 l_b[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) l_b[k] = hopper::load_peer_f32x2(sums, uint32_t(k));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l0 = r == 0 ? l_b[0].x : l_b[0].y, l1 = r == 0 ? l_b[1].x : l_b[1].y;
+      const float l2 = r == 0 ? l_b[2].x : l_b[2].y, l3 = r == 0 ? l_b[3].x : l_b[3].y;
+      l_run[r] = (l0 + l1) + (l2 + l3);
+    }
   }
 #pragma unroll
   for (int a = 0; a < kFwdAtoms; ++a)
@@ -1236,7 +1451,7 @@ deep_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // chain of the push of its 24 KB (the SM-to-SM network moves ~32 GB/s an SM
 // with every SM pushing), p and ds, the fragments' flight and the
 // accumulation, with the products beside it: 2.1 us a tile for dq, 3.1 for
-// dk/dv (H100 at 700 W; perceiver_io_torch/tools/deep_bwd_stamps.py reads
+// dk/dv (H100 at 700 W; perceiver_io_torch/tools/deep_stamps.py reads
 // the split). A wgmma issue blocks while the tensor cores run the other
 // warpgroup's, so the products overlap the wait they are issued before and
 // little else.
@@ -2018,7 +2233,8 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, const float* 
   cfg.attrs = &cluster;
   cfg.numAttrs = kC > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, q_map, k_map, v_map, bias_map,
-                           static_cast<__nv_bfloat16*>(out), m_out, l_out, t_len, s_len, heads,
+                           static_cast<__nv_bfloat16*>(out), m_out, l_out, bias, t_len, s_len,
+                           heads,
                            causal_offset, 1.0f / sqrtf(float(D)));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -214,6 +214,12 @@ __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ void st_shared_f32x4(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 __device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
   float4 v;
   asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"

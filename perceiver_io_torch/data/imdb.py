@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import functools
 import glob
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -53,19 +54,32 @@ def synthetic_reviews(
 ) -> Tuple[List[str], List[int]]:
     """Deterministic sentiment-labelled word-soup corpus (zero-egress stand-in
     for the IMDB download)."""
+    texts, labels = _synthetic_corpus(n, seed, min_words, max_words)
+    return list(texts), list(labels)
+
+
+@functools.lru_cache(maxsize=8)
+def _synthetic_corpus(n: int, seed: int, min_words: int,
+                      max_words: int) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """The corpus of :func:`synthetic_reviews`, made once for each argument
+    set (a data module reads its train split twice). A word is drawn as
+    ``rng.choice(words)`` draws it, by ``rng.integers(0, len(words))``,
+    without the per-call conversion of the list to an array."""
     rng = np.random.default_rng(seed)
+    integers, random = rng.integers, rng.random
     texts, labels = [], []
-    for i in range(n):
-        label = int(rng.integers(0, 2))
-        length = int(rng.integers(min_words, max_words))
+    for _ in range(n):
+        label = int(integers(0, 2))
+        length = int(integers(min_words, max_words))
         sentiment = _POSITIVE_WORDS if label else _NEGATIVE_WORDS
         words = [
-            str(rng.choice(sentiment)) if rng.random() < 0.3 else str(rng.choice(_NEUTRAL_WORDS))
+            sentiment[integers(0, len(sentiment))] if random() < 0.3
+            else _NEUTRAL_WORDS[integers(0, len(_NEUTRAL_WORDS))]
             for _ in range(length)
         ]
         texts.append(" ".join(words))
         labels.append(label)
-    return texts, labels
+    return tuple(texts), tuple(labels)
 
 
 def load_split(root: str, split: str) -> Tuple[List[str], List[int]]:

@@ -39,14 +39,18 @@ causal call.
   every logit tile once (in f32 at D = 1024 every dot product sums in
   float64 and the sums over the keys are compensated): the forward 128
   query rows a block, 64-key tiles streamed through rings a loading warp
-  refills, the next tile's product issued under this tile's softmax; the
-  backward one launch each of dq and dk/dv, 64-row tiles, S and dP once
-  (at D = 1024 the four blocks reduce and scatter each tile's f32 shares
-  in one round, block r summing quarter r of S and dP, and gather the bf16
-  p and ds fragments it forms there; dq keeps its owned tile in registers
-  and runs the next tile's products under the exchange; the SM-to-SM
-  pushes and the chain between the products bound it, not the tensor
-  cores).
+  refills, the next tile's product issued under this tile's softmax (at
+  D = 1024 the four blocks reduce and scatter each logit tile's f32 shares
+  in one round, block r summing quarter r, trade the rows' maxima, form p
+  of their quarter and gather its bf16 fragments, and add the rows' sums
+  across the blocks at the end, so all four use the same m, l and P; the
+  next tile's product runs under the exchanges); the backward one launch each of dq and dk/dv, 64-row tiles, S
+  and dP once (at D = 1024 the four blocks reduce and scatter each tile's
+  f32 shares in one round, block r summing quarter r of S and dP, and
+  gather the bf16 p and ds fragments it forms there; dq keeps its owned
+  tile in registers and runs the next tile's products under the exchange).
+  At D = 1024 the SM-to-SM pushes and the chain between the products bound
+  both directions, not the tensor cores.
   They skip no padded tile and use no atomics (two calls give the same
   bits). Their launches also count on ``deep_counter``,
   ``dq_deep_counter`` and ``dkv_deep_counter``.

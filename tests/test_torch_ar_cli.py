@@ -14,6 +14,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from perceiver_io_tpu.cli import common as jax_common
 from perceiver_io_tpu.cli import train_ar as jax_train_ar

@@ -17,6 +17,7 @@ the JAX package's, on the CPU:
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from perceiver_io_tpu.data import av as jav
 from perceiver_io_torch.data import av

@@ -10,6 +10,7 @@ relative, with a train loss above 0."""
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from perceiver_io_tpu.cli import train_ar as jax_train_ar
 from perceiver_io_tpu.data.imdb import IMDBDataModule as JaxIMDBDataModule

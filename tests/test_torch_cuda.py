@@ -40,8 +40,10 @@ without the causal offset) on their own counters, D = 1024's four-block
 cluster giving bit for bit equal column quarters where v, k and g repeat
 one quarter four times (the backward also over a walk of 301 key tiles
 with a ragged tail and over 9 query tiles), and the bf16 deep
-forward (with and without statistics) and backward at ragged, one-key and
-B=1 shapes, a second call bit for bit the first, and at the multimodal
+forward (with and without statistics; at D=1024 also over 101 and 301
+key tiles with ragged tails and with one query row) and backward at
+ragged, one-key and B=1 shapes, a second call bit for bit the first, and
+at the multimodal
 autoencoder's tails (784 query rows; 1025 rows over 784 keys, 13 key
 tiles),
 ``'auto'`` routing by the rule's block floor, dropout from CUDA generators
@@ -63,6 +65,7 @@ cases add an absolute 1e-5 where dq and dk cancel to 0 in exact arithmetic
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_torch.ops import attention_kernel as ak
@@ -223,16 +226,27 @@ def test_deep_wgmma_backward_cases(card, d, b, t, s, causal):
         assert not got[0][-1, :max(0, 12 - causal)].any()
 
 
+# every deep D at T and S off the tiles; D=1024's reduce and scatter also
+# over walks of hundreds of key tiles (301 with a 17-key tail, 101 with a
+# 1-key tail: odd counts), one query row (65 key tiles; ImageNet's decoder
+# cross at B=8), B=1
+DEEP_FWD_CASES = ([(d, b, t, s) for d in ak.DEEP_HEAD_DIMS
+                   for b, t, s in ((1, 64, 64), (1, 1, 200), (2, 63, 65), (3, 130, 200),
+                                   (2, 200, 1))]
+                  + [(1024, b, t, s) for b, t, s in ((1, 512, 19217), (2, 200, 6401),
+                                                     (2, 1, 4097), (8, 1, 512))])
+
+
 @pytest.mark.parametrize("stats", [False, True])
 @pytest.mark.parametrize("causal", [None, 8])
-@pytest.mark.parametrize("b,t,s", [(1, 64, 64), (1, 1, 200), (2, 63, 65), (3, 130, 200),
-                                   (2, 200, 1)])
-@pytest.mark.parametrize("d", ak.DEEP_HEAD_DIMS)
+@pytest.mark.parametrize("d,b,t,s", DEEP_FWD_CASES)
 def test_deep_wgmma_forward_cases(card, d, b, t, s, causal, stats):
     """The bf16 deep forward (128 query rows a block; at D=512 and 1024 a
-    cluster of two or four blocks that adds its shares of each logit tile):
-    T and S off the
-    128-row and 64-key tiles, an odd number of key tiles, B=1, one key;
+    cluster of two or four blocks that adds its shares of each logit tile,
+    at D=1024 by one round of reduce and scatter, a trade of the rows'
+    maxima and a gather of P's fragments):
+    T and S off the 128-row and 64-key tiles, an odd number of key tiles,
+    B=1, one key, one query row, hundreds of key tiles with a ragged tail;
     with B > 1 the last example fully masked (out the uniform average of
     its values) or, with the causal offset, its first 12 keys padded; out,
     and with ``stats`` m and l, against the plain version; one launch on

@@ -19,6 +19,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_tpu.cli import train_flow as jax_train_flow

@@ -19,6 +19,7 @@ import struct
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from perceiver_io_tpu.data import flow as jflow
 from perceiver_io_torch.data import flow

@@ -15,6 +15,7 @@ the JAX package, on the CPU, bit for bit:
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 from PIL import Image
 
 from perceiver_io_tpu.data import imagefolder as jif

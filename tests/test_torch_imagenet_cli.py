@@ -24,6 +24,7 @@ import signal
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_tpu.cli import train_imagenet as jax_train_imagenet

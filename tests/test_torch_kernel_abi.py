@@ -23,6 +23,7 @@ import re
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_torch.ops import attention_kernel as ak

@@ -23,6 +23,7 @@ import struct
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from perceiver_io_tpu.cli import train_img_clf as jax_train_img_clf
 from perceiver_io_tpu.data import mnist as jmnist

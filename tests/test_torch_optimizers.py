@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_tpu.training import optim as joptim

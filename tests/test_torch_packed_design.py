@@ -14,6 +14,7 @@ import ctypes
 import re
 
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_torch.ops import build

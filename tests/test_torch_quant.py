@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_tpu import quant as jquant

@@ -26,6 +26,7 @@ import signal
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_tpu.cli import common as jax_common

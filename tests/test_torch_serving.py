@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_tpu.data import imdb as jimdb
@@ -82,6 +83,21 @@ def test_tokenizer_training_matches():
     jtok.train_from_iterator(texts, 200)
     assert tok.vocab == jtok.vocab
     assert tok.decode(tok.encode_ids(texts[0])) == jtok.decode(jtok.encode_ids(texts[0]))
+
+
+@pytest.mark.parametrize("n,seed,min_words,max_words", [(2048, 0, 20, 120), (256, 1, 20, 120),
+                                                         (300, 5, 3, 9)])
+def test_synthetic_reviews_match_jax_on_every_call(n, seed, min_words, max_words):
+    """The corpus is the JAX package's on the first call and on the later
+    ones, which the port serves from its cache; each call returns lists of
+    its own, so a caller's edits do not reach the next call."""
+    kwargs = dict(seed=seed, min_words=min_words, max_words=max_words)
+    want = jimdb.synthetic_reviews(n, **kwargs)
+    first = synthetic_reviews(n, **kwargs)
+    assert first == want
+    first[0].clear()
+    first[1].append(2)
+    assert synthetic_reviews(n, **kwargs) == want
 
 
 def test_host_helpers_match():

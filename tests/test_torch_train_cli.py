@@ -16,6 +16,7 @@ import json
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 import jax

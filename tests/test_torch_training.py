@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch_threads  # noqa: F401  (one torch thread a test process)
 import torch
 
 from perceiver_io_tpu.models.presets import tiny_mlm as jax_tiny_mlm
