@@ -34,7 +34,8 @@ Phases (any failure exits nonzero):
    int4 group 128; bf16 and f32) at the self-attention projection
    (M=16384, K=N=512) and the vocab head (M=512, K=512, N=10003), and at
    the vocab head with M=1 (one request) and M=413 (the serving pass's
-   masks);
+   masks), and at phase 40's batched step (a projection at M=8, the vocab
+   head at M=16);
 5. the three fused CE kernels (forward, dx, dW/db) against their plain
    versions at bench.py's head (R, C, V) = (10240, 64, 10003), the flagship
    head (10240, 512, 10003) and a ragged (10239, 64, 10003), f32 (the
@@ -147,7 +148,9 @@ Phases (any failure exits nonzero):
     latent self-attention (256, 256, offset 0; also the W=256 prefill cross
     and the output decode), the prefill cross at W=511 (offset 255, S not a
     multiple of the 128-key tile) and W=512 (offset 256), and the decode
-    step (T=1 against 512 and 256 keys, pad mask only); keys padded from 300
+    step (T=1 against 512 and 256 keys, pad mask only); then phase 40's
+    batched step (B=16, T=1 against 511 and 256 keys) and admission wave
+    (B=8, 256, 256, offset 0); keys padded from 300
     on, plus rows whose visible keys are all padding; f32 and bf16, each
     call one causal and (bf16) one wgmma launch; CUDA-event and profiler
     times of the kernel, of the plain version and of SDPA with the same
@@ -401,7 +404,27 @@ Phases (any failure exits nonzero):
     the plain versions in float64 (phase 36's bars: the one-query decoder
     over near-equal latents amplifies f32 rounding, so an f32 plain version
     is no reference there); five bf16 steps at the CLI's AdamW 4e-3 at batch 16 from one
-    set of weights on the kernels and on the einsum path (the witness).
+    set of weights on the kernels and on the einsum path (the witness);
+40. continuous batching (run after phase 19, on phase 18's model, prompts,
+    streams and CLI lines): ``ContinuousBatcher`` over ``flagship_ar``
+    serves 16 streams from caller threads at once (phase 18's four prompt
+    lengths four times over, 8 greedy and 8 sampled at temperature 0.8,
+    ``top_k`` 16, seeds 0-7; 32 new tokens each, chunk 8; 8 slots a width
+    growing to 16, the 250-token streams crossing into width 511). The
+    counters, set to 0 just before, must read 22 #1 launches a batched step
+    and 22 causal ones an admission wave, all wgmma. Every stream must equal
+    ``ARGenerator`` serving it alone, or, at the first token that differs,
+    the per-session engine's two best scores must lie within 2e-2 of their
+    peak (the logits, or logits / T + the draw's Gumbel noise) with the
+    batched token one of them; the number of identical streams is printed.
+    Readings: tokens/s at occupancy 1, 4 and 16 against the per-session
+    engine serving the same streams one after another, host ms a chunk, a
+    profiled batched chunk (device busy ms a step, idle share), the arenas'
+    bytes, ``stats()``. Then ``int8w`` (131 #9 a batched step and a wave
+    besides #1's, all wgmma; phase 19's greedy streams by the rule), f32
+    (two streams by the rule at 1e-4, ``peek_logits`` within 1e-4 of the
+    dense forward) and ``cli.serve --task generate --decode_batching
+    --decode_slots 4`` on phase 18's two texts (phase 18's lines, or ties).
 
 Phases 23 and 27 run ``train_ar`` with ``--sample_prefix_len 0`` (their
 checks count the training path's launches; phase 31 drives the hook);
@@ -415,7 +438,7 @@ Each path's launch counters are set to 0 just before its checked
 after; the ``kernels`` line sums them with the serving path's, and the
 script fails if any kernel was never launched. Its ``attention_fwd_causal``
 entry is #1's causal reading (phase 17's bf16 W=512 cross), with the causal
-launches of phases 18, 19 and 21; ``attention_bwd_dq_causal`` and
+launches of phases 18, 19, 21 and 40; ``attention_bwd_dq_causal`` and
 ``attention_bwd_dkv_causal`` are phase 20's bf16 AR training cross, with
 phase 21's launches. Phase 26's launches count with the paths'. A failure
 prints one line on stdout naming the phase (``chip_smoke: failed in phase
@@ -494,14 +517,27 @@ PACKED_SHAPES = (("enc_cross", (64, 256, 512, 4, 16), "random"),
 AR_ATTN_PER_CALL, AR_DEQUANT_PER_CALL = 22, 131
 AR_PROMPT_LENS, AR_NEW_TOKENS, AR_CHUNK = (250, 120, 37, 9), 32, 8
 AR_F32_STEPS, AR_F32_TOL = 4, 1e-4
+AR_CLI_TEXTS = ("a great movie about the war", "the plot was thin but the acting")
+# phase 40: the arena's first and largest slots a width, the sampled streams'
+# parameters (seeds 0-7), the streams of each occupancy reading (1: a sampled
+# 120-token stream; 4: the second set of greedy prompts; 16: all) and of the
+# f32 check (a greedy and a sampled 120-token stream)
+BATCH_SLOTS, BATCH_MAX_SLOTS = 8, 16
+BATCH_SAMPLED = dict(temperature=0.8, top_k=16)
+BATCH_OCCUPANCY = {1: (9,), 4: (4, 5, 6, 7), 16: tuple(range(16))}
+BATCH_F32_STREAMS = (1, 9)
 # name, (B, T, S, H, D), causal offset (None: a decode step, pad mask only):
 # kernel #1's calls on the AR path (ar_self is also the W=256 prefill cross
-# and the output decode)
+# and the output decode; the batch_ rows phase 40's batched step at 16 slots
+# and an admission wave of 8 prompts)
 AR_ATTN_SHAPES = (("ar_self", (4, 256, 256, 4, 128), 0),
                   ("ar_cross_511", (4, 256, 511, 4, 128), 255),
                   ("ar_cross_512", (4, 256, 512, 4, 128), 256),
                   ("ar_step_512", (4, 1, 512, 4, 128), None),
-                  ("ar_step_256", (4, 1, 256, 4, 128), None))
+                  ("ar_step_256", (4, 1, 256, 4, 128), None),
+                  ("batch_step_511", (16, 1, 511, 4, 128), None),
+                  ("batch_step_256", (16, 1, 256, 4, 128), None),
+                  ("batch_wave_256", (8, 256, 256, 4, 128), 0))
 # name, (B, T, S, H, D), causal offset: #2/#3's calls on the AR training path
 # (ar_self is also the output decode)
 AR_BWD_SHAPES = (("ar_cross", (64, 256, 512, 4, 128), 256),
@@ -884,7 +920,9 @@ def dequant_phase(torch, qm, QKernel, pack_int4, quantize_array):
 
     rows = []
     shapes = (("self_proj", (16384, 512, 512)), ("vocab_head", (512, 512, 10003)),
-              ("vocab_head_m1", (1, 512, 10003)), ("vocab_head_m413", (413, 512, 10003)))
+              ("vocab_head_m1", (1, 512, 10003)), ("vocab_head_m413", (413, 512, 10003)),
+              # phase 40's batched step at 8 and 16 slots
+              ("self_proj_m8", (8, 512, 512)), ("vocab_head_m16", (16, 512, 10003)))
     for name, (m, k, n) in shapes:
         rng = np.random.default_rng(m + n)
         w = rng.normal(size=(k, n)).astype(np.float32) * 0.05
@@ -1833,7 +1871,8 @@ def packed_serving_phase(torch, port, tokenizer, texts):
 
 def ar_attention_phase(torch, ak):
     """Phase 17: #1 with the causal offset against its plain version at the
-    AR path's shapes (AR_ATTN_SHAPES), B=4, f32 (the scalar design) and bf16
+    AR path's shapes (AR_ATTN_SHAPES: B=4, and phase 40's batched step at
+    16 slots and its wave of 8 prompts), f32 (the scalar design) and bf16
     (the wgmma design): every example's keys padded from 300 on, and the
     last example's first offset + 8 keys padded too, so its rows 0..7 see
     only padding (a step shape: that example wholly padded). Each call must
@@ -1940,7 +1979,9 @@ def ar_generation_phase(torch, ak, qm, port, prompts, mode: str):
     window of 32 steps (device busy ms a token, idle share). Then teacher
     forcing on the same streams through the plain versions (same weights):
     bf16 every step's logits within TOL of the plain ones' peak; top-1
-    agreement at least BF16_TOP1_AGREEMENT in both modes."""
+    agreement at least BF16_TOP1_AGREEMENT in both modes. Returns the
+    launches and ``{model, streams, stream_s}`` (each stream's wall seconds,
+    timed alone), phase 40's reference."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1954,13 +1995,15 @@ def ar_generation_phase(torch, ak, qm, port, prompts, mode: str):
         c.reset()
     prefills, steps, chunk_ms = gen.prefills, gen.steps, []
     gc.collect()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    streams = [gen.generate(p, AR_NEW_TOKENS,
-                            on_chunk=lambda toks, info: chunk_ms.append(info["chunk_ms"]))[0]
-               for p in prompts]
-    torch.cuda.synchronize()
-    generate_s = time.perf_counter() - t0
+    streams, stream_s = [], []
+    for p in prompts:  # each stream timed alone (phase 40's sequential reading)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams.append(gen.generate(p, AR_NEW_TOKENS, on_chunk=lambda toks, info: chunk_ms.append(
+            info["chunk_ms"]))[0])
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t0)
+    generate_s = sum(stream_s)
     prefills, steps = gen.prefills - prefills, gen.steps - steps
     got = [c.launches for c in counters]
     calls = prefills + steps
@@ -2041,7 +2084,7 @@ def ar_generation_phase(torch, ak, qm, port, prompts, mode: str):
         raise AssertionError(f"bf16 generation: a forced step's logits differ from the "
                              f"plain versions' by {worst} of their peak > {TOL['bfloat16']}")
     del gen, plain
-    return launches
+    return launches, {"model": model, "streams": streams, "stream_s": stream_s}
 
 
 def ar_f32_parity(torch, port, prompts):
@@ -2073,19 +2116,339 @@ def ar_f32_parity(torch, port, prompts):
         raise AssertionError(f"f32 AR: incremental vs dense logits differ by {max(errs)}")
 
 
-def ar_cli_phase(torch, port, tokenizer, root: str) -> None:
+def ar_cli_phase(torch, port, tokenizer, root: str):
     """Phase 18, the entry point: ``cli.serve --task generate --preset
-    flagship_ar --init_seed 0 --dtype bfloat16`` in-process on two texts,
-    8 tokens each: one JSON line per text."""
+    flagship_ar --init_seed 0 --dtype bfloat16`` in-process on two texts
+    (AR_CLI_TEXTS), 8 tokens each: one JSON line per text. Returns the
+    lines and the tokenizer's path (phase 40's reference)."""
     path = os.path.join(root, "tokenizer.json")
     tokenizer.save(path)
-    texts = ["a great movie about the war", "the plot was thin but the acting"]
     lines = port["serve"].main(["--task", "generate", "--preset", "flagship_ar",
                                 "--init_seed", "0", "--dtype", "bfloat16", "--tokenizer",
-                                path, "--max_new_tokens", "8", "--texts", *texts])
-    if [line["text"] for line in lines] != texts \
+                                path, "--max_new_tokens", "8", "--texts", *AR_CLI_TEXTS])
+    if [line["text"] for line in lines] != list(AR_CLI_TEXTS) \
             or any(len(line["continuation_ids"]) != 8 for line in lines):
         raise AssertionError(f"serve --task generate: {lines}")
+    return lines, path
+
+
+def batch_prompts(tokenizer, synthetic_reviews, prompts):
+    """Phase 40's 16 prompts: AR_PROMPT_LENS four times over, the first four
+    phase 18's, the other twelve cut from other synthetic reviews."""
+    reviews, _ = synthetic_reviews(400, seed=22)
+    ids = [t for review in reviews for t in tokenizer.encode_ids(review)]
+    out, start = list(prompts), 0
+    for _ in range(3):
+        for n in AR_PROMPT_LENS:
+            out.append(ids[start: start + n])
+            start += n
+    if [len(p) for p in out] != list(AR_PROMPT_LENS) * 4:
+        raise AssertionError("the synthetic reviews gave too few tokens for phase 40's prompts")
+    return out
+
+
+def batch_cases(port, prompts):
+    """(prefix, max_new, sampling) of phase 40's streams: 0-7 greedy (0-3 phase
+    18's), 8-15 sampled at BATCH_SAMPLED with seeds 0-7."""
+    sc = port["SamplingConfig"]
+    return [(p, AR_NEW_TOKENS, sc() if j < 8 else sc(seed=j - 8, **BATCH_SAMPLED))
+            for j, p in enumerate(prompts)]
+
+
+def fan_out(torch, bat, cases):
+    """Every case through ``bat`` from its own caller thread, all started
+    together: (tokens per case, sessions, wall seconds). An error in any
+    caller fails the phase."""
+    import threading
+
+    got, sessions, errs = [None] * len(cases), [None] * len(cases), []
+
+    def one(j):
+        try:
+            got[j], sessions[j] = bat.generate(*cases[j])
+        except Exception as e:  # re-raised below, on the phase's thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=one, args=(j,)) for j in range(len(cases))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return got, sessions, wall
+
+
+def sequential(torch, gen, case):
+    """One stream through the per-session engine alone: (tokens, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = gen.generate(*case)[0]
+    torch.cuda.synchronize()
+    return tokens, time.perf_counter() - t0
+
+
+def draw_scores(torch, logits, sampling, position: int):
+    """What ``sample_logits`` takes the argmax of for one (V,) row
+    (``generate.sample_scores``, the draw's generator seeded as the engine
+    seeds it at ``position``), and the peak that scales its bar: |logits|'s
+    (greedy) or |logits / T|'s (sampled)."""
+    from perceiver_io_torch.inference.generate import position_seed, sample_scores
+
+    x = logits.float()[None]
+    t = sampling.temperature
+    g = None
+    if t != 0.0:
+        g = torch.Generator(device=x.device)
+        g.manual_seed(position_seed(sampling.seed, position))
+    peak = float(x.abs().max()) / (max(t, 1e-6) if t else 1.0)
+    return sample_scores(x, g, t, sampling.top_k)[0], peak
+
+
+def identity_rule(torch, gen, case, ref, got, bar: float, label: str):
+    """Phase 40's identity rule for one stream: None where ``got`` equals
+    ``ref`` (the per-session engine ``gen`` serving it alone); else, at the
+    first token that differs, the engine's two best scores (teacher-forced
+    along ``ref``, ``draw_scores``) must lie within ``bar`` of their peak
+    and ``got``'s token must be one of them (a near tie that the batched
+    step's products, rounding otherwise, may turn): its reading, or the
+    phase fails."""
+    if got == ref:
+        return None
+    prefix, _, sampling = case
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} tokens against the engine's {len(ref)}")
+    i = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+    logits = forced_logits(torch, gen, prefix, ref[: i + 1])[i]
+    scores, peak = draw_scores(torch, logits, sampling, len(prefix) + i)
+    top = scores.topk(2)
+    gap = float(top.values[0] - top.values[1])
+    if gap > bar * peak or got[i] not in top.indices.tolist():
+        raise AssertionError(f"{label}: differs from the per-session engine at token {i} "
+                             f"({got[i]} vs {ref[i]}), two best scores {gap} apart > "
+                             f"{bar} of their peak {peak}, or not the runner-up")
+    return {"stream": label, "index": i, "gap": gap, "peak": peak}
+
+
+def batch_launches(ak, qm, before: dict, after: dict, quantized: bool, label: str) -> dict:
+    """The launch counters, set to 0 just before a batched run, against its
+    batched steps and admission waves (the batcher's stats before and
+    after): 22 #1 a step and 22 causal #1 a wave, every one wgmma, and on
+    ``int8w`` 131 #9 a step and a wave, every one wgmma; no plain version."""
+    steps = after["batched_steps"] - before["batched_steps"]
+    waves = after["waves"] - before["waves"]
+    counters = (ak.counter, ak.causal_counter, ak.wgmma_counter, qm.counter, qm.wgmma_counter)
+    got = [c.launches for c in counters]
+    calls = steps + waves
+    deq = AR_DEQUANT_PER_CALL * calls if quantized else 0
+    expect = [AR_ATTN_PER_CALL * calls, AR_ATTN_PER_CALL * waves, AR_ATTN_PER_CALL * calls,
+              deq, deq]
+    if got != expect or any(c.plain_calls for c in counters) or not steps or not waves:
+        raise AssertionError(f"{label}: launches (#1, causal, wgmma, #9, #9 wgmma) {got} != "
+                             f"{expect} over {steps} batched steps and {waves} waves, or a "
+                             f"plain version ran")
+    return {"attention_fwd": got[0], "attention_fwd_causal": got[1],
+            "attention_fwd_wgmma": got[2], "dequant_matmul": got[3],
+            "dequant_matmul_wgmma": got[4], "batched_steps": steps, "waves": waves}
+
+
+def batch_profile(torch, model, cases):
+    """One batched chunk of ``decode_rows`` (the batcher's own chunk) over the
+    16 cases' prompts in one width-256 wave, after a warm one-step chunk, under
+    torch.profiler: device busy ms and host ms a batched step, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perceiver_io_torch.inference.generate import decode_rows
+
+    w, n = 256, len(cases)
+    lengths = [len(c[0]) for c in cases]
+    ids = torch.zeros((n, w), dtype=torch.long)
+    for j, c in enumerate(cases):
+        ids[j, : lengths[j]] = torch.tensor(c[0])
+    length = torch.tensor(lengths)
+    sampling = ([c[2].temperature for c in cases], [c[2].top_k for c in cases],
+                [c[2].seed for c in cases])
+    with torch.inference_mode():
+        logits, cache = model.prefill(ids.cuda(), (torch.arange(w)[None] >= length[:, None]).cuda(),
+                                      length=length.cuda())
+        rows = (length - 1 - (w - logits.shape[1])).cuda()
+        nxt = logits[torch.arange(n, device="cuda"), rows].float()
+        decode_rows(model, cache, nxt, [1] * n, lengths, *sampling)
+        steps_left = [min(AR_CHUNK, w - p - 1) for p in lengths]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            decode_rows(model, cache, nxt, steps_left, [p + 1 for p in lengths], *sampling)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    attn_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "attention_fwd" in e.key) / 1e3
+    steps = max(steps_left)
+    return {"profiled_steps": steps, "rows_stepping": steps_left,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "attention_device_ms_per_step": attn_ms / steps,
+            "host_ms_per_step": wall_ms / steps, "device_idle_share": 1 - busy_ms / wall_ms}
+
+
+def batching_phase(torch, ak, qm, port, tokenizer, prompts, ar18, ar19, cli18, cli_path):
+    """Phase 40: ``ContinuousBatcher`` over phase 18's ``flagship_ar`` (bf16,
+    weights from seed 0): 16 streams from caller threads started together
+    (``batch_cases``: phase 18's four prompt lengths four times, 8 greedy and
+    8 sampled, AR_NEW_TOKENS each in chunks of AR_CHUNK; BATCH_SLOTS slots a
+    width growing to BATCH_MAX_SLOTS, so the width-256 arena doubles and the
+    250-token streams cross into width 511). The counters, set to 0 just
+    before, must read 22 #1 a batched step and 22 causal #1 a wave, all
+    wgmma (``batch_launches``). Each stream must equal ``ARGenerator``
+    serving it alone (phase 18's greedy streams for its four prompts, the
+    other twelve served here one after another, each timed) or tie by
+    ``identity_rule`` at 2e-2. Readings, no limits: tokens/s at occupancy 1,
+    4 and 16 (BATCH_OCCUPANCY) against those sequential times (at 1 and 4 in
+    turns: sequential, batched, sequential again, batched again), the host ms
+    a chunk, a profiled batched chunk (``batch_profile``), the arenas'
+    bytes, ``stats()``. Then ``int8w``: the 16 streams, 131 #9 a step and a
+    wave besides #1's, phase 19's greedy streams by the rule; f32: two
+    streams by the rule at 1e-4 and their ``peek_logits`` within AR_F32_TOL
+    of the dense forward; and ``cli.serve --decode_batching --decode_slots
+    4`` on phase 18's two texts, each line phase 18's or a tie."""
+    from perceiver_io_torch.inference.batching import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    model, cases = ar18["model"], batch_cases(port, prompts)
+    counters = (ak.counter, ak.causal_counter, ak.wgmma_counter, qm.counter, qm.wgmma_counter)
+    gen = port["ARGenerator"](model, None, 512, chunk=AR_CHUNK, compute_dtype="bfloat16",
+                              device="cuda")
+    gen.warmup()
+    refs = list(ar18["streams"]) + [None] * (len(cases) - len(ar18["streams"]))
+    seq_s = list(ar18["stream_s"]) + [0.0] * (len(cases) - len(ar18["stream_s"]))
+    for j in range(len(ar18["streams"]), len(cases)):
+        refs[j], seq_s[j] = sequential(torch, gen, cases[j])
+    bat = ContinuousBatcher(model, None, 512, chunk=AR_CHUNK, slots=BATCH_SLOTS,
+                            max_slots=BATCH_MAX_SLOTS, compute_dtype="bfloat16", device="cuda")
+    try:
+        bat.warmup()
+        readings, ties, identical = {}, [], 0
+        for occ, idx in BATCH_OCCUPANCY.items():
+            full = occ == len(cases)
+            seq_turns, bat_turns = [sum(seq_s[j] for j in idx)], []
+            for turn in range(1 if full else 2):  # occupancy 1, 4: seq, batched, seq, batched
+                if turn:
+                    seq_turns.append(sum(sequential(torch, gen, cases[j])[1] for j in idx))
+                if full:
+                    for c in counters:
+                        c.reset()
+                    before = bat.stats()
+                got, _, wall = fan_out(torch, bat, [cases[j] for j in idx])
+                bat_turns.append(wall)
+                if full:
+                    after = bat.stats()
+                    launches = batch_launches(ak, qm, before, after, False, "bf16 batching")
+                    if after["slots"] - before["slots"] < BATCH_SLOTS:
+                        raise AssertionError(f"bf16 batching: no arena grew ({before['slots']}"
+                                             f" -> {after['slots']} slots)")
+                for j, tokens in zip(idx, got):
+                    tie = identity_rule(torch, gen, cases[j], refs[j], tokens, TOL["bfloat16"],
+                                        f"bf16 stream {j} at occupancy {occ}")
+                    if tie is None:
+                        identical += full
+                    else:
+                        ties.append(tie)
+            n_tokens = AR_NEW_TOKENS * len(idx)
+            readings[str(occ)] = {"batched_tokens_per_s": [n_tokens / w for w in bat_turns],
+                                  "sequential_tokens_per_s": [n_tokens / w for w in seq_turns]}
+        chunks = after["dispatches"] - before["dispatches"]
+        chunk_ms = (after["chunk_ms_mean"] * after["dispatches"]
+                    - before["chunk_ms_mean"] * before["dispatches"]) / chunks
+        profiled = batch_profile(torch, bat.model, cases)
+        stats = bat.stats()
+    finally:
+        bat.close()
+    print(f"phase 40: {identical} of {len(cases)} bf16 streams identical to the per-session "
+          f"engine's, {len(ties)} ties", flush=True)
+
+    lines = port["serve"].main(["--task", "generate", "--preset", "flagship_ar",
+                                "--init_seed", "0", "--dtype", "bfloat16", "--tokenizer",
+                                cli_path, "--max_new_tokens", "8", "--decode_batching",
+                                "--decode_slots", "4", "--texts", *AR_CLI_TEXTS])
+    if [line["text"] for line in lines] != list(AR_CLI_TEXTS):
+        raise AssertionError(f"serve --decode_batching: {lines}")
+    cli_ties = [identity_rule(torch, gen, (tokenizer.encode_ids(text), 8, port["SamplingConfig"]()),
+                              ref["continuation_ids"], line["continuation_ids"],
+                              TOL["bfloat16"], f"serve --decode_batching line {j}")
+                for j, (text, ref, line) in enumerate(zip(AR_CLI_TEXTS, cli18, lines))]
+    del gen
+
+    bat8 = ContinuousBatcher(model, None, 512, chunk=AR_CHUNK, slots=BATCH_SLOTS,
+                             max_slots=BATCH_MAX_SLOTS, compute_dtype="int8w", device="cuda")
+    try:
+        bat8.warmup()
+        for c in counters:
+            c.reset()
+        before = bat8.stats()
+        got8, _, wall8 = fan_out(torch, bat8, cases)
+        launches8 = batch_launches(ak, qm, before, bat8.stats(), True, "int8w batching")
+        stats8 = bat8.stats()
+    finally:
+        bat8.close()
+    gen8, ties8 = None, []
+    for j, ref in enumerate(ar19["streams"]):  # phase 19's greedy streams
+        if got8[j] != ref and gen8 is None:
+            gen8 = port["ARGenerator"](model, None, 512, chunk=AR_CHUNK, compute_dtype="int8w",
+                                       device="cuda")
+        tie = identity_rule(torch, gen8, cases[j], ref, got8[j], TOL["bfloat16"],
+                            f"int8w stream {j}")
+        ties8 += [tie] if tie else []
+    if [len(x) for x in got8] != [AR_NEW_TOKENS] * len(cases):
+        raise AssertionError(f"int8w batching: streams {[len(x) for x in got8]}")
+    del gen8
+
+    m32 = port["presets"].flagship_ar(dtype=torch.float32, device="cuda", seed=0)
+    g32 = port["ARGenerator"](m32, None, 512, chunk=AR_CHUNK, device="cuda")
+    b32 = ContinuousBatcher(m32, None, 512, chunk=AR_CHUNK, slots=2, device="cuda")
+    try:
+        cases32 = [cases[j] for j in BATCH_F32_STREAMS]
+        got32, sessions32, _ = fan_out(torch, b32, cases32)
+        ties32, peek_err = [], []
+        for j, case, tokens, ses in zip(BATCH_F32_STREAMS, cases32, got32, sessions32):
+            tie = identity_rule(torch, g32, case, g32.generate(*case)[0], tokens,
+                                TOL["float32"], f"f32 stream {j}")
+            ties32 += [tie] if tie else []
+            w, n = ses.width, len(ses.seq)
+            ids = torch.zeros((1, w), dtype=torch.long, device="cuda")
+            ids[0, :n] = torch.tensor(ses.seq, device="cuda")
+            with torch.inference_mode():
+                dense = b32.model(ids, torch.arange(w, device="cuda")[None] >= n)
+            peek = b32.peek_logits(ses)
+            peek_err.append(float((peek - dense[0, n - 1 - (w - dense.shape[1])].float())
+                                  .abs().max()))
+    finally:
+        b32.close()
+    del m32, g32
+    log(phase="ar_batching", card=card_line(), streams=len(cases),
+        prompts=[len(c[0]) for c in cases], new_tokens=AR_NEW_TOKENS, chunk=AR_CHUNK,
+        slots=BATCH_SLOTS, max_slots=BATCH_MAX_SLOTS, launches=launches,
+        identical_streams=identical, ties=ties, tokens_per_s=readings,
+        host_ms_per_chunk=chunk_ms, chunks=chunks, **profiled, arena_bytes=stats["arena_bytes"],
+        stats=stats, cli_ties=[t for t in cli_ties if t],
+        int8w=dict(launches=launches8, tokens_per_s=AR_NEW_TOKENS * len(cases) / wall8,
+                   ties=ties8, arena_bytes=stats8["arena_bytes"], stats=stats8),
+        f32=dict(streams=list(BATCH_F32_STREAMS), ties=ties32, peek_max_abs_err=peek_err,
+                 tolerance=AR_F32_TOL),
+        phase_s=time.perf_counter() - t_phase)
+    if max(peek_err) > AR_F32_TOL:
+        raise AssertionError(f"f32 batching: peek_logits differ from the dense forward by "
+                             f"{max(peek_err)} > {AR_F32_TOL}")
+    return {name: launches[name] + launches8[name]
+            for name in ("attention_fwd", "attention_fwd_causal", "attention_fwd_wgmma",
+                         "dequant_matmul", "dequant_matmul_wgmma")}
 
 
 def ar_attention_bwd_phase(torch, ak):
@@ -4877,12 +5240,22 @@ def main() -> int:
     plain_parity_phase(torch, ak, qm, port, tokenizer, texts)
     enter("18: AR generation, bf16")
     prompts = ar_prompts(tokenizer, synthetic_reviews)
-    ar_launches = [ar_generation_phase(torch, ak, qm, port, prompts, "bfloat16")]
+    p18_launches, ar18 = ar_generation_phase(torch, ak, qm, port, prompts, "bfloat16")
+    ar_launches = [p18_launches]
     ar_f32_parity(torch, port, prompts)
     with tempfile.TemporaryDirectory() as root:
-        ar_cli_phase(torch, port, tokenizer, root)
-    enter("19: AR generation, int8 weights")
-    ar_launches.append(ar_generation_phase(torch, ak, qm, port, prompts, "int8w"))
+        cli18, cli_path = ar_cli_phase(torch, port, tokenizer, root)
+        enter("19: AR generation, int8 weights")
+        p19_launches, ar19 = ar_generation_phase(torch, ak, qm, port, prompts, "int8w")
+        ar_launches.append(p19_launches)
+        del ar19["model"]
+        enter("40: continuous batching")
+        ar_launches.append(batching_phase(torch, ak, qm, port, tokenizer,
+                                          batch_prompts(tokenizer, synthetic_reviews, prompts),
+                                          ar18, ar19, cli18, cli_path))
+    del ar18, ar19
+    gc.collect()
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as root:
         data = IMDBDataModule(root=root, max_seq_len=SEQ_LEN, vocab_size=10003,

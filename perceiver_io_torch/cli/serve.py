@@ -14,7 +14,9 @@ holding the ``[MASK]`` literal prints as one JSON line ``{"text", "fills"}``.
 Generation: each prompt prints as one JSON line ``{"text",
 "continuation_ids", "continuation"}``, with chunk-by-chunk progress on
 stderr; without ``--tokenizer`` a prompt is whitespace-separated token ids
-and the continuation its ids. Runs on the CUDA card; ``--cpu`` runs the
+and the continuation its ids. ``--decode_batching`` serves them through the
+continuous-batching engine (``inference/batching.py``), ``--decode_slots``
+slots a width to start with. Runs on the CUDA card; ``--cpu`` runs the
 kernels' plain PyTorch versions instead.
 """
 
@@ -28,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 
 from perceiver_io_torch.data.tokenizer import load_tokenizer
+from perceiver_io_torch.inference.batching import ContinuousBatcher
 from perceiver_io_torch.inference.engine import MLMServer
 from perceiver_io_torch.inference.generate import (
     ARGenerator,
@@ -88,6 +91,16 @@ def build_parser() -> argparse.ArgumentParser:
                      help="root of the position-folded sampling draws")
     gen.add_argument("--generate_chunk", type=int, default=8,
                      help="decode steps per chunk (one device round trip each)")
+    gen.add_argument("--decode_batching", action="store_true",
+                     help="continuous batching: the streams' caches pooled in a slotted "
+                          "arena, one batched step for every active stream (the same "
+                          "tokens). It pays only at concurrency: this CLI serves its "
+                          "prompts one after another, one stream at a time, where the "
+                          "arena is slower than the per-stream engine; the flag mirrors "
+                          "the JAX CLI's")
+    gen.add_argument("--decode_slots", type=int, default=8,
+                     help="with --decode_batching: each width's first arena slots "
+                          "(rounded up to a power of two)")
     parser.add_argument("--cpu", action="store_true", help="serve on the CPU")
     return parser
 
@@ -147,8 +160,20 @@ def _serve_generate(args, model, params, tokenizer, mode):
     if tokenizer is not None and tokenizer.get_vocab_size() != vocab:
         raise SystemExit(f"the tokenizer has {tokenizer.get_vocab_size()} tokens, the "
                          f"model's vocab {vocab}: every generated id must name a token")
-    gen = ARGenerator(model, params, model.input_adapter.max_seq_len,
-                      chunk=args.generate_chunk, **mode)
+    max_seq_len = model.input_adapter.max_seq_len
+    if args.decode_batching:
+        gen = ContinuousBatcher(model, params, max_seq_len, chunk=args.generate_chunk,
+                                slots=args.decode_slots, **mode)
+    else:
+        gen = ARGenerator(model, params, max_seq_len, chunk=args.generate_chunk, **mode)
+    try:
+        return _generate_lines(args, gen, tokenizer)
+    finally:
+        if args.decode_batching:
+            gen.close()
+
+
+def _generate_lines(args, gen, tokenizer):
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
                               seed=args.gen_seed)
 

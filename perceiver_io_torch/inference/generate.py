@@ -11,8 +11,10 @@ engine around that pair:
 - **chunks**: a decode chunk chains its steps on the device; the sampled
   token ids stay there and are read back once per chunk (one sync a
   chunk, the counterpart of the JAX engine's ``fori_loop`` dispatch). The
-  position of every step is a host int the session knows, so no step reads
-  the device to find it.
+  cache holds each row's position on the device and a step advances it
+  there; the session knows it on the host too, so no step reads the device
+  to find it. :func:`decode_rows` is the chunk, for one stream here and
+  for every slot of the batched arena (``inference/batching.py``).
 - **seeded, position-folded sampling**: the random draw for the token at
   absolute position p comes from a ``torch.Generator`` on the device seeded
   by a pure function of ``(seed, p)`` (:func:`position_seed`, the
@@ -77,22 +79,87 @@ def position_seed(seed: int, position: int) -> int:
     return (z ^ (z >> 31)) >> 1  # 63 bits: what manual_seed takes
 
 
-def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
+def sample_scores(logits: torch.Tensor, generator: Optional[torch.Generator],
                   temperature: float, top_k: int) -> torch.Tensor:
-    """One token per row of (B, V) logits, as (B,) int64 on their device:
-    argmax at temperature 0; otherwise the Gumbel-max draw from
-    softmax(logits / temperature) cut to the ``top_k`` largest (0 = all),
-    with the uniforms from ``generator``."""
+    """The (B, V) f32 scores whose argmax :func:`sample_logits` takes: the
+    logits at temperature 0; otherwise logits / temperature cut to the
+    ``top_k`` largest (0 = all) plus Gumbel noise from ``generator``'s
+    uniforms."""
     logits = logits.float()
     if temperature == 0.0:
-        return logits.argmax(dim=-1)
+        return logits
     logits = logits / max(temperature, 1e-6)
     if 0 < top_k < logits.shape[-1]:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = logits.masked_fill(logits < kth, torch.finfo(torch.float32).min)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-    return (logits + gumbel).argmax(dim=-1)
+    return logits + gumbel
+
+
+def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
+                  temperature: float, top_k: int) -> torch.Tensor:
+    """One token per row of (B, V) logits, as (B,) int64 on their device:
+    argmax at temperature 0; otherwise the Gumbel-max draw from
+    softmax(logits / temperature) cut to the ``top_k`` largest (0 = all),
+    with the uniforms from ``generator`` (:func:`sample_scores`)."""
+    return sample_scores(logits, generator, temperature, top_k).argmax(dim=-1)
+
+
+def sample_logits_rows(logits: torch.Tensor, temperature: Sequence[float],
+                       top_k: Sequence[int], seeds: Sequence[int],
+                       positions: Sequence[int],
+                       rows: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """One token per row of (B, V) logits, as (B,) int64 on their device,
+    with per-row sampling (host lists of B ``temperature``, ``top_k``,
+    ``seeds`` and ``positions``): greedy rows (temperature 0) take one argmax
+    over the batch; each sampled row named in ``rows`` (default: every
+    sampled row) draws on its own (1, V) row through a generator seeded
+    ``position_seed(seed, position)``, exactly as ``ARGenerator`` draws the
+    token at that position. Sampled rows left out of ``rows`` keep the
+    argmax."""
+    tokens = logits.float().argmax(dim=-1)
+    generator = None
+    for b in range(len(temperature)) if rows is None else rows:
+        if temperature[b] == 0.0:
+            continue
+        if generator is None:
+            generator = torch.Generator(device=logits.device)
+        generator.manual_seed(position_seed(seeds[b], positions[b]))
+        tokens[b: b + 1] = sample_logits(logits[b: b + 1], generator, temperature[b],
+                                         top_k[b])
+    return tokens
+
+
+def decode_rows(model, cache, logits: torch.Tensor, steps_left: Sequence[int],
+                positions: Sequence[int], temperature: Sequence[float], top_k: Sequence[int],
+                seeds: Sequence[int]) -> torch.Tensor:
+    """One decode chunk over a ``cache`` of B rows and its pending next-token
+    ``logits`` (B, V) f32, both updated in place: ``max(steps_left)`` steps
+    of ``model.step``, row b stepping while ``i < steps_left[b]`` (host
+    ints, as are the rows' ``positions`` at the chunk's start and their
+    sampling parameters). The positions advance on the device, the logits
+    of the rows that stepped are replaced, and the (B, steps) tokens (-1
+    where a row did not step) come back as one device tensor, read by
+    nothing here. A step that every row takes selects nothing (the B=1
+    chunk of :class:`ARGenerator`)."""
+    left = (None if min(steps_left) == max(steps_left)
+            else torch.tensor(list(steps_left), device=logits.device))
+    sampled = [b for b, t in enumerate(temperature) if t != 0.0 and steps_left[b]]
+    outs = []
+    for i in range(max(steps_left)):
+        active = None if min(steps_left) > i else left > i
+        tok = sample_logits_rows(logits, temperature, top_k, seeds,
+                                 [p + i for p in positions],
+                                 [b for b in sampled if steps_left[b] > i])
+        new_logits, _ = model.step(cache, tok[:, None], active)
+        if active is None:
+            logits.copy_(new_logits)
+            outs.append(tok)
+        else:
+            logits.copy_(torch.where(active[:, None], new_logits.float(), logits))
+            outs.append(torch.where(active, tok, -1))
+    return torch.stack(outs, dim=1)
 
 
 class GenSession:
@@ -198,22 +265,11 @@ class ARGenerator:
         if n > session.remaining():
             raise ValueError(f"chunk {n} exceeds the session's ring capacity "
                              f"(remaining {session.remaining()})")
-        generator = None
-        if sampling.temperature != 0.0:
-            generator = torch.Generator(device=self.device)
-        logits, cache = session.next_logits, session.cache
-        position = len(session.seq)
-        tokens = []
-        for i in range(n):
-            if generator is not None:
-                generator.manual_seed(position_seed(session.seed, position + i))
-            tok = sample_logits(logits, generator, sampling.temperature, sampling.top_k)
-            tokens.append(tok)
-            logits, cache = self.model.step(cache, tok[:, None])
-            logits = logits.float()
-        new = torch.stack(tokens, dim=1)[0].tolist()  # the chunk's one sync
+        out = decode_rows(self.model, session.cache, session.next_logits, [n],
+                          [len(session.seq)], [sampling.temperature], [sampling.top_k],
+                          [session.seed])
+        new = out[0].tolist()  # the chunk's one sync
         self.steps += n
-        session.cache, session.next_logits = cache, logits
         session.seq = session.seq + new
         session.steps += n
         return new

@@ -44,7 +44,9 @@ from perceiver_io_torch.ops.attention import (
     CrossAttentionLayer,
     LayerNorm,
     Linear,
+    RingIndex,
     SelfAttentionBlock,
+    write_ring,
 )
 from perceiver_io_torch.ops.dropout import fold_in
 from perceiver_io_torch.ops.masking import IGNORE_LABEL, TextMasking
@@ -360,11 +362,13 @@ class PerceiverARLM(nn.Module):
     cache rings, allocated there once; :meth:`step` writes the new token's
     rows into them IN PLACE and recomputes only its latent row, so its
     logits are the dense forward's to float rounding. The cache's ``len``
-    (the next position) is a host int: a step never reads the device to
-    find where it writes. Run both under ``torch.inference_mode`` or
-    ``torch.no_grad``: :meth:`step` writes the rings in place. The dense
-    :meth:`forward` trains: its causal attention has a backward
-    (``training.steps.make_ar_steps``).
+    (the next position) is a (B,) long tensor of per-row positions on the
+    device (rows of one stream or of an arena's slots,
+    ``inference/batching.py``), which a step advances there: it never reads
+    the device to find where it writes. Run both
+    under ``torch.inference_mode`` or ``torch.no_grad``: :meth:`step` writes
+    the rings in place. The dense :meth:`forward` trains: its causal
+    attention has a backward (``training.steps.make_ar_steps``).
     """
 
     def __init__(self, input_adapter: nn.Module, output_adapter: nn.Module,
@@ -453,13 +457,16 @@ class PerceiverARLM(nn.Module):
                                    fold_in(dropout_key, self.num_layers))[0]
 
     def prefill(self, token_ids: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
-                length: Optional[int] = None, latent_offset: Optional[int] = None):
+                length=None, latent_offset: Optional[int] = None):
         """Dense forward over the (possibly right-padded) prefix and the
-        cache: ``(logits, cache)``. ``length`` (host int) is the real token
-        count; slots at positions ``>= length`` are masked and overwritten
-        as decoding goes on. The cache, as the JAX model's:
+        cache: ``(logits, cache)``. ``length`` is the real token count: a
+        host int for every row, or a (B,) long tensor, each row's own (an
+        admission wave of prompts of several lengths, the JAX arena's
+        ``prefill_rows_fn``); slots at positions ``>= length`` are masked
+        and overwritten as decoding goes on. The cache, as the JAX model's:
 
-        ``len``    host int, the position the next token takes,
+        ``len``    (B,) long, ``length``: the position each row's next
+                   token takes,
         ``cross``  per cross weight set, (k, v) rings (B, W, E),
         ``pad``    (B, W) bool, True where a ring slot is invalid (beyond
                    ``len``, or a prefix pad token),
@@ -476,29 +483,40 @@ class PerceiverARLM(nn.Module):
             length = l
         x, cross, latent = self._encode_window(h, pad_mask, o, return_cache=True)
         logits, final_kv = self._decode_window(x, o, l - o)
-        invalid = torch.arange(l, device=token_ids.device)[None, :] >= length
+        length = torch.as_tensor(length, dtype=torch.long).to(token_ids.device).expand(b).clone()
+        invalid = torch.arange(l, device=token_ids.device)[None, :] >= length[:, None]
         if pad_mask is not None:
             invalid = invalid | pad_mask.to(torch.bool)
-        cache = {"len": int(length), "cross": cross,
+        cache = {"len": length, "cross": cross,
                  "pad": invalid.expand(b, l).clone(), "latent": latent,
                  "final": final_kv}
         return logits, cache
 
-    def step(self, cache, token: torch.Tensor):
-        """One incremental decode step: ``token`` (B, 1) takes position
-        ``cache['len']``; its rows are written into the rings in place, ONLY
-        its latent row is recomputed against them, and ``(next_logits (B,
-        vocab), cache)`` returns (the same dict, ``len`` advanced): the
-        logits for position ``len + 1``."""
+    def step(self, cache, token: torch.Tensor, active: Optional[torch.Tensor] = None):
+        """One incremental decode step: row b's ``token`` (B, 1) takes its
+        position ``cache['len'][b]``; its rows are written into the rings in
+        place, ONLY its latent row is recomputed against them, and
+        ``(next_logits (B, vocab), cache)`` returns (the same dict, ``len``
+        advanced): the logits for position ``len + 1``.
+
+        ``active`` ((B,) bool, default every row) names the rows that take
+        the step: an inactive row's rings, pad mask and ``len`` stay bit for
+        bit (its logits are computed and mean nothing). Positions outside
+        the cache's window are clamped into it, as the JAX
+        ``dynamic_update_slice`` clamps them, so a row that holds no stream
+        (an arena's zero slot, ``len`` 0) reads finite values: the step
+        keeps static shapes and reads nothing back from the device."""
         k1 = cache["cross"]["layer_1"][0]
         b, w, _ = k1.shape
         n_cap = cache["final"][0].shape[1]
-        p = cache["len"]           # the new token's position
-        s = p - (w - n_cap)        # its latent window slot
-        if not 0 <= s < n_cap:
-            raise ValueError(f"position {p} outside the cache's window (width {w}, "
-                             f"{n_cap} latents)")
-        positions = torch.full((b, 1), p, dtype=torch.long, device=token.device)
+        p = cache["len"].clamp(0, w - 1)             # the new token's positions
+        s = (p - (w - n_cap)).clamp(0, n_cap - 1)    # their latent window slots
+        # one stream's step writes with no row index (write_ring)
+        rows = None if b == 1 and active is None else torch.arange(b, device=p.device)
+        at_p, at_s = RingIndex(p, rows, active), RingIndex(s, rows, active)
+        positions = p[:, None]
+        lat_pad = self.later.index_select(0, s)[:, :n_cap]
+        query = self.output.index_select(0, p)[:, None].to(self.dtype)
         h = self.input_adapter(token, positions=positions)
 
         # this token's cross k/v per weight set, into slot p of its ring
@@ -506,26 +524,27 @@ class PerceiverARLM(nn.Module):
         for name, layer in layers.items():
             k_new, v_new = layer(h, h, kv_only=True)
             k_ring, v_ring = cache["cross"][name]
-            k_ring[:, p: p + 1] = k_new
-            v_ring[:, p: p + 1] = v_new
+            write_ring(k_ring, at_p, k_new)
+            write_ring(v_ring, at_p, v_new)
         # the new slot becomes live; the slots past it stay masked
-        cache["pad"][:, p] = False
-        lat_pad = self.later[s: s + 1, :n_cap].expand(b, n_cap)
+        if rows is None:
+            cache["pad"].index_fill_(1, p, False)
+        else:
+            cache["pad"][rows, p] = False if active is None else cache["pad"][rows, p] & ~active
 
         x = h + self.latent.to(self.dtype)
         for a, (name, layer) in enumerate(self._applications()):
             x, _ = layer(x, h, cache["pad"], cache["cross"][name],
-                         latent_cache=cache["latent"][a], latent_index=s,
+                         latent_cache=cache["latent"][a], latent_index=at_s,
                          latent_pad=lat_pad)
 
         # decode: the new final-latent k/v into its ring, query = output[p]
         fk, fv = self.cross_attention_layer(x, x, kv_only=True)
         final = cache["final"]
-        final[0][:, s: s + 1] = fk
-        final[1][:, s: s + 1] = fv
-        query = self.output[p: p + 1].to(self.dtype).expand(b, 1, self.output.shape[-1])
+        write_ring(final[0], at_s, fk)
+        write_ring(final[1], at_s, fv)
         dec, _ = self.cross_attention_layer(query, x, lat_pad, final)
-        cache["len"] = p + 1
+        cache["len"] += 1 if active is None else active
         return self.output_adapter(dec)[:, 0, :], cache
 
 

@@ -29,10 +29,10 @@ reused) and ``kv_only`` (project this call's k/v and nothing else: what a
 decode step appends to a cache ring; ``MultiHeadAttention.project_kv``);
 the self-attention modules return their (k, v) beside their output;
 :class:`SelfAttentionLayer` and :class:`SelfAttentionBlock` take per-layer
-``cache`` rings that a decode step writes IN PLACE at a host-int
-``cache_index`` (the port's counterpart of the JAX package's donated
-``dynamic_update_slice``) before attending the new row over them under
-``cache_pad``.
+``cache`` rings that a decode step writes IN PLACE (:func:`write_ring`, the
+port's counterpart of the JAX package's donated ``dynamic_update_slice``)
+at ``cache_index``, a :class:`RingIndex` of per-row slots on the device,
+before attending the new row over them under ``cache_pad``.
 
 Dropout follows the JAX modules: each module has a ``dropout`` rate and
 each call an explicit ``deterministic`` flag (True: no dropout) and, when
@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -203,6 +203,34 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dropout_keep is not None:
         probs = drop.apply_keep(probs, dropout_keep, dropout_rate)
     return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
+
+
+class RingIndex(NamedTuple):
+    """Per-row ring slots of a decode step, on the rings' device: ``slots``
+    (B,) long, each inside its ring; ``rows`` ``arange(B)``, or None for a
+    one-row step that every row takes; and ``active`` (B,) bool, or None
+    when every row writes. A row whose ``active`` is False keeps its ring
+    bit for bit, as the JAX arena's ``where`` select keeps an idle slot's."""
+
+    slots: torch.Tensor
+    rows: Optional[torch.Tensor] = None
+    active: Optional[torch.Tensor] = None
+
+
+def write_ring(ring: torch.Tensor, index: RingIndex, new: torch.Tensor) -> None:
+    """Write the (B, 1, E) rows ``new`` into the (B, S, E) ``ring`` in place,
+    each at its row's slot of ``index``; an inactive row writes its old
+    value back. Reads nothing back from the device. One row (``rows``
+    None) writes by ``index_copy_`` along the slot axis, the least host
+    work a write takes (one stream's decode is host-bound)."""
+    new = new.to(ring.dtype)
+    if index.rows is None:
+        ring.index_copy_(1, index.slots, new)
+        return
+    new = new[:, 0]
+    if index.active is not None:
+        new = torch.where(index.active[:, None], new, ring[index.rows, index.slots])
+    ring[index.rows, index.slots] = new
 
 
 class Linear(nn.Module):
@@ -424,19 +452,20 @@ class SelfAttention(nn.Module):
                 return_kv=False):
         """Returns ``(out, (k, v))``, the stream's post-norm k/v. With
         ``cache`` ((k, v) rings (B, S_cap, E)), ``x`` is the (B, 1, C) new
-        row: its k/v are written into the rings at ``cache_index`` (a host
-        int) in place, the row attends over the rings under ``pad_mask``,
-        and the rings return as the (k, v). ``return_kv``: the (k, v) are
-        projected on their own (contiguous, what a prefill keeps as its
-        rings), as the JAX layer's ``return_kv`` call does; otherwise q, k
-        and v come from one stacked product."""
+        row: its k/v are written into the rings at ``cache_index`` (a
+        :class:`RingIndex`, :func:`write_ring`) in place, the row attends
+        over the rings under ``pad_mask``, and the rings return as the
+        (k, v). ``return_kv``: the (k, v) are projected on their own
+        (contiguous, what a prefill keeps as its rings), as the JAX layer's
+        ``return_kv`` call does; otherwise q, k and v come from one stacked
+        product."""
         x = self.norm(x)
         kv = None
         if cache is not None:
             k_ring, v_ring = cache
             k_new, v_new = self.attention.project_kv(x)
-            k_ring[:, cache_index: cache_index + 1] = k_new
-            v_ring[:, cache_index: cache_index + 1] = v_new
+            write_ring(k_ring, cache_index, k_new)
+            write_ring(v_ring, cache_index, v_new)
             kv = cache
         elif return_kv:
             kv = self.attention.project_kv(x)

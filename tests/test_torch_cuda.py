@@ -30,7 +30,10 @@ shapes (dq of rows that see only padding exactly 0, dk and dv of padded key
 tiles exactly 0; autograd through ``fused_attention`` against the plain
 versions; the tiny AR train step against the plain versions), the tiny AR
 model's incremental steps against its dense forward and against the plain
-versions on the card,
+versions on the card, #1 and #9 at the decode arena's batched shapes (64
+one-row queries over 512 or 256 keys, each row live to its own length, zero
+rings; M = 8, 16, 64 rows, int8 and int4) and the tiny AR model's continuous
+batching (its launches; in f32 its streams equal the per-session engine's),
 the classifiers' calls of #1-#3 (one query row in the decoders, 784
 unpadded keys at D=32 in the MNIST cross, f32 and bf16) and a classifier
 train step with the encoder frozen (#1 only in it) and not,
@@ -1267,6 +1270,98 @@ def test_ar_generation_on_the_card(card, dtype):
                 module.attention = ak.attention_reference
         plain, _ = model.prefill(prefix, pad, length=10)
     _close(logits, plain, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [512, 256])
+def test_batched_decode_attention_matches_plain(card, dtype, s):
+    """#1 at the decode arena's batched step, (64, 1, S, 4, 128) with no
+    causal offset: rows 0-47 live up to their own lengths (1 to S keys),
+    rows 48-63 zero rings with no padding (the arena's free slots)."""
+    b, h, d = 64, 4, 128
+    g = torch.Generator().manual_seed(s + 64)
+    q = torch.randn(b, 1, h, d, generator=g)
+    k = torch.randn(b, s, h, d, generator=g)
+    v = torch.randn(b, s, h, d, generator=g)
+    live = torch.randint(1, s + 1, (b,), generator=g)
+    live[:2] = torch.tensor([1, s])
+    pad = torch.arange(s)[None, :] >= live[:, None]
+    k[48:], v[48:], pad[48:] = 0.0, 0.0, False
+    q, k, v, pad = q.to(card, dtype), k.to(card, dtype), v.to(card, dtype), pad.to(card)
+    counters = (ak.counter, ak.wgmma_counter, ak.causal_counter)
+    before = [c.launches for c in counters]
+    got = ak.fused_attention(q, k, v, pad)
+    want = [1, int(dtype == torch.bfloat16), 0]
+    assert [c.launches - n for c, n in zip(counters, before)] == want
+    _close(got, ak.attention_reference(q, k, v, pad), dtype)
+    assert not got[48:].any()  # the zero rings' rows average zero values
+
+
+@pytest.mark.parametrize("bits,group_size", [(8, None), (4, 128)])
+@pytest.mark.parametrize("n", [512, 10003])
+@pytest.mark.parametrize("m", [8, 16, 64])
+def test_batched_decode_dequant_matches_plain(card, m, n, bits, group_size):
+    """#9 at the decode arena's batched step: M = the arena's slots (8, 16,
+    64) rows through the K=N=512 projections and the vocab head, bf16."""
+    rng = np.random.default_rng(m + n + bits)
+    w = rng.normal(size=(512, n)).astype(np.float32)
+    qv, scale = quantize_array(w, bits=bits, group_size=group_size)
+    q = torch.from_numpy(pack_int4(qv) if bits == 4 else qv).to(card)
+    scale = torch.from_numpy(scale).to(card)
+    x = torch.from_numpy(rng.normal(size=(m, 512)).astype(np.float32)).to(card, torch.bfloat16)
+    before = (qm.counter.launches, qm.wgmma_counter.launches)
+    got = qm.dequant_matmul(x, q, scale, bits, group_size)
+    assert (qm.counter.launches, qm.wgmma_counter.launches) == (before[0] + 1, before[1] + 1)
+    _close(got, qm.dequant_matmul_reference(x, q, scale, bits, group_size), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_continuous_batching_on_the_card(card, dtype):
+    """The tiny AR model's continuous batching on the card: 6 concurrent
+    streams (greedy and sampled) over 2 slots growing to 4, across the
+    16 -> 31 episode boundary, through the dispatcher thread; every batched
+    step launches 5 attention kernels and every wave 5 causal ones (bf16:
+    all wgmma), and no plain version runs; in f32 each stream equals the
+    per-session engine's."""
+    import threading
+
+    from perceiver_io_torch.inference.batching import ContinuousBatcher
+    from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig
+    from perceiver_io_torch.models.presets import tiny_ar
+
+    model = tiny_ar(device=card, seed=1, dtype=dtype)
+    bat = ContinuousBatcher(model, None, 64, chunk=4, slots=2, max_slots=4, device=card)
+    cases = [([5 + i, 6, 7, 8, 9][: 2 + i % 4], 8 + 2 * i,
+              SamplingConfig(temperature=0.8 * (i % 2), top_k=16, seed=i)) for i in range(6)]
+    got, errs = [None] * 6, []
+
+    def one(i):
+        try:
+            got[i] = bat.generate(*cases[i])[0]
+        except Exception as e:  # re-raised below
+            errs.append(e)
+
+    for c in (ak.counter, ak.causal_counter, ak.wgmma_counter):
+        c.reset()
+    try:
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        stats = bat.stats()
+    finally:
+        bat.close()
+    if errs:
+        raise errs[0]
+    calls = stats["batched_steps"] + stats["waves"]
+    assert (ak.counter.launches, ak.causal_counter.launches) == (5 * calls, 5 * stats["waves"])
+    assert ak.wgmma_counter.launches == (5 * calls if dtype == torch.bfloat16 else 0)
+    assert ak.counter.plain_calls == 0 and stats["slots"] > 4
+    assert [len(x) for x in got] == [case[1] for case in cases]
+    if dtype == torch.float32:
+        gen = ARGenerator(model, None, 64, chunk=4, device=card)
+        assert got == [gen.generate(*case)[0] for case in cases]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
