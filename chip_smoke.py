@@ -425,6 +425,23 @@ Phases (any failure exits nonzero):
     (two streams by the rule at 1e-4, ``peek_logits`` within 1e-4 of the
     dense forward) and ``cli.serve --task generate --decode_batching
     --decode_slots 4`` on phase 18's two texts (phase 18's lines, or ties).
+41. the serving engines' programs as CUDA graphs (run after phase 40; the
+    engines of phases 6-40 are graphed too, their launches counted the
+    same, and their plain references run eagerly): (a) ``MLMServer`` at
+    ``flagship_tpu_mlm``, bf16 and int8w: ``warmup()`` must capture the
+    JAX engine's 105 programs (seconds, reserved and pool bytes); phase 6's
+    texts in turns eager, graphed, eager, graphed: fills and decode logits
+    bit for bit, the same launches (22 / 131 a fused forward), no capture
+    after the warmup; texts/s, the pass's host parts, a profiled graphed
+    pass (the profiler must see #1 inside the replays); the plain versions
+    swapped in drop every program and launch no kernel. (b)
+    ``ARGenerator`` at ``flagship_ar``, bf16 and int8w: ``warmup()`` one
+    program a width; eager greedy streams = phase 18's / 19's (graphed),
+    sampled graphed = eager, launches exact; host ms a token in turns, a
+    profiled window each. (c) phase 40's 16 streams through a graphed and an
+    eager arena in turns: identical streams, each = ``ARGenerator``'s or a
+    tie, launches exact; tokens/s, host ms a chunk, a profiled graphed
+    chunk.
 
 Phases 23 and 27 run ``train_ar`` with ``--sample_prefix_len 0`` (their
 checks count the training path's launches; phase 31 drives the hook);
@@ -526,6 +543,10 @@ BATCH_SLOTS, BATCH_MAX_SLOTS = 8, 16
 BATCH_SAMPLED = dict(temperature=0.8, top_k=16)
 BATCH_OCCUPANCY = {1: (9,), 4: (4, 5, 6, 7), 16: tuple(range(16))}
 BATCH_F32_STREAMS = (1, 9)
+# phase 41: the serving modes graphed against eager, the decode family's K
+# in the logits it compares, and the default MLM family at widths
+# 128/256/512 and max_batch 64: 3 x 3 x 7 fused + 3 x 7 encode + 3 x 7 decode
+GRAPH_MODES, GRAPH_QUERIES, GRAPH_MLM_PROGRAMS = ("bfloat16", "int8w"), 4, 105
 # name, (B, T, S, H, D), causal offset (None: a decode step, pad mask only):
 # kernel #1's calls on the AR path (ar_self is also the W=256 prefill cross
 # and the output decode; the batch_ rows phase 40's batched step at 16 slots
@@ -981,14 +1002,22 @@ def masked_texts(synthetic_reviews, n: int = 200):
     return texts
 
 
-def use_plain_kernels(model, port) -> None:
-    """Put the plain versions in the kernels' place on every layer."""
+def use_plain_kernels(model, port, engine=None) -> int:
+    """Put the plain versions in the kernels' place on every layer, and drop
+    ``engine``'s programs (a CUDA graph replays the kernels it captured):
+    returns how many went, after which it must hold none."""
     for module in model.modules():
         if isinstance(module, port["MultiHeadAttention"]):
             module.attention = port["ak"].attention_reference
             module.packed_attention = port["pk"].packed_attention_reference
         if isinstance(module, port["Linear"]):
             module.qmatmul = port["qm"].dequant_matmul_reference
+    if engine is None:
+        return 0
+    dropped = engine.drop_programs()
+    if engine.num_programs():
+        raise AssertionError(f"a swap left {engine.num_programs()} programs")
+    return dropped
 
 
 def use_attn_impl(model, port, impl: str) -> None:
@@ -1087,8 +1116,9 @@ def bf16_plain_agreement(ak, qm, port, server, tokenizer, texts, top1) -> float:
     import numpy as np
 
     plain = port["MLMServer"](server.model, None, tokenizer, 512, bucket_widths=[128, 256, 512],
-                              max_batch=64, compute_dtype="bfloat16", device="cuda")
-    use_plain_kernels(plain.model, port)
+                              max_batch=64, compute_dtype="bfloat16", device="cuda",
+                              graphs=False)
+    use_plain_kernels(plain.model, port, plain)
     before = (ak.counter.launches, qm.counter.launches)
     top_plain = [f[0] for r in plain.fill_masks(texts, k=1) for f in r]
     if (ak.counter.launches, qm.counter.launches) != before:
@@ -1136,7 +1166,8 @@ def profile_pass(torch, run, mode: str) -> None:
     device.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in device)
     reading = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                   device_idle_share=(1 - busy_ms / wall_ms) if device else None)
+                   device_idle_share=(1 - busy_ms / wall_ms) if device else None,
+                   attention_device_ms=sum(ms for ms, _, k in device if "attention_fwd" in k))
     log(phase="profile", mode=mode, **reading,
         top=[dict(kernel=k, ms=ms, calls=c) for ms, c, k in device[:20]])
     return reading
@@ -1152,8 +1183,8 @@ def plain_parity_phase(torch, ak, qm, port, tokenizer, texts):
         top_kernel = [f[0] for r in kernel.fill_masks(texts, k=1) for f in r]
         del kernel
         plain = port["MLMServer"](model, None, tokenizer, 512, bucket_widths=[128, 256, 512],
-                                  max_batch=64, quantize=quantize, device="cuda")
-        use_plain_kernels(plain.model, port)
+                                  max_batch=64, quantize=quantize, device="cuda", graphs=False)
+        use_plain_kernels(plain.model, port, plain)
         before = (ak.counter.launches, qm.counter.launches)
         top_plain = [f[0] for r in plain.fill_masks(texts, k=1) for f in r]
         if (ak.counter.launches, qm.counter.launches) != before:
@@ -2051,8 +2082,8 @@ def ar_generation_phase(torch, ak, qm, port, prompts, mode: str):
                   and "attention_fwd" in e.key) / 1e3
 
     plain = port["ARGenerator"](model, None, 512, chunk=AR_CHUNK, compute_dtype=mode,
-                                device="cuda")
-    use_plain_kernels(plain.model, port)
+                                device="cuda", graphs=False)
+    use_plain_kernels(plain.model, port, plain)
     agree, worst = [], 0.0
     for prefix, stream in zip(prompts, streams):
         kernel = forced_logits(torch, gen, prefix, stream)
@@ -2256,13 +2287,16 @@ def batch_launches(ak, qm, before: dict, after: dict, quantized: bool, label: st
             "dequant_matmul_wgmma": got[4], "batched_steps": steps, "waves": waves}
 
 
-def batch_profile(torch, model, cases):
-    """One batched chunk of ``decode_rows`` (the batcher's own chunk) over the
-    16 cases' prompts in one width-256 wave, after a warm one-step chunk, under
-    torch.profiler: device busy ms and host ms a batched step, idle share."""
+def batch_profile(torch, model, cases, graphs: bool = False):
+    """One batched chunk of the batcher's own chunk (``decode_rows``, or with
+    ``graphs`` its ``DecodeProgram``, a CUDA graph a step) over the 16 cases'
+    prompts in one width-256 wave, after a warm one-step chunk (which
+    captures the program), under torch.profiler: device busy ms and host ms
+    a batched step, idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from perceiver_io_torch.inference.generate import decode_rows
+    from perceiver_io_torch.inference.generate import DecodeProgram, decode_rows
+    from perceiver_io_torch.inference.programs import ProgramCache
 
     w, n = 256, len(cases)
     lengths = [len(c[0]) for c in cases]
@@ -2277,13 +2311,19 @@ def batch_profile(torch, model, cases):
                                       length=length.cuda())
         rows = (length - 1 - (w - logits.shape[1])).cuda()
         nxt = logits[torch.arange(n, device="cuda"), rows].float()
-        decode_rows(model, cache, nxt, [1] * n, lengths, *sampling)
+        if graphs:
+            chunk = DecodeProgram(model, cache, nxt, AR_CHUNK, ProgramCache("cuda"),
+                                  ("decode", w, n, True), masked=True).run
+        else:
+            def chunk(*args):
+                return decode_rows(model, cache, nxt, *args)
+        chunk([1] * n, lengths, *sampling)
         steps_left = [min(AR_CHUNK, w - p - 1) for p in lengths]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.perf_counter()
-            decode_rows(model, cache, nxt, steps_left, [p + 1 for p in lengths], *sampling)
+            chunk(steps_left, [p + 1 for p in lengths], *sampling)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
@@ -2299,7 +2339,7 @@ def batch_profile(torch, model, cases):
             "host_ms_per_step": wall_ms / steps, "device_idle_share": 1 - busy_ms / wall_ms}
 
 
-def batching_phase(torch, ak, qm, port, tokenizer, prompts, ar18, ar19, cli18, cli_path):
+def batching_phase(torch, ak, qm, port, tokenizer, cases, ar18, ar19, cli18, cli_path):
     """Phase 40: ``ContinuousBatcher`` over phase 18's ``flagship_ar`` (bf16,
     weights from seed 0): 16 streams from caller threads started together
     (``batch_cases``: phase 18's four prompt lengths four times, 8 greedy and
@@ -2322,7 +2362,7 @@ def batching_phase(torch, ak, qm, port, tokenizer, prompts, ar18, ar19, cli18, c
     from perceiver_io_torch.inference.batching import ContinuousBatcher
 
     t_phase = time.perf_counter()
-    model, cases = ar18["model"], batch_cases(port, prompts)
+    model = ar18["model"]
     counters = (ak.counter, ak.causal_counter, ak.wgmma_counter, qm.counter, qm.wgmma_counter)
     gen = port["ARGenerator"](model, None, 512, chunk=AR_CHUNK, compute_dtype="bfloat16",
                               device="cuda")
@@ -2448,7 +2488,340 @@ def batching_phase(torch, ak, qm, port, tokenizer, prompts, ar18, ar19, cli18, c
                              f"{max(peek_err)} > {AR_F32_TOL}")
     return {name: launches[name] + launches8[name]
             for name in ("attention_fwd", "attention_fwd_causal", "attention_fwd_wgmma",
-                         "dequant_matmul", "dequant_matmul_wgmma")}
+                         "dequant_matmul", "dequant_matmul_wgmma")}, refs
+
+
+
+# -- phase 41: the serving engines' programs as CUDA graphs ---------------------
+
+
+def mlm_turn(torch, ak, qm, server, texts, quantized: bool, label: str) -> dict:
+    """Phase 6's texts once through ``server``, the counters set to 0 just
+    before: the fused fill-mask (timed), then ``encode`` and a decode of
+    GRAPH_QUERIES positions a text. The launches must be 22 #1 a fused
+    forward, 21 an encode and 1 a decode (on int8w 131 / 124 / 7 #9), all
+    wgmma, none plain. Returns the fills, the logits (host f32), texts/s and
+    the launches."""
+    counters = (ak.counter, qm.counter, ak.wgmma_counter, qm.wgmma_counter)
+    engines = (server.engine, server.encoder, server.decoder)
+    before = [e.dispatches for e in engines]
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fills = server.fill_masks(texts, k=5)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    logits = server.decode(server.encode(texts), [list(range(GRAPH_QUERIES))] * len(texts))
+    n_fwd, n_enc, n_dec = (e.dispatches - b for e, b in zip(engines, before))
+    expect = (ATTN_PER_FORWARD * n_fwd + ATTN_PER_ENCODE * n_enc + ATTN_PER_DECODE * n_dec,
+              (DEQUANT_PER_FORWARD * n_fwd + DEQUANT_PER_ENCODE * n_enc
+               + DEQUANT_PER_DECODE * n_dec) if quantized else 0)
+    got = (ak.counter.launches, qm.counter.launches)
+    if got != expect or ak.counter.plain_calls or qm.counter.plain_calls:
+        raise AssertionError(f"{label}: launches (#1, #9) {got} != {expect} over {n_fwd} "
+                             f"forwards, {n_enc} encodes, {n_dec} decodes, or a plain version ran")
+    check_wgmma_share(ak, qm, label)
+    return dict(fills=fills, logits=logits, texts_per_s=len(texts) / fill_s,
+                launches=got, dispatches=(n_fwd, n_enc, n_dec))
+
+
+def mlm_graphs(torch, ak, qm, port, tokenizer, texts) -> dict:
+    """Phase 41 (a): ``MLMServer`` at ``flagship_tpu_mlm`` (weights from seed
+    0; widths 128/256/512, max_batch 64), bf16 and int8w: ``warmup()`` of the
+    default family (3 widths x 3 K buckets x 7 batch buckets fused, 21
+    encode, 21 decode: 105 programs), its seconds and the reserved bytes
+    before and after; then ``mlm_turn`` in turns on an eager server and the
+    graphed one over the same weights (eager, graphed, eager, graphed):
+    fills and logits bit for bit, the same launches, and no capture after
+    the warmup; texts/s each; a profiled graphed pass (idle share, #1's
+    device ms: the profiler sees the kernels inside a replay). Then, on the
+    bf16 server, the plain versions put in the kernels' place: the swap
+    drops every program and the next pass launches no kernel. Returns the
+    graphed turns' launches."""
+    t_phase = time.perf_counter()
+    presets, server_cls = port["presets"], port["MLMServer"]
+    model = presets.flagship_tpu_mlm(device="cuda", seed=0)
+    launches = dict(attention_fwd=0, attention_fwd_wgmma=0, attention_fwd_causal=0,
+                    dequant_matmul=0, dequant_matmul_wgmma=0)
+    readings = {}
+    for mode in GRAPH_MODES:
+        quantized = mode != "bfloat16"
+        kwargs = dict(bucket_widths=[128, 256, 512], max_batch=64, compute_dtype=mode,
+                      device="cuda")
+        tree = serving_tree(model, mode)  # both servers hold the same weights
+        eager = server_cls(model, tree, tokenizer, 512, graphs=False, **kwargs)
+        graphed = server_cls(model, tree, tokenizer, 512, **kwargs)
+        del tree
+        gc.collect()
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        programs = graphed.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm = dict(programs=programs, warmup_s=warm_s, reserved_before=reserved,
+                    reserved_after=torch.cuda.memory_reserved(),
+                    pool_bytes=graphed.programs.pool_bytes())
+        if programs != graphed.num_programs() or programs != GRAPH_MLM_PROGRAMS:
+            raise AssertionError(f"{mode}: warmup() gave {programs} programs, holds "
+                                 f"{graphed.num_programs()}, want {GRAPH_MLM_PROGRAMS}")
+        captures = graphed.programs.captures
+        turns = [mlm_turn(torch, ak, qm, server, texts, quantized, f"phase 41 {mode} {kind}")
+                 for server, kind in ((eager, "eager"), (graphed, "graphed"),
+                                      (eager, "eager"), (graphed, "graphed"))]
+        if graphed.programs.captures != captures:
+            raise AssertionError(f"{mode}: a warm server captured "
+                                 f"{graphed.programs.captures - captures} programs")
+        import numpy as np
+
+        for i, turn in enumerate(turns[1:], 1):
+            if (turn["fills"] != turns[0]["fills"]
+                    or not np.array_equal(turn["logits"], turns[0]["logits"])
+                    or turn["launches"] != turns[0]["launches"]
+                    or turn["dispatches"] != turns[0]["dispatches"]):
+                raise AssertionError(f"{mode}: turn {i} differs from the eager turn (fills, "
+                                     f"logits bit for bit, launches {turn['launches']} vs "
+                                     f"{turns[0]['launches']})")
+        for turn in turns[1::2]:
+            launches["attention_fwd"] += turn["launches"][0]
+            launches["attention_fwd_wgmma"] += turn["launches"][0]
+            launches["dequant_matmul"] += turn["launches"][1]
+            launches["dequant_matmul_wgmma"] += turn["launches"][1]
+        profiled = profile_pass(torch, lambda: graphed.fill_masks(texts, k=5),
+                                f"{mode} graphed")
+        if not profiled["attention_device_ms"]:
+            raise AssertionError(f"{mode}: the profiler saw no #1 inside the replays")
+        swap = None
+        if not quantized:
+            dropped = use_plain_kernels(graphed.model, port, graphed)
+            before = (ak.counter.launches, qm.counter.launches)
+            graphed.fill_masks(texts[:8], k=1)
+            if dropped != captures or (ak.counter.launches, qm.counter.launches) != before:
+                raise AssertionError(f"the swap dropped {dropped} of {captures} programs, or "
+                                     f"the swapped server launched a kernel")
+            swap = dict(dropped=dropped, recaptured=graphed.num_programs())
+        readings[mode] = dict(**warm, texts_per_s=[t["texts_per_s"] for t in turns],
+                              turns="eager, graphed, eager, graphed",
+                              host_ms=mlm_host_ms(graphed, texts, turns[0]["logits"]),
+                              launches=turns[1]["launches"], dispatches=turns[1]["dispatches"],
+                              profiled=profiled, swap=swap)
+        del eager, graphed
+    log(phase="graphs_mlm", card=card_line(), texts=len(texts), **readings,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def mlm_host_ms(server, texts, logits) -> dict:
+    """Two host parts of a fill-mask pass on their own (host clock): the
+    texts' tokenizing and bucketing (``MLMServer._prepare``), and the top-5
+    of as many rows of ``logits`` as the texts hold masks (``top_k_tokens``)."""
+    from perceiver_io_torch.inference.mlm import top_k_tokens
+
+    masks = sum(t.split().count("[MASK]") for t in texts)
+    t0 = time.perf_counter()
+    for text in texts:
+        server._prepare(text)
+    t1 = time.perf_counter()
+    top_k_tokens(server.tokenizer, logits.reshape(-1, logits.shape[-1])[:masks], 5)
+    return dict(tokenize=(t1 - t0) * 1e3, top5=(time.perf_counter() - t1) * 1e3, masks=masks)
+
+
+def serving_tree(model, mode: str):
+    """``model``'s weights prepared once under the serving ``mode`` (int8w
+    quantized), for two engines to load the same tree."""
+    from perceiver_io_torch.inference.engine import prepare_param_tree, resolve_params_mode
+    from perceiver_io_torch.interop import param_tree
+
+    return prepare_param_tree(param_tree(model), *resolve_params_mode(mode, None))
+
+
+def decode_turn(torch, gen, prompt, greedy) -> float:
+    """Host ms a token of 4 greedy chunks of AR_CHUNK steps after
+    ``prompt``'s prefill, synchronised."""
+    session = gen.start(prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        gen.decode_chunk(session, greedy)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (4 * AR_CHUNK)
+
+
+def decode_profile(torch, gen, prompt, greedy, chunks: int) -> dict:
+    """Device busy ms a token and idle share of ``chunks`` greedy chunks
+    under torch.profiler, after a warm chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    session = gen.start(prompt)
+    gen.decode_chunk(session, greedy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            gen.decode_chunk(session, greedy)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    attn_ms = sum(e.self_device_time_total for e in events if "attention_fwd" in e.key) / 1e3
+    tokens = chunks * AR_CHUNK
+    return dict(tokens=tokens, device_busy_ms_per_token=busy_ms / tokens,
+                attention_device_ms_per_token=attn_ms / tokens,
+                host_ms_per_token=window_ms / tokens, device_idle_share=1 - busy_ms / window_ms)
+
+
+def ar_graphs(torch, ak, qm, port, prompts, ar18, ar19) -> dict:
+    """Phase 41 (b): ``ARGenerator`` at ``flagship_ar`` (phase 18's weights),
+    bf16 and int8w, graphed against eager over one prepared tree:
+    ``warmup()`` (one decode program a width: 256, 511, 512) and its
+    seconds; phase 18's four prompts, 32 tokens each: greedy on the eager
+    engine, identical to phase 18's / 19's streams (the graphed engine's,
+    their launches checked there), then sampled (BATCH_SAMPLED, seed 5) on
+    both, identical; every pass's #1 / #9 launches 22 / 131 a prefill and a
+    step, all wgmma, none plain, and no capture after the warmup; host ms a
+    token of a 32-step decode in turns (eager, graphed, eager, graphed);
+    device ms a token and idle share of a profiled window on each (eager 8
+    steps, graphed 32). Returns the graphed launches."""
+    t_phase = time.perf_counter()
+    sc = port["SamplingConfig"]
+    counters = (ak.counter, ak.causal_counter, ak.wgmma_counter, qm.counter, qm.wgmma_counter)
+    names = ("attention_fwd", "attention_fwd_causal", "attention_fwd_wgmma", "dequant_matmul",
+             "dequant_matmul_wgmma")
+    launches = dict.fromkeys(names, 0)
+    readings = {}
+    for mode, ref in (("bfloat16", ar18), ("int8w", ar19)):
+        quantized = mode == "int8w"
+        tree = serving_tree(ar18["model"], mode)
+        engines = {graphs: port["ARGenerator"](ar18["model"], tree, 512, chunk=AR_CHUNK,
+                                               compute_dtype=mode, device="cuda", graphs=graphs)
+                   for graphs in (False, True)}
+        del tree
+        t0 = time.perf_counter()
+        programs = engines[True].warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if programs != 3 or engines[True].num_programs() != 3:
+            raise AssertionError(f"{mode}: ARGenerator.warmup() gave {programs} programs")
+
+        def run(graphs: bool, sampling, label: str):
+            gen = engines[graphs]
+            for c in counters:
+                c.reset()
+            calls = gen.prefills + gen.steps
+            streams = [gen.generate(p, AR_NEW_TOKENS, sampling)[0] for p in prompts]
+            calls = gen.prefills + gen.steps - calls
+            got = [c.launches for c in counters]
+            deq = AR_DEQUANT_PER_CALL * calls if quantized else 0
+            if got[0] != AR_ATTN_PER_CALL * calls or got[2] != got[0] \
+                    or got[3:] != [deq, deq] or any(c.plain_calls for c in counters):
+                raise AssertionError(f"{mode} {label}: launches {got} over {calls} prefills "
+                                     f"and steps")
+            return streams, got
+
+        greedy, _ = run(False, sc(), "eager greedy")
+        if greedy != ref["streams"]:
+            raise AssertionError(f"{mode}: eager greedy streams differ from the graphed ones "
+                                 f"of phase {19 if quantized else 18}")
+        sampled = sc(seed=5, **BATCH_SAMPLED)
+        eager_sampled, eager_counts = run(False, sampled, "eager sampled")
+        graphed_sampled, counts = run(True, sampled, "graphed sampled")
+        if graphed_sampled != eager_sampled or counts != eager_counts:
+            raise AssertionError(f"{mode}: graphed sampled streams or launches {counts} differ "
+                                 f"from eager {eager_counts}")
+        for name, n in zip(names, counts):
+            launches[name] += n
+        if engines[True].programs.captures != programs:
+            raise AssertionError(f"{mode}: a warm ARGenerator captured a program")
+        host = [decode_turn(torch, engines[g], prompts[1], sc())
+                for g in (False, True, False, True)]
+        readings[mode] = dict(programs=programs, warmup_s=warm_s,
+                              pool_bytes=engines[True].programs.pool_bytes(),
+                              host_ms_per_token=host, turns="eager, graphed, eager, graphed",
+                              sampled_launches=counts,
+                              # the eager window is one chunk: an eager
+                              # step records hundreds of profiler events,
+                              # which key_averages sums on the host
+                              eager=decode_profile(torch, engines[False], prompts[1], sc(), 1),
+                              graphed=decode_profile(torch, engines[True], prompts[1], sc(), 4))
+        del engines
+    log(phase="graphs_ar", card=card_line(), prompts=[len(p) for p in prompts],
+        new_tokens=AR_NEW_TOKENS, chunk=AR_CHUNK, **readings,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def arena_graphs(torch, ak, qm, port, model, cases, refs) -> dict:
+    """Phase 41 (c): phase 40's 16 streams (bf16) through a graphed
+    ``ContinuousBatcher`` and an eager one, in turns (eager, graphed, eager,
+    graphed), every turn's launches exact (``batch_launches``): each graphed
+    stream identical to the eager arena's and to ``ARGenerator``'s (``refs``,
+    or a tie by ``identity_rule``); ``warmup()`` (one program a width at 8
+    slots), tokens/s and chunk host ms each turn; a profiled graphed chunk
+    (``batch_profile``; phase 40 profiles the eager one). Returns the graphed
+    turns' launches."""
+    from perceiver_io_torch.inference.batching import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    counters = (ak.counter, ak.causal_counter, ak.wgmma_counter, qm.counter, qm.wgmma_counter)
+    names = ("attention_fwd", "attention_fwd_causal", "attention_fwd_wgmma", "dequant_matmul",
+             "dequant_matmul_wgmma")
+    bats = {graphs: ContinuousBatcher(model, None, 512, chunk=AR_CHUNK, slots=BATCH_SLOTS,
+                                      max_slots=BATCH_MAX_SLOTS, compute_dtype="bfloat16",
+                                      device="cuda", graphs=graphs)
+            for graphs in (False, True)}
+    launches = dict.fromkeys(names, 0)
+    try:
+        t0 = time.perf_counter()
+        programs = bats[True].warmup()
+        warm_s = time.perf_counter() - t0
+        bats[False].warmup()
+        turns, ties = [], []
+        for graphs in (False, True, False, True):
+            bat = bats[graphs]
+            for c in counters:
+                c.reset()
+            before = bat.stats()
+            got, _, wall = fan_out(torch, bat, cases)
+            after = bat.stats()
+            counted = batch_launches(ak, qm, before, after, False,
+                                     f"phase 41 {'graphed' if graphs else 'eager'} arena")
+            chunks = after["dispatches"] - before["dispatches"]
+            chunk_ms = (after["chunk_ms_mean"] * after["dispatches"]
+                        - before["chunk_ms_mean"] * before["dispatches"]) / chunks
+            turns.append(dict(got=got, tokens_per_s=AR_NEW_TOKENS * len(cases) / wall,
+                              chunk_ms=chunk_ms, slots=after["slots"]))
+            if graphs:
+                for name in names:
+                    launches[name] += counted[name]
+        for turn in turns[1:]:
+            if turn["got"] != turns[0]["got"]:
+                raise AssertionError("phase 41: the graphed arena's streams differ from the "
+                                     "eager arena's")
+        gen = None
+        for j, (ref, tokens) in enumerate(zip(refs, turns[1]["got"])):
+            if tokens != ref and gen is None:
+                gen = port["ARGenerator"](model, None, 512, chunk=AR_CHUNK,
+                                          compute_dtype="bfloat16", device="cuda")
+            tie = identity_rule(torch, gen, cases[j], ref, tokens, TOL["bfloat16"],
+                                f"phase 41 graphed stream {j}")
+            ties += [tie] if tie else []
+        stats = bats[True].stats()
+        held = bats[True].num_programs()
+        pool = bats[True].programs.pool_bytes()
+    finally:
+        for bat in bats.values():
+            bat.close()
+    log(phase="graphs_arena", card=card_line(), streams=len(cases), programs=programs,
+        warmup_s=warm_s, programs_held=held, pool_bytes=pool,
+        tokens_per_s=[t["tokens_per_s"] for t in turns],
+        host_ms_per_chunk=[t["chunk_ms"] for t in turns], turns="eager, graphed, eager, graphed",
+        ties=ties, stats=stats, graphed_chunk=batch_profile(torch, model, cases, graphs=True),
+        phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def ar_attention_bwd_phase(torch, ak):
@@ -3529,8 +3902,9 @@ def preemption_phase(torch, port, root: str):
 
 def checkpoint_serving_phase(torch, port, root: str, a, snapshots, best, texts) -> dict:
     """Phase 30: ``cli.serve --checkpoint <A>/checkpoints --tokenizer T
-    --dtype bfloat16`` (width buckets 128/256/512, max_batch 64) on phase 6's
-    texts, then with ``--quantize int8``: #1 launches 22 a fused forward, #9
+    --dtype bfloat16 --no_warmup`` (width buckets 128/256/512, max_batch 64;
+    without the warmup the window's launches are the texts' forwards alone)
+    on phase 6's texts, then with ``--quantize int8``: #1 launches 22 a fused forward, #9
     131 under int8 (all wgmma, no plain version), and each mask's top-1 fill
     equals that of an ``MLMServer`` built in memory from A's weights at the
     best step (the host copy taken at that validation), in the same mode."""
@@ -3562,7 +3936,7 @@ def checkpoint_serving_phase(torch, port, root: str, a, snapshots, best, texts) 
                 results = serve.main(["--checkpoint", f"{a.run_dir}/checkpoints", "--tokenizer",
                                       tokenizer_file, "--dtype", "bfloat16", "--bucket_widths",
                                       "128", "256", "512", "--max_batch", "64", "--quantize",
-                                      quantize, "--texts", *texts])
+                                      quantize, "--no_warmup", "--texts", *texts])
         finally:
             serve.MLMServer = base
         torch.cuda.synchronize()
@@ -5250,9 +5624,14 @@ def main() -> int:
         ar_launches.append(p19_launches)
         del ar19["model"]
         enter("40: continuous batching")
-        ar_launches.append(batching_phase(torch, ak, qm, port, tokenizer,
-                                          batch_prompts(tokenizer, synthetic_reviews, prompts),
-                                          ar18, ar19, cli18, cli_path))
+        cases = batch_cases(port, batch_prompts(tokenizer, synthetic_reviews, prompts))
+        p40_launches, refs40 = batching_phase(torch, ak, qm, port, tokenizer, cases, ar18,
+                                              ar19, cli18, cli_path)
+        ar_launches.append(p40_launches)
+        enter("41: serving programs as CUDA graphs")
+        ar_launches.append(mlm_graphs(torch, ak, qm, port, tokenizer, texts))
+        ar_launches.append(ar_graphs(torch, ak, qm, port, prompts, ar18, ar19))
+        ar_launches.append(arena_graphs(torch, ak, qm, port, ar18["model"], cases, refs40))
     del ar18, ar19
     gc.collect()
     torch.cuda.empty_cache()

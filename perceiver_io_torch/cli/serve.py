@@ -16,8 +16,12 @@ Generation: each prompt prints as one JSON line ``{"text",
 stderr; without ``--tokenizer`` a prompt is whitespace-separated token ids
 and the continuation its ids. ``--decode_batching`` serves them through the
 continuous-batching engine (``inference/batching.py``), ``--decode_slots``
-slots a width to start with. Runs on the CUDA card; ``--cpu`` runs the
-kernels' plain PyTorch versions instead.
+slots a width to start with. Before the first text the server warms its
+program family (``MLMServer.warmup``: every width x K bucket x batch bucket;
+``ARGenerator.warmup``: a decode program per width; each a CUDA graph on
+the card), blocking; ``--no_warmup`` skips it, and the first request of
+each shape then captures its program. Runs on the CUDA card; ``--cpu`` runs
+the kernels' plain PyTorch versions instead.
 """
 
 from __future__ import annotations
@@ -72,6 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="micro-batch cap (power-of-two buckets below it)")
     parser.add_argument("--bucket_widths", type=int, nargs="+", default=None,
                         help="sequence-width serving buckets")
+    parser.add_argument("--no_warmup", action="store_true",
+                        help="skip readying the program family before serving (the first "
+                             "request of each shape then captures its program)")
+    parser.add_argument("--blocking_warmup", action="store_true",
+                        help="wait for the whole program family before serving: the "
+                             "port's only warmup mode for now (accepted for the JAX "
+                             "CLI's flags)")
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
                         help="serving compute dtype: bfloat16 casts the weights once; "
                              "default float32, or with --checkpoint the dtype the run "
@@ -144,6 +155,8 @@ def main(argv: Optional[Sequence[str]] = None):
     server = MLMServer(
         model, params, tokenizer, model.encoder.input_adapter.max_seq_len,
         bucket_widths=args.bucket_widths, max_batch=args.max_batch, **mode)
+    if not args.no_warmup:
+        print(f"serve: warmed {server.warmup()} bucket programs", file=sys.stderr)
     texts = _texts(args)
     results = []
     for text, fills in zip(texts, server.fill_masks(texts, k=args.k)):
@@ -176,6 +189,8 @@ def _serve_generate(args, model, params, tokenizer, mode):
 def _generate_lines(args, gen, tokenizer):
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
                               seed=args.gen_seed)
+    if not args.no_warmup:
+        print(f"serve: warmed {gen.warmup(sampling)} generation programs", file=sys.stderr)
 
     def on_chunk(tokens, info):
         print(f"serve: +{len(tokens)} tokens @pos {info['pos']} "

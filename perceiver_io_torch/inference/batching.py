@@ -20,7 +20,12 @@ token for each stream. This module pays both once a step for all of them:
   pass through bit for bit. A chunk (``generate.decode_rows``, the chunk
   ``ARGenerator`` runs at B=1) chains up to ``chunk`` steps, each slot
   running its own ``steps_left``; the positions advance on the device and
-  the chunk's tokens are read back once.
+  the chunk's tokens are read back once. Every step selects with
+  ``active``, so each (width, slots) is ONE program
+  (``generate.DecodeProgram``, a CUDA graph over the arena's own buffers),
+  captured on the dispatcher thread at the arena's first chunk; admission
+  installs into those buffers in place, and a grow, which replaces them,
+  drops the program.
 - **continuous scheduling**: streams are admitted and retired at chunk
   boundaries. A dispatcher thread owns the arenas and does all device work;
   caller threads enqueue streams and drain their own token queues, so a slow
@@ -28,8 +33,8 @@ token for each stream. This module pays both once a step for all of them:
   admission waves of up to ``_MAX_PREFILL_ROWS``: one prefill of the
   right-padded prompts with per-row lengths and one indexed install. The
   JAX engine rounds a wave up to a power of two to close XLA's program
-  family; the port has no programs to close and takes each wave at its
-  exact size.
+  family; the port's prefill is not a program yet and takes each wave at
+  its exact size.
 
 Stream identity: a sampled row draws through a ``torch.Generator`` seeded
 ``position_seed(seed, p)`` on its own (1, vocab) row
@@ -41,7 +46,7 @@ stream may part from ``ARGenerator``'s at a near tie of its two best scores.
 
 Not ported (the JAX engine's serving-tier parts): the ``obs`` metrics,
 spans and registry, ``DecodeFlightRecorder``, the ``Heartbeat`` watchdog,
-``faults.inject``, the ``compile_cache`` / ``ExecutableCache``,
+``faults.inject``, the on-disk ``compile_cache`` / ``ExecutableCache``,
 ``release_session`` and the ``GenerateSessionStore`` hooks, and
 ``token_stats``.
 """
@@ -56,7 +61,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig, decode_rows
+from perceiver_io_torch.inference.generate import (
+    ARGenerator,
+    DecodeProgram,
+    SamplingConfig,
+    decode_rows,
+    tree_leaves,
+    tree_map,
+)
 
 # the most same-width prompts one admission wave encodes together
 _MAX_PREFILL_ROWS = 8
@@ -67,24 +79,6 @@ def _round_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
-
-
-def _tree_map(fn, *trees):
-    """``fn`` over the tensors of cache-shaped trees (dicts, lists, tuples)."""
-    t = trees[0]
-    if isinstance(t, dict):
-        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, (list, tuple)):
-        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
-def _tree_leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _tree_leaves(v)]
-    return [tree]
 
 
 class ArenaSession:
@@ -129,12 +123,13 @@ class _Arena:
     the per-slot sampling parameters. The buffer is touched only by the
     dispatcher thread; the table only under the batcher's lock."""
 
-    __slots__ = ("width", "n_slots", "buf", "slots", "temp", "top_k", "seeds")
+    __slots__ = ("width", "n_slots", "buf", "decoder", "slots", "temp", "top_k", "seeds")
 
     def __init__(self, width: int, n_slots: int):
         self.width = width
         self.n_slots = n_slots
         self.buf = None
+        self.decoder: Optional[DecodeProgram] = None  # over buf, made at the first chunk
         self.slots = [_Slot() for _ in range(n_slots)]
         self.temp = [0.0] * n_slots
         self.top_k = [0] * n_slots
@@ -147,11 +142,14 @@ class _Stream:
     error) that ``generate`` drains."""
 
     __slots__ = ("prefix", "max_new", "sampling", "adopt", "q", "tokens", "width",
-                 "slot", "placed", "cancelled", "ended", "session_out", "wants_chunks")
+                 "slot", "placed", "cancelled", "ended", "session_out", "wants_chunks",
+                 "at_width")
 
     def __init__(self, prefix: List[int], max_new: int, sampling: SamplingConfig,
-                 adopt: Optional[ArenaSession], wants_chunks: bool):
+                 adopt: Optional[ArenaSession], wants_chunks: bool,
+                 at_width: Optional[int] = None):
         self.prefix = prefix
+        self.at_width = at_width    # the first episode's width, if not the planned one
         self.max_new = max_new
         self.sampling = sampling
         self.adopt = adopt          # a resident session to resume, tried once
@@ -186,16 +184,20 @@ class ContinuousBatcher(ARGenerator):
     retirements, copying every ring into the larger buffer. A full arena
     queues admissions to the next chunk boundary. A dispatcher fault raises
     out of every affected caller's ``generate``; after :meth:`close`,
-    ``generate`` raises ``RuntimeError``.
+    ``generate`` raises ``RuntimeError``. The arenas' programs, keyed
+    ``("decode", width, slots, True)``, live in the inherited ``programs``
+    beside ``ARGenerator``'s B=1 ones, so ``num_programs`` and
+    ``drop_programs`` cover them (an arena's next chunk captures again).
+    ``graphs=False`` keeps the eager chunk.
     """
 
     def __init__(self, model, params, max_seq_len: int, chunk: int = 8, slots: int = 8,
                  max_slots: int = 64, compute_dtype: Optional[str] = None,
                  quantize: Optional[str] = None, group_size: Optional[int] = None,
-                 device=None, name: str = "generate"):
+                 device=None, name: str = "generate", graphs: bool = True):
         super().__init__(model, params, max_seq_len, chunk=chunk,
                          compute_dtype=compute_dtype, quantize=quantize,
-                         group_size=group_size, device=device)
+                         group_size=group_size, device=device, graphs=graphs)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.name = name
@@ -225,16 +227,20 @@ class ContinuousBatcher(ARGenerator):
 
     def _grow(self, arena: _Arena) -> bool:
         """Double the arena up to ``max_slots``: every ring leaf is copied
-        into a buffer with zero rings in the new slots."""
+        into a buffer with zero rings in the new slots. The old size's
+        program goes with the old buffers."""
         if arena.n_slots >= self.max_slots:
             return False
         new_n = min(arena.n_slots * 2, self.max_slots)
         pad_n = new_n - arena.n_slots
         buf = arena.buf
         if buf is not None:
-            buf = _tree_map(lambda x: torch.cat([x, x.new_zeros((pad_n,) + x.shape[1:])]), buf)
+            buf = tree_map(lambda x: torch.cat([x, x.new_zeros((pad_n,) + x.shape[1:])]), buf)
+        if self.programs is not None:
+            self.programs.drop(lambda key: key == self._arena_key(arena))
         with self._cv:
             arena.buf = buf
+            arena.decoder = None
             arena.n_slots = new_n
             arena.slots.extend(_Slot() for _ in range(pad_n))
             arena.temp.extend([0.0] * pad_n)
@@ -291,13 +297,15 @@ class ContinuousBatcher(ARGenerator):
     def warmup(self, sampling: SamplingConfig = SamplingConfig()) -> int:
         """Serve one stream at each width of the grid (as
         ``ARGenerator.warmup`` picks its prefix): one admission wave and one
-        decode chunk of one step, through the dispatcher. Builds the kernels
-        and brings the card's libraries up before the first request. Returns
-        the number of widths run."""
+        decode chunk of one step, through the dispatcher, whose chunk
+        captures the (width, slots) program of each arena at its current
+        size. Returns the number of programs held (on the eager path, the
+        number of widths run)."""
         sampling = sampling.normalized()
         for w in self.widths:
-            self.generate([0] * max(1, w - self.capacity + 1), 1, sampling)
-        return len(self.widths)
+            self._serve(_Stream([0] * max(1, w - self.capacity + 1), 1, sampling, None,
+                                False, at_width=w), None)
+        return len(self.widths) if self.programs is None else self.num_programs()
 
     def generate(self, prefix: Sequence[int], max_new: int,
                  sampling: Optional[SamplingConfig] = None,
@@ -322,7 +330,11 @@ class ContinuousBatcher(ARGenerator):
             adopt = session
         if max_new <= 0:
             return [], adopt
-        st = _Stream(prefix, max_new, sampling, adopt, wants_chunks=on_chunk is not None)
+        return self._serve(_Stream(prefix, max_new, sampling, adopt,
+                                   wants_chunks=on_chunk is not None), on_chunk)
+
+    def _serve(self, st: _Stream, on_chunk) -> Tuple[List[int], Optional[ArenaSession]]:
+        """Queue ``st`` for the dispatcher and drain its events."""
         with self._cv:
             self._pending.append(st)
             self._cv.notify_all()
@@ -373,7 +385,7 @@ class ContinuousBatcher(ARGenerator):
             d["slots"] = sum(a.n_slots for a in self._arenas.values())
             d["arena_bytes"] = sum(x.numel() * x.element_size()
                                    for a in self._arenas.values() if a.buf is not None
-                                   for x in _tree_leaves(a.buf))
+                                   for x in tree_leaves(a.buf))
         n = d["dispatches"]
         fill, chunk_ms = d.pop("fill_sum"), d.pop("chunk_ms_sum")
         d["slot_occupancy_mean"] = round(fill / n, 4) if n else None
@@ -483,7 +495,9 @@ class ContinuousBatcher(ARGenerator):
             if len(cur) >= self.max_seq_len or len(st.tokens) >= st.max_new:
                 self._finish(st, resident_ok=False)
                 continue
-            fresh.setdefault(self.plan_width(len(cur)), []).append((st, cur))
+            width = st.at_width or self.plan_width(len(cur))
+            st.at_width = None
+            fresh.setdefault(width, []).append((st, cur))
         for width, items in fresh.items():
             arena = self._ensure_arena(width)
             placed: List[Tuple[_Stream, List[int], int]] = []
@@ -540,13 +554,13 @@ class ContinuousBatcher(ARGenerator):
             logits = logits[torch.arange(len(rows), device=dev), last].float()
             if arena.buf is None:
                 n = arena.n_slots
-                buf = _tree_map(lambda x: x.new_zeros((n,) + x.shape[1:]),
-                                {"cache": cache, "logits": logits})
+                buf = tree_map(lambda x: x.new_zeros((n,) + x.shape[1:]),
+                               {"cache": cache, "logits": logits})
                 with self._cv:
                     arena.buf = buf
             slots = torch.tensor([slot for _, _, slot in rows], device=dev)
-            _tree_map(lambda b, x: b.index_copy_(0, slots, x), arena.buf,
-                      {"cache": cache, "logits": logits})
+            tree_map(lambda b, x: b.index_copy_(0, slots, x), arena.buf,
+                     {"cache": cache, "logits": logits})
         except Exception as e:
             # the wave is the blast radius: free its slots, fail its streams
             with self._cv:
@@ -619,10 +633,21 @@ class ContinuousBatcher(ARGenerator):
         out = self._decode(arena, steps_left, positions, *sampling)
         return arena, by_slot, steps_left, out, t0, sum(1 for k in steps_left if k)
 
+    @staticmethod
+    def _arena_key(arena: _Arena) -> tuple:
+        return ("decode", arena.width, arena.n_slots, True)
+
     def _decode(self, arena: _Arena, steps_left: List[int], positions: List[int],
                 temp: List[float], top_k: List[int], seeds: List[int]) -> torch.Tensor:
-        out = decode_rows(self.model, arena.buf["cache"], arena.buf["logits"], steps_left,
-                          positions, temp, top_k, seeds)
+        rows = (steps_left, positions, temp, top_k, seeds)
+        if self.programs is None:
+            out = decode_rows(self.model, arena.buf["cache"], arena.buf["logits"], *rows)
+        else:
+            if arena.decoder is None:
+                arena.decoder = DecodeProgram(
+                    self.model, arena.buf["cache"], arena.buf["logits"], self.chunk,
+                    self.programs, self._arena_key(arena), masked=True)
+            out = arena.decoder.run(*rows)
         with self._cv:
             self._stats["batched_steps"] += out.shape[1]
         return out

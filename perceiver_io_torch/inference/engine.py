@@ -6,9 +6,11 @@ and micro-batches requests of one shape (width, mask-count bucket) into
 power-of-two batch buckets, over the three program families of
 :func:`mlm_apply_fns`: the fused forward (encoder + gathered decode at the
 ``[MASK]`` positions), ``encode`` and ``decode``. It runs synchronously: a
-request's ``result()`` runs every batch queued so far. Threads, telemetry,
-breakers and the compiled-program cache of the JAX engine are host-side
-systems a later slice ports.
+request's ``result()`` runs every batch queued so far. Each (family,
+signature, batch bucket) is one program (``inference/programs.py``): a CUDA
+graph captured at the bucket's first batch, or ahead of traffic by
+:meth:`MLMServer.warmup`, and replayed after. Threads, telemetry and
+breakers of the JAX engine are host-side systems a later slice ports.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from perceiver_io_torch.data.tokenizer import MASK_TOKEN, PAD_TOKEN
 from perceiver_io_torch.device import resolve_device
 from perceiver_io_torch.inference.mlm import masked_token_ids, pad_token_rows, top_k_tokens
 from perceiver_io_torch.inference.predictor import bucket_size, pad_rows, to_numpy
+from perceiver_io_torch.inference.programs import ProgramCache, fill
 from perceiver_io_torch.interop import flatten_tree, load_param_tree, param_tree
 from perceiver_io_torch.quant.int8 import is_quantized, quantize_tree
 
@@ -120,23 +123,40 @@ class BatchingEngine:
     in arrival order into batches of at most ``max_batch`` rows, padded to a
     power-of-two bucket (rows repeat row 0) and run together; requests
     larger than ``max_batch`` split into parts. Floating inputs are cast to
-    ``compute_dtype``."""
+    ``compute_dtype``; inputs from the host stay there until their batch
+    runs.
+
+    With ``programs`` (a :class:`ProgramCache`), each (signature, bucket)
+    runs as one program keyed ``(name, signature, bucket)``: its first batch
+    captures it, and every batch after copies its columns into the
+    program's buffers and replays it; the rows handed out are a copy that
+    no later replay touches. Without, ``apply_fn`` runs eagerly.
+    ``host_output``: a batch's output comes to the host in one copy (the
+    rows a caller reads there: one sync a batch, not one a request)."""
 
     def __init__(self, apply_fn: Callable, max_batch: int, device: torch.device,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 programs: Optional[ProgramCache] = None, name: str = "engine",
+                 host_output: bool = False):
         self.apply_fn = apply_fn
         self.max_batch = max_batch
         self.device = device
         self.compute_dtype = compute_dtype
+        self.programs = programs
+        self.name = name
+        self.host_output = host_output
         self.dispatches = 0
         self._pending: Dict[tuple, List[Tuple[List[torch.Tensor], _Future, int]]] = {}
 
     def _tensor(self, x) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-        t = t.to(self.device)
         if self.compute_dtype is not None and t.is_floating_point():
             t = t.to(self.compute_dtype)
         return t
+
+    @staticmethod
+    def _key(arrays: Sequence[torch.Tensor]) -> tuple:
+        return tuple((tuple(a.shape[1:]), a.dtype) for a in arrays)
 
     def submit(self, *inputs, transform: Optional[Callable] = None) -> _Future:
         arrays = [self._tensor(x) for x in inputs]
@@ -147,8 +167,7 @@ class BatchingEngine:
         fut = _Future(self, len(starts), transform)
         for index, start in enumerate(starts):
             chunk = [a[start: start + self.max_batch] for a in arrays]
-            key = tuple((tuple(a.shape[1:]), a.dtype) for a in chunk)
-            self._pending.setdefault(key, []).append((chunk, fut, index))
+            self._pending.setdefault(self._key(chunk), []).append((chunk, fut, index))
         return fut
 
     def predict(self, *inputs):
@@ -167,14 +186,62 @@ class BatchingEngine:
                     rows += part[0][0].shape[0]
                 self._dispatch(batch, rows)
 
+    @property
+    def num_programs(self) -> int:
+        """Distinct (signature, batch-bucket) programs captured or warmed."""
+        if self.programs is None:
+            return 0
+        return self.programs.num_programs(lambda key: key[0] == self.name)
+
+    def _run(self, cols: List[torch.Tensor], bucket: int) -> torch.Tensor:
+        """One padded batch through its program (built at its first batch),
+        or eagerly; the output may be a program's buffer."""
+        with torch.inference_mode():
+            if self.programs is None:
+                return self.apply_fn(*[c.to(self.device) for c in cols])
+            key = (self.name, self._key(cols), bucket)
+            prog = self.programs.get(key)
+            if prog is not None:
+                return prog.run(*cols)
+            statics = [torch.empty(c.shape, dtype=c.dtype, device=self.device) for c in cols]
+            for static, col in zip(statics, cols):
+                fill(static, col)
+            return self.programs.build(key, self.apply_fn, statics).output
+
+    def warmup(self, *example_inputs, buckets: Optional[Sequence[int]] = None) -> List[int]:
+        """Ready every batch bucket for this input signature (row 0 of
+        ``example_inputs``, tiled) ahead of traffic: one program each,
+        captured now, so a batch of that shape captures nothing. One call per
+        distinct signature, e.g. per serving width. Returns the warmed
+        bucket list."""
+        arrays = [self._tensor(x) for x in example_inputs]
+        if any(a.shape[0] < 1 for a in arrays):
+            raise ValueError("warmup needs at least one example row")
+        if buckets is None:
+            buckets, b = [], 1
+            while b < self.max_batch:
+                buckets.append(b)
+                b *= 2
+            buckets.append(self.max_batch)
+        buckets = sorted({bucket_size(int(b), self.max_batch) for b in buckets})
+        for b in buckets:
+            self._run([a[:1].expand(b, *a.shape[1:]).contiguous() for a in arrays], b)
+        return buckets
+
     def _dispatch(self, batch, rows: int) -> None:
         bucket = bucket_size(rows, self.max_batch)
         cols = []
         for i in range(len(batch[0][0])):
-            col = torch.cat([chunk[i] for chunk, _, _ in batch])
-            cols.append(pad_rows(col, bucket))
+            parts = [chunk[i] for chunk, _, _ in batch]
+            if len({p.device for p in parts}) > 1:
+                parts = [p.to(self.device) for p in parts]
+            cols.append(pad_rows(torch.cat(parts), bucket))
+        out = self._run(cols, bucket)
         with torch.inference_mode():
-            out = self.apply_fn(*cols)
+            if self.host_output and out.device.type != "cpu":
+                out = out.cpu()
+            elif self.programs is not None:
+                out = out.clone()  # the program's buffer is the next batch's
         self.dispatches += 1
         offset = 0
         for chunk, fut, index in batch:
@@ -210,12 +277,14 @@ class MLMServer:
     (``compute_dtype='bfloat16'``, ``quantize='int8'|'int4'``, or the
     ``'int8w'``/``'int4w'`` shorthands) and shared by the three program
     families. ``bucket_widths``: sequence-width buckets; None = always
-    ``max_seq_len``."""
+    ``max_seq_len``. The three families' programs share one
+    :class:`ProgramCache` (``programs``); ``graphs=False`` keeps the eager
+    path, which runs every operator from Python on every batch."""
 
     def __init__(self, model, params, tokenizer, max_seq_len: int,
                  bucket_widths: Optional[Sequence[int]] = None, max_batch: int = 64,
                  compute_dtype: Optional[str] = None, quantize: Optional[str] = None,
-                 group_size: Optional[int] = None, device=None):
+                 group_size: Optional[int] = None, device=None, graphs: bool = True):
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.max_seq_len = max_seq_len
@@ -241,9 +310,51 @@ class MLMServer:
 
         apply_fns = mlm_apply_fns(self.model)
         cast = _DTYPES[compute_dtype] if compute_dtype else None
-        self.engine = BatchingEngine(apply_fns["infer"], max_batch, self.device, cast)
-        self.encoder = BatchingEngine(apply_fns["encode"], max_batch, self.device, cast)
-        self.decoder = BatchingEngine(apply_fns["decode"], max_batch, self.device, cast)
+        self.programs = ProgramCache(self.device) if graphs else None
+        # the logits of the fused and decode families are read on the host;
+        # the latents of encode stay on the card for later decodes
+        self.engine, self.encoder, self.decoder = (
+            BatchingEngine(apply_fns[name], max_batch, self.device, cast, self.programs, name,
+                           host_output=name != "encode")
+            for name in ("infer", "encode", "decode"))
+
+    def warmup(self, batch_buckets: Optional[Sequence[int]] = None,
+               query_buckets: Sequence[int] = (1, 2, 4)) -> int:
+        """Ready the serving programs ahead of traffic, blocking: every width
+        bucket x batch bucket (x K bucket for the fused and decode
+        families), each family in priority order (smallest width and bucket
+        first). Returns the number of programs warmed (on the eager path,
+        the number of (shape, bucket) runs); after it, serving traffic of
+        these shapes captures nothing."""
+        count = 0
+
+        def example(width: int):
+            # pad nothing: a fully padded row would attend over no key
+            return np.zeros((1, width), np.int32), np.zeros((1, width), bool)
+
+        for width in self.widths:
+            ids, pad = example(width)
+            for kb in sorted({bucket_size(int(q), width) for q in query_buckets}):
+                count += len(self.engine.warmup(ids, pad, np.zeros((1, kb), np.int32),
+                                                buckets=batch_buckets))
+        for width in self.widths:
+            count += len(self.encoder.warmup(*example(width), buckets=batch_buckets))
+        latent_row = self.encoder.predict(*example(self.widths[0]))
+        for kb in sorted({bucket_size(int(q), self.max_seq_len) for q in query_buckets}):
+            count += len(self.decoder.warmup(latent_row, np.zeros((1, kb), np.int32),
+                                             buckets=batch_buckets))
+        return count
+
+    def num_programs(self) -> int:
+        """Programs held across the three families."""
+        return 0 if self.programs is None else self.programs.num_programs()
+
+    def drop_programs(self) -> int:
+        """Forget every program (the next batch of each shape captures
+        again): what putting other implementations in the kernels' place
+        on ``self.model`` needs, since a program replays what it captured.
+        Returns how many went."""
+        return 0 if self.programs is None else self.programs.drop()
 
     def _prepare(self, text: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Tokenize one text once and pad it to its width bucket:

@@ -15,6 +15,14 @@ engine around that pair:
   there; the session knows it on the host too, so no step reads the device
   to find it. :func:`decode_rows` is the chunk, for one stream here and
   for every slot of the batched arena (``inference/batching.py``).
+- **programs**: :class:`DecodeProgram` runs the same chunk with each step
+  one CUDA graph per (width, rows, masked) over static rings
+  (``inference/programs.py``), the counterpart of the JAX engine's decode
+  program per (batch, chunk, sampling). Greedy rows take their argmax
+  inside the graph; a sampled row's draw, from a generator re-seeded each
+  step, stays outside it. Each width's program holds one resident
+  session's rings: another session at that width copies its rings in on
+  the device, and the resident one's go out to its own tensors.
 - **seeded, position-folded sampling**: the random draw for the token at
   absolute position p comes from a ``torch.Generator`` on the device seeded
   by a pure function of ``(seed, p)`` (:func:`position_seed`, the
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -43,6 +52,7 @@ import torch
 
 from perceiver_io_torch.device import resolve_device
 from perceiver_io_torch.inference.engine import prepare_param_tree, resolve_params_mode
+from perceiver_io_torch.inference.programs import ProgramCache, fill
 from perceiver_io_torch.interop import load_param_tree, param_tree
 
 _MASK64 = (1 << 64) - 1
@@ -131,6 +141,24 @@ def sample_logits_rows(logits: torch.Tensor, temperature: Sequence[float],
     return tokens
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of cache-shaped trees (dicts, lists, tuples)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def decode_rows(model, cache, logits: torch.Tensor, steps_left: Sequence[int],
                 positions: Sequence[int], temperature: Sequence[float], top_k: Sequence[int],
                 seeds: Sequence[int]) -> torch.Tensor:
@@ -160,6 +188,70 @@ def decode_rows(model, cache, logits: torch.Tensor, steps_left: Sequence[int],
             logits.copy_(torch.where(active[:, None], new_logits.float(), logits))
             outs.append(torch.where(active, tok, -1))
     return torch.stack(outs, dim=1)
+
+
+class DecodeProgram:
+    """:func:`decode_rows` with each step one program (a CUDA graph on the
+    card) over static buffers: the rings ``cache`` and the next-token
+    ``logits`` it steps in place, and its own control buffers, which a chunk
+    fills once from the host (steps left and sampled rows) and the step
+    advances on the device (the column of the token table ``out``). Greedy
+    rows take ``argmax(logits)`` inside the step; a sampled row's draw is
+    made before each replay, into ``drawn``. A ``masked`` program selects
+    with ``active`` at every step, so that one program serves any steps left
+    (the batched arena's one program a size); unmasked, every row takes
+    every step (the B=1 chunk). The program is ``programs``' ``key``,
+    captured at its first step."""
+
+    def __init__(self, model, cache, logits: torch.Tensor, columns: int,
+                 programs: ProgramCache, key, masked: bool):
+        b, dev = logits.shape[0], logits.device
+        self.model, self.cache, self.logits = model, cache, logits
+        self.programs, self.key, self.masked = programs, key, masked
+        self.ctl = torch.zeros((2 * b + 1,), dtype=torch.long, device=dev)
+        self.drawn = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.out = torch.full((b, columns), -1, dtype=torch.long, device=dev)
+
+    def _step(self) -> None:
+        b = self.logits.shape[0]
+        left, sampled, col = self.ctl[:b], self.ctl[b: 2 * b], self.ctl[2 * b:]
+        tok = torch.where(sampled.bool(), self.drawn, self.logits.argmax(dim=-1))
+        active = left > 0 if self.masked else None
+        new_logits, _ = self.model.step(self.cache, tok[:, None], active)
+        if active is None:
+            self.logits.copy_(new_logits)
+        else:
+            self.logits.copy_(torch.where(active[:, None], new_logits.float(), self.logits))
+            tok = torch.where(active, tok, -1)
+            left.sub_(1)
+        self.out.index_copy_(1, col, tok[:, None])
+        col.add_(1)
+
+    def run(self, steps_left: Sequence[int], positions: Sequence[int],
+            temperature: Sequence[float], top_k: Sequence[int],
+            seeds: Sequence[int]) -> torch.Tensor:
+        """The chunk: :func:`decode_rows`'s contract and tokens."""
+        if not self.masked and min(steps_left) != max(steps_left):
+            raise ValueError("an unmasked decode program steps every row every step")
+        flags = [int(t != 0.0) for t in temperature]
+        cols, pieces = self.out.shape[1], []
+        for lo in range(0, max(steps_left), cols):
+            left = [max(0, k - lo) for k in steps_left]
+            fill(self.ctl, torch.tensor(left + flags + [0]))
+            n = min(cols, max(left))
+            for i in range(n):
+                rows = [b for b, f in enumerate(flags) if f and left[b] > i]
+                if rows:
+                    self.drawn.copy_(sample_logits_rows(
+                        self.logits, temperature, top_k, seeds,
+                        [p + lo + i for p in positions], rows))
+                prog = self.programs.get(self.key)
+                if prog is None:
+                    self.programs.build(self.key, self._step, [])
+                else:
+                    prog.run()
+            pieces.append(self.out[:, :n].clone())  # the next chunk's table is the same
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
 
 
 class GenSession:
@@ -199,12 +291,14 @@ class ARGenerator:
     (``compute_dtype='bfloat16'``, ``quantize='int8'|'int4'`` with
     ``group_size``, or the ``'int8w'``/``'int4w'`` shorthands). ``chunk``
     is the number of steps a decode chunk chains (and the streaming
-    granularity ``on_chunk`` sees).
+    granularity ``on_chunk`` sees). A chunk's steps run as one
+    :class:`DecodeProgram` per width (``programs``); ``graphs=False`` keeps
+    the eager :func:`decode_rows`. The prefill runs eagerly.
     """
 
     def __init__(self, model, params, max_seq_len: int, chunk: int = 8,
                  compute_dtype: Optional[str] = None, quantize: Optional[str] = None,
-                 group_size: Optional[int] = None, device=None):
+                 group_size: Optional[int] = None, device=None, graphs: bool = True):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.device = resolve_device(device)
@@ -226,6 +320,11 @@ class ARGenerator:
         self.model = load_param_tree(copy.deepcopy(model).to(self.device), tree).eval()
         self.prefills = 0   # prefix encodes (session starts and episode re-encodes)
         self.steps = 0      # decode steps taken
+        self.programs = ProgramCache(self.device) if graphs else None
+        # per width: the decode program and the session whose rings it holds
+        self._decoders: Dict[int, DecodeProgram] = {}
+        self._residents: Dict[int, GenSession] = {}
+        self._decode_lock = threading.Lock()
 
     def plan_width(self, prefix_len: int) -> int:
         """The prefill width (ring capacity, latent-window end) of a
@@ -238,13 +337,19 @@ class ARGenerator:
         return next(w for w in self.widths if w > prefix_len)
 
     @torch.inference_mode()
-    def start(self, prefix: Sequence[int], seed: int = 0) -> GenSession:
-        """Prefix-encode a session at width :meth:`plan_width`."""
+    def start(self, prefix: Sequence[int], seed: int = 0,
+              width: Optional[int] = None) -> GenSession:
+        """Prefix-encode a session at width :meth:`plan_width` (or at the grid
+        width ``width``, past the prefix and within the latent window of its
+        last token)."""
         prefix = [int(t) for t in prefix]
         p = len(prefix)
         if p < 1:
             raise ValueError("generation needs a non-empty prefix")
-        w = self.plan_width(p)
+        w = self.plan_width(p) if width is None else width
+        if w not in self.widths or not p < w <= p - 1 + self.capacity:
+            raise ValueError(f"width {w} is off the grid {self.widths} or does not fit a "
+                             f"{p}-token prefix")
         ids = torch.zeros((1, w), dtype=torch.long)
         ids[0, :p] = torch.tensor(prefix)
         pad = torch.arange(w)[None, :] >= p
@@ -265,14 +370,56 @@ class ARGenerator:
         if n > session.remaining():
             raise ValueError(f"chunk {n} exceeds the session's ring capacity "
                              f"(remaining {session.remaining()})")
-        out = decode_rows(self.model, session.cache, session.next_logits, [n],
-                          [len(session.seq)], [sampling.temperature], [sampling.top_k],
-                          [session.seed])
+        rows = ([n], [len(session.seq)], [sampling.temperature], [sampling.top_k],
+                [session.seed])
+        if self.programs is None:
+            out = decode_rows(self.model, session.cache, session.next_logits, *rows)
+        else:
+            with self._decode_lock:
+                out = self._resident(session).run(*rows)
         new = out[0].tolist()  # the chunk's one sync
         self.steps += n
         session.seq = session.seq + new
         session.steps += n
         return new
+
+    def _resident(self, session: GenSession) -> DecodeProgram:
+        """The decode program of ``session``'s width with the session's rings
+        and logits in its static buffers, which ``session`` then points at.
+        The session they held before gets copies of them, on the device."""
+        w = session.width
+        dec = self._decoders.get(w)
+        if dec is not None and session.cache is dec.cache and session.next_logits is dec.logits:
+            return dec
+        if dec is None:
+            dec = DecodeProgram(self.model, tree_map(torch.clone, session.cache),
+                                session.next_logits.clone(), self.chunk, self.programs,
+                                ("decode", w, 1, False), masked=False)
+            self._decoders[w] = dec
+        else:
+            held = self._residents.get(w)
+            if held is not None and held.cache is dec.cache:
+                held.cache = tree_map(torch.clone, dec.cache)
+                held.next_logits = dec.logits.clone()
+            tree_map(lambda static, x: static.copy_(x), dec.cache, session.cache)
+            dec.logits.copy_(session.next_logits)
+        session.cache, session.next_logits = dec.cache, dec.logits
+        self._residents[w] = session
+        return dec
+
+    def num_programs(self) -> int:
+        """Decode programs held (0 on the eager path)."""
+        return 0 if self.programs is None else self.programs.num_programs()
+
+    def drop_programs(self) -> int:
+        """Forget every decode program (the next chunk at each width, or of
+        each arena, captures again): what putting other implementations in
+        the kernels' place on ``self.model`` needs. A resident session keeps
+        its rings. Returns how many programs went."""
+        with self._decode_lock:
+            self._decoders.clear()
+            self._residents.clear()
+            return 0 if self.programs is None else self.programs.drop()
 
     def generate(self, prefix: Sequence[int], max_new: int,
                  sampling: Optional[SamplingConfig] = None,
@@ -304,14 +451,16 @@ class ARGenerator:
         return produced, session
 
     def warmup(self, sampling: SamplingConfig = SamplingConfig()) -> int:
-        """Run each width of the grid once (a prefill and one decode step):
-        builds the kernels and brings the card's libraries up before the
-        first request. Returns the number of widths run."""
+        """Run each width of the grid once (a prefill and one decode step),
+        which captures the width's decode program: a later chunk at any grid
+        width captures nothing. Returns the number of decode programs held
+        (on the eager path, the number of widths run)."""
         sampling = sampling.normalized()
         for w in self.widths:
-            session = self.start([0] * max(1, w - self.capacity + 1), seed=sampling.seed)
+            session = self.start([0] * max(1, w - self.capacity + 1), seed=sampling.seed,
+                                 width=w)
             self.decode_chunk(session, sampling, n_steps=1)
-        return len(self.widths)
+        return len(self.widths) if self.programs is None else self.num_programs()
 
 
 def load_ar_checkpoint(checkpoint_dir: str, tokenizer=None, step: Optional[int] = None,

@@ -12,6 +12,7 @@ where a kernel is launched (a machine with a CUDA card and the toolkit).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,18 +56,51 @@ _lock = threading.Lock()
 _library = None
 
 
+# the launch record of a CUDA graph capture running on this thread (capturing)
+_capture = threading.local()
+
+
 class LaunchCounter:
     """Counts one wrapper's work: ``launches`` where it launched its CUDA
     kernel, ``plain_calls`` where it ran the plain PyTorch version because
-    its tensors lie on the CPU."""
+    its tensors lie on the CPU. A launch made on a thread that is capturing
+    a CUDA graph (:func:`capturing`) runs nothing yet: it goes to the
+    capture's record, which the graph adds at each replay
+    (``inference/programs.py``), while other threads' launches count as
+    ever."""
 
     def __init__(self):
-        self.launches = 0
+        self._launches = 0
         self.plain_calls = 0
 
+    @property
+    def launches(self) -> int:
+        return self._launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        record = getattr(_capture, "record", None)
+        if record is None:
+            self._launches = value
+        else:
+            record[self] = record.get(self, 0) + value - self._launches
+
     def reset(self) -> None:
-        self.launches = 0
+        self._launches = 0
         self.plain_calls = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph is captured on this thread: yields the record
+    ``{counter: launches}`` that the thread's wrapper calls add to in place
+    of their counters."""
+    record: dict = {}
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = None
 
 
 def nvcc_path() -> str:

@@ -51,6 +51,11 @@ autoencoder's tails (784 query rows; 1025 rows over 784 keys, 13 key
 tiles),
 ``'auto'`` routing by the rule's block floor, dropout from CUDA generators
 and remat's recompute drawing the same masks,
+the serving engines' programs as CUDA graphs (the tiny MLM server's three
+families and the tiny AR model's decode, B=1 and batched with an ``active``
+mask, graphed against eager bit for bit with the same launches; a
+batcher's ``drop_programs`` before a swap to the plain versions; a capture
+that fails raises),
 and the bf16 wgmma designs of the forward, of the two backward kernels,
 of the three packed kernels and of the dequant matmul at ragged and tiny
 shapes (T, S, M down to 1, the
@@ -1549,3 +1554,248 @@ def test_classifier_step_on_the_card_matches_plain(card, frozen):
     for name, ref in ref_grads.items():
         if not name.endswith("k_proj.bias"):  # zero in exact arithmetic: noise
             assert float((grads[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
+
+
+# -- the serving engines' programs (CUDA graphs) --------------------------------
+
+
+def _tokenizer():
+    from perceiver_io_torch.data.imdb import synthetic_reviews
+    from perceiver_io_torch.data.tokenizer import WordPieceTokenizer
+
+    tok = WordPieceTokenizer()
+    tok.train_from_iterator(synthetic_reviews(120, seed=1)[0], 300)
+    return tok
+
+
+def _mlm_pass(server, texts):
+    """Fills, decode logits and one fused forward's raw logits of ``texts``
+    through ``server``; and the #1 / #9 launches and plain calls it made."""
+    counters = (ak.counter, qm.counter)
+    for c in counters:
+        c.reset()
+    fills = server.fill_masks(texts, k=3)
+    cached = server.encode(texts)
+    # K = 4, a warmed query bucket (another K is a program of its own)
+    logits = server.decode(cached, np.tile(np.arange(4, dtype=np.int32), (len(texts), 1)))
+    ids, pad, pos = server._prepare(texts[0])
+    fused = server.engine.predict(ids, pad, server._positions_row(pos, ids.shape[1]))
+    torch.cuda.synchronize()
+    return (fills, logits, fused.float().cpu(), cached.latents.float().cpu(),
+            [c.launches for c in counters], [c.plain_calls for c in counters])
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8w"])
+def test_graphed_mlm_families_match_eager_bit_for_bit(card, mode):
+    """The tiny MLM server's three families as CUDA graphs against the eager
+    path on the same weights, in turns (eager, graphed, eager, graphed):
+    fills, decode logits, latents and a fused forward's logits bit for bit,
+    and the same #1 and #9 launches (replays add what their capture held);
+    after ``warmup`` the passes capture nothing."""
+    from perceiver_io_torch.inference.engine import MLMServer
+    from perceiver_io_torch.models.presets import tiny_mlm
+
+    from perceiver_io_torch.data.imdb import synthetic_reviews
+
+    model = tiny_mlm(device=card, seed=1)
+    tok = _tokenizer()
+    texts = [t[: 30 + 11 * i] + " [MASK] " + t[40:60] + " [MASK]" * (1 + i % 3)
+             for i, t in enumerate(synthetic_reviews(9, seed=2)[0])]
+    kwargs = dict(bucket_widths=[32], max_batch=4, compute_dtype=mode, device=card)
+    eager = MLMServer(model, None, tok, 64, graphs=False, **kwargs)
+    graphed = MLMServer(model, None, tok, 64, **kwargs)
+    n = graphed.warmup()
+    assert n == graphed.num_programs() == graphed.programs.captures == 2 * 3 * 3 + 2 * 3 + 3 * 3
+    assert graphed.programs.pool_bytes() > 0
+    runs = [_mlm_pass(server, texts) for server in (eager, graphed, eager, graphed)]
+    assert graphed.programs.captures == n
+    for ref, got in ((runs[0], runs[1]), (runs[2], runs[3]), (runs[0], runs[2])):
+        assert got[0] == ref[0]
+        np.testing.assert_array_equal(got[1], ref[1])
+        assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+        assert got[4] == ref[4] and got[5] == ref[5] == [0, 0]
+    assert runs[1][4][0] > 0 and (runs[1][4][1] > 0) == (mode == "int8w")
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_decode_matches_eager_bit_for_bit(card, dtype, sampled):
+    """``ARGenerator``'s B=1 decode program against the eager chunk, across
+    the 16 -> 31 -> 46 episode boundaries: the same tokens, the same final
+    logits and rings bit for bit, and the same #1 launches; after
+    ``warmup`` (one program a width) the stream captures nothing."""
+    from perceiver_io_torch.inference.generate import ARGenerator, SamplingConfig, tree_leaves
+    from perceiver_io_torch.models.presets import tiny_ar
+
+    model = tiny_ar(device=card, seed=1, dtype=dtype)
+    sampling = SamplingConfig(temperature=0.8 if sampled else 0.0, top_k=16, seed=4)
+    graphed = ARGenerator(model, None, 64, chunk=4, device=card)
+    eager = ARGenerator(model, None, 64, chunk=4, device=card, graphs=False)
+    assert graphed.warmup() == graphed.num_programs() == 5
+    runs = []
+    for gen in (eager, graphed, eager, graphed):
+        for c in (ak.counter, ak.causal_counter):
+            c.reset()
+        prefills = gen.prefills
+        tokens, session = gen.generate([5, 6, 7, 8, 9, 10, 11, 12, 13, 14], 40, sampling)
+        torch.cuda.synchronize()
+        prefills = gen.prefills - prefills
+        runs.append((tokens, session.next_logits.clone(),
+                     [x.clone() for x in tree_leaves(session.cache)],
+                     ak.counter.launches, ak.causal_counter.launches, prefills))
+    assert graphed.programs.captures == 5
+    for ref, got in ((runs[0], runs[1]), (runs[2], runs[3])):
+        assert got[0] == ref[0] and len(got[0]) == 40
+        assert torch.equal(got[1], ref[1])
+        assert all(torch.equal(a, b) for a, b in zip(got[2], ref[2]))
+        assert got[3:] == ref[3:] == (5 * (40 + ref[5]), 5 * ref[5], ref[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_batched_step_with_active_matches_eager(card, dtype):
+    """The arena's masked program (B=4, one row idle, rows stopping at their
+    own step) against ``decode_rows`` over copies of one wave's cache, two
+    chunks: tokens, logits and every ring bit for bit; the idle row's rings
+    untouched; the replayed chunk's launches equal the eager chunk's."""
+    from perceiver_io_torch.inference.generate import (
+        DecodeProgram,
+        decode_rows,
+        tree_leaves,
+        tree_map,
+    )
+    from perceiver_io_torch.inference.programs import ProgramCache
+    from perceiver_io_torch.models.presets import tiny_ar
+
+    model = tiny_ar(device=card, seed=1, dtype=dtype).eval()
+    g = torch.Generator().manual_seed(3)
+    lengths = torch.tensor([5, 9, 12, 7])
+    ids = torch.randint(3, 503, (4, 16), generator=g)
+    with torch.inference_mode():
+        logits, cache = model.prefill(ids.to(card), (torch.arange(16)[None] >= lengths[:, None])
+                                      .to(card), length=lengths.to(card))
+        nxt = logits[torch.arange(4, device=card), (lengths - 1).to(card)].float()
+        eager = (tree_map(torch.clone, cache), nxt.clone())
+        static = (tree_map(torch.clone, cache), nxt.clone())
+        idle = [x[2].clone() for x in tree_leaves(cache) if x.ndim > 1]
+        dec = DecodeProgram(model, *static, 4, ProgramCache(card), ("decode", 16, 4, True),
+                            masked=True)
+        sampling = ([0.0, 0.8, 0.0, 0.8], [0, 16, 0, 16], [1, 2, 3, 4])
+        pos = lengths.tolist()
+        for steps in ([3, 2, 0, 1], [1, 3, 0, 2]):
+            ak.counter.reset()
+            want = decode_rows(model, *eager, steps, pos, *sampling)
+            torch.cuda.synchronize()
+            eager_launches = ak.counter.launches
+            ak.counter.reset()
+            got = dec.run(steps, pos, *sampling)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and (got[2] == -1).all()
+            assert ak.counter.launches == eager_launches == 5 * max(steps)
+            assert torch.equal(static[1], eager[1])
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(static[0]),
+                                                         tree_leaves(eager[0])))
+            pos = [p + k for p, k in zip(pos, steps)]
+        assert all(torch.equal(x[2], ref) for x, ref in
+                   zip([x for x in tree_leaves(static[0]) if x.ndim > 1], idle))
+        assert dec.programs.captures == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_arena_matches_eager_arena(card, dtype):
+    """``ContinuousBatcher``'s programs against its eager chunk: 6 concurrent
+    streams (greedy and sampled) over 8 slots give the same tokens; after
+    ``warmup`` the graphed run captures nothing, and its launches are 5 #1
+    a batched step and 5 causal a wave."""
+    import threading
+
+    from perceiver_io_torch.inference.batching import ContinuousBatcher
+    from perceiver_io_torch.inference.generate import SamplingConfig
+    from perceiver_io_torch.models.presets import tiny_ar
+
+    model = tiny_ar(device=card, seed=1, dtype=dtype)
+    cases = [([5 + i, 6, 7, 8, 9][: 2 + i % 4], 8 + 2 * i,
+              SamplingConfig(temperature=0.8 * (i % 2), top_k=16, seed=i)) for i in range(6)]
+    runs = []
+    for graphs in (False, True):
+        bat = ContinuousBatcher(model, None, 64, chunk=4, slots=8, max_slots=8, device=card,
+                                graphs=graphs)
+        try:
+            assert bat.warmup() == (5 if graphs else len(bat.widths))
+            captures = bat.programs.captures if graphs else 0
+            before = bat.stats()
+            for c in (ak.counter, ak.causal_counter):
+                c.reset()
+            got, errs = [None] * 6, []
+
+            def one(i):
+                try:
+                    got[i] = bat.generate(*cases[i])[0]
+                except Exception as e:  # re-raised below
+                    errs.append(e)
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(6)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errs:
+                raise errs[0]
+            after = bat.stats()
+            calls = (after["batched_steps"] - before["batched_steps"]
+                     + after["waves"] - before["waves"])
+            assert ak.counter.launches == 5 * calls
+            assert ak.causal_counter.launches == 5 * (after["waves"] - before["waves"])
+            if graphs:
+                assert bat.programs.captures == captures
+            runs.append(got)
+        finally:
+            bat.close()
+    assert runs[0] == runs[1] and [len(x) for x in runs[1]] == [case[1] for case in cases]
+
+
+def test_arena_drop_programs_then_plain_kernels_launch_nothing(card):
+    """A graphed batcher's ``drop_programs`` takes its arenas' programs with
+    it: once the plain versions are in the kernels' place, the next chunk
+    captures again and neither its capture nor its replays launch #1."""
+    from perceiver_io_torch.inference.batching import ContinuousBatcher
+    from perceiver_io_torch.inference.generate import SamplingConfig
+    from perceiver_io_torch.models.presets import tiny_ar
+    from perceiver_io_torch.ops.attention import MultiHeadAttention
+
+    model = tiny_ar(device=card, seed=1, dtype=torch.float32)
+    bat = ContinuousBatcher(model, None, 64, chunk=4, slots=2, max_slots=2, device=card)
+    try:
+        case = ([5, 6, 7], 8, SamplingConfig())
+        ak.counter.reset()
+        bat.generate(*case)
+        assert bat.num_programs() == 1 and ak.counter.launches > 0
+        for module in bat.model.modules():
+            if isinstance(module, MultiHeadAttention):
+                module.attention = ak.attention_reference
+        assert bat.drop_programs() == 1 and bat.num_programs() == 0
+        ak.counter.reset()
+        assert len(bat.generate(*case)[0]) == 8
+        assert bat.num_programs() == 1 and bat.programs.captures == 2
+        assert ak.counter.launches == 0
+    finally:
+        bat.close()
+
+
+def test_failed_capture_raises_and_keeps_nothing(card):
+    """A function that reads the card back inside its capture makes the
+    program's build raise on CUDA (no eager fallback) and leaves no
+    program; the card and the cache go on working, also after every program
+    was dropped (the cache then records into a new pool)."""
+    from perceiver_io_torch.inference.programs import ProgramCache
+
+    cache = ProgramCache(card)
+    x = torch.ones(4, device=card)
+    with pytest.raises(RuntimeError):
+        cache.build("sync", lambda a: a * float(a.sum().item()), [x])
+    assert cache.num_programs() == 0 and cache.captures == 0
+    prog = cache.build("double", lambda a: a * 2, [x.clone()])
+    assert torch.equal(prog.run(x + 1), (x + 1) * 2) and prog.graph is not None
+    del prog
+    assert cache.drop() == 1
+    prog = cache.build("triple", lambda a: a * 3, [x.clone()])
+    assert torch.equal(prog.run(x + 2), (x + 2) * 3) and cache.captures == 2
